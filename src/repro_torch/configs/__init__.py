@@ -1,0 +1,17 @@
+from repro_torch.configs.base import (
+    SHAPES,
+    ModelConfig,
+    ShapeConfig,
+    get_config,
+    get_smoke_config,
+    reduced,
+)
+
+__all__ = [
+    "SHAPES",
+    "ModelConfig",
+    "ShapeConfig",
+    "get_config",
+    "get_smoke_config",
+    "reduced",
+]

@@ -1,0 +1,126 @@
+"""Batched lockstep serving: the counterpart of ``repro/launch/serve.py``.
+
+The server packs up to ``max_batch`` requests, left-pads their prompts with
+token 0 to a shared length (the pad is attended, not masked, exactly as in
+the JAX server, so both give the same tokens), prefills them, and decodes
+greedily in lockstep, one shared position per step, with per-row stop: a
+row that reaches ``max_new`` or ``eos_id`` stops appending, and the wave
+ends when every row has stopped.
+
+Every matrix product and attention call runs on the port's CUDA kernels;
+with ``device="cpu"`` they run on their plain PyTorch versions.  There is no
+mesh and no execution-policy layer in the port yet.
+
+    python -m repro_torch.launch.serve --arch qwen3-1.7b --device cuda
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.models import build_model
+
+
+@dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray  # (plen,) int32
+    max_new: int = 16
+    out: list = field(default_factory=list)
+
+
+class Server:
+    def __init__(self, cfg, *, device=None, params: Optional[dict] = None,
+                 max_batch: int = 8, max_len: int = 256):
+        """``params``: a state dict (``repro_torch.checkpoint``) to load;
+        without one the weights are drawn by the model's ``init`` from a
+        ``torch.Generator`` seeded with 0, as the JAX server uses key 0."""
+        self.cfg = cfg
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.model = build_model(cfg, device=device)
+        self.device = self.model.device
+        if params is None:
+            self.model.init(torch.Generator(device=self.device).manual_seed(0))
+        else:
+            self.model.load_state_dict(params)
+
+    @torch.no_grad()
+    def run_batch(self, requests: list[Request],
+                  eos_id: Optional[int] = None) -> dict:
+        """Prefill + greedy decode a batch of requests in lockstep with
+        per-row stop.  Returns per-request completion counts, the wave's
+        totals, the prefill and decode wall times, and whether every logit
+        the wave produced was finite."""
+        if len(requests) > self.max_batch:
+            raise ValueError(f"{len(requests)} requests > max_batch={self.max_batch}")
+        b = len(requests)
+        plen = max(len(r.prompt) for r in requests)
+        toks = np.zeros((b, plen), np.int32)
+        for i, r in enumerate(requests):
+            toks[i, plen - len(r.prompt):] = r.prompt  # left-pad
+        tokens = torch.from_numpy(toks).to(self.device)
+
+        t0 = time.perf_counter()
+        logits, cache = self.model.prefill(tokens, self.max_len)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)  # first maximum, as jnp
+        finite = torch.isfinite(logits).all()
+        host = nxt.tolist()  # waits for the prefill
+        t_prefill = time.perf_counter() - t0
+        pos = torch.full((), plen, dtype=torch.int32, device=self.device)
+        done = [False] * b
+        steps = 0
+        for _ in range(max(r.max_new for r in requests)):
+            for i, r in enumerate(requests):
+                if done[i]:
+                    continue  # per-row stop: finished rows stop appending
+                r.out.append(host[i])
+                if len(r.out) >= r.max_new or (eos_id is not None and host[i] == eos_id):
+                    done[i] = True
+            if all(done):
+                break  # the wave drained early: skip the dead steps
+            logits, cache = self.model.decode_step(nxt[:, None], pos, cache)
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            finite &= torch.isfinite(logits).all()
+            pos += 1
+            host = nxt.tolist()  # the host needs the tokens for per-row stop
+            steps += 1
+        wall = time.perf_counter() - t0
+        n_tokens = sum(len(r.out) for r in requests)
+        return {"wall_s": wall, "tokens": n_tokens,
+                "tok_per_s": n_tokens / max(wall, 1e-9),
+                "prefill_s": t_prefill, "decode_s": wall - t_prefill,
+                "decode_steps": steps, "logits_finite": bool(finite),
+                "completed": {r.uid: len(r.out) for r in requests}}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="qwen3-1.7b")
+    ap.add_argument("--reduced", action="store_true",
+                    help="serve the arch's smoke config")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    cfg = get_smoke_config(args.arch) if args.reduced else get_config(args.arch)
+    server = Server(cfg, device=args.device, max_batch=args.batch, max_len=128)
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(3, cfg.vocab_size, rng.integers(4, 20)).astype(np.int32),
+                    max_new=args.max_new) for i in range(args.batch)]
+    out = server.run_batch(reqs)
+    print(f"served {out['tokens']} tokens in {out['wall_s']:.2f}s "
+          f"({out['tok_per_s']:.1f} tok/s) on {server.device}")
+    for r in reqs[:2]:
+        print(f"req {r.uid}: {r.out[:8]}...")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,130 @@
+"""Shared model blocks on the serving path: the counterpart of the main-path
+subset of ``repro/models/common.py``.
+
+Every matrix product goes through ``hbp_matmul`` and every attention call
+through ``flash_attention``; the JAX package's jnp routes (dense, blockwise,
+banded attention, einsum projections) have no counterpart here.  Norms,
+RoPE and the SwiGLU gate keep the JAX numerics: f32 inside, cast back to the
+activation dtype.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.hbp_matmul import hbp_matmul
+
+
+# ---------------------------------------------------------------------------
+# initialization helpers
+# ---------------------------------------------------------------------------
+
+def dense_init(t: torch.Tensor, generator: torch.Generator,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """Fill ``t`` in place with the JAX ``dense_init`` distribution: a
+    standard normal truncated to [-2, 2], times ``scale`` (default
+    1/sqrt(fan-in)), drawn in f32 and cast to ``t``'s dtype."""
+    fan_in = t.shape[-2] if t.dim() >= 2 else t.shape[-1]
+    std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    f = torch.empty(t.shape, dtype=torch.float32, device=t.device)
+    torch.nn.init.trunc_normal_(f, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return t.copy_(f * std)
+
+
+def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return embed[tokens]
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm scaling by ``1 + weight`` (zero-initialised weights), in f32."""
+    xf = x.float()
+    xf = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    return (xf * (1.0 + weight.float())).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (half-split, not interleaved)
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
+    """(cos, sin) of the RoPE angles for ``positions`` (..., seq), shaped
+    (..., seq, 1, head_dim / 2) to broadcast over heads.  Computed once per
+    step and shared by every layer with the same theta."""
+    inv = rope_freqs(head_dim, theta, positions.device)
+    ang = positions[..., :, None].float() * inv
+    return torch.cos(ang)[..., :, None, :], torch.sin(ang)[..., :, None, :]
+
+
+def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Apply precomputed RoPE angles to x (..., seq, heads, head_dim) in f32,
+    cast back to x's dtype."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq) int."""
+    return rotate(x, *rope_cos_sin(positions, x.shape[-1], theta))
+
+
+# ---------------------------------------------------------------------------
+# attention and projections: the kernel route
+# ---------------------------------------------------------------------------
+
+def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+              q_offset: Optional[torch.Tensor] = None,
+              kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q (b, sq, h, hd) against k, v (b, sk, kvh, hd) at their native head
+    count, through the flash-attention kernel.  Fresh self-attention passes
+    no ``q_offset``/``kv_len``; attention over a cache passes each row's
+    position and valid length as int32 device tensors (scalar or (b,))."""
+    out, _ = flash_attention(q, k, v, causal=causal,
+                             window=0 if window is None else int(window),
+                             q_offset=q_offset, kv_len=kv_len)
+    return out
+
+
+def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., d) @ w (d, f) -> (..., f) through the matmul kernel."""
+    lead = x.shape[:-1]
+    return hbp_matmul(x.reshape(-1, x.shape[-1]), w).reshape(*lead, w.shape[-1])
+
+
+def qkv_project(x, wq, wk, wv):
+    return project(x, wq), project(x, wk), project(x, wv)
+
+
+def attn_out_project(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """(b, s, h, hd) heads -> (b, s, d); the head fold into the contraction
+    is a view of the kernel's contiguous output."""
+    b, s, h, hd = o.shape
+    return hbp_matmul(o.reshape(b * s, h * hd), wo).reshape(b, s, -1)
+
+
+def gated_mlp(x, w_gate, w_up, w_down):
+    """SwiGLU MLP: silu in f32, cast back, times the up projection."""
+    g = project(x, w_gate)
+    u = project(x, w_up)
+    h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
+    return project(h, w_down)
+
+
+def logits_matmul(h: torch.Tensor, embed_out: torch.Tensor) -> torch.Tensor:
+    """h (..., d) @ embed_out (V, d)ᵀ: computed in the activation dtype, as
+    the JAX kernel route does, then cast to f32.  ``embed_out.T`` is a view;
+    the kernel reads the table in place."""
+    lead = h.shape[:-1]
+    out = hbp_matmul(h.reshape(-1, h.shape[-1]), embed_out.T)
+    return out.reshape(*lead, embed_out.shape[0]).float()
