@@ -20,6 +20,25 @@ Phases, each of which fails the run (exit code 1, no result line):
    same function at phase 4's shapes, beside the least time the card could
    take (bytes over 3.35 TB/s or operations over the bf16 peak of
    989 TFLOP/s, whichever is larger; the H100 SXM data sheet).
+6. Train ``qwen3-1.7b`` at full width in bf16 from a seeded init through
+   ``repro_torch.launch.train.train``: batch 4 x 128 tokens, 3 AdamW steps.
+   Prints each step's loss, grad norm and host ms, the peak memory and the
+   launches per step; the counts are set to 0 just before and read just
+   after, and must equal 3 x the launches one step makes by construction.
+7. Time the attention backward (K3) and each backward product of K2 at
+   phase 6's shapes as in phase 5 (library: autograd's backward of one
+   ``scaled_dot_product_attention`` call, and ``torch.matmul``), and one
+   whole training step on the device (captured in a CUDA graph, replayed)
+   against its host wall time in phase 6; count the device operations of
+   one step in a ``torch.profiler`` trace.
+
+Phase 2 also holds K1 and K2 at phase 6's shapes (512 token rows: every
+forward product, the logits, every ``g Wᵀ``), and K3 and K2's transposed-A
+products (the backward's ``aᵀ g``) against their plain versions at the
+training shapes and at harder ones; phase 3 also takes one f32 training
+step of the smoke config on the card and on the CPU from the same
+parameters and compares the loss, every gradient and the updated
+parameters.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or
@@ -41,6 +60,15 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 L2_BYTES = 50 * 2 ** 20
 ARCH = "qwen3-1.7b"
 BATCH, MAX_NEW, MAX_LEN = 4, 16, 256
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 128, 3  # the JAX trainer's CLI defaults
+# card vs CPU at f32: loss, gradients (as the CPU tests hold the port to
+# JAX), and parameters after one AdamW step.  The first step moves an
+# element by lr * (u(g) + wd * p) with u(g) = g / (|g| + eps), whose slope is
+# at most 1 / (|g| + eps), so the two sides' clipped gradients a and b bound
+# the gap in u by |a - b| / (m + eps), m = min(|a|, |b|) where their signs
+# agree and 0 where they do not.  Each element is held to that gap times lr
+# plus 1% of lr (3e-6) for rounding.
+SMOKE_LOSS_RTOL, SMOKE_GRAD_TOL, SMOKE_PARAM_ATOL = 1e-5, (1e-5, 5e-3), 3e-6
 
 
 class SmokeFailure(Exception):
@@ -57,17 +85,19 @@ def bound_ms(nbytes, ops, dtype):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_ms(torch, fn, arg_sets, reps=5):
+def time_ms(torch, fn, arg_sets, reps=5, stream=None):
     """Device milliseconds per call: calls cycling through ``arg_sets``
     (sized past the L2 cache where the real caller finds its operands cold)
     are captured in one CUDA graph and replayed, timed with CUDA events, so
-    the host's cost of launching each call is left out."""
+    the host's cost of launching each call is left out.  ``stream``: the
+    capture stream (a backward is captured on the stream its forward ran
+    on)."""
     iters = max(20, len(arg_sets))
     for args in arg_sets:  # warm-up outside the capture
         fn(*args)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for i in range(iters):
             fn(*arg_sets[i % len(arg_sets)])
     graph.replay()
@@ -99,17 +129,25 @@ def main():
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config, get_smoke_config, reduced
+    from repro_torch.data import DataConfig, SyntheticLMDataset
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
+                                                     flash_attention_bwd_ref,
+                                                     flash_attention_ref)
     from repro_torch.kernels.hbp_matmul import hbp_matmul, matmul_ref
     from repro_torch.launch.serve import Request, Server
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import train
     from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 
     # f32 products on the card stay full f32 (the plain versions' reference)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    kernels = {"hbp_matmul": hbp_matmul, "flash_attention": flash_attention}
+    kernels = {"hbp_matmul": hbp_matmul, "flash_attention": flash_attention,
+               "flash_attention_bwd": flash_attention_bwd}
+    serving_kernels = ("hbp_matmul", "flash_attention")
 
     def reset_counts():
         for k in kernels.values():
@@ -143,7 +181,7 @@ def main():
                "wo": (cfg.q_dim, d), "w_gate": (d, ff), "w_up": (d, ff), "w_down": (ff, d)}
     tol = {"bfloat16": (1e-2, 2 ** -7), "float32": (1e-4, 1e-4)}  # (atol, rtol)
     g = torch.Generator(device=dev).manual_seed(0)
-    max_err = {"hbp_matmul": 0.0, "flash_attention": 0.0}
+    max_err = {name: 0.0 for name in kernels}
     failures = []
 
     def compare(kernel, label, got, want, dtype, atol=None, rtol=None):
@@ -152,7 +190,7 @@ def main():
         err = diff.max().item()
         ok = bool((diff <= a_tol + r_tol * want.float().abs()).all())
         max_err[kernel] = max(max_err[kernel], err)
-        print(f"    {kernel:15s} {label:44s} max_abs_err {err:.3e} "
+        print(f"    {kernel:19s} {label:52s} max_abs_err {err:.3e} "
               f"(atol {a_tol:g} + rtol {r_tol:g}) {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"{kernel} {label}")
@@ -162,30 +200,32 @@ def main():
     prompts = [rng.integers(3, V, n).astype(np.int32) for n in rng.integers(16, 65, BATCH)]
     plen = max(map(len, prompts))
 
+    T_train = TRAIN_BATCH * TRAIN_SEQ
     print(f"[2] kernels vs plain versions on the card ({ARCH} shapes; phase 4 "
-          f"prefills {BATCH} x {plen} tokens)")
+          f"prefills {BATCH} x {plen} tokens, phase 6 trains on {T_train} token rows)")
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
-        for T in (4, 256, BATCH * plen):
+        for T in (4, 256, BATCH * plen, T_train):
             x = {kk: torch.randn(T, kk, device=dev, generator=g).to(dt) for kk in (d, ff)}
             for name, (kk, n) in weights.items():
                 w = (torch.randn(kk, n, device=dev, generator=g) / math.sqrt(kk)).to(dt)
                 compare("hbp_matmul", f"{dtype} {name} ({T}x{kk} @ {kk}x{n})",
                         hbp_matmul(x[kk], w), matmul_ref(x[kk], w), dtype)
         table = (0.02 * torch.randn(V, d, device=dev, generator=g)).to(dt)
-        xs = torch.randn(4, d, device=dev, generator=g).to(dt)
-        compare("hbp_matmul", f"{dtype} logits (4x{d} @ ({V}x{d})^T view)",
-                hbp_matmul(xs, table.T), matmul_ref(xs, table.T), dtype)
-        del table
+        for T in (4, T_train):
+            xs = torch.randn(T, d, device=dev, generator=g).to(dt)
+            compare("hbp_matmul", f"{dtype} logits ({T}x{d} @ ({V}x{d})^T view)",
+                    hbp_matmul(xs, table.T), matmul_ref(xs, table.T), dtype)
+        del table, xs
 
-        for sq in (64, plen):
-            q = torch.randn(BATCH, sq, h, hd, device=dev, generator=g).to(dt)
-            kv = [torch.randn(BATCH, sq, kvh, hd, device=dev, generator=g).to(dt) for _ in "kv"]
+        for b, sq in ((BATCH, 64), (BATCH, plen), (TRAIN_BATCH, TRAIN_SEQ)):
+            q = torch.randn(b, sq, h, hd, device=dev, generator=g).to(dt)
+            kv = [torch.randn(b, sq, kvh, hd, device=dev, generator=g).to(dt) for _ in "kv"]
             out, lse = flash_attention(q, *kv, causal=True)
             r_out, r_lse = flash_attention_ref(q, *kv, causal=True)
-            compare("flash_attention", f"{dtype} prefill causal {sq}x{sq} out", out, r_out,
+            compare("flash_attention", f"{dtype} causal {b}x{sq}x{sq} out", out, r_out,
                     dtype, *((1e-5, 0.0) if dtype == "float32" else (None, None)))
-            compare("flash_attention", f"{dtype} prefill causal {sq}x{sq} lse", lse, r_lse,
+            compare("flash_attention", f"{dtype} causal {b}x{sq}x{sq} lse", lse, r_lse,
                     dtype, 1e-4, 1e-5)
         q1 = torch.randn(BATCH, 1, h, hd, device=dev, generator=g).to(dt)
         cache = [torch.randn(BATCH, MAX_LEN, kvh, hd, device=dev, generator=g).to(dt)
@@ -210,8 +250,64 @@ def main():
                 if torch.count_nonzero(out[row]).item() != 0:
                     failures.append(f"flash_attention {dtype} {label}: row {row} not exact zeros")
             if dead:
-                print(f"    {'flash_attention':15s} rows {dead} exact zeros: "
+                print(f"    {'flash_attention':19s} rows {dead} exact zeros: "
                       f"{all(torch.count_nonzero(out[r]).item() == 0 for r in dead)}")
+
+    # the training path's kernels: K3, and K2 reading A as a transposed view
+    print(f"[2] training kernels vs plain versions (phase 6 runs {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens: {T_train} token rows)")
+    # (label, b, sq, sk, window, q_offset lanes, kv_len lanes, lanes that see nothing)
+    bwd_cases = [
+        (f"causal {TRAIN_BATCH}x{TRAIN_SEQ} (training)", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ,
+         0, None, None, []),
+        ("causal 2x512", 2, 512, 512, 0, None, None, []),
+        ("causal ragged 3x57", 3, 57, 57, 0, None, None, []),
+        ("causal window 16, 2x128", 2, 128, 128, 16, None, None, []),
+        ("64 rows vs 256 slots, (b,) lanes, kv_len 0 lane", 4, 64, 256, 0,
+         [0, 100, 0, 150], [64, 164, 0, 214], [2]),
+        ("window 16, kv_len 0 lane, fully masked rows", 4, 64, 256, 16,
+         [100, 50, 30, 200], [164, 114, 0, 60], [2, 3]),
+    ]
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+
+        def rnd(*shape, scale=1.0):
+            return (scale * torch.randn(*shape, device=dev, generator=g)).to(dt)
+
+        for label, b, sq, sk, window, qo, kl, dead in bwd_cases:
+            q, go = rnd(b, sq, h, hd), rnd(b, sq, h, hd)
+            k, v = rnd(b, sk, kvh, hd), rnd(b, sk, kvh, hd)
+            kw = dict(causal=True, window=window, q_offset=None if qo is None else lane(qo),
+                      kv_len=None if kl is None else lane(kl))
+            out, lse = flash_attention(q, k, v, **kw)
+            got = flash_attention_bwd(q, k, v, out, lse, go, **kw)
+            want = flash_attention_bwd_ref(q, k, v, out, lse, go, **kw)
+            for name, x, w in zip(("dq", "dk", "dv"), got, want):
+                compare("flash_attention_bwd", f"{dtype} {label} {name}", x, w, dtype)
+            if dead:
+                zero = all(torch.count_nonzero(x[row]).item() == 0 for x in got for row in dead)
+                print(f"    {'flash_attention_bwd':19s} lanes {dead}: dq, dk, dv exact zeros: {zero}")
+                if not zero:
+                    failures.append(f"flash_attention_bwd {dtype} {label}: lanes {dead} not zeros")
+        # dW = xᵀ g: A is the transposed view of the (tokens, d_in) activation
+        for label, d_in, n in (("dW wq, wo: xᵀ g", d, cfg.q_dim), ("dW wk, wv", d, cfg.kv_dim),
+                               ("dW w_gate, w_up", d, ff), ("dW w_down", ff, d),
+                               ("d embedᵀ (tied logits): hᵀ g", d, V)):
+            act, gr = rnd(T_train, d_in), rnd(T_train, n, scale=T_train ** -0.5)
+            compare("hbp_matmul", f"{dtype} {label} ({d_in}x{T_train} @ {T_train}x{n})",
+                    hbp_matmul(act.T, gr), matmul_ref(act.T, gr), dtype)
+            del act, gr
+        # dX = g Wᵀ: B is the transposed view of the (d_in, n) weight; dH = g E
+        for label, d_in, n in (("dX wq: g Wᵀ", d, cfg.q_dim), ("dX wo", cfg.q_dim, d),
+                               ("dX wk, wv", d, cfg.kv_dim), ("dX w_gate, w_up", d, ff),
+                               ("dX w_down", ff, d)):
+            gr, w = rnd(T_train, n), rnd(d_in, n, scale=n ** -0.5)
+            compare("hbp_matmul", f"{dtype} {label} ({T_train}x{n} @ ({d_in}x{n})ᵀ view)",
+                    hbp_matmul(gr, w.T), matmul_ref(gr, w.T), dtype)
+        gr, table = rnd(T_train, V), rnd(V, d, scale=V ** -0.5)
+        compare("hbp_matmul", f"{dtype} dH (tied logits): g E ({T_train}x{V} @ {V}x{d})",
+                hbp_matmul(gr, table), matmul_ref(gr, table), dtype)
+        del gr, table
     torch.cuda.synchronize()
     check(not failures, f"kernels disagree with their plain versions: {failures}")
 
@@ -233,6 +329,55 @@ def main():
           f"({sum(map(len, tokens['cuda']))} tokens)")
     check(tokens["cuda"] == tokens["cpu"],
           f"cuda tokens {tokens['cuda']} != cpu tokens {tokens['cpu']}")
+
+    # one f32 training step of the smoke config, card vs CPU, same params
+    smoke_batch = SyntheticLMDataset(DataConfig(global_batch=4, seq_len=32), small).batch_at(0)
+    runs = {}
+    for where in ("cuda", "cpu"):
+        m = build_model(small, device=where)
+        m.load_state_dict(params)
+        b = {key: torch.from_numpy(x).to(where) for key, x in smoke_batch.items()}
+        loss = m.loss(b)
+        loss.backward()
+        grads = {n: p.grad.detach().cpu() for n, p in m.named_parameters()}
+        m.zero_grad(set_to_none=True)
+        _, metrics = make_train_step(m)(adamw_init(dict(m.named_parameters())), b)
+        runs[where] = dict(loss=loss.item(), grads=grads, step_loss=metrics["loss"].item(),
+                           params={n: p.detach().cpu() for n, p in m.named_parameters()})
+    c, h_ = runs["cuda"], runs["cpu"]
+    g_atol, g_rtol = SMOKE_GRAD_TOL
+    grad_err = max((c["grads"][n] - x).abs().max().item() for n, x in h_["grads"].items())
+    grads_ok = all(torch.allclose(c["grads"][n], x, rtol=g_rtol, atol=g_atol)
+                   for n, x in h_["grads"].items())
+    opt = AdamWConfig()
+    clip = {key: min(1.0, opt.grad_clip / math.sqrt(sum(x.double().square().sum().item()
+                                                        for x in r["grads"].values())))
+            for key, r in (("cuda", c), ("cpu", h_))}
+    param_err, param_ok, n_elems, n_small, n_loose, n_vacuous = 0.0, True, 0, 0, 0, 0
+    for n, x in h_["params"].items():
+        ga, gb = c["grads"][n] * clip["cuda"], h_["grads"][n] * clip["cpu"]
+        m = torch.where(ga * gb > 0, torch.minimum(ga.abs(), gb.abs()), 0.0)
+        grad_term = opt.lr * (ga - gb).abs() / (m + opt.eps)
+        diff = (c["params"][n] - x).abs()
+        param_err = max(param_err, diff.max().item())
+        param_ok &= bool((diff <= SMOKE_PARAM_ATOL + grad_term).all())
+        n_elems += x.numel()
+        n_small += int((h_["grads"][n].abs() <= 100 * opt.eps).sum())
+        n_loose += int((grad_term > SMOKE_PARAM_ATOL).sum())
+        n_vacuous += int((grad_term >= 2 * opt.lr).sum())
+    loss_ok = all(abs(c[key] - h_[key]) <= SMOKE_LOSS_RTOL * abs(h_[key])
+                  for key in ("loss", "step_loss"))
+    print(f"[3] smoke f32 training step cuda vs cpu: loss {c['loss']:.7f} vs {h_['loss']:.7f} "
+          f"(rtol {SMOKE_LOSS_RTOL:g}) {'ok' if loss_ok else 'FAIL'}; {len(h_['grads'])} grads, "
+          f"max abs err {grad_err:.3e} (atol {g_atol:g} + rtol {g_rtol:g}) "
+          f"{'ok' if grads_ok else 'FAIL'}; params after one AdamW step max abs err "
+          f"{param_err:.3e} (each within {SMOKE_PARAM_ATOL:g} + lr |a - b| / (m + eps)) "
+          f"{'ok' if param_ok else 'FAIL'}")
+    print(f"    of {n_elems} parameters: {n_small} with |g| <= {100 * opt.eps:g} on the CPU; "
+          f"{n_loose} held to more than {SMOKE_PARAM_ATOL:g} by their gradient gap, "
+          f"{n_vacuous} of them to 2 lr or more (no bound)")
+    check(loss_ok and grads_ok and param_ok,
+          "the smoke training step disagrees between the card and the CPU")
 
     # -- 4. full width ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -274,10 +419,11 @@ def main():
           f"({out['tokens']} tokens in {out['wall_s']:.3f} s)")
     check(all(len(r.out) == MAX_NEW for r in reqs), f"short requests: {out['completed']}")
     check(out["logits_finite"], "non-finite logits in the full-width run")
-    for name, n in launches.items():
-        check(n > 0, f"{name} was not launched on the main path")
+    for name in serving_kernels:
+        check(launches[name] > 0, f"{name} was not launched on the serving path")
+    check(launches["flash_attention_bwd"] == 0, "the serving path launched a backward kernel")
     steps = out["decode_steps"]
-    for name in kernels:
+    for name in serving_kernels:
         check(launches[name] == per_prefill[name] + steps * per_step[name],
               f"{name}: {launches[name]} launches, expected "
               f"{per_prefill[name]} + {steps} x {per_step[name]}")
@@ -291,11 +437,13 @@ def main():
     es = 2
     rows = []
 
-    def time_matmul(label, m, k, n, trans, calls):
-        b_bytes = k * n * es
+    def time_matmul(label, m, k, n, trans, calls, path, trans_a=False):
+        """a (m, k) @ b (k, n), each row-major or the transposed view of a
+        row-major matrix (``trans_a``; ``trans`` for b)."""
         sets = []
-        for _ in range(copies_past_l2(b_bytes)):
-            a = torch.randn(m, k, device=dev, generator=g).to(bf)
+        for _ in range(copies_past_l2((m * k + k * n) * es)):
+            a = torch.randn(k, m, device=dev, generator=g).to(bf).T if trans_a else \
+                torch.randn(m, k, device=dev, generator=g).to(bf)
             w = torch.randn(n, k, device=dev, generator=g).to(bf)
             sets.append((a, w.T if trans else w.T.contiguous()))
         t_k = time_ms(torch, hbp_matmul, sets)
@@ -305,22 +453,22 @@ def main():
         b_ms, b_by = bound_ms(nbytes, 2 * m * n * k, "bfloat16")
         rows.append(dict(kernel="hbp_matmul", label=label, calls=calls, ms=t_k, plain_ms=t_p,
                          library_ms=t_l, bound_ms=b_ms, bytes=nbytes, ops=2 * m * n * k,
-                         bound_by=b_by))
+                         bound_by=b_by, path=path))
         del sets
 
     L = cfg.n_layers
     T_prefill = BATCH * plen
     for phase, T in (("decode", BATCH), ("prefill", T_prefill)):
         for name, (kk, n) in weights.items():
-            time_matmul(f"{phase} {name} {T}x{kk}@{kk}x{n}", T, kk, n, False, L)
-    time_matmul(f"logits {BATCH}x{d}@({V}x{d})^T", BATCH, d, V, True, 1)
+            time_matmul(f"{phase} {name} {T}x{kk}@{kk}x{n}", T, kk, n, False, L, phase)
+    time_matmul(f"logits {BATCH}x{d}@({V}x{d})^T", BATCH, d, V, True, 1, "decode")
 
     def sdpa(q, k, v, mask, causal):
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
             is_causal=causal, enable_gqa=True)
 
-    def time_attention(label, sq, kv_lens, calls):
+    def time_attention(label, sq, kv_lens, calls, path):
         sk = MAX_LEN if sq == 1 else sq
         sets, lib_sets = [], []
         for _ in range(L):  # one cache per layer, as the decode step reads them
@@ -350,18 +498,21 @@ def main():
         b_ms, b_by = bound_ms(nbytes, 4 * hd * pairs, "bfloat16")
         rows.append(dict(kernel="flash_attention", label=label, calls=calls, ms=t_k,
                          plain_ms=t_p, library_ms=t_l, bound_ms=b_ms, bytes=nbytes,
-                         ops=4 * hd * pairs, bound_by=b_by))
+                         ops=4 * hd * pairs, bound_by=b_by, path=path))
+
+    def print_rows(path):
+        print(f"    {'kernel':19s} {'shape':42s} {'calls':>5s} {'ms':>9s} {'plain_ms':>9s} "
+              f"{'library':>9s} {'bound_ms':>9s} {'by':>10s} {'% bound':>8s}")
+        for r in rows:
+            if r["path"] in path:
+                print(f"    {r['kernel']:19s} {r['label']:42s} {r['calls']:5d} {r['ms']:9.4f} "
+                      f"{r['plain_ms']:9.4f} {r['library_ms']:9.4f} {r['bound_ms']:9.4f} "
+                      f"{r['bound_by']:>10s} {100 * r['bound_ms'] / r['ms']:7.1f}%")
 
     time_attention(f"decode 4x1x{h}x{hd} vs cache {MAX_LEN}, kv_len {mid_pos + 1}",
-                   1, [mid_pos + 1] * BATCH, L)
-    time_attention(f"prefill causal 4x{plen}x{h}x{hd}", plen, None, L)
-
-    print(f"    {'kernel':15s} {'shape':42s} {'calls':>5s} {'ms':>9s} {'plain_ms':>9s} "
-          f"{'library':>9s} {'bound_ms':>9s} {'by':>10s} {'% bound':>8s}")
-    for r in rows:
-        print(f"    {r['kernel']:15s} {r['label']:42s} {r['calls']:5d} {r['ms']:9.4f} "
-              f"{r['plain_ms']:9.4f} {r['library_ms']:9.4f} {r['bound_ms']:9.4f} "
-              f"{r['bound_by']:>10s} {100 * r['bound_ms'] / r['ms']:7.1f}%")
+                   1, [mid_pos + 1] * BATCH, L, "decode")
+    time_attention(f"prefill causal 4x{plen}x{h}x{hd}", plen, None, L, "prefill")
+    print_rows(("decode", "prefill"))
 
     # one whole decode step on the device: every kernel and elementwise op,
     # captured in a CUDA graph and replayed back to back (no host gaps)
@@ -369,29 +520,184 @@ def main():
     tok = logits.argmax(-1).to(torch.int32)[:, None]
     pos = torch.tensor(mid_pos, dtype=torch.int32, device=dev)
     step_ms = time_ms(torch, lambda: server.model.decode_step(tok, pos, kvc), [()])
-    kernel_step_ms = sum(r["ms"] * r["calls"] for r in rows
-                         if not r["label"].startswith("prefill"))
+    kernel_step_ms = sum(r["ms"] * r["calls"] for r in rows if r["path"] == "decode")
     print(f"    decode step: {step_ms:.4f} ms on the device (CUDA graph replay), "
           f"{kernel_step_ms:.4f} ms of it in the two kernels (timed alone, cold L2); "
           f"{wall_step_ms:.3f} ms per step in phase 4's run: device busy "
           f"{100 * step_ms / wall_step_ms:.1f}% of the wall time")
     del server, logits, kvc
+    torch.cuda.empty_cache()
 
-    # one entry per kernel: the sum over one decode step's calls
-    step_rows = {name: [r for r in rows if r["kernel"] == name
-                        and not r["label"].startswith("prefill")] for name in kernels}
+    # -- 6. full-width training -------------------------------------------------
+    T_train = TRAIN_BATCH * TRAIN_SEQ
+    n_chunks = TRAIN_SEQ // min(512, TRAIN_SEQ)  # RunOptions.ce_chunk 512
+    # launches one step makes by construction: each layer's 7 products run
+    # forward twice (the forward and the per-layer recomputation) and twice
+    # backward (dA, dB); the logits likewise per cross-entropy chunk; each
+    # layer's attention runs K1 twice and K3 once
+    per_train_step = {"hbp_matmul": L * 7 * 4 + n_chunks * 4,
+                      "flash_attention": 2 * L, "flash_attention_bwd": L}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    run = train(cfg, steps=TRAIN_STEPS,
+                data_cfg=DataConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ),
+                device="cuda", log_every=0)
+    train_launches = counts()
+    peak_train_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[6] {ARCH} full-width training, bf16, batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+          f"{TRAIN_STEPS} AdamW steps from a seeded init (remat full); peak memory "
+          f"{peak_train_gb:.2f} GB")
+    for i, (loss, gn, sec) in enumerate(zip(run["losses"], run["grad_norms"], run["step_s"])):
+        print(f"    step {i}: loss {loss:.4f}, grad norm {gn:.4f}, {1e3 * sec:.3f} ms (host wall)")
+    print(f"    launches in the run {train_launches}; per step "
+          f"{ {k: n / TRAIN_STEPS for k, n in train_launches.items()} }")
+    check(all(math.isfinite(x) for x in run["losses"] + run["grad_norms"]),
+          "non-finite loss or grad norm in the full-width training run")
+    for name, n in per_train_step.items():
+        check(train_launches[name] == TRAIN_STEPS * n,
+              f"{name}: {train_launches[name]} launches in training, expected "
+              f"{TRAIN_STEPS} x {n}")
+
+    # -- 7. times at phase 6's shapes -------------------------------------------
+    print(f"[7] times in ms at phase 6's shapes, bf16, ({smi})")
+    shapes = {}  # weight shape -> how many of the 7 weights have it
+    for kk, n in weights.values():
+        shapes[(kk, n)] = shapes.get((kk, n), 0) + 1
+    for (kk, n), count in shapes.items():
+        names = "/".join(w for w, sh in weights.items() if sh == (kk, n))
+        time_matmul(f"fwd {names} {T_train}x{kk}@{kk}x{n}", T_train, kk, n, False,
+                    2 * L * count, "train")
+        time_matmul(f"dX {names} {T_train}x{n}@({kk}x{n})^T", T_train, n, kk, True,
+                    L * count, "train")
+        time_matmul(f"dW {names} ({T_train}x{kk})^T@{T_train}x{n}", kk, T_train, n, False,
+                    L * count, "train", trans_a=True)
+    time_matmul(f"fwd logits {T_train}x{d}@({V}x{d})^T", T_train, d, V, True,
+                2 * n_chunks, "train")
+    time_matmul(f"dH logits {T_train}x{V}@{V}x{d}", T_train, V, d, False, n_chunks, "train")
+    time_matmul(f"dE^T logits ({T_train}x{d})^T@{T_train}x{V}", d, T_train, V, False,
+                n_chunks, "train", trans_a=True)
+    time_attention(f"fwd causal 4x{TRAIN_SEQ}x{h}x{hd}", TRAIN_SEQ, None, 2 * L, "train")
+
+    # K3 at the training shape; the library is autograd's backward of one
+    # scaled_dot_product_attention call, timed alone
+    sets, lib_sets = [], []
+    lib_stream = torch.cuda.Stream()
+    lib_stream.wait_stream(torch.cuda.current_stream())
+    for _ in range(copies_past_l2(8 * TRAIN_BATCH * TRAIN_SEQ * h * hd * es)):
+        q, go = (torch.randn(TRAIN_BATCH, TRAIN_SEQ, h, hd, device=dev, generator=g).to(bf)
+                 for _ in "qg")
+        k, v = (torch.randn(TRAIN_BATCH, TRAIN_SEQ, kvh, hd, device=dev, generator=g).to(bf)
+                for _ in "kv")
+        out, lse = flash_attention(q, k, v, causal=True)
+        sets.append((q, k, v, out, lse, go))
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        with torch.cuda.stream(lib_stream):
+            lib_out = sdpa(*leaves, None, True)
+        lib_sets.append((lib_out, leaves, go.transpose(1, 2)))
+    t_k = time_ms(torch, lambda *a: flash_attention_bwd(*a, causal=True), sets)
+    t_p = time_ms(torch, lambda *a: flash_attention_bwd_ref(*a, causal=True), sets)
+    torch.cuda.current_stream().wait_stream(lib_stream)
+    t_l = time_ms(torch, lambda o, leaves, go: torch.autograd.grad(o, leaves, go,
+                                                                  retain_graph=True),
+                  lib_sets, stream=lib_stream)
+    pairs = TRAIN_BATCH * h * TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    q_bytes = TRAIN_BATCH * TRAIN_SEQ * h * hd * es
+    kv_bytes = TRAIN_BATCH * TRAIN_SEQ * kvh * hd * es
+    # read q, k, v, out, lse, dO; write dq, dk, dv.  Work: the five products
+    # S, dP, dq, dk, dv over each visible (query, key) pair
+    nbytes = 3 * q_bytes + 2 * kv_bytes + TRAIN_BATCH * h * TRAIN_SEQ * 4 + q_bytes + 2 * kv_bytes
+    b_ms, b_by = bound_ms(nbytes, 10 * hd * pairs, "bfloat16")
+    rows.append(dict(kernel="flash_attention_bwd", label=f"causal 4x{TRAIN_SEQ}x{h}x{hd}",
+                     calls=L, ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+                     bytes=nbytes, ops=10 * hd * pairs, bound_by=b_by, path="train"))
+    del sets, lib_sets
+    print_rows(("train",))
+    for name in kernels:
+        rs = [r for r in rows if r["kernel"] == name and r["path"] == "train"]
+        print(f"    {name}: one training step = {sum(r['calls'] for r in rs)} calls, "
+              f"{sum(r['ms'] * r['calls'] for r in rs):.4f} ms (bound "
+              f"{sum(r['bound_ms'] * r['calls'] for r in rs):.4f} ms, plain "
+              f"{sum(r['plain_ms'] * r['calls'] for r in rs):.4f} ms, library "
+              f"{sum(r['library_ms'] * r['calls'] for r in rs):.4f} ms)")
+
+    # one whole training step on the device: captured in a CUDA graph after
+    # a warm-up step on the capture's side stream, replayed back to back
+    model, opt_state = run["model"], run["opt_state"]
+    train_step = make_train_step(model)
+    batch = {key: torch.from_numpy(x).to(dev) for key, x in SyntheticLMDataset(
+        DataConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ), cfg).batch_at(0).items()}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        train_step(opt_state, batch)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        train_step(opt_state, batch)
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    train_step_ms = start.elapsed_time(end) / 3
+    wall_train_ms = 1e3 * sum(run["step_s"][1:]) / max(len(run["step_s"]) - 1, 1)
+    kernel_train_ms = sum(r["ms"] * r["calls"] for r in rows if r["path"] == "train")
+    print(f"    training step: {train_step_ms:.4f} ms on the device (CUDA graph replay), "
+          f"{kernel_train_ms:.4f} ms of it in K1, K2 and K3 (timed alone, cold L2); "
+          f"{wall_train_ms:.3f} ms per step in phase 6's run (steps 1-{TRAIN_STEPS - 1}): "
+          f"device busy {100 * train_step_ms / wall_train_ms:.1f}% of the wall time")
+    # what the device ran in one step, by the profiler's trace: every kernel,
+    # copy and set, ours and PyTorch's
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        train_step(opt_state, batch)
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    own = re.compile(r"\b(mm_kernel|splitk_reduce|flash_fwd_kernel|flash_bwd_dq_kernel"
+                     r"|flash_bwd_dkv_kernel)\b")
+    ours = sum(1 for e in dev_events if own.search(e.name))
+    print(f"    profiler trace of one step: {len(dev_events)} device operations "
+          f"({ours} of them K1, K2 (with its split-K reductions) or K3; "
+          f"{len(dev_events) - ours} PyTorch kernels, "
+          f"copies and sets), {sum(e.time_range.elapsed_us() for e in dev_events) / 1e3:.4f} ms of "
+          f"device time in them" if dev_events else
+          "    profiler trace of one step: no device operations seen (not measured)")
+    # the optimizer alone: one AdamW update of every parameter from bf16 grads
+    params = dict(model.named_parameters())
+    grads = {n: torch.randn(p.shape, device=dev, generator=g).to(p.dtype) * 1e-3
+             for n, p in params.items()}
+    opt_ms = time_ms(torch, lambda: adamw_update(params, grads, opt_state, AdamWConfig()),
+                     [()], reps=2)
+    n_params = sum(p.numel() for p in params.values())
+    print(f"    of which AdamW (every parameter, {n_params / 1e9:.3f}e9 values): {opt_ms:.4f} ms "
+          f"(one fused pass reading bf16 grads and f32 master/m/v and writing them and the "
+          f"bf16 params would move {28 * n_params / 1e9:.1f} GB: "
+          f"{1e3 * 28 * n_params / HBM_BYTES_PER_S:.4f} ms); the rest (norms, RoPE, SwiGLU, "
+          f"casts, residuals, embedding, cross-entropy; by difference) "
+          f"{train_step_ms - kernel_train_ms - opt_ms:.4f} ms")
+    del graph, model, opt_state, run, params, grads
+
+    # one entry per kernel: K1 and K2 summed over one decode step's calls
+    # (their launches from phase 4's run), K3 over one training step's calls
+    # (its launches from phase 6's run)
     replaces = {"hbp_matmul": "src/repro/kernels/hbp_matmul.py:33",
-                "flash_attention": "src/repro/kernels/flash_attention.py:137"}
+                "flash_attention": "src/repro/kernels/flash_attention.py:137",
+                "flash_attention_bwd": "src/repro/kernels/flash_attention.py:207"}
+    path_of = {"hbp_matmul": "decode", "flash_attention": "decode",
+               "flash_attention_bwd": "train"}
     entries = []
-    for name, rs in step_rows.items():
+    for name in kernels:
+        rs = [r for r in rows if r["kernel"] == name and r["path"] == path_of[name]]
         tot = {key: sum(r[key] * r["calls"] for r in rs)
                for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "ops")}
-        print(f"    {name}: one decode step = {sum(r['calls'] for r in rs)} calls, "
-              f"{tot['ms']:.4f} ms (bound {tot['bound_ms']:.4f} ms)")
         entries.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": replaces[name], "launches": launches[name],
+            "replaces": replaces[name],
+            "launches": (train_launches if path_of[name] == "train" else launches)[name],
             "max_abs_err": max_err[name], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"],
             "bound_by": ("bytes" if tot["bytes"] / HBM_BYTES_PER_S

@@ -2,10 +2,13 @@
 
 - ``hbp_matmul`` (``csrc/hbp_matmul.cu``) replaces
   ``repro/kernels/hbp_matmul.py:_mm_kernel``: every projection and the
-  tied logits.
+  tied logits, forward and backward (``hbp_matmul.matmul``).
 - ``flash_attention`` (``csrc/flash_attention.cu``) replaces
-  ``repro/kernels/flash_attention.py:_flash_kernel``: prefill and decode
-  attention.
+  ``repro/kernels/flash_attention.py:_flash_kernel``: prefill, decode and
+  training attention.
+- ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``) replaces
+  ``repro/kernels/flash_attention.py:_bwd_dq_kernel`` and
+  ``:_bwd_dkv_kernel``: the attention backward in training.
 
 Each wrapper runs its plain version (``ref.py``) on CPU tensors and its
 kernel on CUDA tensors, counts its launches in ``<wrapper>.launches``, and

@@ -15,7 +15,13 @@
 //   * 16-byte vector loads where the operand's row stride and base allow,
 //     masked scalar loads on ragged edges (no divisor snapping);
 //   * B is read either as a row-major (k, n) matrix or as the transpose of a
-//     row-major (n, k) matrix (the tied logits table), never copied.
+//     row-major (n, k) matrix (the tied logits table), never copied; A the
+//     same way, as a row-major (m, k) matrix or as the transpose of a
+//     row-major (k, m) one (the activation in the backward's dB = A^T g).
+// The backward's products run on this kernel too (training: 512 token rows
+// against d_model 2048, d_ff 6144 and the 151936-row vocabulary); there the
+// bf16 products sit at or above the card's ridge, and this kernel, with no
+// software pipeline, is bound by its own instruction rate, not by either roof.
 // bf16 inputs go through WMMA 16x16x16 bf16 -> f32; f32 inputs through plain
 // FMA so that they stay full f32.  Output tiles are visited in plain
 // row-major blockIdx order: the TPU kernel's Morton order is a schedule for a
@@ -76,17 +82,18 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, long long ld,
 }
 
 // One (BM x BN) output tile over the K range of split blockIdx.z.
-template <typename T, typename TO, bool TRANS_B, int BM>
+template <typename T, typename TO, bool TRANS_A, bool TRANS_B, int BM>
 __global__ void __launch_bounds__(THREADS)
     mm_kernel(const T* __restrict__ A, const T* __restrict__ B,
               TO* __restrict__ C, float* __restrict__ ws, int M, int N, int K,
               long long lda, long long ldb, long long ldc, int kchunk,
               bool vec_a, bool vec_b) {
   constexpr int PAD = 16 / sizeof(T);
-  constexpr int LDA = BK + PAD;                    // As: [BM][LDA]
+  constexpr int LDA = TRANS_A ? BM + PAD : BK + PAD;  // As: [BM][LDA] or [BK][LDA]
   constexpr int LDB = TRANS_B ? BK + PAD : BN + PAD;  // Bs: [BK][LDB] or [BN][LDB]
+  constexpr int A_ROWS = TRANS_A ? BK : BM;
   constexpr int B_ROWS = TRANS_B ? BN : BK;
-  __shared__ __align__(128) T As[BM * LDA];
+  __shared__ __align__(128) T As[A_ROWS * LDA];
   __shared__ __align__(128) T Bs[B_ROWS * LDB];
 
   const int n0 = blockIdx.x * BN;
@@ -101,6 +108,8 @@ __global__ void __launch_bounds__(THREADS)
     constexpr int WARPS_N = 4 / WARPS_M;
     constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
     constexpr int FM = WM / 16, FN = WN / 16;
+    using ALayout = typename std::conditional<TRANS_A, wmma::col_major,
+                                              wmma::row_major>::type;
     using BLayout = typename std::conditional<TRANS_B, wmma::col_major,
                                               wmma::row_major>::type;
     constexpr int LDC = BN + 4;
@@ -115,7 +124,10 @@ __global__ void __launch_bounds__(THREADS)
       for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 
     for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-      load_tile<T, BM, BK, LDA>(As, A, lda, m0, k0, M, K, vec_a);
+      if constexpr (TRANS_A)
+        load_tile<T, BK, BM, LDA>(As, A, lda, k0, m0, K, M, vec_a);
+      else
+        load_tile<T, BM, BK, LDA>(As, A, lda, m0, k0, M, K, vec_a);
       if constexpr (TRANS_B)
         load_tile<T, BN, BK, LDB>(Bs, B, ldb, n0, k0, N, K, vec_b);
       else
@@ -123,13 +135,18 @@ __global__ void __launch_bounds__(THREADS)
       __syncthreads();
 #pragma unroll
       for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> fa[FM];
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, ALayout>
+            fa[FM];
         wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout>
             fb[FN];
 #pragma unroll
-        for (int i = 0; i < FM; ++i)
-          wmma::load_matrix_sync(fa[i], As + (wm * WM + i * 16) * LDA + kk, LDA);
+        for (int i = 0; i < FM; ++i) {
+          const int mm = wm * WM + i * 16;
+          if constexpr (TRANS_A)
+            wmma::load_matrix_sync(fa[i], As + kk * LDA + mm, LDA);
+          else
+            wmma::load_matrix_sync(fa[i], As + mm * LDA + kk, LDA);
+        }
 #pragma unroll
         for (int j = 0; j < FN; ++j) {
           const int nn = wn * WN + j * 16;
@@ -177,7 +194,10 @@ __global__ void __launch_bounds__(THREADS)
       for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
     for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-      load_tile<T, BM, BK, LDA>(As, A, lda, m0, k0, M, K, vec_a);
+      if constexpr (TRANS_A)
+        load_tile<T, BK, BM, LDA>(As, A, lda, k0, m0, K, M, vec_a);
+      else
+        load_tile<T, BM, BK, LDA>(As, A, lda, m0, k0, M, K, vec_a);
       if constexpr (TRANS_B)
         load_tile<T, BN, BK, LDB>(Bs, B, ldb, n0, k0, N, K, vec_b);
       else
@@ -187,7 +207,8 @@ __global__ void __launch_bounds__(THREADS)
       for (int kk = 0; kk < BK; ++kk) {
         float a[TM], b[TN];
 #pragma unroll
-        for (int i = 0; i < TM; ++i) a[i] = As[(tr * TM + i) * LDA + kk];
+        for (int i = 0; i < TM; ++i)
+          a[i] = TRANS_A ? As[kk * LDA + tr * TM + i] : As[(tr * TM + i) * LDA + kk];
 #pragma unroll
         for (int j = 0; j < TN; ++j) {
           const int nn = tc + j * (BN / TN);
@@ -234,7 +255,7 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-template <typename T, typename TO, bool TRANS_B, int BM>
+template <typename T, typename TO, bool TRANS_A, bool TRANS_B, int BM>
 void launch(const void* a, const void* b, void* c, void* ws, int m, int n,
             int k, long long lda, long long ldb, long long ldc, int splits,
             int kchunk, cudaStream_t stream) {
@@ -242,7 +263,7 @@ void launch(const void* a, const void* b, void* c, void* ws, int m, int n,
   const bool vec_a = lda % VEC == 0 && aligned16(a);
   const bool vec_b = ldb % VEC == 0 && aligned16(b);
   const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, splits);
-  mm_kernel<T, TO, TRANS_B, BM><<<grid, THREADS, 0, stream>>>(
+  mm_kernel<T, TO, TRANS_A, TRANS_B, BM><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), static_cast<TO*>(c),
       static_cast<float*>(ws), m, n, k, lda, ldb, ldc, kchunk, vec_a, vec_b);
   if (splits > 1) {
@@ -253,53 +274,69 @@ void launch(const void* a, const void* b, void* c, void* ws, int m, int n,
   }
 }
 
-template <typename T, typename TO, bool TRANS_B>
+template <typename T, typename TO, bool TRANS_A, bool TRANS_B>
 void launch_bm(int bm, const void* a, const void* b, void* c, void* ws, int m,
                int n, int k, long long lda, long long ldb, long long ldc,
                int splits, int kchunk, cudaStream_t stream) {
   if (bm == 16)
-    launch<T, TO, TRANS_B, 16>(a, b, c, ws, m, n, k, lda, ldb, ldc, splits,
-                               kchunk, stream);
+    launch<T, TO, TRANS_A, TRANS_B, 16>(a, b, c, ws, m, n, k, lda, ldb, ldc,
+                                        splits, kchunk, stream);
   else
-    launch<T, TO, TRANS_B, 64>(a, b, c, ws, m, n, k, lda, ldb, ldc, splits,
-                               kchunk, stream);
+    launch<T, TO, TRANS_A, TRANS_B, 64>(a, b, c, ws, m, n, k, lda, ldb, ldc,
+                                        splits, kchunk, stream);
+}
+
+template <typename T, typename TO, bool TRANS_A>
+void launch_trans_b(int trans_b, int bm, const void* a, const void* b, void* c,
+                    void* ws, int m, int n, int k, long long lda,
+                    long long ldb, long long ldc, int splits, int kchunk,
+                    cudaStream_t stream) {
+  if (trans_b)
+    launch_bm<T, TO, TRANS_A, true>(bm, a, b, c, ws, m, n, k, lda, ldb, ldc,
+                                    splits, kchunk, stream);
+  else
+    launch_bm<T, TO, TRANS_A, false>(bm, a, b, c, ws, m, n, k, lda, ldb, ldc,
+                                     splits, kchunk, stream);
 }
 
 template <typename T, typename TO>
-void launch_trans(int trans_b, int bm, const void* a, const void* b, void* c,
-                  void* ws, int m, int n, int k, long long lda, long long ldb,
-                  long long ldc, int splits, int kchunk, cudaStream_t stream) {
-  if (trans_b)
-    launch_bm<T, TO, true>(bm, a, b, c, ws, m, n, k, lda, ldb, ldc, splits,
-                           kchunk, stream);
+void launch_trans(int trans_a, int trans_b, int bm, const void* a,
+                  const void* b, void* c, void* ws, int m, int n, int k,
+                  long long lda, long long ldb, long long ldc, int splits,
+                  int kchunk, cudaStream_t stream) {
+  if (trans_a)
+    launch_trans_b<T, TO, true>(trans_b, bm, a, b, c, ws, m, n, k, lda, ldb,
+                                ldc, splits, kchunk, stream);
   else
-    launch_bm<T, TO, false>(bm, a, b, c, ws, m, n, k, lda, ldb, ldc, splits,
-                            kchunk, stream);
+    launch_trans_b<T, TO, false>(trans_b, bm, a, b, c, ws, m, n, k, lda, ldb,
+                                 ldc, splits, kchunk, stream);
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16.  bm is 16 or 64.  ws holds
+// dtype codes: 0 = float32, 1 = bfloat16.  trans_a: a is stored as a
+// row-major (k, m) matrix with row stride lda (else row-major (m, k));
+// trans_b likewise for b ((n, k) vs (k, n)).  bm is 16 or 64.  ws holds
 // splits * m * n floats when splits > 1 (unused otherwise).  Returns the
 // launch's cudaGetLastError().
 extern "C" int hbp_matmul(const void* a, const void* b, void* c, void* ws,
                           int m, int n, int k, long long lda, long long ldb,
-                          long long ldc, int trans_b, int in_dtype,
-                          int out_dtype, int bm, int splits, int kchunk,
-                          void* stream) {
+                          long long ldc, int trans_a, int trans_b,
+                          int in_dtype, int out_dtype, int bm, int splits,
+                          int kchunk, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_dtype == 1 && out_dtype == 1)
-    launch_trans<__nv_bfloat16, __nv_bfloat16>(trans_b, bm, a, b, c, ws, m, n,
-                                               k, lda, ldb, ldc, splits,
-                                               kchunk, s);
+    launch_trans<__nv_bfloat16, __nv_bfloat16>(trans_a, trans_b, bm, a, b, c,
+                                               ws, m, n, k, lda, ldb, ldc,
+                                               splits, kchunk, s);
   else if (in_dtype == 1 && out_dtype == 0)
-    launch_trans<__nv_bfloat16, float>(trans_b, bm, a, b, c, ws, m, n, k, lda,
-                                       ldb, ldc, splits, kchunk, s);
+    launch_trans<__nv_bfloat16, float>(trans_a, trans_b, bm, a, b, c, ws, m,
+                                       n, k, lda, ldb, ldc, splits, kchunk, s);
   else if (in_dtype == 0 && out_dtype == 1)
-    launch_trans<float, __nv_bfloat16>(trans_b, bm, a, b, c, ws, m, n, k, lda,
-                                       ldb, ldc, splits, kchunk, s);
+    launch_trans<float, __nv_bfloat16>(trans_a, trans_b, bm, a, b, c, ws, m,
+                                       n, k, lda, ldb, ldc, splits, kchunk, s);
   else
-    launch_trans<float, float>(trans_b, bm, a, b, c, ws, m, n, k, lda, ldb,
-                               ldc, splits, kchunk, s);
+    launch_trans<float, float>(trans_a, trans_b, bm, a, b, c, ws, m, n, k,
+                               lda, ldb, ldc, splits, kchunk, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,5 @@
 """K1, the flash-attention forward: online-softmax attention that emits the
-output and the f32 log-sum-exp.
+output and the f32 log-sum-exp; and K3, its backward.
 
 Replaces ``src/repro/kernels/flash_attention.py:_flash_kernel`` (launched by
 ``_fwd_call``, entry ``flash_attention``).  The kernel is
@@ -26,9 +26,18 @@ Contract, as the JAX kernel's, in the model's layout:
 * Returns ``(out, lse)``: ``out`` ``(b, sq, h, hd)`` in ``q``'s dtype, ``lse``
   f32 ``(b, h, sq)`` (the JAX kernel's ``(bh, sq)``).
 
-A tensor on the CPU takes :func:`flash_attention_ref`, the plain version; a
-CUDA tensor launches the kernel (``hd`` in 16, 32, 64, 128) or raises.
-``flash_attention.launches`` counts the kernel launches.
+K3, :func:`flash_attention_bwd`, replaces ``_bwd_dq_kernel`` and
+``_bwd_dkv_kernel`` (launched by ``_bwd_call``) with
+``csrc/flash_attention_bwd.cu``: from the forward's ``out`` and ``lse`` and
+the output's gradient it recomputes the probabilities and returns ``(dq, dk,
+dv)``, ``dk``/``dv`` at the native ``kvh`` with the GQA group already summed.
+:class:`FlashAttention` ties the two together as the counterpart of
+``_flash_fn``'s custom VJP.
+
+A tensor on the CPU takes the plain version (:func:`flash_attention_ref`,
+:func:`flash_attention_bwd_ref`); a CUDA tensor launches the kernel (``hd``
+in 16, 32, 64, 128) or raises.  ``flash_attention.launches`` and
+``flash_attention_bwd.launches`` count the kernel launches.
 """
 from __future__ import annotations
 
@@ -77,6 +86,20 @@ def _per_batch(x: Optional[torch.Tensor], b: int, default: int, device) -> torch
     return x.repeat_interleave(b // x.numel())
 
 
+def _visible(b, sq, sk, causal, window, q_offset, kv_len, device):
+    """(b, 1, 1, sq, sk) bool: which keys each query row sees, broadcasting
+    over the (kv head, rep) axes of the grouped scores."""
+    qp = (_per_batch(q_offset, b, 0, device)[:, None]
+          + torch.arange(sq, device=device))[:, :, None]            # (b, sq, 1)
+    kp = torch.arange(sk, device=device)[None, None, :]            # (1, 1, sk)
+    ok = (kp < _per_batch(kv_len, b, sk, device)[:, None, None]).expand(b, sq, sk)
+    if causal:
+        ok = ok & (kp <= qp)
+    if window > 0:
+        ok = ok & (kp > qp - window)
+    return ok[:, None, None]
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
                         q_offset=None, kv_len=None):
     """Plain version of :func:`flash_attention`, in f32, with the same
@@ -89,15 +112,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     scale = 1.0 / math.sqrt(hd)
     qg = q.float().reshape(b, sq, kvh, n_rep, hd)
     s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float()) * scale
-    qp = (_per_batch(q_offset, b, 0, q.device)[:, None]
-          + torch.arange(sq, device=q.device))[:, :, None]          # (b, sq, 1)
-    kp = torch.arange(sk, device=q.device)[None, None, :]          # (1, 1, sk)
-    ok = (kp < _per_batch(kv_len, b, sk, q.device)[:, None, None]).expand(b, sq, sk)
-    if causal:
-        ok = ok & (kp <= qp)
-    if window > 0:
-        ok = ok & (kp > qp - window)
-    ok = ok[:, None, None]                                         # (b,1,1,sq,sk)
+    ok = _visible(b, sq, sk, causal, window, q_offset, kv_len, q.device)
     s = torch.where(ok, s, NEG_INF)
     m = s.amax(dim=-1)
     p = torch.where(ok, torch.exp(s - m[..., None]), 0.0)
@@ -105,6 +120,42 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     out = torch.einsum("bgrqk,bkgd->bqgrd", p / l_safe[..., None], v.float())
     lse = (m + torch.log(l_safe)).reshape(b, h, sq)
     return out.reshape(b, sq, h, hd).to(q.dtype), lse
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, g, *, causal: bool = True,
+                            window: int = 0, q_offset=None, kv_len=None):
+    """Plain version of :func:`flash_attention_bwd`, in f32: the JAX
+    kernels' recomputation formula (``flash_attention.py:200-275``).
+    ``delta = rowsum(dO * O)``; ``P = exp(S - lse)``, zeroed where masked;
+    ``dS = P * (dP - delta) * scale``.  Returns ``(dq, dk, dv)`` in the
+    dtypes of ``q``, ``k``, ``v``, with ``dk``/``dv`` group-summed at the
+    native ``kvh``."""
+    _check(q, k, v, q_offset, kv_len)
+    b, sq, h, hd = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    n_rep = h // kvh
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.float().reshape(b, sq, kvh, n_rep, hd)
+    gg = g.float().reshape(b, sq, kvh, n_rep, hd)
+    kf, vf = k.float(), v.float()
+    ok = _visible(b, sq, sk, causal, window, q_offset, kv_len, q.device)
+    s = torch.where(ok, torch.einsum("bqgrd,bkgd->bgrqk", qg, kf) * scale, NEG_INF)
+    p = torch.where(ok, torch.exp(s - lse.reshape(b, kvh, n_rep, sq, 1)), 0.0)
+    delta = (gg * out.float().reshape(b, sq, kvh, n_rep, hd)).sum(-1)  # (b,sq,g,r)
+    dp = torch.einsum("bqgrd,bkgd->bgrqk", gg, vf)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None]) * scale
+    dq = torch.einsum("bgrqk,bkgd->bqgrd", ds, kf).reshape(b, sq, h, hd)
+    dk = torch.einsum("bgrqk,bqgrd->bkgd", ds, qg)
+    dv = torch.einsum("bgrqk,bqgrd->bkgd", p, gg)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _lanes(q_offset, kv_len):
+    """(rows, [q_offset, kv_len] as contiguous (rows,) vectors or None): one
+    lane count for both, a scalar beside a (rows,) vector fanned out."""
+    rows = max(1 if x is None else x.numel() for x in (q_offset, kv_len))
+    return rows, [None if x is None else x.reshape(-1).expand(rows).contiguous()
+                  for x in (q_offset, kv_len)]
 
 
 def _lib():
@@ -134,10 +185,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_attention: q, k, v need unit stride on head_dim")
-    # one lane count for both vectors: a scalar beside a (rows,) vector fans out
-    rows = max(1 if x is None else x.numel() for x in (q_offset, kv_len))
-    lanes = [None if x is None else x.reshape(-1).expand(rows).contiguous()
-             for x in (q_offset, kv_len)]
+    rows, lanes = _lanes(q_offset, kv_len)
     out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
@@ -157,3 +205,95 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 flash_attention.launches = 0
+
+
+def _bwd_lib():
+    lib = _build.load("flash_attention_bwd")
+    fn = lib.flash_attention_bwd
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                       ctypes.POINTER(ctypes.c_longlong), I, I, I, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = True,
+                        window: int = 0, q_offset: Optional[torch.Tensor] = None,
+                        kv_len: Optional[torch.Tensor] = None):
+    """Attention backward; returns ``(dq, dk, dv)``.  ``out`` and ``lse`` are
+    the forward's; ``g`` is the gradient of ``out`` (``(b, sq, h, hd)``,
+    read through its strides).  ``dq`` comes back ``(b, sq, h, hd)``,
+    ``dk``/``dv`` ``(b, sk, kvh, hd)``; a key no query sees gets zeros.  See
+    the module docstring."""
+    _check(q, k, v, q_offset, kv_len)
+    if g.shape != q.shape or out.shape != q.shape or g.dtype != q.dtype:
+        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)}, g "
+                         f"{tuple(g.shape)} {g.dtype}; expected q's shape "
+                         f"{tuple(q.shape)} and dtype {q.dtype}")
+    b, sq, h, hd = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} {lse.dtype}; "
+                         f"expected float32 {(b, h, sq)}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, out, lse, g, causal=causal,
+                                       window=window, q_offset=q_offset,
+                                       kv_len=kv_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: no kernel for device {q.device}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: head_dim {hd} not in {HEAD_DIMS}")
+    if g.stride(3) != 1:
+        g = g.contiguous()
+    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError("flash_attention_bwd: q, k, v need unit stride on head_dim")
+    rows, lanes = _lanes(q_offset, kv_len)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()  # (b, h, sq)
+    lse = lse.contiguous()
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty((b, sk, kvh, hd), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, sk, kvh, hd), dtype=v.dtype, device=q.device)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    strides = (ctypes.c_longlong * 12)(*(x.stride(i) for x in (q, k, v, g)
+                                          for i in range(3)))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _bwd_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                     lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                     dv.data_ptr(), *(None if x is None else x.data_ptr() for x in lanes),
+                     rows, b, sq, sk, h, kvh, hd, strides, int(causal), int(window),
+                     _DTYPE_CODES[q.dtype], stream)
+    _build.check(err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable attention: K1 forward, K3 backward, the counterpart of
+    ``_flash_fn``'s custom VJP (``flash_attention.py:484-516``).
+
+    ``FlashAttention.apply(q, k, v, q_offset, kv_len, causal, window)``
+    returns ``out``; the forward saves ``(q, k, v, q_offset, kv_len, out,
+    lse)`` as the JAX residuals, nothing O(sq * sk), so under a per-layer
+    checkpoint the recomputation keeps nothing the checkpoint meant to drop.
+    ``q_offset`` and ``kv_len`` get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_offset, kv_len, causal, window):
+        out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset, kv_len=kv_len)
+        ctx.save_for_backward(q, k, v, q_offset, kv_len, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, q_offset, kv_len, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g, causal=ctx.causal,
+                                         window=ctx.window, q_offset=q_offset,
+                                         kv_len=kv_len)
+        return dq, dk, dv, None, None, None, None

@@ -8,11 +8,16 @@ deterministic split-K, vector loads, B read in either layout).
 
 ``hbp_matmul(a, b, out_dtype=None)`` keeps the JAX entry's contract: ``a``
 ``(m, k)``, ``b`` ``(k, n)``, bf16 or f32, output in ``a``'s dtype unless
-``out_dtype`` says otherwise.  ``b`` may be a row-major ``(k, n)`` matrix or
-the transposed view of a row-major ``(n, k)`` one (``embed.T`` for the tied
-logits); the kernel reads either through its strides.  Ragged shapes are
-masked inside the kernel, so the JAX wrapper's divisor snapping and its
-oracle fallback have no counterpart.
+``out_dtype`` says otherwise.  Each operand may be a row-major matrix or the
+transposed view of a row-major one (``embed.T`` for the tied logits, ``a.T``
+for the backward's ``dB = Aᵀ g``); the kernel reads either through its
+strides, so neither is copied.  Ragged shapes are masked inside the kernel,
+so the JAX wrapper's divisor snapping and its oracle fallback have no
+counterpart.
+
+:func:`matmul` is the differentiable entry, the counterpart of
+``repro.kernels.strassen_matmul.matmul`` with the classical backend: its
+forward and both backward products run on the kernel.
 
 A tensor on the CPU takes :func:`matmul_ref`, the plain version; a CUDA
 tensor launches the kernel or raises.  ``hbp_matmul.launches`` counts the
@@ -57,7 +62,7 @@ def _lib():
     fn = lib.hbp_matmul
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P, P, P, P, I, I, I, L, L, L, I, I, I, I, I, I, P]
+        fn.argtypes = [P, P, P, P, I, I, I, L, L, L, I, I, I, I, I, I, I, P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -65,6 +70,18 @@ def _lib():
 def _row_stride(x: torch.Tensor):
     """Row stride when ``x`` is row-major (unit column stride), else None."""
     return x.stride(0) if (x.stride(1) == 1 or x.shape[1] == 1) else None
+
+
+def _layout(x: torch.Tensor, name: str) -> tuple[int, int]:
+    """(row stride of the stored matrix, 1 if ``x`` is the transposed view
+    of a row-major matrix else 0)."""
+    ld = _row_stride(x)
+    if ld is not None:
+        return ld, 0
+    if x.stride(0) != 1 and x.shape[0] != 1:
+        raise ValueError(f"hbp_matmul: {name} is neither row-major nor a transposed "
+                         f"row-major matrix, strides {x.stride()}")
+    return x.stride(1), 1
 
 
 def hbp_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
@@ -87,15 +104,8 @@ def hbp_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.Ten
 
     m, k = a.shape
     n = b.shape[1]
-    lda = _row_stride(a)
-    if lda is None:
-        raise ValueError(f"hbp_matmul: a needs unit column stride, got {a.stride()}")
-    ldb, trans_b = _row_stride(b), 0
-    if ldb is None:
-        if b.stride(0) != 1 and b.shape[0] != 1:
-            raise ValueError(f"hbp_matmul: b is neither row-major nor a transposed "
-                             f"row-major matrix, strides {b.stride()}")
-        ldb, trans_b = b.stride(1), 1
+    lda, trans_a = _layout(a, "a")
+    ldb, trans_b = _layout(b, "b")
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if out.numel() == 0:
         return out
@@ -108,7 +118,7 @@ def hbp_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.Ten
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = _lib()(a.data_ptr(), b.data_ptr(), out.data_ptr(),
                  None if ws is None else ws.data_ptr(), m, n, k, lda, ldb, n,
-                 trans_b, _DTYPE_CODES[a.dtype], _DTYPE_CODES[out_dtype], bm,
+                 trans_a, trans_b, _DTYPE_CODES[a.dtype], _DTYPE_CODES[out_dtype], bm,
                  splits, kchunk, stream)
     _build.check(err, "hbp_matmul")
     hbp_matmul.launches += 1
@@ -116,3 +126,33 @@ def hbp_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.Ten
 
 
 hbp_matmul.launches = 0
+
+
+class _Matmul(torch.autograd.Function):
+    """``a @ b`` on the kernel, with the JAX custom VJP's backward
+    (``strassen_matmul.py:119-139``): ``dA = g @ bᵀ`` and ``dB = aᵀ @ g``,
+    both on the kernel (the transposes are views), each cast to its
+    operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return hbp_matmul(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.contiguous()
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = hbp_matmul(g, b.T).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = hbp_matmul(a.T, g).to(b.dtype)
+        return da, db
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Differentiable ``a (m, k) @ b (k, n)`` on the kernel, output in
+    ``a``'s dtype.  Without a gradient to record (serving runs under
+    ``no_grad``) only the forward runs: one :func:`hbp_matmul` launch."""
+    return _Matmul.apply(a, b)

@@ -1,11 +1,14 @@
 """Model zoo: build a ported architecture from its config."""
 from __future__ import annotations
 
+from typing import Optional
+
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.base import Model, UnsupportedFamilyError
+from repro_torch.models.base import Model, RunOptions, UnsupportedFamilyError
 
 
-def build_model(cfg: ModelConfig, *, device=None) -> Model:
+def build_model(cfg: ModelConfig, opts: Optional[RunOptions] = None, *,
+                device=None) -> Model:
     """The family's model on ``device`` (CUDA unless told otherwise), with
     uninitialised parameters: call ``init`` or ``load_state_dict``.  Only the
     dense family is ported; any other family raises."""
@@ -13,7 +16,7 @@ def build_model(cfg: ModelConfig, *, device=None) -> Model:
         raise UnsupportedFamilyError(cfg.family, "model class")
     from repro_torch.models.dense import DenseLM
 
-    return DenseLM(cfg, device=device)
+    return DenseLM(cfg, opts, device=device)
 
 
-__all__ = ["Model", "UnsupportedFamilyError", "build_model"]
+__all__ = ["Model", "RunOptions", "UnsupportedFamilyError", "build_model"]

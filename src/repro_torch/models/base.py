@@ -2,17 +2,32 @@
 ``repro/models/base.py``.
 
 A model is an ``nn.Module`` that owns its parameters, so the JAX methods'
-``params`` argument goes away.  The JAX ``RunOptions`` has no counterpart
-yet: the fields its dense serving path reads are attention tile sizes and
-the jnp-route choices (banded local attention, causal block skip), and the
-port's kernels pick their own tiles and have no jnp route.
+``params`` argument goes away.  ``RunOptions`` keeps only the fields the
+training path reads (``remat``, ``ce_chunk``, ``microbatches``), with the
+JAX names and defaults; the rest of the JAX dataclass chooses attention
+tiles and jnp routes, and the port's kernels pick their own tiles and have
+no jnp route.
 """
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
+from typing import Optional
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+
+
+@dataclass(frozen=True)
+class RunOptions:
+    """Execution options the training path reads (JAX ``base.py:37-69``)."""
+
+    remat: str = "full"  # "none" | "full": recompute each layer in backward
+    ce_chunk: int = 512  # sequence chunk of the cross-entropy
+    microbatches: int = 1  # gradient-accumulation microbatches
 
 
 class UnsupportedFamilyError(TypeError):
@@ -27,14 +42,20 @@ class UnsupportedFamilyError(TypeError):
 
 
 class Model(nn.Module):
-    """Family-agnostic interface used by the server."""
+    """Family-agnostic interface used by the server and the trainer."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, opts: Optional[RunOptions] = None):
         super().__init__()
         self.cfg = cfg
+        self.opts = opts or RunOptions()
 
     def init(self, generator: torch.Generator) -> None:
         """Fill every parameter in place from ``generator``."""
+        raise NotImplementedError
+
+    def loss(self, batch: dict) -> torch.Tensor:
+        """batch: ``tokens`` and ``labels`` (b, s).  Returns the mean loss,
+        an f32 scalar that carries the graph back to the parameters."""
         raise NotImplementedError
 
     def init_cache(self, batch_size: int, max_len: int):
@@ -48,3 +69,19 @@ class Model(nn.Module):
         """tokens: (b, 1); pos: scalar or per-row (b,) int32 tensor.
         Returns (logits (b, V) f32, cache)."""
         raise NotImplementedError
+
+
+def maybe_remat(fn, opts: RunOptions):
+    """``fn`` recomputed in the backward when ``opts.remat == "full"``
+    (``torch.utils.checkpoint``, the non-reentrant form): only its inputs
+    are kept between forward and backward.  The layers draw no random
+    numbers, so no RNG state is stashed for the recomputation."""
+    if opts.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 preserve_rng_state=False)
+    return fn
+
+
+def right_shift(tokens: torch.Tensor, bos: int = 1) -> torch.Tensor:
+    """Teacher-forcing input from target tokens."""
+    return torch.cat([torch.full_like(tokens[:, :1], bos), tokens[:, :-1]], dim=1)

@@ -1,8 +1,9 @@
-"""Shared model blocks on the serving path: the counterpart of the main-path
-subset of ``repro/models/common.py``.
+"""Shared model blocks on the serving and training paths: the counterpart
+of the main-path subset of ``repro/models/common.py``.
 
-Every matrix product goes through ``hbp_matmul`` and every attention call
-through ``flash_attention``; the JAX package's jnp routes (dense, blockwise,
+Every matrix product goes through the differentiable ``matmul`` (K2 forward
+and backward) and every attention call through ``FlashAttention`` (K1
+forward, K3 backward); the JAX package's jnp routes (dense, blockwise,
 banded attention, einsum projections) have no counterpart here.  Norms,
 RoPE and the SwiGLU gate keep the JAX numerics: f32 inside, cast back to the
 activation dtype.
@@ -13,9 +14,10 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.hbp_matmul import hbp_matmul
+from repro_torch.kernels.flash_attention import FlashAttention
+from repro_torch.kernels.hbp_matmul import matmul
 
 
 # ---------------------------------------------------------------------------
@@ -87,19 +89,19 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
               q_offset: Optional[torch.Tensor] = None,
               kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (b, sq, h, hd) against k, v (b, sk, kvh, hd) at their native head
-    count, through the flash-attention kernel.  Fresh self-attention passes
+    count, through the flash-attention kernels.  Fresh self-attention passes
     no ``q_offset``/``kv_len``; attention over a cache passes each row's
-    position and valid length as int32 device tensors (scalar or (b,))."""
-    out, _ = flash_attention(q, k, v, causal=causal,
-                             window=0 if window is None else int(window),
-                             q_offset=q_offset, kv_len=kv_len)
-    return out
+    position and valid length as int32 device tensors (scalar or (b,)).
+    Differentiable in q, k, v (K3 backward); without a gradient to record
+    it launches the forward kernel alone."""
+    window = 0 if window is None else int(window)
+    return FlashAttention.apply(q, k, v, q_offset, kv_len, causal, window)
 
 
 def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., d) @ w (d, f) -> (..., f) through the matmul kernel."""
     lead = x.shape[:-1]
-    return hbp_matmul(x.reshape(-1, x.shape[-1]), w).reshape(*lead, w.shape[-1])
+    return matmul(x.reshape(-1, x.shape[-1]), w).reshape(*lead, w.shape[-1])
 
 
 def qkv_project(x, wq, wk, wv):
@@ -110,7 +112,7 @@ def attn_out_project(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """(b, s, h, hd) heads -> (b, s, d); the head fold into the contraction
     is a view of the kernel's contiguous output."""
     b, s, h, hd = o.shape
-    return hbp_matmul(o.reshape(b * s, h * hd), wo).reshape(b, s, -1)
+    return matmul(o.reshape(b * s, h * hd), wo).reshape(b, s, -1)
 
 
 def gated_mlp(x, w_gate, w_up, w_down):
@@ -126,5 +128,41 @@ def logits_matmul(h: torch.Tensor, embed_out: torch.Tensor) -> torch.Tensor:
     the JAX kernel route does, then cast to f32.  ``embed_out.T`` is a view;
     the kernel reads the table in place."""
     lead = h.shape[:-1]
-    out = hbp_matmul(h.reshape(-1, h.shape[-1]), embed_out.T)
+    out = matmul(h.reshape(-1, h.shape[-1]), embed_out.T)
     return out.reshape(*lead, embed_out.shape[0]).float()
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def _xent_chunk(h, embed_out, labels):
+    """(sum of the chunk's nll, count of its labels >= 0), both f32."""
+    logits = logits_matmul(h, embed_out)
+    lse = torch.logsumexp(logits, dim=-1)
+    valid = labels >= 0
+    safe = torch.where(valid, labels, 0).long()
+    picked = logits.gather(-1, safe[..., None])[..., 0]
+    nll = torch.where(valid, lse - picked, 0.0)
+    return nll.sum(), valid.sum(dtype=torch.float32)
+
+
+def chunked_softmax_xent(hidden, embed_out, labels, *, chunk: int = 512):
+    """Mean cross-entropy of ``hidden`` (b, s, d) against the tied table
+    ``embed_out`` (V, d), the counterpart of JAX ``chunked_softmax_xent``
+    (``common.py:692-725``): the sequence is cut into chunks (one chunk when
+    ``chunk`` does not divide it) and each chunk is checkpointed, so its
+    f32 (b, chunk, V) logits never outlive it.  Labels < 0 (the -100 pad)
+    are masked.  Returns ``sum(nll) / max(count, 1)``, an f32 scalar."""
+    b, s, d = hidden.shape
+    chunk = min(chunk, s)
+    if s % chunk != 0:
+        chunk = s
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, s, chunk):
+        t, c = checkpoint(_xent_chunk, hidden[:, i:i + chunk], embed_out,
+                          labels[:, i:i + chunk], use_reentrant=False,
+                          preserve_rng_state=False)
+        tot, cnt = tot + t, cnt + c
+    return tot / cnt.clamp_min(1.0)

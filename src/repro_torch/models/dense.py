@@ -7,7 +7,9 @@ per-layer window and RoPE theta are plain Python values.  Parameter names
 follow the JAX pytree (``embed``, ``final_norm``, ``layers.<i>.<name>``),
 so ``repro_torch.checkpoint`` carries JAX parameters across by unstacking
 the layer axis.  Every matrix product runs on ``hbp_matmul`` and every
-attention call on ``flash_attention``.
+attention call on ``flash_attention``; in training their backward runs on
+``hbp_matmul`` and ``flash_attention_bwd``.  The parameters are trainable;
+``prefill`` and ``decode_step`` run under ``torch.no_grad``.
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import cache as dcache
 from repro_torch.models import common
-from repro_torch.models.base import Model, UnsupportedFamilyError
+from repro_torch.models.base import (Model, RunOptions, UnsupportedFamilyError,
+                                     maybe_remat, right_shift)
 
 _NORMS = ("ln1", "ln2", "q_norm", "k_norm", "final_norm")
 
@@ -46,8 +49,7 @@ def layer_thetas(cfg: ModelConfig) -> list[float]:
 
 
 def _param(*shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
 class DenseLayer(nn.Module):
@@ -65,8 +67,9 @@ class DenseLayer(nn.Module):
 
 
 class DenseLM(Model):
-    def __init__(self, cfg: ModelConfig, *, device=None):
-        super().__init__(cfg)
+    def __init__(self, cfg: ModelConfig, opts: Optional[RunOptions] = None, *,
+                 device=None):
+        super().__init__(cfg, opts)
         for missing, needed in (("MoE layers", cfg.n_experts), ("qkv_bias", cfg.qkv_bias),
                                 ("untied lm_head", not cfg.tie_embeddings)):
             if needed:
@@ -97,11 +100,11 @@ class DenseLM(Model):
                 common.dense_init(p, generator)
 
     # -- layer body ----------------------------------------------------------
-    def _attn(self, layer: DenseLayer, x, rope, window, kc, vc, write_at,
-              q_offset, kv_len):
-        """Attention sub-block.  Writes the fresh k/v into the cache slabs
-        at ``write_at``; with ``q_offset`` given it attends over the cache
-        (decode), else over the fresh k/v (prefill)."""
+    def _attn(self, layer: DenseLayer, x, rope, window, kc=None, vc=None,
+              write_at=None, q_offset=None, kv_len=None):
+        """Attention sub-block.  With cache slabs it writes the fresh k/v
+        into them at ``write_at``; with ``q_offset`` given it attends over
+        the cache (decode), else over the fresh k/v (prefill, training)."""
         cfg = self.cfg
         b, s, _ = x.shape
         hd = cfg.head_dim_
@@ -115,8 +118,9 @@ class DenseLM(Model):
             k = common.rms_norm(k, layer.k_norm, cfg.norm_eps)
         q = common.rotate(q, *rope)
         k = common.rotate(k, *rope)
-        dcache.linear_write(kc, k, write_at)
-        dcache.linear_write(vc, v, write_at)
+        if kc is not None:
+            dcache.linear_write(kc, k, write_at)
+            dcache.linear_write(vc, v, write_at)
         if q_offset is not None:
             # decode: attend the cache; the fresh row was just written
             o = common.attention(q, kc, vc, causal=True, window=window,
@@ -129,19 +133,39 @@ class DenseLM(Model):
         h = common.rms_norm(x, layer.ln2, self.cfg.norm_eps)
         return x + common.gated_mlp(h, layer.w_gate, layer.w_up, layer.w_down)
 
-    def _backbone(self, tokens, q_pos, cache: dcache.LinearKV, write_at,
-                  q_offset=None, kv_len=None):
+    def _layer(self, layer: DenseLayer, x, rope, window, *cache_args):
+        return self._ffn(layer, self._attn(layer, x, rope, window, *cache_args))
+
+    def _backbone(self, tokens, q_pos, cache: Optional[dcache.LinearKV] = None,
+                  write_at=None, q_offset=None, kv_len=None):
+        """The layer stack.  Without a cache (training) each layer is
+        rematerialised per ``opts.remat``; with one it writes k/v there."""
         cfg = self.cfg
         x = common.embed_lookup(self.embed, tokens).to(cfg.activation_dtype)
         if cfg.scale_embeddings:
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
         ropes = {th: common.rope_cos_sin(q_pos, cfg.head_dim_, th)
                  for th in set(self.thetas)}
+        layer_fn = self._layer if cache is not None else maybe_remat(self._layer, self.opts)
         for i, layer in enumerate(self.layers):
-            x = self._attn(layer, x, ropes[self.thetas[i]], self.windows[i],
-                           cache.k[i], cache.v[i], write_at, q_offset, kv_len)
-            x = self._ffn(layer, x)
+            cache_args = (() if cache is None else
+                          (cache.k[i], cache.v[i], write_at, q_offset, kv_len))
+            x = layer_fn(layer, x, ropes[self.thetas[i]], self.windows[i], *cache_args)
         return common.rms_norm(x, self.final_norm, cfg.norm_eps)
+
+    # -- training ------------------------------------------------------------
+    def loss(self, batch: dict) -> torch.Tensor:
+        """JAX ``dense.py:250-260``: teacher forcing on ``right_shift``ed
+        tokens, the chunked cross-entropy over the tied table, plus the
+        router's aux term (0 for a dense model)."""
+        cfg = self.cfg
+        tokens, labels = batch["tokens"], batch["labels"]
+        s = tokens.shape[1]
+        pos = torch.arange(s, dtype=torch.int32, device=tokens.device)
+        x = self._backbone(right_shift(tokens), pos)
+        ce = common.chunked_softmax_xent(x, self.embed, labels, chunk=self.opts.ce_chunk)
+        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+        return ce + cfg.router_aux_weight * aux / max(cfg.n_layers, 1)
 
     # -- inference -----------------------------------------------------------
     def init_cache(self, batch_size: int, max_len: int) -> dcache.LinearKV:

@@ -2,8 +2,12 @@
 
 On the CPU the port's wrappers run their plain versions, so these tests hold
 ``matmul_ref`` and ``flash_attention_ref`` against the JAX Pallas kernels
-(interpret mode) and the JAX oracles, on the same numpy inputs.  Tolerance:
-f32 throughout, atol 1e-5 (the two sides sum in different orders).
+(interpret mode) and the JAX oracles, on the same numpy inputs, and the
+backward (``matmul``'s and ``FlashAttention``'s, K3's plain version) against
+the JAX kernels' custom VJPs.  Tolerance: f32 throughout, atol 1e-5 forward
+(the two sides sum in different orders) and 1e-4 backward (as
+``tests/test_gqa_native.py`` holds the JAX VJP to its oracle: the gradients
+are sums of products of the forward's sums).
 
 The CUDA kernels themselves cannot run here; the tests marked ``cuda`` hold
 them against their plain versions on the card and skip without one
@@ -18,10 +22,17 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import hbp_matmul as mm_mod  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref  # noqa: E402
-from repro_torch.kernels.hbp_matmul import hbp_matmul, matmul_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    FlashAttention,
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_ref,
+    flash_attention_ref,
+)
+from repro_torch.kernels.hbp_matmul import hbp_matmul, matmul, matmul_ref  # noqa: E402
 
 ATOL = 1e-5
+BWD_ATOL = 1e-4
 
 MM_SHAPES = [(8, 16, 24), (5, 7, 3), (16, 32, 64)]
 
@@ -34,6 +45,17 @@ FA_CASES = [
     ("decode_rows_zero_lane", 2, 1, 16, 4, 2, 16, True, 0, [3, 0], [4, 0]),
     ("decode_rows_fully_masked", 2, 1, 16, 4, 1, 16, True, 2, [12, 3], [4, 4]),
 ]
+
+
+# (name, b, sq, sk, h, kvh, hd, causal, window, q_offset, kv_len)
+BWD_CASES = [
+    ("causal_mha", 2, 16, 16, 2, 2, 16, True, 0, None, None),
+    ("causal_gqa_16_8", 1, 16, 16, 16, 8, 16, True, 0, None, None),
+    ("offset_rows_zero_lane", 2, 8, 16, 4, 2, 16, True, 0, [8, 4], [16, 0]),
+    ("window", 2, 16, 16, 4, 2, 16, True, 5, None, None),
+]
+# (m, k, n, b passed as the transposed view of an (n, k) table)
+MM_BWD_CASES = [(8, 16, 24, False), (16, 32, 64, True)]
 
 
 def _rng(seed):
@@ -59,17 +81,40 @@ def _fold(x):
     return x.transpose(0, 2, 1, 3).reshape(b * h, s, hd)
 
 
+def _unfold(x, b):
+    """The JAX kernel's (b * heads, s, hd) -> (b, s, heads, hd)."""
+    bh, s, hd = x.shape
+    return x.reshape(b, bh // b, s, hd).transpose(0, 2, 1, 3)
+
+
+def _bwd_inputs(case, seed=5):
+    q, k, v = _fa_inputs(case, seed)
+    g = _rng(seed + 1).standard_normal(q.shape).astype(np.float32)
+    return q, k, v, g
+
+
+def _mm_bwd_inputs(case, seed=3):
+    m, k, n, trans = case
+    r = _rng(seed)
+    a = r.standard_normal((m, k)).astype(np.float32)
+    b = r.standard_normal((n, k) if trans else (k, n)).astype(np.float32)
+    return a, b, r.standard_normal((m, n)).astype(np.float32)
+
+
 @pytest.fixture(scope="module")
 def jax_refs():
     """Every JAX reference of this module, computed once."""
     pytest.importorskip("jax")
     import jax.numpy as jnp
 
+    import jax
+
     from repro.kernels import ref
     from repro.kernels.flash_attention import flash_attention as jax_fa
     from repro.kernels.hbp_matmul import hbp_matmul as jax_mm
+    from repro.kernels.strassen_matmul import matmul as jax_matmul
 
-    out = {"mm": {}, "fa": {}}
+    out = {"mm": {}, "fa": {}, "bwd": {}, "mm_bwd": {}}
     for i, (m, k, n) in enumerate(MM_SHAPES):
         r = _rng(i)
         a = r.standard_normal((m, k)).astype(np.float32)
@@ -89,6 +134,23 @@ def jax_refs():
         oracle = np.asarray(ref.flash_attention_ref(fq, fk, fv, **kw))
         unfold = lambda o: o.reshape(b, h, sq, hd).transpose(0, 2, 1, 3)  # noqa: E731
         out["fa"][name] = (unfold(kern), unfold(oracle))
+    for case in BWD_CASES:
+        name, b, sq, sk, h, kvh, hd, causal, window, qo, kl = case
+        q, k, v, g = _bwd_inputs(case)
+        kw = dict(causal=causal, window=window, q_block=8, kv_block=8, interpret=True,
+                  q_offset=None if qo is None else np.asarray(qo, np.int32),
+                  kv_len=None if kl is None else np.asarray(kl, np.int32),
+                  n_heads=h if kvh != h else None)
+        _, vjp = jax.vjp(lambda q, k, v: jax_fa(q, k, v, **kw),
+                         *(jnp.asarray(_fold(x)) for x in (q, k, v)))
+        out["bwd"][name] = [_unfold(np.asarray(d), b) for d in vjp(jnp.asarray(_fold(g)))]
+    for case in MM_BWD_CASES:
+        a, b, g = _mm_bwd_inputs(case)
+        trans = case[3]
+        _, vjp = jax.vjp(lambda a, b: jax_matmul(a, b.T if trans else b, backend="classical",
+                                                 interpret=True),
+                         jnp.asarray(a), jnp.asarray(b))
+        out["mm_bwd"][case] = [np.asarray(d) for d in vjp(jnp.asarray(g))]
     return out
 
 
@@ -163,6 +225,55 @@ def test_flash_attention_zero_rows_are_exact():
         assert dead and all(torch.count_nonzero(out[i]) == 0 for i in dead)
 
 
+@pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: c[0])
+def test_flash_attention_bwd_matches_jax_vjp(jax_refs, case):
+    """K3's plain version, and FlashAttention's backward through it, against
+    the JAX kernels' VJP (interpret mode): dk/dv at the native kv heads, a
+    kv_len 0 lane with exact zero grads."""
+    name, b, sq, sk, h, kvh, hd, causal, window, qo, kl = case
+    q, k, v, g = (torch.from_numpy(x) for x in _bwd_inputs(case))
+    kw = dict(causal=causal, window=window, q_offset=_lanes(qo), kv_len=_lanes(kl))
+    want = jax_refs["bwd"][name]
+
+    out, lse = flash_attention_ref(q, k, v, **kw)
+    plain = flash_attention_bwd_ref(q, k, v, out, lse, g, **kw)
+    wrapped = flash_attention_bwd(q, k, v, out, lse, g, **kw)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    FlashAttention.apply(*leaves, kw["q_offset"], kw["kv_len"], causal, window).backward(g)
+    for got in (plain, wrapped, [x.grad for x in leaves]):
+        assert got[1].shape == k.shape and got[2].shape == v.shape
+        for d, w, which in zip(got, want, ("dq", "dk", "dv")):
+            np.testing.assert_allclose(d.numpy(), w, atol=BWD_ATOL, err_msg=which)
+    if kl is not None:
+        for row in (i for i, n in enumerate(kl) if n == 0):
+            assert all(torch.count_nonzero(d[row]) == 0 for d in plain)
+
+
+@pytest.mark.parametrize("case", MM_BWD_CASES, ids=lambda c: "x".join(map(str, c[:3]))
+                         + ("_bT" if c[3] else ""))
+def test_matmul_backward_matches_jax_vjp(jax_refs, case):
+    """``matmul``'s backward (dA = g bᵀ, dB = aᵀ g through the wrapper)
+    against the JAX classical matmul's custom VJP; b may be the transposed
+    view of a table, as in the tied logits."""
+    trans = case[3]
+    a, b, g = (torch.from_numpy(x) for x in _mm_bwd_inputs(case))
+    a.requires_grad_()
+    b.requires_grad_()
+    out = matmul(a, b.T if trans else b)
+    out.backward(g)
+    want_a, want_b = jax_refs["mm_bwd"][case]
+    np.testing.assert_allclose(a.grad.numpy(), want_a, atol=BWD_ATOL)
+    np.testing.assert_allclose(b.grad.numpy(), want_b, atol=BWD_ATOL)
+
+
+def test_matmul_wrapper_cpu_transposed_a():
+    """The wrapper takes A as the transposed view of a row-major matrix."""
+    r = _rng(2)
+    act = torch.from_numpy(r.standard_normal((9, 6)).astype(np.float32))
+    g = torch.from_numpy(r.standard_normal((9, 5)).astype(np.float32))
+    torch.testing.assert_close(hbp_matmul(act.T, g), act.T @ g, atol=ATOL, rtol=1e-5)
+
+
 def test_wrappers_reject_bad_inputs():
     q = torch.zeros(2, 4, 4, 16)
     k = torch.zeros(2, 4, 3, 16)  # 3 kv heads do not divide 4
@@ -176,6 +287,9 @@ def test_wrappers_reject_bad_inputs():
         hbp_matmul(torch.zeros(2, 3), torch.zeros(3, 2, dtype=torch.float64))
     with pytest.raises(ValueError):
         hbp_matmul(torch.zeros(2, 3, device="meta"), torch.zeros(3, 2, device="meta"))
+    out, lse = flash_attention(q, q, q)
+    with pytest.raises(ValueError):  # lse of the wrong shape
+        flash_attention_bwd(q, q, q, out, lse[:, :2], out)
 
 
 # -- on the card ---------------------------------------------------------------
@@ -216,3 +330,41 @@ def test_flash_kernel_matches_plain(cuda, dtype, case):
     tol = ATOL if dt == torch.float32 else 2e-2
     torch.testing.assert_close(out.float(), ref_out.float(), atol=tol, rtol=0)
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FA_CASES[:3] + BWD_CASES, ids=lambda c: c[0])
+def test_flash_bwd_kernel_matches_plain(cuda, dtype, case):
+    """K3 against its plain version on the card; a kv_len 0 lane gives exact
+    zeros."""
+    name, *_, causal, window, qo, kl = case
+    dt = getattr(torch, dtype)
+    q, k, v, g = (torch.from_numpy(x).to(cuda, dt) for x in _bwd_inputs(case))
+    kw = dict(causal=causal, window=window, q_offset=_lanes(qo, cuda), kv_len=_lanes(kl, cuda))
+    out, lse = flash_attention(q, k, v, **kw)
+    got = flash_attention_bwd(q, k, v, out, lse, g, **kw)
+    want = flash_attention_bwd_ref(q, k, v, out, lse, g, **kw)
+    tol = BWD_ATOL if dt == torch.float32 else 3e-2
+    for d, w in zip(got, want):
+        torch.testing.assert_close(d.float(), w.float(), atol=tol, rtol=tol)
+    if kl is not None:
+        for row in (i for i, n in enumerate(kl) if n == 0):
+            assert all(torch.count_nonzero(d[row]) == 0 for d in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n,trans_b", [(96, 70, 65, False), (256, 512, 128, True)])
+def test_matmul_kernel_transposed_a_matches_plain(cuda, dtype, m, k, n, trans_b):
+    """K2 with A read as the transposed view of a row-major (k, m) matrix,
+    the backward's aᵀ g."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    act = torch.randn(k, m, device=cuda, generator=gen).to(dt)
+    b = (torch.randn(n, k, device=cuda, generator=gen) / math.sqrt(k)).to(dt)
+    b = b.T if trans_b else b.T.contiguous()
+    got = hbp_matmul(act.T, b).float()
+    want = matmul_ref(act.T, b).float()
+    tol = 1e-4 if dt == torch.float32 else 2 ** -7
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)

@@ -127,7 +127,9 @@ def test_load_repro_checkpoint_round_trip(tmp_path, f32_run):
 
 
 def test_import_loads_neither_jax_nor_repro():
-    code = ("import repro_torch, repro_torch.launch.serve, repro_torch.checkpoint, sys; "
+    code = ("import repro_torch, repro_torch.launch.serve, repro_torch.launch.train, "
+            "repro_torch.launch.steps, repro_torch.optim, repro_torch.data, "
+            "repro_torch.kernels.ref, repro_torch.checkpoint, sys; "
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=SRC,
