@@ -31,14 +31,30 @@ Phases, each of which fails the run (exit code 1, no result line):
    whole training step on the device (captured in a CUDA graph, replayed)
    against its host wall time in phase 6; count the device operations of
    one step in a ``torch.profiler`` trace.
+8. Serve ``qwen3-1.7b`` at full width in bf16 through the continuous-batching
+   ``Engine``: 8 slots, a 512-slot cache, chunk 64, 16 requests (prompts of
+   16-192 tokens, 8-48 new tokens, seed 0), once with the bf16 cache and
+   once with the int8 cache (``attention=pallas:kv_dtype=int8``).  Every
+   request must complete with finite logits, and every decode step must
+   launch K1q (``flash_attention_int8``) once per layer and K1 never with
+   the int8 cache (the reverse with bf16).  Prints decode ms per step, ms
+   per prefill chunk, tok/s, the telemetry, and the share of requests whose
+   tokens agree between the two caches (not a gate).
+9. Time K1q per call at phase 8's decode shape and mid-run lanes as in
+   phase 5, beside its bound, its plain version, the library's two calls
+   (dequantize to bf16, then ``scaled_dot_product_attention``) and K1 at
+   the same shape over a bf16 cache.
 
 Phase 2 also holds K1 and K2 at phase 6's shapes (512 token rows: every
-forward product, the logits, every ``g Wᵀ``), and K3 and K2's transposed-A
+forward product, the logits, every ``g Wᵀ``), K3 and K2's transposed-A
 products (the backward's ``aᵀ g``) against their plain versions at the
-training shapes and at harder ones; phase 3 also takes one f32 training
-step of the smoke config on the card and on the CPU from the same
-parameters and compares the loss, every gradient and the updated
-parameters.
+training shapes and at harder ones, and K1q at phase 8's decode and
+continuation-chunk shapes; phase 3 also takes one f32 training step of the
+smoke config on the card and on the CPU from the same parameters and
+compares the loss, every gradient and the updated parameters, and serves
+the smoke config through the ``Engine`` with the fp and the int8 cache:
+card == CPU == lockstep tokens, and a run under an injected fault plan
+gives the clean run's tokens.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or
@@ -60,6 +76,10 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 L2_BYTES = 50 * 2 ** 20
 ARCH = "qwen3-1.7b"
 BATCH, MAX_NEW, MAX_LEN = 4, 16, 256
+# phase 8: the engine at full width
+SLOTS, ENGINE_LEN, CHUNK, ENGINE_REQUESTS = 8, 512, 64, 16
+INT8 = dict(impl={"attention": "pallas"}, variants={"attention": {"kv_dtype": "int8"}})
+FAULT_PLAN = "decode@3=raise,slot@1=nan_logits"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 128, 3  # the JAX trainer's CLI defaults
 # card vs CPU at f32: loss, gradients (as the CPU tests hold the port to
 # JAX), and parameters after one AdamW step.  The first step moves an
@@ -130,23 +150,28 @@ def main():
 
     from repro_torch.configs import get_config, get_smoke_config, reduced
     from repro_torch.data import DataConfig, SyntheticLMDataset
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, policy
     from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
                                                      flash_attention_bwd_ref,
+                                                     flash_attention_int8,
                                                      flash_attention_ref)
     from repro_torch.kernels.hbp_matmul import hbp_matmul, matmul_ref
+    from repro_torch.launch.engine import Engine, check_lockstep_parity
     from repro_torch.launch.serve import Request, Server
     from repro_torch.launch.steps import make_train_step
     from repro_torch.launch.train import train
     from repro_torch.models import build_model
+    from repro_torch.models.common import kv_scale, quantize_kv
     from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.runtime.fault_tolerance import FaultInjector
 
     # f32 products on the card stay full f32 (the plain versions' reference)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     kernels = {"hbp_matmul": hbp_matmul, "flash_attention": flash_attention,
-               "flash_attention_bwd": flash_attention_bwd}
+               "flash_attention_bwd": flash_attention_bwd,
+               "flash_attention_int8": flash_attention_int8}
     serving_kernels = ("hbp_matmul", "flash_attention")
 
     def reset_counts():
@@ -308,6 +333,44 @@ def main():
         compare("hbp_matmul", f"{dtype} dH (tied logits): g E ({T_train}x{V} @ {V}x{d})",
                 hbp_matmul(gr, table), matmul_ref(gr, table), dtype)
         del gr, table
+
+    # K1q over an int8 cache quantized as the model does (per-(row, kv head)
+    # scales over the slab), at phase 8's shapes
+    print(f"[2] K1q vs its plain version ({SLOTS} slots, an int8 cache of "
+          f"{ENGINE_LEN} positions, phase 8's decode and {CHUNK}-token chunks)")
+
+    def int8_cache(b):
+        fp = [torch.randn(b, ENGINE_LEN, kvh, hd, device=dev, generator=g) for _ in "kv"]
+        scales = [kv_scale(x) for x in fp]
+        return [quantize_kv(x, sc) for x, sc in zip(fp, scales)] + scales
+
+    k8, v8, ks, vs = int8_cache(SLOTS)
+    decode_kl = [1, 77, 128, 255, 256, 400, ENGINE_LEN, 0]
+    chunk_qo = [CHUNK * i for i in range(SLOTS)]
+    q8_cases = [  # (label, sq, window, q_offset lanes, kv_len lanes, lanes that see nothing)
+        ("decode (b,) lanes 1..512, kv_len 0 lane", 1, 0,
+         [max(n - 1, 0) for n in decode_kl], decode_kl, [7]),
+        (f"continuation chunk {CHUNK} rows, per-row q_offset", CHUNK, 0, chunk_qo,
+         [o + CHUNK for o in chunk_qo], []),
+        ("decode window 16, kv_len 0 lane", 1, 16, [max(n - 1, 0) for n in decode_kl],
+         decode_kl, [7]),
+    ]
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for label, sq, window, qo, kl, dead in q8_cases:
+            q = torch.randn(SLOTS, sq, h, hd, device=dev, generator=g).to(dt)
+            kw = dict(causal=True, window=window, q_offset=lane(qo), kv_len=lane(kl))
+            out, lse = flash_attention_int8(q, k8, v8, ks, vs, **kw)
+            r_out, r_lse = flash_attention_ref(q, k8, v8, k_scale=ks, v_scale=vs, **kw)
+            compare("flash_attention_int8", f"{dtype} {label} out", out, r_out, dtype)
+            compare("flash_attention_int8", f"{dtype} {label} lse", lse, r_lse, dtype,
+                    1e-4, 1e-5)
+            if dead:
+                zero = all(torch.count_nonzero(out[r]).item() == 0 for r in dead)
+                print(f"    {'flash_attention_int8':19s} rows {dead} exact zeros: {zero}")
+                if not zero:
+                    failures.append(f"flash_attention_int8 {dtype} {label}: rows {dead}")
+    del k8, v8
     torch.cuda.synchronize()
     check(not failures, f"kernels disagree with their plain versions: {failures}")
 
@@ -378,6 +441,41 @@ def main():
           f"{n_vacuous} of them to 2 lr or more (no bound)")
     check(loss_ok and grads_ok and param_ok,
           "the smoke training step disagrees between the card and the CPU")
+
+    # the continuous-batching engine on the smoke config, fp and int8 caches:
+    # card == CPU == each request alone through the lockstep path, and a run
+    # under an injected fault plan == the clean run.  chunk >= the longest
+    # prompt for int8, so the engine calibrates its scales on the whole
+    # prompt as the lockstep prefill does.
+    def smoke_requests(n):
+        r = np.random.default_rng(0)
+        return [Request(i, r.integers(3, small.vocab_size, int(r.integers(4, 20))).astype(np.int32),
+                        max_new=int(r.integers(2, 9))) for i in range(n)]
+
+    for cache_kind, chunk, n_req in (("fp", 8, 6), ("int8", 24, 4)):
+        with policy.apply(**(INT8 if cache_kind == "int8" else {})):
+            got = {}
+            for where, plan in (("cuda", ""), ("cpu", ""), ("cuda faults", FAULT_PLAN)):
+                eng = Engine(small, device=where.split()[0], params=params, max_batch=3,
+                             max_len=64, chunk=chunk, injector=FaultInjector(plan))
+                reqs = smoke_requests(n_req)
+                out = eng.run(reqs)
+                got[where] = [r.out for r in reqs]
+                if where == "cuda":
+                    check(eng.cache.quantized == (cache_kind == "int8"),
+                          f"the {cache_kind} engine built the wrong cache")
+                    lockstep = check_lockstep_parity(eng, reqs)
+                if plan:
+                    faults = out["stats"]["faults"]
+        ok = got["cuda"] == got["cpu"] == got["cuda faults"] and lockstep
+        print(f"[3] smoke f32 engine, {cache_kind} cache (chunk {chunk}, {n_req} requests, "
+              f"3 slots): cuda == cpu {got['cuda'] == got['cpu']}, == lockstep on cuda "
+              f"{lockstep}, == cuda under '{FAULT_PLAN}' {got['cuda'] == got['cuda faults']} "
+              f"(retries {faults['retries']}, slots poisoned {faults['slots_poisoned']}) "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok and faults["retries"] == 1 and faults["slots_poisoned"] == 1,
+              f"smoke engine ({cache_kind} cache): tokens {got}, lockstep parity {lockstep}, "
+              f"faults {faults}")
 
     # -- 4. full width ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -612,7 +710,7 @@ def main():
                      bytes=nbytes, ops=10 * hd * pairs, bound_by=b_by, path="train"))
     del sets, lib_sets
     print_rows(("train",))
-    for name in kernels:
+    for name in ("hbp_matmul", "flash_attention", "flash_attention_bwd"):
         rs = [r for r in rows if r["kernel"] == name and r["path"] == "train"]
         print(f"    {name}: one training step = {sum(r['calls'] for r in rs)} calls, "
               f"{sum(r['ms'] * r['calls'] for r in rs):.4f} ms (bound "
@@ -679,15 +777,166 @@ def main():
           f"casts, residuals, embedding, cross-entropy; by difference) "
           f"{train_step_ms - kernel_train_ms - opt_ms:.4f} ms")
     del graph, model, opt_state, run, params, grads
+    torch.cuda.empty_cache()
+
+    # -- 8. the continuous-batching engine at full width --------------------------
+    engine = Engine(cfg, device="cuda", max_batch=SLOTS, max_len=ENGINE_LEN, chunk=CHUNK)
+    erng = np.random.default_rng(0)
+    workload = [(erng.integers(3, V, int(erng.integers(16, 193))).astype(np.int32),
+                 int(erng.integers(8, 49))) for _ in range(ENGINE_REQUESTS)]
+    # the engine's own launches, wrapped on the instance to record what each
+    # launch ran: kernel launches per decode step and per prefill chunk, the
+    # decode lanes (device tensors, read after the run), and whether every
+    # logit was finite (a device flag, so the run gains no host sync)
+    trace = {}
+
+    def counted(kind, fn):
+        def wrapper(*args):
+            before = counts()
+            result = fn(*args)
+            trace[kind].append({k: n - before[k] for k, n in counts().items()})
+            if kind == "decode":
+                trace["pos"].append(args[1].clone())
+            return result
+        return wrapper
+
+    def finite_logits(fn):
+        def wrapper(*args, **kw):
+            logits, cache = fn(*args, **kw)
+            trace["finite"] &= torch.isfinite(logits).all()
+            return logits, cache
+        return wrapper
+
+    engine._decode_rows = counted("decode", engine._decode_rows)
+    engine._chunk_first = counted("prefill", engine._chunk_first)
+    engine._chunk_cont = counted("prefill", engine._chunk_cont)
+    engine.model.decode_step = finite_logits(engine.model.decode_step)
+    engine.model.prefill_chunk = finite_logits(engine.model.prefill_chunk)
+    print(f"[8] {ARCH} full width bf16 through the Engine: {SLOTS} slots, max_len "
+          f"{ENGINE_LEN}, chunk {CHUNK}; {ENGINE_REQUESTS} requests, prompts "
+          f"{[len(p) for p, _ in workload]}, max_new {[m for _, m in workload]}")
+    engine_runs = {}
+    for cache_kind in ("bf16", "int8"):
+        trace.update(decode=[], prefill=[], pos=[],
+                     finite=torch.ones((), dtype=torch.bool, device=dev))
+        reqs = [Request(i, p, max_new=m) for i, (p, m) in enumerate(workload)]
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with policy.apply(**(INT8 if cache_kind == "int8" else {})):
+            out = engine.run(reqs)
+        run_launches = counts()
+        per_step = trace["decode"]
+        steps, chunks = out["decode_steps"], out["prefill_chunks"]
+        engine_runs[cache_kind] = dict(tokens=[r.out for r in reqs], out=out,
+                                       launches=run_launches, pos=trace["pos"])
+        tel = out["telemetry"]
+        print(f"    {cache_kind} cache ({engine.cache.k.dtype}): completed "
+              f"{len(out['completed'])}/{ENGINE_REQUESTS}; logits finite "
+              f"{bool(trace['finite'])}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        print(f"    decode {1e3 * out['decode_s'] / max(steps, 1):.3f} ms/step over {steps} "
+              f"steps (host wall, each ended by its host read); prefill "
+              f"{1e3 * out['prefill_s'] / max(chunks, 1):.3f} ms/chunk over {chunks} chunk "
+              f"launches ({out['prefill_chunk_rows']} chunk rows); {out['tok_per_s']:.1f} "
+              f"tok/s ({out['tokens']} tokens in {out['wall_s']:.3f} s)")
+        print(f"    telemetry {tel}")
+        print(f"    launches in the run {run_launches}; per decode step "
+              f"{sorted({tuple(sorted(c.items())) for c in per_step})}; per prefill chunk "
+              f"{sorted({tuple(sorted(c.items())) for c in trace['prefill']})}")
+        check(all(len(r.out) == r.max_new for r in reqs) and len(out["completed"]) == len(reqs),
+              f"{cache_kind} engine: requests not completed: {out['completed']}")
+        check(bool(trace["finite"]) and tel["slots_poisoned"] == 0 and tel["retries"] == 0,
+              f"{cache_kind} engine: non-finite logits or a failed launch ({tel})")
+        attn, other = (("flash_attention_int8", "flash_attention") if cache_kind == "int8"
+                       else ("flash_attention", "flash_attention_int8"))
+        for c in per_step:
+            check(c[attn] == L and c[other] == 0 and c["hbp_matmul"] == 7 * L + 1
+                  and c["flash_attention_bwd"] == 0,
+                  f"{cache_kind} engine decode step launched {c}; expected {attn} {L}, "
+                  f"{other} 0, hbp_matmul {7 * L + 1}")
+        check(steps == len(per_step) > 0, f"{cache_kind} engine: {steps} decode steps, "
+              f"{len(per_step)} traced")
+        # one decode step on the device at the run's halfway lanes, captured
+        # in a CUDA graph and replayed (the model's own method, not the
+        # tracing wrapper); it writes into the finished run's cache
+        mid_pos = trace["pos"][len(trace["pos"]) // 2]
+        tok = torch.zeros((SLOTS, 1), dtype=torch.int32, device=dev)
+        dev_ms = time_ms(torch, lambda: type(engine.model).decode_step(
+            engine.model, tok, mid_pos, engine.cache), [()])
+        wall_ms = 1e3 * out["decode_s"] / max(steps, 1)
+        print(f"    decode step on the device (CUDA graph replay, halfway lanes "
+              f"{mid_pos.tolist()}): {dev_ms:.4f} ms; device busy {100 * dev_ms / wall_ms:.1f}% "
+              f"of the {wall_ms:.3f} ms wall per step")
+    agree = sum(a == b for a, b in zip(engine_runs["bf16"]["tokens"],
+                                       engine_runs["int8"]["tokens"]))
+    print(f"    requests whose tokens agree between the int8 and the bf16 cache: "
+          f"{agree}/{ENGINE_REQUESTS} ({100 * agree / ENGINE_REQUESTS:.1f}%; not a gate)")
+    # the int8 run's decode lanes halfway through, for phase 9
+    mid = engine_runs["int8"]["pos"][len(engine_runs["int8"]["pos"]) // 2]
+    mid_qo = mid.tolist()
+    mid_kl = [min(p + 1, ENGINE_LEN) for p in mid_qo]
+    del engine
+    torch.cuda.empty_cache()
+
+    # -- 9. K1q's time at phase 8's decode shape ---------------------------------
+    print(f"[9] K1q per call at phase 8's int8 decode step halfway through: q "
+          f"{SLOTS}x1x{h}x{hd} bf16, int8 cache {SLOTS}x{ENGINE_LEN}x{kvh}x{hd}, kv_len "
+          f"{mid_kl}; ({smi})")
+    q8_sets, k1_sets, lib_sets = [], [], []
+    for _ in range(L):  # one cache per layer, as the decode step reads them
+        qd = torch.randn(SLOTS, 1, h, hd, device=dev, generator=g).to(bf)
+        k8, v8, ks, vs = int8_cache(SLOTS)
+        qo_t, kl_t = lane(mid_qo), lane(mid_kl)
+        q8_sets.append((qd, k8, v8, ks, vs, qo_t, kl_t))
+        kb, vb = ((x.float() * sc[:, None, :, None]).to(bf) for x, sc in ((k8, ks), (v8, vs)))
+        k1_sets.append((qd, kb, vb, qo_t, kl_t))
+        mask = (torch.arange(ENGINE_LEN, device=dev)[None, :] < kl_t[:, None])[:, None, None, :]
+        lib_sets.append((qd, k8, v8, ks, vs, mask))
+
+    def lib_two_calls(qd, k8, v8, ks, vs, mask):
+        kb, vb = ((x.float() * sc[:, None, :, None]).to(bf) for x, sc in ((k8, ks), (v8, vs)))
+        return sdpa(qd, kb, vb, mask, False)
+
+    t_q8 = time_ms(torch, lambda qd, k8, v8, ks, vs, qo, kl: flash_attention_int8(
+        qd, k8, v8, ks, vs, causal=True, q_offset=qo, kv_len=kl), q8_sets)
+    t_plain = time_ms(torch, lambda qd, k8, v8, ks, vs, qo, kl: flash_attention_ref(
+        qd, k8, v8, causal=True, q_offset=qo, kv_len=kl, k_scale=ks, v_scale=vs), q8_sets)
+    t_lib = time_ms(torch, lib_two_calls, lib_sets)
+    t_k1 = time_ms(torch, lambda qd, kb, vb, qo, kl: flash_attention(
+        qd, kb, vb, causal=True, q_offset=qo, kv_len=kl), k1_sets)
+    valid = sum(mid_kl)
+    # read the valid int8 k and v once, q, the scales and the lanes; write out
+    # and lse.  Work: q.kᵀ and p.v over every visible key of every head
+    q8_bytes = (2 * kvh * hd * valid + 2 * SLOTS * h * hd * es + SLOTS * h * 4
+                + 2 * SLOTS * kvh * 4 + 2 * SLOTS * 4)
+    q8_ops = 4 * hd * h * valid
+    b_ms, b_by = bound_ms(q8_bytes, q8_ops, "bfloat16")
+    k1_bytes = es * 2 * kvh * hd * valid + 2 * SLOTS * h * hd * es + SLOTS * h * 4 + 2 * SLOTS * 4
+    k1_bound, _ = bound_ms(k1_bytes, q8_ops, "bfloat16")
+    rows.append(dict(kernel="flash_attention_int8", label=f"decode {SLOTS}x1 vs int8 {ENGINE_LEN}",
+                     calls=L, ms=t_q8, plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
+                     bytes=q8_bytes, ops=q8_ops, bound_by=b_by, path="engine"))
+    print(f"    K1q {t_q8:.4f} ms (bound {b_ms:.4f} ms by {b_by}, {100 * b_ms / t_q8:.1f}% of it; "
+          f"{q8_bytes / 1e6:.3f} MB); plain {t_plain:.4f} ms; library, two calls "
+          f"(dequantize to bf16, then scaled_dot_product_attention) {t_lib:.4f} ms; K1 over "
+          f"the bf16 cache {t_k1:.4f} ms (its bound {k1_bound:.4f} ms)")
+    print(f"    one int8 decode step's {L} calls: K1q {L * t_q8:.4f} ms, K1 over bf16 "
+          f"{L * t_k1:.4f} ms")
+    del q8_sets, k1_sets, lib_sets
 
     # one entry per kernel: K1 and K2 summed over one decode step's calls
     # (their launches from phase 4's run), K3 over one training step's calls
-    # (its launches from phase 6's run)
+    # (its launches from phase 6's run), K1q over one int8 engine decode
+    # step's calls (its launches from phase 8's int8 run)
     replaces = {"hbp_matmul": "src/repro/kernels/hbp_matmul.py:33",
                 "flash_attention": "src/repro/kernels/flash_attention.py:137",
-                "flash_attention_bwd": "src/repro/kernels/flash_attention.py:207"}
+                "flash_attention_bwd": "src/repro/kernels/flash_attention.py:207",
+                "flash_attention_int8": "src/repro/kernels/flash_attention.py:141"}
+    sources = {"flash_attention_int8": "flash_attention"}
     path_of = {"hbp_matmul": "decode", "flash_attention": "decode",
-               "flash_attention_bwd": "train"}
+               "flash_attention_bwd": "train", "flash_attention_int8": "engine"}
+    launches_of = {"decode": launches, "train": train_launches,
+                   "engine": engine_runs["int8"]["launches"]}
     entries = []
     for name in kernels:
         rs = [r for r in rows if r["kernel"] == name and r["path"] == path_of[name]]
@@ -695,9 +944,9 @@ def main():
                for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "ops")}
         entries.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "source": f"src/repro_torch/kernels/csrc/{sources.get(name, name)}.cu",
             "replaces": replaces[name],
-            "launches": (train_launches if path_of[name] == "train" else launches)[name],
+            "launches": launches_of[path_of[name]][name],
             "max_abs_err": max_err[name], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"],
             "bound_by": ("bytes" if tot["bytes"] / HBM_BYTES_PER_S

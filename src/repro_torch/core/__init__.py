@@ -1,0 +1,1 @@
+"""Scheduling cores shared by the port's launchers (``pws.match_round``)."""

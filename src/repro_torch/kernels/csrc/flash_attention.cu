@@ -26,10 +26,22 @@
 // A simple, correct kernel: f32 dot products in shared memory, BK = 32 keys
 // per tile (one per lane of the softmax warp).  Tensor cores, TMA and an
 // FA-3 style pipeline are later work.
+//
+// K1q, the same kernel over an int8 KV cache (KT = int8_t), replaces
+// _flash_kernel with quantized=True (flash_attention.py:141-169, operands
+// :356-358).  K and V are int8 with one f32 scale per (batch row, KV head)
+// each, read at k_scale[bi * kvh + kv head]; every element is dequantized
+// while it is staged into shared memory, in the TPU kernel's order
+// (k * k_scale first, then q . k^T * scale), so the int8 cache is the only
+// thing that crosses device memory: a quarter of the bf16 cache's bytes,
+// which is what bounds decode.  q and out stay f32 or bf16, lse f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -46,6 +58,18 @@ __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
+template <>
+__device__ __forceinline__ float to_f32<int8_t>(int8_t x) {
+  return static_cast<float>(x);
+}
+
+// one K or V element staged as f32: int8 is dequantized with its scale
+template <typename KT>
+__device__ __forceinline__ float stage(KT x, float scale) {
+  if constexpr (std::is_same<KT, int8_t>::value) return to_f32(x) * scale;
+  else return to_f32(x);
+}
+
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
@@ -55,11 +79,12 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-template <typename T, int HD, int BQ>
+template <typename T, typename KT, int HD, int BQ>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ q, const KT* __restrict__ k, const KT* __restrict__ v,
     T* __restrict__ out, float* __restrict__ lse, const int* __restrict__ qoff,
-    const int* __restrict__ kvlen, int rows, int b, int sq, int sk, int h,
+    const int* __restrict__ kvlen, const float* __restrict__ kscale,
+    const float* __restrict__ vscale, int rows, int b, int sq, int sk, int h,
     int kvh, long long qsb, long long qss, long long qsh, long long ksb,
     long long kss, long long ksh, long long vsb, long long vss, long long vsh,
     int causal, int window, float scale) {
@@ -87,8 +112,11 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
   const int kl = kvlen ? min(max(kvlen[lane_row], 0), sk) : sk;
 
   const T* qb = q + bi * qsb + hi * qsh;
-  const T* kb = k + bi * ksb + kvhi * ksh;
-  const T* vb = v + bi * vsb + kvhi * vsh;
+  const KT* kb = k + bi * ksb + kvhi * ksh;
+  const KT* vb = v + bi * vsb + kvhi * vsh;
+  // K1q: this block's KV batch-head scales (unused by K1)
+  const float ks = kscale ? kscale[bi * kvh + kvhi] : 1.f;
+  const float vs = vscale ? vscale[bi * kvh + kvhi] : 1.f;
 
   for (int i = tid; i < BQ * HD; i += THREADS) {
     const int r = i / HD, d = i % HD;
@@ -120,8 +148,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     for (int i = tid; i < BK * HD; i += THREADS) {
       const int j = i / HD, d = i % HD;
       const bool in = k0 + j < sk;
-      Ks[j][d] = in ? to_f32(kb[(k0 + j) * kss + d]) : 0.f;
-      Vs[j][d] = in ? to_f32(vb[(k0 + j) * vss + d]) : 0.f;
+      Ks[j][d] = in ? stage(kb[(k0 + j) * kss + d], ks) : 0.f;
+      Vs[j][d] = in ? stage(vb[(k0 + j) * vss + d], vs) : 0.f;
     }
     __syncthreads();
 
@@ -202,56 +230,45 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
   }
 }
 
-template <typename T, int HD, int BQ>
-void launch(const void* q, const void* k, const void* v, void* out, void* lse,
-            const int* qoff, const int* kvlen, int rows, int b, int sq, int sk,
-            int h, int kvh, const long long* st, int causal, int window,
-            cudaStream_t stream) {
-  const dim3 grid(b * h, (sq + BQ - 1) / BQ);
-  flash_fwd_kernel<T, HD, BQ><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), static_cast<float*>(lse),
-      qoff, kvlen, rows, b, sq, sk, h, kvh, st[0], st[1], st[2], st[3], st[4],
-      st[5], st[6], st[7], st[8], causal, window, 1.0f / sqrtf((float)HD));
+// every pointer and size of one launch
+struct Args {
+  const void *q, *k, *v;
+  void *out, *lse;
+  const int *qoff, *kvlen;
+  const float *kscale, *vscale;
+  int rows, b, sq, sk, h, kvh;
+  long long st[9];
+  int causal, window;
+};
+
+template <typename T, typename KT, int HD, int BQ>
+void launch(const Args& a, cudaStream_t stream) {
+  const dim3 grid(a.b * a.h, (a.sq + BQ - 1) / BQ);
+  const long long* st = a.st;
+  flash_fwd_kernel<T, KT, HD, BQ><<<grid, THREADS, 0, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const KT*>(a.k),
+      static_cast<const KT*>(a.v), static_cast<T*>(a.out),
+      static_cast<float*>(a.lse), a.qoff, a.kvlen, a.kscale, a.vscale, a.rows,
+      a.b, a.sq, a.sk, a.h, a.kvh, st[0], st[1], st[2], st[3], st[4], st[5],
+      st[6], st[7], st[8], a.causal, a.window, 1.0f / sqrtf((float)HD));
 }
 
-template <typename T, int HD>
-void launch_bq(const void* q, const void* k, const void* v, void* out,
-               void* lse, const int* qoff, const int* kvlen, int rows, int b,
-               int sq, int sk, int h, int kvh, const long long* st, int causal,
-               int window, cudaStream_t stream) {
-  if (sq == 1)
-    launch<T, HD, 1>(q, k, v, out, lse, qoff, kvlen, rows, b, sq, sk, h, kvh,
-                     st, causal, window, stream);
+template <typename T, typename KT, int HD>
+void launch_bq(const Args& a, cudaStream_t stream) {
+  if (a.sq == 1)
+    launch<T, KT, HD, 1>(a, stream);
   else
-    launch<T, HD, 16>(q, k, v, out, lse, qoff, kvlen, rows, b, sq, sk, h, kvh,
-                      st, causal, window, stream);
+    launch<T, KT, HD, 16>(a, stream);
 }
 
-template <typename T>
-int launch_hd(int hd, const void* q, const void* k, const void* v, void* out,
-              void* lse, const int* qoff, const int* kvlen, int rows, int b,
-              int sq, int sk, int h, int kvh, const long long* st, int causal,
-              int window, cudaStream_t stream) {
+template <typename T, typename KT>
+int launch_hd(int hd, const Args& a, cudaStream_t stream) {
   switch (hd) {
-    case 16:
-      launch_bq<T, 16>(q, k, v, out, lse, qoff, kvlen, rows, b, sq, sk, h, kvh,
-                       st, causal, window, stream);
-      break;
-    case 32:
-      launch_bq<T, 32>(q, k, v, out, lse, qoff, kvlen, rows, b, sq, sk, h, kvh,
-                       st, causal, window, stream);
-      break;
-    case 64:
-      launch_bq<T, 64>(q, k, v, out, lse, qoff, kvlen, rows, b, sq, sk, h, kvh,
-                       st, causal, window, stream);
-      break;
-    case 128:
-      launch_bq<T, 128>(q, k, v, out, lse, qoff, kvlen, rows, b, sq, sk, h,
-                        kvh, st, causal, window, stream);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case 16: launch_bq<T, KT, 16>(a, stream); break;
+    case 32: launch_bq<T, KT, 32>(a, stream); break;
+    case 64: launch_bq<T, KT, 64>(a, stream); break;
+    case 128: launch_bq<T, KT, 128>(a, stream); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -261,21 +278,28 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* out,
 // q: (b, sq, h, hd); k, v: (b, sk, kvh, hd), each with unit stride on hd and
 // the given (batch, seq, head) strides.  out: contiguous (b, sq, h, hd);
 // lse: contiguous f32 (b, h, sq).  qoff / kvlen: int32 device vectors of
-// `rows` entries, or null.  dtype: 0 = float32, 1 = bfloat16.  Returns the
+// `rows` entries, or null.  dtype (of q and out): 0 = float32, 1 = bfloat16.
+// kv_int8 = 0: k, v in q's dtype and kscale / vscale null (K1); kv_int8 = 1:
+// k, v int8 with contiguous f32 (b, kvh) kscale / vscale (K1q).  Returns the
 // launch's cudaGetLastError() (cudaErrorInvalidValue for an unsupported hd).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, void* lse,
-    const void* qoff, const void* kvlen, int rows, int b, int sq, int sk,
-    int h, int kvh, int hd, long long qsb, long long qss, long long qsh,
-    long long ksb, long long kss, long long ksh, long long vsb, long long vss,
-    long long vsh, int causal, int window, int dtype, void* stream) {
-  const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
+    const void* qoff, const void* kvlen, const void* kscale, const void* vscale,
+    int rows, int b, int sq, int sk, int h, int kvh, int hd, long long qsb,
+    long long qss, long long qsh, long long ksb, long long kss, long long ksh,
+    long long vsb, long long vss, long long vsh, int causal, int window,
+    int dtype, int kv_int8, void* stream) {
+  const Args a{q, k, v, out, lse,
+               static_cast<const int*>(qoff), static_cast<const int*>(kvlen),
+               static_cast<const float*>(kscale), static_cast<const float*>(vscale),
+               rows, b, sq, sk, h, kvh,
+               {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh}, causal, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* qo = static_cast<const int*>(qoff);
-  const int* kl = static_cast<const int*>(kvlen);
+  if (kv_int8 && (kscale == nullptr || vscale == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1)
-    return launch_hd<__nv_bfloat16>(hd, q, k, v, out, lse, qo, kl, rows, b, sq,
-                                    sk, h, kvh, st, causal, window, s);
-  return launch_hd<float>(hd, q, k, v, out, lse, qo, kl, rows, b, sq, sk, h,
-                          kvh, st, causal, window, s);
+    return kv_int8 ? launch_hd<__nv_bfloat16, int8_t>(hd, a, s)
+                   : launch_hd<__nv_bfloat16, __nv_bfloat16>(hd, a, s);
+  return kv_int8 ? launch_hd<float, int8_t>(hd, a, s)
+                 : launch_hd<float, float>(hd, a, s);
 }

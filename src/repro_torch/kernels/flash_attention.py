@@ -1,5 +1,6 @@
 """K1, the flash-attention forward: online-softmax attention that emits the
-output and the f32 log-sum-exp; and K3, its backward.
+output and the f32 log-sum-exp; K1q, the same over an int8 KV cache; and
+K3, the backward.
 
 Replaces ``src/repro/kernels/flash_attention.py:_flash_kernel`` (launched by
 ``_fwd_call``, entry ``flash_attention``).  The kernel is
@@ -26,6 +27,15 @@ Contract, as the JAX kernel's, in the model's layout:
 * Returns ``(out, lse)``: ``out`` ``(b, sq, h, hd)`` in ``q``'s dtype, ``lse``
   f32 ``(b, h, sq)`` (the JAX kernel's ``(bh, sq)``).
 
+K1q, :func:`flash_attention_int8`, replaces the same kernel with
+``quantized=True`` (``flash_attention.py:141-169``, operands ``:356-358``):
+``k``/``v`` are int8 with f32 scales per (batch row, KV head), ``k_scale``
+and ``v_scale`` of shape ``(b, kvh)``, dequantized at the block load in the
+JAX order (``k * k_scale`` first, then ``q·kᵀ·scale``).  It is forward only,
+as the TPU kernel is.  :func:`flash_attention` takes the scales too and
+hands an int8 call to it; int8 ``k``/``v`` need both scales, and scales need
+int8 ``k``/``v``.
+
 K3, :func:`flash_attention_bwd`, replaces ``_bwd_dq_kernel`` and
 ``_bwd_dkv_kernel`` (launched by ``_bwd_call``) with
 ``csrc/flash_attention_bwd.cu``: from the forward's ``out`` and ``lse`` and
@@ -36,8 +46,9 @@ dv)``, ``dk``/``dv`` at the native ``kvh`` with the GQA group already summed.
 
 A tensor on the CPU takes the plain version (:func:`flash_attention_ref`,
 :func:`flash_attention_bwd_ref`); a CUDA tensor launches the kernel (``hd``
-in 16, 32, 64, 128) or raises.  ``flash_attention.launches`` and
-``flash_attention_bwd.launches`` count the kernel launches.
+in 16, 32, 64, 128) or raises.  ``flash_attention.launches`` (K1),
+``flash_attention_int8.launches`` (K1q) and ``flash_attention_bwd.launches``
+(K3) count the kernel launches.
 """
 from __future__ import annotations
 
@@ -54,16 +65,29 @@ HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _check(q, k, v, q_offset, kv_len):
+def _check(q, k, v, q_offset, kv_len, k_scale=None, v_scale=None):
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}; expected (b, s, heads, hd)")
     b, _, h, hd = q.shape
-    if k.shape[0] != b or k.shape[3] != hd or h % k.shape[2] != 0:
+    kvh = k.shape[2]
+    if k.shape[0] != b or k.shape[3] != hd or h % kvh != 0:
         raise ValueError(f"flash_attention: k {tuple(k.shape)} does not fit q "
                          f"{tuple(q.shape)} (same b and hd, kv heads dividing h)")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, {v.dtype}")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("flash_attention: k_scale and v_scale must be passed together")
+    quantized = k_scale is not None
+    if q.dtype not in _DTYPE_CODES or k.dtype != v.dtype or (
+            k.dtype != (torch.int8 if quantized else q.dtype)):
+        want = "int8" if quantized else "the dtype of q"
+        raise TypeError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, {v.dtype} "
+                        f"with{'' if quantized else 'out'} scales; expected q in "
+                        f"float32 or bfloat16 and k, v in {want}")
+    if quantized:
+        for name, x in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if x.shape != (b, kvh) or x.dtype != torch.float32 or x.device != q.device:
+                raise ValueError(f"flash_attention: {name} {tuple(x.shape)} {x.dtype} on "
+                                 f"{x.device}; expected float32 {(b, kvh)} on {q.device}")
     for name, x in (("q_offset", q_offset), ("kv_len", kv_len)):
         if x is None:
             continue
@@ -101,23 +125,29 @@ def _visible(b, sq, sk, causal, window, q_offset, kv_len, device):
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                        q_offset=None, kv_len=None):
-    """Plain version of :func:`flash_attention`, in f32, with the same
-    contract (the port's twin of ``repro.kernels.ref.flash_attention_ref``,
-    in the unfolded layout, also returning the lse)."""
-    _check(q, k, v, q_offset, kv_len)
+                        q_offset=None, kv_len=None, k_scale=None, v_scale=None):
+    """Plain version of :func:`flash_attention` and of K1q, in f32, with the
+    same contract (the port's twin of ``repro.kernels.ref.flash_attention_ref``,
+    in the unfolded layout, also returning the lse).  An int8 ``k``/``v`` is
+    dequantized up front, ``k.float() * k_scale``, as the JAX oracle does
+    (``ref.py:48-53``)."""
+    _check(q, k, v, q_offset, kv_len, k_scale, v_scale)
     b, sq, h, hd = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     n_rep = h // kvh
     scale = 1.0 / math.sqrt(hd)
+    kf, vf = k.float(), v.float()
+    if k_scale is not None:
+        kf = kf * k_scale[:, None, :, None]
+        vf = vf * v_scale[:, None, :, None]
     qg = q.float().reshape(b, sq, kvh, n_rep, hd)
-    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float()) * scale
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, kf) * scale
     ok = _visible(b, sq, sk, causal, window, q_offset, kv_len, q.device)
     s = torch.where(ok, s, NEG_INF)
     m = s.amax(dim=-1)
     p = torch.where(ok, torch.exp(s - m[..., None]), 0.0)
     l_safe = p.sum(dim=-1).clamp_min(1e-30)
-    out = torch.einsum("bgrqk,bkgd->bqgrd", p / l_safe[..., None], v.float())
+    out = torch.einsum("bgrqk,bkgd->bqgrd", p / l_safe[..., None], vf)
     lse = (m + torch.log(l_safe)).reshape(b, h, sq)
     return out.reshape(b, sq, h, hd).to(q.dtype), lse
 
@@ -163,29 +193,25 @@ def _lib():
     fn = lib.flash_attention_fwd
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I,
-                       L, L, L, L, L, L, L, L, L, I, I, I, P]
+        fn.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                       L, L, L, L, L, L, L, L, L, I, I, I, I, P]
         fn.restype = ctypes.c_int
     return fn
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    q_offset: Optional[torch.Tensor] = None,
-                    kv_len: Optional[torch.Tensor] = None):
-    """Attention forward; returns ``(out, lse)``.  See the module docstring."""
-    _check(q, k, v, q_offset, kv_len)
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   q_offset=q_offset, kv_len=kv_len)
+def _launch_fwd(q, k, v, causal, window, q_offset, kv_len, k_scale, v_scale, what):
+    """One launch of K1 (``k_scale`` None) or K1q on CUDA tensors that
+    :func:`_check` passed; returns ``(out, lse)``."""
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+        raise ValueError(f"{what}: no kernel for device {q.device}")
     b, sq, h, hd = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
+        raise ValueError(f"{what}: head_dim {hd} not in {HEAD_DIMS}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
-        raise ValueError("flash_attention: q, k, v need unit stride on head_dim")
+        raise ValueError(f"{what}: q, k, v need unit stride on head_dim")
     rows, lanes = _lanes(q_offset, kv_len)
+    scales = [None if x is None else x.contiguous() for x in (k_scale, v_scale)]
     out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
@@ -193,18 +219,61 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  lse.data_ptr(),
-                 *(None if x is None else x.data_ptr() for x in lanes),
+                 *(None if x is None else x.data_ptr() for x in lanes + scales),
                  rows, b, sq, sk, h, kvh, hd,
                  q.stride(0), q.stride(1), q.stride(2),
                  k.stride(0), k.stride(1), k.stride(2),
                  v.stride(0), v.stride(1), v.stride(2),
-                 int(causal), int(window), _DTYPE_CODES[q.dtype], stream)
-    _build.check(err, "flash_attention")
+                 int(causal), int(window), _DTYPE_CODES[q.dtype],
+                 int(k_scale is not None), stream)
+    _build.check(err, what)
+    return out, lse
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset: Optional[torch.Tensor] = None,
+                    kv_len: Optional[torch.Tensor] = None,
+                    k_scale: Optional[torch.Tensor] = None,
+                    v_scale: Optional[torch.Tensor] = None):
+    """Attention forward; returns ``(out, lse)``.  With ``k_scale`` and
+    ``v_scale`` the int8 ``k``/``v`` go to K1q (:func:`flash_attention_int8`).
+    See the module docstring."""
+    _check(q, k, v, q_offset, kv_len, k_scale, v_scale)
+    if k_scale is not None:
+        return flash_attention_int8(q, k, v, k_scale, v_scale, causal=causal,
+                                    window=window, q_offset=q_offset, kv_len=kv_len)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset, kv_len=kv_len)
+    out, lse = _launch_fwd(q, k, v, causal, window, q_offset, kv_len, None, None,
+                           "flash_attention")
     flash_attention.launches += 1
     return out, lse
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_int8(q, k, v, k_scale, v_scale, *, causal: bool = True,
+                         window: int = 0, q_offset: Optional[torch.Tensor] = None,
+                         kv_len: Optional[torch.Tensor] = None):
+    """K1q: attention forward over int8 ``k``/``v`` (``(b, sk, kvh, hd)``)
+    with f32 ``k_scale``/``v_scale`` of shape ``(b, kvh)``; ``q`` f32 or
+    bf16.  Returns ``(out, lse)`` as :func:`flash_attention`.  Forward only."""
+    if k_scale is None or v_scale is None:
+        raise ValueError("flash_attention_int8: needs both k_scale and v_scale")
+    _check(q, k, v, q_offset, kv_len, k_scale, v_scale)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset, kv_len=kv_len,
+                                   k_scale=k_scale, v_scale=v_scale)
+    out, lse = _launch_fwd(q, k, v, causal, window, q_offset, kv_len, k_scale, v_scale,
+                           "flash_attention_int8")
+    flash_attention_int8.launches += 1
+    return out, lse
+
+
+flash_attention_int8.launches = 0
 
 
 def _bwd_lib():

@@ -1,0 +1,235 @@
+"""Ambient execution policy: the port's copy of ``repro/kernels/policy.py``,
+the subset that the serving path reads.
+
+Model code never names a backend; it asks the *ambient*
+:class:`ExecutionPolicy`, a frozen value holding
+
+  * ``impl``     — per-op backend map (``{"attention": "pallas", "*":
+    "auto"}``); the ``"*"`` wildcard covers every op without its own entry,
+    and the implicit default is ``"auto"``;
+  * ``variants`` — per-op variant-knob overrides (``{"attention":
+    {"kv_dtype": "int8"}}``).
+
+Policies layer on a context stack, as in the JAX package:
+
+    base:   ambient()   — assembled from ``REPRO_IMPL``
+    pinned: install()   — the launcher-resolved process policy (``--impl``)
+    scoped: apply()     — ``with``-blocks deriving from ``current()``
+
+What the port does with a policy: the attention knob ``kv_dtype=int8``
+selects the int8 KV cache (``models.common.kv_cache_dtype``), read by K1q.
+Backends name the route of a call: ``auto`` and ``pallas`` mean the port's
+hand-written kernel; ``jnp`` and ``ref`` mean the plain version, which the
+port runs only on CPU tensors.  :func:`require_kernel` raises for a plain
+backend on a CUDA tensor: the registry that would dispatch a plain version
+on the card comes with ROADMAP queue 2, and until then the port never runs
+the plain version there quietly.  ``pin``, ``bind``, ``from_run_options``
+and the ``interpret``, ``strict_tiles`` and ``autotune`` fields come with
+that registry.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+from contextvars import ContextVar
+from dataclasses import dataclass, field, replace
+from types import MappingProxyType
+from typing import Mapping, Optional
+
+IMPLS = ("auto", "jnp", "ref", "pallas")
+# the JAX registry's op names; a fixed tuple until the port has a registry
+OPS = ("scan", "matmul", "transpose", "attention", "fft")
+PLAIN_IMPLS = ("jnp", "ref")
+
+
+def _frozen_map(d: Optional[Mapping]) -> Mapping:
+    return MappingProxyType(dict(d or {}))
+
+
+@dataclass(frozen=True)
+class ExecutionPolicy:
+    """Every dispatch-time decision the port reads, as one immutable value.
+    Build variations with :meth:`with_` and activate them with :func:`apply`
+    / :func:`install`."""
+
+    impl: Mapping[str, str] = field(default_factory=dict)
+    variants: Mapping[str, Mapping] = field(default_factory=dict)
+
+    def __post_init__(self):
+        object.__setattr__(self, "impl", _frozen_map(self.impl))
+        object.__setattr__(
+            self, "variants",
+            _frozen_map({k: _frozen_map(v) for k, v in dict(self.variants).items()}))
+        known = set(OPS) | {"*"}
+        for op, backend in self.impl.items():
+            if op not in known:
+                raise ValueError(f"unknown op {op!r} in impl map; "
+                                 f"registered: {sorted(known)}")
+            if backend not in IMPLS:
+                raise ValueError(
+                    f"unknown impl {backend!r} for op {op!r}; expected one of {IMPLS}")
+        for op in self.variants:
+            if op not in known:
+                raise ValueError(f"unknown op {op!r} in variants map; "
+                                 f"registered: {sorted(known)}")
+
+    def impl_for(self, op: str) -> str:
+        """The op's backend: its own entry, else ``"*"``, else ``"auto"``."""
+        return self.impl.get(op, self.impl.get("*", "auto"))
+
+    def variant_for(self, op: str) -> dict:
+        """The op's variant-knob overrides (a fresh plain dict)."""
+        return dict(self.variants.get(op, {}))
+
+    def with_(self, *, impl: Optional[Mapping] = None,
+              variants: Optional[Mapping] = None) -> "ExecutionPolicy":
+        """Functional update: ``impl`` and ``variants`` entries MERGE over
+        the existing maps (an impl entry set to None deletes)."""
+        updates = {}
+        if impl is not None:
+            merged = {**self.impl, **dict(impl)}
+            updates["impl"] = {k: v for k, v in merged.items() if v is not None}
+        if variants is not None:
+            mv = dict(self.variants)
+            for op, knobs in dict(variants).items():
+                mv[op] = {**dict(mv.get(op, {})), **dict(knobs)}
+            updates["variants"] = mv
+        return replace(self, **updates)
+
+    def describe(self) -> str:
+        """One-line rendering that round-trips through
+        :func:`parse_impl_spec` (``op=backend:knob=value``; an op with
+        variants but no impl entry prints as ``op=auto:...``)."""
+        def _fmt_knob(v):
+            return str(v).lower() if isinstance(v, bool) else str(v)
+
+        parts = []
+        for op in sorted(set(self.impl) | set(self.variants)):
+            entry = f"{op}={self.impl.get(op, 'auto')}"
+            for knob, v in sorted(self.variants.get(op, {}).items()):
+                entry += f":{knob}={_fmt_knob(v)}"
+            parts.append(entry)
+        return ",".join(parts) or "auto"
+
+
+def _parse_knob_value(raw: str):
+    """Typed variant-knob values: bools (``true``/``false``), ints, else the
+    raw string (e.g. a dtype name)."""
+    low = raw.lower()
+    if low in ("true", "false"):
+        return low == "true"
+    try:
+        return int(raw)
+    except ValueError:
+        return raw
+
+
+def parse_impl_spec(spec: str) -> tuple[dict[str, str], dict[str, dict]]:
+    """The ``--impl`` / ``REPRO_IMPL`` grammar with variant knobs:
+    ``op=backend[:knob=value]*[,op=backend...]`` — e.g.
+    ``attention=pallas:kv_dtype=int8``.  Returns ``(impl, variants)`` maps
+    ready for :meth:`ExecutionPolicy.with_`.  A bare backend with no ``=``
+    is shorthand for the wildcard (``pallas`` == ``*=pallas``); knobs on the
+    wildcard are rejected.  Unknown op names raise: a typo'd entry would
+    otherwise match nothing and leave every op on ``auto``."""
+    known = set(OPS) | {"*"}
+    impl: dict[str, str] = {}
+    variants: dict[str, dict] = {}
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        head, *knob_parts = part.split(":")
+        if "=" in head:
+            op, _, backend = head.partition("=")
+            op, backend = op.strip(), backend.strip()
+        else:
+            op, backend = "*", head
+        if not op:
+            raise ValueError(f"bad --impl entry {part!r}: empty op name")
+        if op not in known:
+            raise ValueError(f"bad --impl entry {part!r}: unknown op {op!r} "
+                             f"(registered: {sorted(known)})")
+        if backend not in IMPLS:
+            raise ValueError(f"bad --impl entry {part!r}: unknown backend "
+                             f"{backend!r} (expected one of {IMPLS})")
+        impl[op] = backend
+        for kp in knob_parts:
+            kp = kp.strip()
+            if not kp:
+                continue
+            if op == "*":
+                raise ValueError(f"bad --impl entry {part!r}: variant knobs "
+                                 "need a concrete op, not the * wildcard")
+            knob, sep, val = kp.partition("=")
+            if not sep or not knob.strip() or not val.strip():
+                raise ValueError(f"bad --impl entry {part!r}: variant knob "
+                                 f"{kp!r} must be knob=value")
+            variants.setdefault(op, {})[knob.strip()] = \
+                _parse_knob_value(val.strip())
+    return impl, variants
+
+
+# the assembled ambient, keyed on the env value it was read from
+_AMBIENT_CACHE: dict[Optional[str], ExecutionPolicy] = {}
+
+
+def ambient() -> ExecutionPolicy:
+    """The base of the policy stack, from ``REPRO_IMPL`` (the ``--impl``
+    grammar).  Memoized per env value."""
+    key = os.environ.get("REPRO_IMPL")
+    hit = _AMBIENT_CACHE.get(key)
+    if hit is not None:
+        return hit
+    impl, variants = parse_impl_spec(key) if key else ({}, {})
+    pol = ExecutionPolicy(impl=impl, variants=variants)
+    _AMBIENT_CACHE.clear()
+    _AMBIENT_CACHE[key] = pol
+    return pol
+
+
+_STACK: ContextVar[tuple] = ContextVar("repro_torch_policy_stack", default=())
+_PROCESS: Optional[ExecutionPolicy] = None
+
+
+def current() -> ExecutionPolicy:
+    """The active policy: innermost ``apply`` scope, else the installed
+    process policy, else the environment-assembled ambient."""
+    stack = _STACK.get()
+    if stack:
+        return stack[-1]
+    if _PROCESS is not None:
+        return _PROCESS
+    return ambient()
+
+
+def install(pol: Optional[ExecutionPolicy]) -> None:
+    """Pin (or with None clear) the process-level policy: the launcher hook
+    behind ``--impl``.  Scoped ``apply`` blocks still layer on top."""
+    global _PROCESS
+    _PROCESS = pol
+
+
+@contextlib.contextmanager
+def apply(pol: Optional[ExecutionPolicy] = None, **updates):
+    """Push a policy scope: exactly ``pol``, or :func:`current` updated by
+    :meth:`ExecutionPolicy.with_`.  Restores the previous stack on exit."""
+    new = pol if pol is not None else current()
+    if updates:
+        new = new.with_(**updates)
+    token = _STACK.set(_STACK.get() + (new,))
+    try:
+        yield new
+    finally:
+        _STACK.reset(token)
+
+
+def require_kernel(op: str, device: "torch.device") -> None:  # noqa: F821
+    """Raise when the policy asks for ``op``'s plain version on a CUDA
+    tensor.  On the CPU the plain version is what runs anyway."""
+    backend = current().impl_for(op)
+    if device.type == "cuda" and backend in PLAIN_IMPLS:
+        raise NotImplementedError(
+            f"{op}={backend} asks for the plain version on {device}; the port "
+            "runs its hand-written kernel there (auto or pallas). Plain "
+            "backends on the card come with the registry, ROADMAP queue 2")

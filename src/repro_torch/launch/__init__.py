@@ -1,1 +1,2 @@
-"""Launchers: the lockstep server."""
+"""Launchers: the lockstep server, the continuous-batching engine and the
+trainer."""

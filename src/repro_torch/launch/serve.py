@@ -9,13 +9,23 @@ ends when every row has stopped.
 
 Every matrix product and attention call runs on the port's CUDA kernels;
 with ``device="cpu"`` they run on their plain PyTorch versions.  There is no
-mesh and no execution-policy layer in the port yet.
+mesh in the port yet.  ``--impl`` installs the execution policy
+(``repro_torch.kernels.policy``) with the JAX launcher's grammar,
+``op=backend[:knob=value][,...]``; the port acts on the attention knob
+``kv_dtype=int8``, which serves from an int8 KV cache read by K1q:
 
     python -m repro_torch.launch.serve --arch qwen3-1.7b --device cuda
+    python -m repro_torch.launch.serve --reduced --device cpu \
+        --impl 'attention=pallas:kv_dtype=int8'
+
+:meth:`Server.prefill` and :meth:`Server.decode` are the per-call entry
+points of the lockstep path; ``run_batch`` drives them, and the engine's
+``check_lockstep_parity`` runs each request alone through them.
 """
 from __future__ import annotations
 
 import argparse
+import logging
 import time
 from dataclasses import dataclass, field
 from typing import Optional
@@ -24,7 +34,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.kernels import policy
 from repro_torch.models import build_model
+
+log = logging.getLogger("repro_torch.serve")
 
 
 @dataclass
@@ -50,6 +63,21 @@ class Server:
             self.model.init(torch.Generator(device=self.device).manual_seed(0))
         else:
             self.model.load_state_dict(params)
+        log.info("policy %s", policy.current().describe())
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor):
+        """Prefill ``tokens`` (b, s) into a fresh ``max_len`` cache; returns
+        (last-token logits (b, V) f32, cache)."""
+        return self.model.prefill(tokens, self.max_len)
+
+    @torch.no_grad()
+    def decode(self, tokens: torch.Tensor, pos: torch.Tensor, cache):
+        """One greedy decode step: tokens (b, 1) at ``pos`` (an int32 device
+        scalar or (b,)); returns (next tokens (b,) int32, cache).  The
+        argmax takes the first maximum, as ``jnp.argmax``."""
+        logits, cache = self.model.decode_step(tokens, pos, cache)
+        return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
     @torch.no_grad()
     def run_batch(self, requests: list[Request],
@@ -68,7 +96,7 @@ class Server:
         tokens = torch.from_numpy(toks).to(self.device)
 
         t0 = time.perf_counter()
-        logits, cache = self.model.prefill(tokens, self.max_len)
+        logits, cache = self.prefill(tokens)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)  # first maximum, as jnp
         finite = torch.isfinite(logits).all()
         host = nxt.tolist()  # waits for the prefill
@@ -100,6 +128,14 @@ class Server:
                 "completed": {r.uid: len(r.out) for r in requests}}
 
 
+def install_impl(spec: str) -> None:
+    """Install the process policy named by an ``--impl`` spec (no-op when
+    empty), over the ``REPRO_IMPL`` ambient, as the JAX launchers do."""
+    if spec:
+        impl, variants = policy.parse_impl_spec(spec)
+        policy.install(policy.ambient().with_(impl=impl, variants=variants))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="qwen3-1.7b")
@@ -108,7 +144,11 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--impl", default="",
+                    help="execution-policy impl map, op=backend[:knob=value][,...] "
+                         "(see the module docstring)")
     args = ap.parse_args(argv)
+    install_impl(args.impl)
 
     cfg = get_smoke_config(args.arch) if args.reduced else get_config(args.arch)
     server = Server(cfg, device=args.device, max_batch=args.batch, max_len=128)

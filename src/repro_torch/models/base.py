@@ -65,10 +65,27 @@ class Model(nn.Module):
         """tokens: (b, s).  Returns (last-token logits (b, V) f32, cache)."""
         raise NotImplementedError
 
+    def prefill_chunk(self, tokens: torch.Tensor, offset: torch.Tensor, cache, *,
+                      first: bool = False, lens: Optional[torch.Tensor] = None):
+        """One padded prefill chunk over the full cache batch.
+
+        tokens: (b, s); offset: int32 scalar or per-row (b,) context depths
+        already in the cache; lens: optional (b,) valid-token counts (None =
+        the whole chunk is valid on every row; 0 parks a row, whose cache
+        state must come through unchanged).  ``first`` marks each request's
+        first chunk (scale calibration runs there).  Returns (per-row
+        last-valid-token logits (b, V) f32, cache)."""
+        raise NotImplementedError
+
     def decode_step(self, tokens: torch.Tensor, pos: torch.Tensor, cache):
         """tokens: (b, 1); pos: scalar or per-row (b,) int32 tensor.
         Returns (logits (b, V) f32, cache)."""
         raise NotImplementedError
+
+    def batch_extras_specs(self, batch_size: int, seq_len: int) -> dict:
+        """Shapes and dtypes of modality-frontend inputs (VLM/audio), keyed
+        by name; none for a text-only family."""
+        return {}
 
 
 def maybe_remat(fn, opts: RunOptions):

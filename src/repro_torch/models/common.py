@@ -3,8 +3,11 @@ of the main-path subset of ``repro/models/common.py``.
 
 Every matrix product goes through the differentiable ``matmul`` (K2 forward
 and backward) and every attention call through ``FlashAttention`` (K1
-forward, K3 backward); the JAX package's jnp routes (dense, blockwise,
-banded attention, einsum projections) have no counterpart here.  Norms,
+forward, K3 backward), or over an int8 cache through K1q; the JAX
+package's jnp routes (dense, blockwise, banded attention, einsum
+projections) have no counterpart here, and a policy that asks for one on
+the card raises (``policy.require_kernel``).  The int8 cache's scales and
+quantizer (``kv_scale``, ``quantize_kv``) are bit-equal to JAX's.  Norms,
 RoPE and the SwiGLU gate keep the JAX numerics: f32 inside, cast back to the
 activation dtype.
 """
@@ -16,7 +19,8 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.kernels.flash_attention import FlashAttention
+from repro_torch.kernels import policy
+from repro_torch.kernels.flash_attention import FlashAttention, flash_attention
 from repro_torch.kernels.hbp_matmul import matmul
 
 
@@ -87,19 +91,28 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
               q_offset: Optional[torch.Tensor] = None,
-              kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+              kv_len: Optional[torch.Tensor] = None,
+              k_scale: Optional[torch.Tensor] = None,
+              v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (b, sq, h, hd) against k, v (b, sk, kvh, hd) at their native head
     count, through the flash-attention kernels.  Fresh self-attention passes
     no ``q_offset``/``kv_len``; attention over a cache passes each row's
     position and valid length as int32 device tensors (scalar or (b,)).
     Differentiable in q, k, v (K3 backward); without a gradient to record
-    it launches the forward kernel alone."""
+    it launches the forward kernel alone.  ``k_scale``/``v_scale`` (f32
+    (b, kvh)) go with an int8 k/v: K1q dequantizes them at its block load,
+    forward only, as the JAX kernel's quantized path."""
+    policy.require_kernel("attention", q.device)
     window = 0 if window is None else int(window)
+    if k_scale is not None:
+        return flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                               kv_len=kv_len, k_scale=k_scale, v_scale=v_scale)[0]
     return FlashAttention.apply(q, k, v, q_offset, kv_len, causal, window)
 
 
 def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., d) @ w (d, f) -> (..., f) through the matmul kernel."""
+    policy.require_kernel("matmul", x.device)
     lead = x.shape[:-1]
     return matmul(x.reshape(-1, x.shape[-1]), w).reshape(*lead, w.shape[-1])
 
@@ -111,6 +124,7 @@ def qkv_project(x, wq, wk, wv):
 def attn_out_project(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """(b, s, h, hd) heads -> (b, s, d); the head fold into the contraction
     is a view of the kernel's contiguous output."""
+    policy.require_kernel("matmul", o.device)
     b, s, h, hd = o.shape
     return matmul(o.reshape(b * s, h * hd), wo).reshape(b, s, -1)
 
@@ -127,9 +141,47 @@ def logits_matmul(h: torch.Tensor, embed_out: torch.Tensor) -> torch.Tensor:
     """h (..., d) @ embed_out (V, d)ᵀ: computed in the activation dtype, as
     the JAX kernel route does, then cast to f32.  ``embed_out.T`` is a view;
     the kernel reads the table in place."""
+    policy.require_kernel("matmul", h.device)
     lead = h.shape[:-1]
     out = matmul(h.reshape(-1, h.shape[-1]), embed_out.T)
     return out.reshape(*lead, embed_out.shape[0]).float()
+
+
+# ---------------------------------------------------------------------------
+# quantized KV cache (the attention kv_dtype variant)
+# ---------------------------------------------------------------------------
+
+def kv_cache_dtype(default: torch.dtype) -> tuple[torch.dtype, bool]:
+    """The serving KV-cache dtype under the current policy: the attention
+    ``kv_dtype`` variant (``--impl 'attention=pallas:kv_dtype=int8'``)
+    selects the int8 cache; anything else keeps ``default``.  Returns
+    ``(dtype, quantized)``."""
+    name = policy.current().variant_for("attention").get("kv_dtype")
+    if name in ("int8", "i8"):
+        return torch.int8, True
+    return default, False
+
+
+def kv_scale(x: torch.Tensor, valid=None) -> torch.Tensor:
+    """Per-(batch, kv_head) symmetric int8 scale of a (b, s, kvh, hd) k or v
+    slab: absmax / 127, floored at 1e-8 so an all-zero head still divides
+    cleanly.  ``valid`` (an int, or an int tensor holding a scalar or one
+    count per row) restricts the absmax to the first ``valid`` positions,
+    so the pad of a zero-padded chunk never widens the scales."""
+    ax = x.float().abs()
+    if valid is not None:
+        v = torch.as_tensor(valid, device=x.device)
+        v = v.reshape(-1, 1, 1, 1) if v.dim() == 1 else v
+        ok = torch.arange(x.shape[1], device=x.device)[None, :, None, None] < v
+        ax = torch.where(ok, ax, 0.0)
+    return (ax.amax(dim=(1, 3)) / 127.0).clamp_min(1e-8)
+
+
+def quantize_kv(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Quantize a (b, s, kvh, hd) slab to int8 with the per-(b, kvh)
+    ``scale``: round half to even (as ``jnp.round``), clipped to ±127."""
+    q = torch.round(x.float() / scale[:, None, :, None])
+    return q.clamp(-127, 127).to(torch.int8)
 
 
 # ---------------------------------------------------------------------------

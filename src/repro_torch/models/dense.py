@@ -8,8 +8,11 @@ follow the JAX pytree (``embed``, ``final_norm``, ``layers.<i>.<name>``),
 so ``repro_torch.checkpoint`` carries JAX parameters across by unstacking
 the layer axis.  Every matrix product runs on ``hbp_matmul`` and every
 attention call on ``flash_attention``; in training their backward runs on
-``hbp_matmul`` and ``flash_attention_bwd``.  The parameters are trainable;
-``prefill`` and ``decode_step`` run under ``torch.no_grad``.
+``hbp_matmul`` and ``flash_attention_bwd``.  Over an int8 KV cache (the
+policy's attention ``kv_dtype=int8`` variant) decode and continuation
+chunks attend through ``flash_attention_int8`` (K1q).  The parameters are
+trainable; ``prefill``, ``prefill_chunk`` and ``decode_step`` run under
+``torch.no_grad``.
 """
 from __future__ import annotations
 
@@ -100,11 +103,21 @@ class DenseLM(Model):
                 common.dense_init(p, generator)
 
     # -- layer body ----------------------------------------------------------
-    def _attn(self, layer: DenseLayer, x, rope, window, kc=None, vc=None,
-              write_at=None, q_offset=None, kv_len=None):
-        """Attention sub-block.  With cache slabs it writes the fresh k/v
-        into them at ``write_at``; with ``q_offset`` given it attends over
-        the cache (decode), else over the fresh k/v (prefill, training)."""
+    def _attn(self, layer: DenseLayer, x, rope, window, cache=None, li=None,
+              write_at=None, q_offset=None, kv_len=None, chunked=False,
+              calib_len=None):
+        """Attention sub-block (JAX ``dense.py:101-180``).  With ``cache``
+        it writes the fresh k/v into layer ``li``'s slabs at ``write_at``.
+        Decode (one token) and continuation chunks (``chunked``) then attend
+        the cache at ``q_offset``/``kv_len``; prefill, first chunks and
+        training attend the fresh k/v.
+
+        An int8 cache carries per-(batch, kv_head) scales: prefill and first
+        chunks calibrate them from the fresh k/v over ``calib_len`` valid
+        positions (a row with ``calib_len == 0``, parked, keeps its stored
+        scales) and attend the exact fp k/v; decode and continuation chunks
+        quantize with the stored scales and attend the int8 cache, which
+        K1q dequantizes at its block load."""
         cfg = self.cfg
         b, s, _ = x.shape
         hd = cfg.head_dim_
@@ -118,13 +131,33 @@ class DenseLM(Model):
             k = common.rms_norm(k, layer.k_norm, cfg.norm_eps)
         q = common.rotate(q, *rope)
         k = common.rotate(k, *rope)
-        if kc is not None:
+        if cache is None:
+            o = common.attention(q, k, v, causal=True, window=window)
+            return x + common.attn_out_project(o, layer.wo)
+
+        kc, vc = cache.k[li], cache.v[li]
+        scales = {}
+        if cache.quantized:
+            ks, vs = cache.k_scale[li], cache.v_scale[li]
+            if s > 1 and not chunked:
+                # calibrate on the real k/v, over calib_len valid positions
+                ck, cv = common.kv_scale(k, calib_len), common.kv_scale(v, calib_len)
+                if isinstance(calib_len, torch.Tensor) and calib_len.dim() == 1:
+                    live = calib_len > 0
+                    ck = dcache.masked_rows(live, ck, ks)
+                    cv = dcache.masked_rows(live, cv, vs)
+                ks.copy_(ck)
+                vs.copy_(cv)
+            dcache.linear_write(kc, common.quantize_kv(k, ks), write_at)
+            dcache.linear_write(vc, common.quantize_kv(v, vs), write_at)
+            scales = {"k_scale": ks, "v_scale": vs}
+        else:
             dcache.linear_write(kc, k, write_at)
             dcache.linear_write(vc, v, write_at)
-        if q_offset is not None:
-            # decode: attend the cache; the fresh row was just written
+        if s == 1 or chunked:
+            # attend the cache: the fresh rows were just written
             o = common.attention(q, kc, vc, causal=True, window=window,
-                                 q_offset=q_offset, kv_len=kv_len)
+                                 q_offset=q_offset, kv_len=kv_len, **scales)
         else:
             o = common.attention(q, k, v, causal=True, window=window)
         return x + common.attn_out_project(o, layer.wo)
@@ -137,7 +170,8 @@ class DenseLM(Model):
         return self._ffn(layer, self._attn(layer, x, rope, window, *cache_args))
 
     def _backbone(self, tokens, q_pos, cache: Optional[dcache.LinearKV] = None,
-                  write_at=None, q_offset=None, kv_len=None):
+                  write_at=None, q_offset=None, kv_len=None, chunked=False,
+                  calib_len=None):
         """The layer stack.  Without a cache (training) each layer is
         rematerialised per ``opts.remat``; with one it writes k/v there."""
         cfg = self.cfg
@@ -149,7 +183,7 @@ class DenseLM(Model):
         layer_fn = self._layer if cache is not None else maybe_remat(self._layer, self.opts)
         for i, layer in enumerate(self.layers):
             cache_args = (() if cache is None else
-                          (cache.k[i], cache.v[i], write_at, q_offset, kv_len))
+                          (cache, i, write_at, q_offset, kv_len, chunked, calib_len))
             x = layer_fn(layer, x, ropes[self.thetas[i]], self.windows[i], *cache_args)
         return common.rms_norm(x, self.final_norm, cfg.norm_eps)
 
@@ -169,20 +203,59 @@ class DenseLM(Model):
 
     # -- inference -----------------------------------------------------------
     def init_cache(self, batch_size: int, max_len: int) -> dcache.LinearKV:
+        """``LinearKV`` cache (layer-stacked slabs, per-row positions),
+        int8 with per-(layer, batch, kv_head) f32 scales under the policy's
+        attention ``kv_dtype=int8`` variant (JAX ``dense.py:263-275``)."""
         cfg = self.cfg
+        dtype, quantized = common.kv_cache_dtype(cfg.activation_dtype)
         return dcache.LinearKV.create(
             (cfg.n_layers,), batch_size, max_len, cfg.n_kv_heads, cfg.head_dim_,
-            cfg.activation_dtype, device=self.device)
+            dtype, device=self.device, quantized=quantized)
+
+    @staticmethod
+    def _cache_lanes(cache: dcache.LinearKV, q_offset: torch.Tensor, s: int):
+        """The kernel's lanes for ``s`` query rows at ``q_offset`` (scalar or
+        (b,)) over the cache: keys up to the last query row, clipped to the
+        capacity (JAX ``_attention_via_kernel``)."""
+        q_offset = q_offset.reshape(-1)
+        return q_offset, (q_offset + s).clamp(max=cache.capacity)
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, max_len: int):
         b, s = tokens.shape
         q_pos = torch.arange(s, dtype=torch.int32, device=self.device)
         kv = self.init_cache(b, max_len)
-        x = self._backbone(tokens, q_pos, kv, write_at=0)
+        q_offset, kv_len = self._cache_lanes(
+            kv, torch.zeros((), dtype=torch.int32, device=self.device), s)
+        x = self._backbone(tokens, q_pos, kv, write_at=0, q_offset=q_offset,
+                           kv_len=kv_len)
         logits = common.logits_matmul(x[:, -1], self.embed)
         pos = torch.full((b,), s, dtype=torch.int32, device=self.device)
         return logits, kv.replace(pos=pos)
+
+    @torch.no_grad()
+    def prefill_chunk(self, tokens: torch.Tensor, offset: torch.Tensor,
+                      cache: dcache.LinearKV, *, first: bool = False,
+                      lens: Optional[torch.Tensor] = None):
+        """One fixed-size chunk of a chunked prefill (JAX ``dense.py:300-327``):
+        write this chunk's k/v at ``offset`` (an int32 tensor, scalar or
+        per-row) and attend causally.  The first chunk attends its fresh k/v
+        (an int8 cache calibrates its scales there, over the valid tokens
+        only); continuation chunks attend the cache prefix.  ``lens`` (b,)
+        counts each row's valid tokens; 0 parks a row, whose k/v lands only
+        where its own next write lands first.  Returns the per-row
+        last-valid-token logits (b, V) and the cache."""
+        b, s = tokens.shape
+        offset = offset.to(torch.int32)
+        q_pos = (offset[:, None] if offset.dim() else offset) + torch.arange(
+            s, dtype=torch.int32, device=self.device)
+        q_offset, kv_len = self._cache_lanes(cache, offset, s)
+        x = self._backbone(tokens, q_pos, cache, write_at=offset, q_offset=q_offset,
+                           kv_len=kv_len, chunked=not first,
+                           calib_len=s if lens is None else lens)
+        logits = common.logits_matmul(dcache.pick_last(x, lens), self.embed)
+        new_pos = offset + (s if lens is None else lens.to(torch.int32))
+        return logits, cache.replace(pos=new_pos.expand(b).contiguous())
 
     @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor, pos: torch.Tensor,
@@ -193,8 +266,7 @@ class DenseLM(Model):
         b = tokens.shape[0]
         pos = pos.to(torch.int32)
         q_pos = pos[:, None] if pos.dim() else pos.reshape(1)
-        q_offset = pos.reshape(-1)
-        kv_len = (q_offset + 1).clamp(max=cache.capacity)
+        q_offset, kv_len = self._cache_lanes(cache, pos, 1)
         x = self._backbone(tokens, q_pos, cache, write_at=pos,
                            q_offset=q_offset, kv_len=kv_len)
         logits = common.logits_matmul(x[:, -1], self.embed)

@@ -1,0 +1,231 @@
+"""Fault tolerance for the serving engine: fault injection, bounded retry,
+straggler detection.  The port's copy of the serving half of
+``repro/runtime/fault_tolerance.py``.
+
+The engine (``repro_torch.launch.engine``) maps the failure taxonomy onto
+launches: (a) a launch that exhausts its retries raises
+:class:`LaunchFailedError` for a job-level restart, (b) a transient launch
+fault retries under :class:`FaultPolicy`'s bounded backoff, and (c)
+straggler launches are flagged by :class:`StragglerMonitor` z-scores and
+feed the engine's graceful-degradation window.
+
+Faults fire deterministically from a declarative plan
+(:class:`FaultInjector`, ``REPRO_FAULTS``); the one sanctioned source of
+nondeterminism is the seeded retry-backoff jitter, which perturbs wall time
+only, never the recovered output.  The training-side
+``FaultTolerantRunner`` and the fleet grammar ``parse_fleet_plan`` come
+with the trainer's checkpointing and the router (ROADMAP queues 4 and 6).
+"""
+from __future__ import annotations
+
+import os
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+
+FAULT_PLAN_ENV = "REPRO_FAULTS"
+
+# The engine's fault-telemetry counter names, in one place so every consumer
+# slices the same keys out of the scheduler's counter dict.
+FAULT_COUNTER_KEYS = (
+    "retries", "faults_injected", "slots_poisoned", "snapshots_taken",
+    "snapshot_restores", "stragglers", "degradations", "degraded_iters",
+)
+
+
+def export_fault_counters(counters: dict) -> dict:
+    """The fault-tolerance slice of an engine's telemetry counters (missing
+    keys read as 0)."""
+    return {k: counters.get(k, 0) for k in FAULT_COUNTER_KEYS}
+
+
+class InjectedFault(RuntimeError):
+    """A fault raised by :class:`FaultInjector` (distinguishable from real
+    failures in logs; handled identically by the retry machinery)."""
+
+
+class LaunchFailedError(RuntimeError):
+    """A launch exhausted its bounded retries — the serving analogue of a
+    hard step failure, escalated for job-level restart."""
+
+    def __init__(self, kind: str, ordinal: int, attempts: int):
+        super().__init__(
+            f"{kind} launch {ordinal} failed after {attempts} attempt(s)")
+        self.kind = kind
+        self.ordinal = ordinal
+        self.attempts = attempts
+
+
+@dataclass
+class FaultSpec:
+    """One parsed fault-plan entry.
+
+    ``kind``     ``decode`` | ``prefill`` (``index`` = per-run launch
+                 ordinal) or ``slot`` (``index`` = engine slot id).
+    ``action``   ``raise`` (fail the launch; ``arg`` = consecutive attempts
+                 to fail, default 1), ``delay`` (sleep before the launch —
+                 a straggler; ``arg`` = seconds, default 0.05), or
+                 ``nan_logits`` (poison the slot's logits; ``arg`` = fire on
+                 the n-th decode launch in which the slot is decoding,
+                 default 1).
+    """
+
+    kind: str
+    index: int
+    action: str
+    arg: float
+    remaining: float = field(default=0.0)
+
+    def __post_init__(self):
+        # 'raise' burns one count per failed attempt; the others fire once
+        # after 'arg' eligible launches (delay is immediate: count 1)
+        self.remaining = self.arg if self.action == "raise" else (
+            self.arg if self.action == "nan_logits" else 1)
+
+
+_KINDS = ("decode", "prefill", "slot")
+_ACTIONS = ("raise", "delay", "nan_logits")
+_DEFAULT_ARG = {"raise": 1, "delay": 0.05, "nan_logits": 1}
+
+
+def parse_fault_plan(plan: str) -> list[FaultSpec]:
+    """Parse the declarative grammar
+    ``kind@index=action[:arg][,kind@index=action[:arg]...]``, e.g.
+    ``decode@12=raise,prefill@3=delay:0.2,slot@2=nan_logits``."""
+    specs: list[FaultSpec] = []
+    for raw in filter(None, (e.strip() for e in plan.split(","))):
+        try:
+            target, action = raw.split("=", 1)
+            kind, index = target.split("@", 1)
+            arg = None
+            if ":" in action:
+                action, arg_s = action.split(":", 1)
+                arg = float(arg_s)
+        except ValueError as e:
+            raise ValueError(f"malformed fault-plan entry {raw!r} "
+                             "(want kind@index=action[:arg])") from e
+        if kind not in _KINDS:
+            raise ValueError(f"unknown fault kind {kind!r} in {raw!r} "
+                             f"(want one of {_KINDS})")
+        if action not in _ACTIONS:
+            raise ValueError(f"unknown fault action {action!r} in {raw!r} "
+                             f"(want one of {_ACTIONS})")
+        if action == "nan_logits" and kind != "slot":
+            raise ValueError(f"{raw!r}: nan_logits targets a slot")
+        if action in ("raise", "delay") and kind == "slot":
+            raise ValueError(f"{raw!r}: {action} targets a launch "
+                             "(decode/prefill)")
+        specs.append(FaultSpec(kind, int(index), action,
+                               _DEFAULT_ARG[action] if arg is None else arg))
+    return specs
+
+
+class FaultInjector:
+    """Deterministic, plan-driven fault source.
+
+    The plan (see :func:`parse_fault_plan`; ``REPRO_FAULTS`` env) names
+    exactly which launches fail, which straggle, and which slot's logits go
+    non-finite — so a faulted run is reproducible end to end and its
+    recovered output can be asserted token-identical to the clean run.  The
+    seed jitters only the injected delay's duration.
+    """
+
+    def __init__(self, plan: str = "", seed: int = 0):
+        self.plan = plan
+        self.specs = parse_fault_plan(plan)
+        self.rng = np.random.default_rng(seed)
+        self.counters = {"faults_injected": 0}
+
+    @classmethod
+    def from_env(cls, seed: int = 0) -> "FaultInjector":
+        """An injector for the ``REPRO_FAULTS`` plan (empty plan = no-op)."""
+        return cls(os.environ.get(FAULT_PLAN_ENV, ""), seed=seed)
+
+    def __bool__(self) -> bool:
+        return bool(self.specs)
+
+    def describe(self) -> str:
+        return self.plan or "none"
+
+    def before_launch(self, kind: str, ordinal: int) -> None:
+        """Fire any ``raise``/``delay`` fault planned for this launch.
+        Raises :class:`InjectedFault` BEFORE the launch writes anything, so
+        a bounded retry of the same arguments is sound; a ``delay`` sleeps
+        in the launch's timed window so the straggler watchdog sees it."""
+        for spec in self.specs:
+            if (spec.kind != kind or spec.index != ordinal
+                    or spec.remaining <= 0):
+                continue
+            if spec.action == "raise":
+                spec.remaining -= 1
+                self.counters["faults_injected"] += 1
+                raise InjectedFault(f"injected: {kind} launch {ordinal}")
+            if spec.action == "delay":
+                spec.remaining -= 1
+                self.counters["faults_injected"] += 1
+                time.sleep(spec.arg * (1.0 + 0.1 * self.rng.random()))
+
+    def poison_rows(self, decoding_slots) -> list[int]:
+        """Slot ids whose logits must go non-finite on THIS decode launch:
+        each ``slot@i=nan_logits:n`` entry counts down one per decode launch
+        in which slot ``i`` is decoding and fires on the n-th."""
+        out = []
+        for spec in self.specs:
+            if (spec.kind != "slot" or spec.action != "nan_logits"
+                    or spec.remaining <= 0 or spec.index not in decoding_slots):
+                continue
+            spec.remaining -= 1
+            if spec.remaining <= 0:
+                self.counters["faults_injected"] += 1
+                out.append(spec.index)
+        return out
+
+
+@dataclass(frozen=True)
+class FaultPolicy:
+    """Bounded-retry policy: up to ``max_retries`` in-place retries with
+    exponential backoff and seeded jitter, which perturbs wall time and
+    never the recovered output."""
+
+    max_retries: int = 2
+    backoff_s: float = 0.005
+    backoff_mult: float = 2.0
+    jitter: float = 0.5
+    seed: int = 0
+
+    def make_rng(self) -> np.random.Generator:
+        return np.random.default_rng(self.seed)
+
+    def backoff(self, attempt: int, rng: np.random.Generator) -> float:
+        """Sleep before retry ``attempt`` (0-based): exponential base times
+        a seeded multiplicative jitter in [1, 1 + jitter)."""
+        base = self.backoff_s * (self.backoff_mult ** attempt)
+        return base * (1.0 + self.jitter * float(rng.random()))
+
+
+@dataclass
+class StragglerMonitor:
+    """Rolling per-launch time stats; flags launches slower than mean +
+    k*std.  Flagged samples are EXCLUDED from the rolling window, so a
+    genuine straggler does not inflate the std and mask the next one."""
+
+    window: int = 50
+    k_sigma: float = 3.0
+    min_samples: int = 10
+    times: list[float] = field(default_factory=list)
+    flagged: int = 0
+
+    def observe(self, dt: float) -> bool:
+        """Returns True if this sample is a straggler."""
+        ts = self.times
+        if len(ts) >= self.min_samples:
+            mean = sum(ts) / len(ts)
+            var = sum((t - mean) ** 2 for t in ts) / len(ts)
+            if dt > mean + self.k_sigma * max(var ** 0.5, 1e-9):
+                self.flagged += 1
+                return True  # outlier: keep it OUT of the window stats
+        ts.append(dt)
+        if len(ts) > self.window:
+            ts.pop(0)
+        return False

@@ -1,7 +1,8 @@
 """The port's kernels against the JAX package's.
 
 On the CPU the port's wrappers run their plain versions, so these tests hold
-``matmul_ref`` and ``flash_attention_ref`` against the JAX Pallas kernels
+``matmul_ref`` and ``flash_attention_ref`` (also over an int8 KV cache with
+its scales, K1q's plain version) against the JAX Pallas kernels
 (interpret mode) and the JAX oracles, on the same numpy inputs, and the
 backward (``matmul``'s and ``FlashAttention``'s, K3's plain version) against
 the JAX kernels' custom VJPs.  Tolerance: f32 throughout, atol 1e-5 forward
@@ -27,6 +28,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_ref,
+    flash_attention_int8,
     flash_attention_ref,
 )
 from repro_torch.kernels.hbp_matmul import hbp_matmul, matmul, matmul_ref  # noqa: E402
@@ -368,3 +370,133 @@ def test_matmul_kernel_transposed_a_matches_plain(cuda, dtype, m, k, n, trans_b)
     want = matmul_ref(act.T, b).float()
     tol = 1e-4 if dt == torch.float32 else 2 ** -7
     torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+# -- K1q: attention over an int8 KV cache --------------------------------------
+
+# (name, b, sq, sk, h, kvh, hd, causal, window, q_offset, kv_len)
+Q8_CASES = [
+    ("decode_rows_zero_lane", 3, 1, 16, 4, 2, 16, True, 0, [9, 3, 0], [10, 4, 0]),
+    ("chunk_rows", 2, 4, 16, 4, 2, 16, True, 0, [4, 8], [8, 12]),
+    ("decode_window", 2, 1, 16, 4, 2, 16, True, 3, [12, 5], [13, 6]),
+]
+
+
+def _q8_inputs(case, seed=11):
+    """q f32, k/v int8 over the whole range, f32 (b, kvh) scales."""
+    _, b, sq, sk, h, kvh, hd, *_ = case
+    r = _rng(seed)
+    q = r.standard_normal((b, sq, h, hd)).astype(np.float32)
+    k, v = (r.integers(-127, 128, (b, sk, kvh, hd)).astype(np.int8) for _ in "kv")
+    ks, vs = (r.uniform(0.005, 0.05, (b, kvh)).astype(np.float32) for _ in "kv")
+    return q, k, v, ks, vs
+
+
+@pytest.fixture(scope="module")
+def jax_q8_refs():
+    """The JAX kernel's quantized path (interpret mode) and its oracle on
+    every K1q case, computed once."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from repro.kernels import ref
+    from repro.kernels.flash_attention import flash_attention as jax_fa
+
+    out = {}
+    for case in Q8_CASES:
+        name, b, sq, sk, h, kvh, hd, causal, window, qo, kl = case
+        q, k, v, ks, vs = _q8_inputs(case)
+        kw = dict(causal=causal, window=window, q_offset=np.asarray(qo, np.int32),
+                  kv_len=np.asarray(kl, np.int32), n_heads=h,
+                  k_scale=jnp.asarray(ks.reshape(-1)), v_scale=jnp.asarray(vs.reshape(-1)))
+        fq, fk, fv = (jnp.asarray(_fold(x)) for x in (q, k, v))
+        out[name] = (_unfold(np.asarray(jax_fa(fq, fk, fv, interpret=True, **kw)), b),
+                     _unfold(np.asarray(ref.flash_attention_ref(fq, fk, fv, **kw)), b))
+    return out
+
+
+@pytest.mark.parametrize("case", Q8_CASES, ids=lambda c: c[0])
+def test_flash_attention_int8_ref_matches_jax(jax_q8_refs, case):
+    """K1q's plain version (and both wrappers, which take it on the CPU)
+    against the JAX quantized kernel in interpret mode and the JAX oracle:
+    per-row lanes, a kv_len 0 lane with exact zeros."""
+    name, b, sq, sk, h, kvh, hd, causal, window, qo, kl = case
+    q, k, v, ks, vs = (torch.from_numpy(x) for x in _q8_inputs(case))
+    kw = dict(causal=causal, window=window, q_offset=_lanes(qo), kv_len=_lanes(kl))
+    plain, _ = flash_attention_ref(q, k, v, k_scale=ks, v_scale=vs, **kw)
+    via_k1, _ = flash_attention(q, k, v, k_scale=ks, v_scale=vs, **kw)
+    via_k1q, _ = flash_attention_int8(q, k, v, ks, vs, **kw)
+    kern, oracle = jax_q8_refs[name]
+    for got in (plain, via_k1, via_k1q):
+        np.testing.assert_allclose(got.numpy(), kern, atol=ATOL)
+        np.testing.assert_allclose(got.numpy(), oracle, atol=ATOL)
+    for row in (i for i, n in enumerate(kl) if n == 0):
+        assert torch.count_nonzero(plain[row]) == 0
+
+
+def test_flash_attention_int8_rejects_unpaired_scales():
+    q = torch.zeros(2, 1, 4, 16)
+    k8 = torch.zeros(2, 8, 2, 16, dtype=torch.int8)
+    s = torch.ones(2, 2)
+    with pytest.raises(ValueError):  # one scale
+        flash_attention(q, k8, k8, k_scale=s)
+    with pytest.raises(TypeError):  # int8 without scales
+        flash_attention(q, k8, k8)
+    with pytest.raises(TypeError):  # scales with non-int8 k/v
+        flash_attention(q, k8.float(), k8.float(), k_scale=s, v_scale=s)
+    with pytest.raises(ValueError):  # K1q's own wrapper needs both
+        flash_attention_int8(q, k8, k8, s, None)
+    with pytest.raises(ValueError):  # scales of the wrong shape
+        flash_attention_int8(q, k8, k8, torch.ones(2), torch.ones(2))
+
+
+def test_kv_scale_and_quantize_kv_bit_equal_to_jax():
+    """The int8 cache's scale and quantizer, on the same f32 input, give the
+    same bits as JAX's: whole-slab, scalar and per-row valid counts (a 0
+    row), and ties at .5 rounding half to even (an absmax of 127 makes the
+    scale exactly 1)."""
+    import jax.numpy as jnp
+
+    from repro.models import common as jax_common
+    from repro_torch.models import common as pt_common
+
+    r = _rng(13)
+    x = (4 * r.standard_normal((3, 6, 2, 8))).astype(np.float32)
+    ties = np.zeros((2, 4, 2, 8), np.float32)
+    ties[:, 0, :, 0] = 127.0
+    ties[:, 1, :, :6] = [0.5, 1.5, 2.5, -0.5, -2.5, 126.5]
+    ties[:, 2, :, :3] = [-126.5, 3.5, -3.5]
+    for arr, valids in ((x, (None, 4, np.asarray([6, 0, 2], np.int32))), (ties, (None,))):
+        for valid in valids:
+            want_s = np.asarray(jax_common.kv_scale(jnp.asarray(arr), valid))
+            got_s = pt_common.kv_scale(torch.from_numpy(arr), None if valid is None
+                                       else torch.as_tensor(valid))
+            np.testing.assert_array_equal(got_s.numpy().view(np.int32), want_s.view(np.int32))
+            want_q = np.asarray(jax_common.quantize_kv(jnp.asarray(arr), jnp.asarray(want_s)))
+            got_q = pt_common.quantize_kv(torch.from_numpy(arr), got_s)
+            assert got_q.dtype == torch.int8
+            np.testing.assert_array_equal(got_q.numpy(), want_q)
+    q = pt_common.quantize_kv(torch.from_numpy(ties), torch.ones(2, 2))
+    assert q[0, 1, 0, :6].tolist() == [0, 2, 2, 0, -2, 126]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", Q8_CASES, ids=lambda c: c[0])
+def test_flash_int8_kernel_matches_plain(cuda, dtype, case):
+    """K1q against its plain version on the card; a kv_len 0 lane gives
+    exact zeros and the launch is counted as K1q's, not K1's."""
+    name, *_, causal, window, qo, kl = case
+    dt = getattr(torch, dtype)
+    q, k, v, ks, vs = (torch.from_numpy(x).to(cuda) for x in _q8_inputs(case))
+    q = q.to(dt)
+    kw = dict(causal=causal, window=window, q_offset=_lanes(qo, cuda), kv_len=_lanes(kl, cuda))
+    k1, k1q = flash_attention.launches, flash_attention_int8.launches
+    out, lse = flash_attention(q, k, v, k_scale=ks, v_scale=vs, **kw)
+    assert (flash_attention.launches, flash_attention_int8.launches) == (k1, k1q + 1)
+    ref_out, ref_lse = flash_attention_ref(q, k, v, k_scale=ks, v_scale=vs, **kw)
+    tol = ATOL if dt == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-5)
+    for row in (i for i, n in enumerate(kl) if n == 0):
+        assert torch.count_nonzero(out[row]) == 0

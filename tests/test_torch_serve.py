@@ -129,7 +129,9 @@ def test_load_repro_checkpoint_round_trip(tmp_path, f32_run):
 def test_import_loads_neither_jax_nor_repro():
     code = ("import repro_torch, repro_torch.launch.serve, repro_torch.launch.train, "
             "repro_torch.launch.steps, repro_torch.optim, repro_torch.data, "
-            "repro_torch.kernels.ref, repro_torch.checkpoint, sys; "
+            "repro_torch.kernels.ref, repro_torch.checkpoint, repro_torch.launch.engine, "
+            "repro_torch.kernels.policy, repro_torch.core.pws, "
+            "repro_torch.runtime.fault_tolerance, sys; "
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=SRC,
