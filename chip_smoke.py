@@ -44,6 +44,20 @@ Phases, each of which fails the run (exit code 1, no result line):
    phase 5, beside its bound, its plain version, the library's two calls
    (dequantize to bf16, then ``scaled_dot_product_attention``) and K1 at
    the same shape over a bf16 cache.
+10. Run the kernel registry (``repro_torch.kernels.registry.dispatch``, the
+   default policy) at sizes past the 50 MB L2: the scan (K5) on f32 and
+   bf16 (64, 2^20), the transpose (K6) on f32 8192^2 (a Morton grid of bt
+   tiles) and bf16 4096x16384 and 6144x10240 (row-major grids), the FFT
+   (K7 over K2) on complex64 (256, 65536), and an f32 8192^2 product, which
+   the planner sends to Strassen (K4 over K2).  Prints the device
+   parameters the planner reads and each plan; the launch counts are set to
+   0 just before the run and read just after (one per call, K2 7^levels
+   times per Strassen call and 8 times per FFT); holds each result against
+   its plain version within the tolerances printed; times each op, its
+   plain version and the library call (``torch.cumsum``,
+   ``x.t().contiguous()``, ``torch.fft.fft``, ``torch.matmul``) beside its
+   bound; and prints the host microseconds of one ``dispatch`` beside a
+   direct K2 call.  Phases 4, 6 and 8 must launch none of K4-K7.
 
 Phase 2 also holds K1 and K2 at phase 6's shapes (512 token rows: every
 forward product, the logits, every ``g Wᵀ``), K3 and K2's transposed-A
@@ -89,6 +103,15 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 128, 3  # the JAX trainer's CLI default
 # agree and 0 where they do not.  Each element is held to that gap times lr
 # plus 1% of lr (3e-6) for rounding.
 SMOKE_LOSS_RTOL, SMOKE_GRAD_TOL, SMOKE_PARAM_ATOL = 1e-5, (1e-5, 5e-3), 3e-6
+# phase 10: the registry's ops past the L2.  The f32 sum's slack per unit of
+# sum |x| (~16 f32 ulps); normwise tolerances of the FFT against its plain
+# four-step and against torch.fft.fft (f32 DFT tables, products over 256
+# terms), and of the Strassen product against its plain version and against
+# the classical f32 product (two levels of combinations).
+STRASSEN_N = 8192
+SCAN_SLACK = 1e-6
+FFT_TOL = (1e-5, 1e-4)
+MM_TOL = (1e-4, 1e-3)
 
 
 class SmokeFailure(Exception):
@@ -105,14 +128,14 @@ def bound_ms(nbytes, ops, dtype):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_ms(torch, fn, arg_sets, reps=5, stream=None):
+def time_ms(torch, fn, arg_sets, reps=5, stream=None, iters=None):
     """Device milliseconds per call: calls cycling through ``arg_sets``
     (sized past the L2 cache where the real caller finds its operands cold)
     are captured in one CUDA graph and replayed, timed with CUDA events, so
     the host's cost of launching each call is left out.  ``stream``: the
     capture stream (a backward is captured on the stream its forward ran
-    on)."""
-    iters = max(20, len(arg_sets))
+    on); ``iters``: calls per graph (default at least 20)."""
+    iters = iters or max(20, len(arg_sets))
     for args in arg_sets:  # warm-up outside the capture
         fn(*args)
     torch.cuda.synchronize()
@@ -150,7 +173,11 @@ def main():
 
     from repro_torch.configs import get_config, get_smoke_config, reduced
     from repro_torch.data import DataConfig, SyntheticLMDataset
-    from repro_torch.kernels import _build, policy
+    from repro_torch.kernels import _build, planner, policy, registry
+    from repro_torch.kernels.bi_fft import bi_fft, bi_fft_plain
+    from repro_torch.kernels.bi_transpose import bi_transpose, transpose_ref
+    from repro_torch.kernels.bp_scan import bp_scan, bp_scan_plain
+    from repro_torch.kernels.morton import supports_morton as morton_order
     from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
                                                      flash_attention_bwd_ref,
                                                      flash_attention_int8,
@@ -161,7 +188,9 @@ def main():
     from repro_torch.launch.steps import make_train_step
     from repro_torch.launch.train import train
     from repro_torch.models import build_model
-    from repro_torch.models.common import kv_scale, quantize_kv
+    from repro_torch.kernels.strassen_matmul import matmul as matmul_entry
+    from repro_torch.kernels.strassen_matmul import strassen_matmul, strassen_matmul_plain
+    from repro_torch.models.common import kv_scale, project, quantize_kv
     from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
     from repro_torch.runtime.fault_tolerance import FaultInjector
 
@@ -171,8 +200,12 @@ def main():
     dev = torch.device("cuda")
     kernels = {"hbp_matmul": hbp_matmul, "flash_attention": flash_attention,
                "flash_attention_bwd": flash_attention_bwd,
-               "flash_attention_int8": flash_attention_int8}
+               "flash_attention_int8": flash_attention_int8,
+               "bp_scan": bp_scan, "bi_transpose": bi_transpose, "bi_fft": bi_fft,
+               "strassen_matmul": strassen_matmul}
     serving_kernels = ("hbp_matmul", "flash_attention")
+    # the registry's kernels (phase 10); no model path runs them
+    registry_kernels = ("bp_scan", "bi_transpose", "bi_fft", "strassen_matmul")
 
     def reset_counts():
         for k in kernels.values():
@@ -520,6 +553,8 @@ def main():
     for name in serving_kernels:
         check(launches[name] > 0, f"{name} was not launched on the serving path")
     check(launches["flash_attention_bwd"] == 0, "the serving path launched a backward kernel")
+    check(all(launches[k] == 0 for k in registry_kernels),
+          f"the serving path launched a registry-only kernel: {launches}")
     steps = out["decode_steps"]
     for name in serving_kernels:
         check(launches[name] == per_prefill[name] + steps * per_step[name],
@@ -655,6 +690,8 @@ def main():
         check(train_launches[name] == TRAIN_STEPS * n,
               f"{name}: {train_launches[name]} launches in training, expected "
               f"{TRAIN_STEPS} x {n}")
+    check(all(train_launches[k] == 0 for k in registry_kernels),
+          f"training launched a registry-only kernel: {train_launches}")
 
     # -- 7. times at phase 6's shapes -------------------------------------------
     print(f"[7] times in ms at phase 6's shapes, bf16, ({smi})")
@@ -851,7 +888,8 @@ def main():
                        else ("flash_attention", "flash_attention_int8"))
         for c in per_step:
             check(c[attn] == L and c[other] == 0 and c["hbp_matmul"] == 7 * L + 1
-                  and c["flash_attention_bwd"] == 0,
+                  and c["flash_attention_bwd"] == 0
+                  and all(c[k] == 0 for k in registry_kernels),
                   f"{cache_kind} engine decode step launched {c}; expected {attn} {L}, "
                   f"{other} 0, hbp_matmul {7 * L + 1}")
         check(steps == len(per_step) > 0, f"{cache_kind} engine: {steps} decode steps, "
@@ -924,6 +962,213 @@ def main():
           f"{L * t_k1:.4f} ms")
     del q8_sets, k1_sets, lib_sets
 
+    # -- 10. the kernel registry at sizes past the L2 --------------------------------
+    # Everything through registry.dispatch under the default policy, seeded
+    # inputs.  Gates against the plain versions: the scan in f32 within
+    # SCAN_SLACK times the running sum of |x| (the kernel and torch.cumsum sum
+    # a 2^20-element leaf in other orders; that is ~16 f32 ulps of the sum's
+    # magnitude bound), in bf16 within one bf16 ulp plus that f32 slack (a
+    # last-bit difference of the f32 sums can move the rounding); transposes
+    # exact; the FFT and the Strassen product normwise: the largest error
+    # within a stated fraction of the largest output.
+    dp = planner.device_params(dev)
+    rg = torch.Generator(device=dev).manual_seed(10)
+    n_mm = STRASSEN_N
+    mm_plan = planner.plan_matmul_backend(n_mm, n_mm, n_mm, "float32", dp)
+    levels, edge = 0, n_mm
+    while mm_plan["backend"] == "strassen" and edge > mm_plan["cutoff"] and edge % 2 == 0:
+        edge, levels = edge // 2, levels + 1
+    print(f"[10] the kernel registry past the L2 ({smi}); the planner reads {dp}: budget "
+          f"M/3 = {dp.fast_bytes // 3} bytes; Strassen cutoff f32 "
+          f"{planner.strassen_cutoff('float32', dp)}, bf16 {planner.strassen_cutoff('bfloat16', dp)}")
+    reg_cases = [  # (label, op, tensors)
+        ("scan f32 64x2^20", "scan", (torch.randn(64, 2 ** 20, device=dev, generator=rg),)),
+        ("scan bf16 64x2^20", "scan",
+         (torch.randn(64, 2 ** 20, device=dev, generator=rg).to(torch.bfloat16),)),
+        ("transpose f32 8192x8192", "transpose",
+         (torch.randn(8192, 8192, device=dev, generator=rg),)),
+        ("transpose bf16 4096x16384", "transpose",
+         (torch.randn(4096, 16384, device=dev, generator=rg).to(torch.bfloat16),)),
+        ("transpose bf16 6144x10240", "transpose",
+         (torch.randn(6144, 10240, device=dev, generator=rg).to(torch.bfloat16),)),
+        ("fft complex64 256x65536", "fft",
+         (torch.randn(256, 2 ** 16, dtype=torch.complex64, device=dev, generator=rg),)),
+        (f"matmul f32 {n_mm}x{n_mm} @ {n_mm}x{n_mm}", "matmul",
+         tuple(torch.randn(n_mm, n_mm, device=dev, generator=rg) for _ in "ab")),
+    ]
+    for label, op, args in reg_cases:
+        x = args[0]
+        plan = registry.get(op).plan(*args)
+        extra = ""
+        if op == "transpose":
+            nm, nn = x.shape[0] // min(plan["bt"], x.shape[0]), x.shape[1] // min(plan["bt"], x.shape[1])
+            extra = (f": a {nm}x{nn} grid of bt tiles, "
+                     f"{'Morton' if morton_order(nm, nn) else 'row-major'} order")
+        print(f"    {label}: plan {plan}{extra}")
+    check(mm_plan["backend"] == "strassen" and levels > 0,
+          f"the planner does not pick Strassen for f32 {n_mm}^2: {mm_plan}")
+    torch.cuda.synchronize()
+    reset_counts()
+    reg_out = [registry.dispatch(op, *args) for _, op, args in reg_cases]
+    torch.cuda.synchronize()
+    reg_launches = counts()
+    n_ops = {op: sum(1 for _, o, _ in reg_cases if o == op) for _, op, _ in reg_cases}
+    want_launches = {"bp_scan": n_ops["scan"], "bi_transpose": n_ops["transpose"],
+                     "bi_fft": n_ops["fft"], "strassen_matmul": n_ops["matmul"],
+                     "hbp_matmul": 8 * n_ops["fft"] + 7 ** levels * n_ops["matmul"],
+                     "flash_attention": 0, "flash_attention_int8": 0,
+                     "flash_attention_bwd": 0}
+    print(f"    launches in the run {reg_launches}; K2 launches per Strassen call "
+          f"{7 ** levels} = 7^{levels} (cutoff {mm_plan['cutoff']}), per FFT call 8")
+    check(reg_launches == want_launches,
+          f"registry run launched {reg_launches}, expected {want_launches}")
+
+    def normwise(got, want):
+        return ((got - want).abs().max() / want.abs().max()).item()
+
+    reg_fail = []
+    for (label, op, args), got in zip(reg_cases, reg_out):
+        x = args[0]
+        if op == "scan":
+            block = planner.plan_scan(x.shape, x.dtype, dp)["block"]
+            want = bp_scan_plain(x, block).float()
+            slack = SCAN_SLACK * torch.cumsum(x.float().abs(), dim=-1) + SCAN_SLACK
+            diff = (got.float() - want).abs()
+            if x.dtype == torch.bfloat16:
+                mag = torch.maximum(got.float().abs(), want.abs()).clamp_min(2.0 ** -126)
+                ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+                ok = bool((diff <= ulp + slack).all())
+                note = (f"{int((diff > ulp).sum())} of {diff.numel()} elements beyond one "
+                        f"ulp alone (within the f32 slack)")
+                del mag, ulp
+            else:
+                ok, note = bool((diff <= slack).all()), "within the f32 slack"
+            err = diff.max().item()
+            max_err["bp_scan"] = max(max_err["bp_scan"], err)
+            del want, slack, diff
+            tol_text = ("1 bf16 ulp + " if x.dtype == torch.bfloat16 else "") + \
+                f"{SCAN_SLACK:g} * cumsum|x| + {SCAN_SLACK:g}"
+            print(f"    {label}: leaf {block}; max abs err vs plain {err:.3e} ({tol_text}); "
+                  f"{note} {'ok' if ok else 'FAIL'}")
+        elif op == "transpose":
+            want = transpose_ref(x)
+            ok = torch.equal(got, want)
+            max_err["bi_transpose"] = max(max_err["bi_transpose"],
+                                          (got.float() - want.float()).abs().max().item())
+            del want
+            print(f"    {label}: exact {'ok' if ok else 'FAIL'}")
+        elif op == "fft":
+            want = bi_fft_plain(x)
+            e_plain = normwise(got, want)
+            max_err["bi_fft"] = max(max_err["bi_fft"], (got - want).abs().max().item())
+            del want
+            e_lib = normwise(got, torch.fft.fft(x, dim=-1))
+            ok = e_plain <= FFT_TOL[0] and e_lib <= FFT_TOL[1]
+            print(f"    {label}: normwise err vs plain four-step {e_plain:.3e} (tol "
+                  f"{FFT_TOL[0]:g}), vs torch.fft.fft {e_lib:.3e} (tol {FFT_TOL[1]:g}) "
+                  f"{'ok' if ok else 'FAIL'}")
+        else:
+            want = strassen_matmul_plain(*args)
+            e_plain = normwise(got, want)
+            max_err["strassen_matmul"] = (got - want).abs().max().item()
+            del want
+            e_lib = normwise(got, torch.matmul(*args))
+            ok = e_plain <= MM_TOL[0] and e_lib <= MM_TOL[1]
+            print(f"    {label}: normwise err vs plain Strassen {e_plain:.3e} (tol "
+                  f"{MM_TOL[0]:g}), vs torch.matmul f32 (TF32 off) {e_lib:.3e} (tol "
+                  f"{MM_TOL[1]:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            reg_fail.append(label)
+    del reg_out
+    torch.cuda.synchronize()
+    check(not reg_fail, f"registry kernels disagree with their plain versions: {reg_fail}")
+
+    # device times per call (CUDA-graph replay; each input is 128 MB or
+    # more, past the 50 MB L2)
+    print(f"    times in ms per call ({smi})")
+    reg_rows = []
+    for label, op, args in reg_cases:
+        x = args[0]
+        es = x.element_size()
+        if op == "scan":
+            block = planner.plan_scan(x.shape, x.dtype, dp)["block"]
+            plain = lambda x, b=block: bp_scan_plain(x, b)  # noqa: E731
+            lib, lib_name = (lambda x: torch.cumsum(x, dim=-1)), "torch.cumsum"
+            nbytes, ops, peak = 2 * x.numel() * es, x.numel(), "float32"
+            name, iters = "bp_scan", None
+        elif op == "transpose":
+            plain = transpose_ref
+            lib, lib_name = (lambda x: x.t().contiguous()), "x.t().contiguous()"
+            nbytes, ops, peak = 2 * x.numel() * es, 0, "float32"
+            name, iters = "bi_transpose", None
+        elif op == "fft":
+            plain = bi_fft_plain
+            lib, lib_name = (lambda x: torch.fft.fft(x, dim=-1)), "torch.fft.fft"
+            rows_, n_ = x.shape
+            nbytes, ops, peak = 2 * x.numel() * es, 5 * n_ * math.log2(n_) * rows_, "float32"
+            name, iters = "bi_fft", None
+        else:
+            plain = strassen_matmul_plain
+            lib, lib_name = torch.matmul, "torch.matmul f32, TF32 off"
+            # the Strassen schedule's own work: 7^levels leaf products of
+            # edge^3 multiply-adds, and at each level's 7^l nodes 18 f32 sums
+            # of (half-edge)^2 (10 operand, 8 output combinations)
+            ops = 7 ** levels * 2 * edge ** 3 + sum(
+                7 ** lv * 18 * (n_mm >> (lv + 1)) ** 2 for lv in range(levels))
+            nbytes, peak = 3 * n_mm * n_mm * 4, "float32"
+            name, iters = "strassen_matmul", 2
+        t_k = time_ms(torch, lambda *a, o=op: registry.dispatch(o, *a), [args],
+                      reps=2 if iters else 5, iters=iters)
+        t_p = time_ms(torch, plain, [args], reps=2 if iters else 5, iters=iters)
+        t_l = time_ms(torch, lib, [args], reps=2 if iters else 5, iters=iters)
+        b_ms, b_by = bound_ms(nbytes, ops, peak)
+        reg_rows.append(dict(kernel=name, label=label, ms=t_k, plain_ms=t_p, library_ms=t_l,
+                             bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=ops))
+        print(f"    {name:15s} {label:32s} {t_k:9.4f} (bound {b_ms:.4f} by {b_by}, "
+              f"{100 * b_ms / t_k:5.1f}% of it); plain {t_p:9.4f}; {lib_name} {t_l:9.4f}")
+        if op == "fft":
+            n1 = planner.plan_fft(n_)["n1"]
+            fs_ops = 8 * 2 * n1 * n1 * (rows_ * (n_ // n1))
+            print(f"    {'':15s} the four-step's own {fs_ops:.3e} f32 FLOP (8 real products) "
+                  f"need >= {1e3 * fs_ops / PEAK_OPS['float32']:.4f} ms at 67 TFLOP/s")
+        if op == "matmul":
+            t_c = time_ms(torch, lambda a, b: registry.dispatch("matmul", a, b,
+                                                                backend="classical"),
+                          [args], reps=2, iters=2)
+            c_ms, c_by = bound_ms(nbytes, 2 * n_mm ** 3, "float32")
+            print(f"    {'':15s} the Strassen bound counts {ops:.4e} f32 FLOP ({7 ** levels} "
+                  f"leaves of {edge}^3 and the combinations)")
+            print(f"    {'':15s} backend='classical' (one K2 call) {t_c:9.4f} (bound {c_ms:.4f} "
+                  f"by {c_by}: 2n^3 = {2 * n_mm ** 3:.4e} FLOP, {100 * c_ms / t_c:5.1f}% of it); "
+                  f"classical / Strassen time on K2 {t_c / t_k:.3f}")
+    del reg_cases
+    torch.cuda.empty_cache()
+
+    # the host's cost of one dispatch (what a model product pays on top of
+    # the wrapper), at a decode step's 4 x 2048 @ 2048 x 2048 bf16 product
+    a_h = torch.randn(4, d, device=dev, generator=rg).to(torch.bfloat16)
+    w_h = torch.randn(d, d, device=dev, generator=rg).to(torch.bfloat16)
+
+    def host_us(fn, n=2000):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return 1e6 * (t1 - t0) / n
+
+    with torch.no_grad():
+        us = {"hbp_matmul": host_us(lambda: hbp_matmul(a_h, w_h)),
+              "entry": host_us(lambda: matmul_entry(a_h, w_h, backend="classical")),
+              "dispatch": host_us(lambda: registry.dispatch("matmul", a_h, w_h)),
+              "project": host_us(lambda: project(a_h, w_h))}
+    print(f"    host us per call (4x{d} @ {d}x{d} bf16, 2000 calls, no grad): hbp_matmul "
+          f"{us['hbp_matmul']:.2f}; its autograd entry (strassen_matmul.matmul, classical) "
+          f"{us['entry']:.2f}; registry.dispatch {us['dispatch']:.2f}; the models' project "
+          f"(one dispatch) {us['project']:.2f}")
+
     # one entry per kernel: K1 and K2 summed over one decode step's calls
     # (their launches from phase 4's run), K3 over one training step's calls
     # (its launches from phase 6's run), K1q over one int8 engine decode
@@ -938,7 +1183,7 @@ def main():
     launches_of = {"decode": launches, "train": train_launches,
                    "engine": engine_runs["int8"]["launches"]}
     entries = []
-    for name in kernels:
+    for name in path_of:
         rs = [r for r in rows if r["kernel"] == name and r["path"] == path_of[name]]
         tot = {key: sum(r[key] * r["calls"] for r in rs)
                for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "ops")}
@@ -951,6 +1196,29 @@ def main():
             "bound_ms": tot["bound_ms"],
             "bound_by": ("bytes" if tot["bytes"] / HBM_BYTES_PER_S
                          >= tot["ops"] / PEAK_OPS["bfloat16"] else "operations"),
+            "library_ms": tot["library_ms"],
+        })
+    # K5, K6, K7 and K4 summed over phase 10's calls (and their launches
+    # there); K7 and K4 are compositions over K2's CUDA source
+    reg_replaces = {"bp_scan": "src/repro/kernels/bp_scan.py:26",
+                    "bi_transpose": "src/repro/kernels/bi_transpose.py:24",
+                    "bi_fft": "src/repro/kernels/bi_fft.py:51",
+                    "strassen_matmul": "src/repro/kernels/strassen_matmul.py:58"}
+    for name in registry_kernels:
+        rs = [r for r in reg_rows if r["kernel"] == name]
+        tot = {key: sum(r[key] for r in rs)
+               for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "ops")}
+        over = name in ("bi_fft", "strassen_matmul")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": (f"src/repro_torch/kernels/{name}.py" if over
+                       else f"src/repro_torch/kernels/csrc/{name}.cu"),
+            **({"over": "src/repro_torch/kernels/csrc/hbp_matmul.cu"} if over else {}),
+            "replaces": reg_replaces[name], "launches": reg_launches[name],
+            "max_abs_err": max_err[name], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"],
+            "bound_by": ("bytes" if tot["bytes"] / HBM_BYTES_PER_S
+                         >= tot["ops"] / PEAK_OPS["float32"] else "operations"),
             "library_ms": tot["library_ms"],
         })
     print(json.dumps({"kernels": entries}))

@@ -1,0 +1,82 @@
+"""K6, the tiled transpose: ``(m, n) -> (n, m)``, exact, for any dtype.
+
+Replaces ``src/repro/kernels/bi_transpose.py:_transpose_kernel`` (entry
+``bi_transpose``).  The kernel is ``csrc/bi_transpose.cu``, CUDA C++ for
+``sm_90a``; its header says what bounds it on the H100 (bytes) and how the
+TPU kernel's Morton-ordered grid of ``bt`` tiles maps onto CUDA blocks.
+
+``bi_transpose(x, bt=None, morton=True)``: ``bt`` (default:
+``planner.plan_transpose``) is clamped to each side and must divide both
+(``ValueError``, as the JAX ``assert``); the ``bt`` tiles are visited in
+Morton order when their grid is square and a power of two and ``morton``
+is set (``morton.grid_decode``), else row-major.  The order changes which
+block runs where, never the result.
+
+A tensor on the CPU takes :func:`transpose_ref`, the plain version (exact,
+so it is the oracle as well); a CUDA tensor launches the kernel or raises.
+``bi_transpose.launches`` counts the kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.morton import supports_morton
+
+
+def transpose_ref(x: torch.Tensor) -> torch.Tensor:
+    """Plain version and oracle (``repro.kernels.ref.transpose_ref``): the
+    transpose as a fresh row-major tensor, as the kernel returns it."""
+    return x.t().contiguous()
+
+
+def _lib():
+    lib = _build.load("bi_transpose")
+    fn = lib.bi_transpose
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, P, I, I, I, I, I, I, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def bi_transpose(x: torch.Tensor, *, bt=None, morton: bool = True) -> torch.Tensor:
+    """``x`` ``(m, n)`` -> ``(n, m)``; see the module docstring."""
+    if x.dim() != 2:
+        raise ValueError(f"bi_transpose: x must be (m, n), got {tuple(x.shape)}")
+    m, n = x.shape
+    if x.numel() == 0:
+        return x.new_empty((n, m))
+    if bt is None:
+        from repro_torch.kernels import planner
+
+        bt = planner.plan_transpose(m, n, x.dtype, planner.device_params(x.device))["bt"]
+    bt_m, bt_n = min(int(bt), m), min(int(bt), n)
+    if bt_m <= 0 or m % bt_m or n % bt_n:
+        raise ValueError(f"bi_transpose: tile {bt} does not divide both sides of "
+                         f"{tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return transpose_ref(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"bi_transpose: no kernel for device {x.device}")
+    if not x.is_contiguous():
+        raise ValueError(f"bi_transpose: x must be contiguous, strides {x.stride()}")
+    if x.element_size() not in (1, 2, 4, 8):
+        raise TypeError(f"bi_transpose: {x.element_size()}-byte elements")
+    nm, nn = m // bt_m, n // bt_n
+    tile = 32 if x.element_size() >= 4 else 64  # csrc/bi_transpose.cu's TS
+    blocks = nm * nn * (-(-bt_m // tile)) * (-(-bt_n // tile))
+    if blocks >= 2 ** 31:
+        raise ValueError(f"bi_transpose: {blocks} CUDA blocks exceed the grid limit")
+    out = torch.empty((n, m), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _lib()(x.data_ptr(), out.data_ptr(), m, n, bt_m, bt_n,
+                 int(morton and supports_morton(nm, nn)), x.element_size(), stream)
+    _build.check(err, "bi_transpose")
+    bi_transpose.launches += 1
+    return out
+
+
+bi_transpose.launches = 0

@@ -42,7 +42,9 @@ K3, :func:`flash_attention_bwd`, replaces ``_bwd_dq_kernel`` and
 the output's gradient it recomputes the probabilities and returns ``(dq, dk,
 dv)``, ``dk``/``dv`` at the native ``kvh`` with the GQA group already summed.
 :class:`FlashAttention` ties the two together as the counterpart of
-``_flash_fn``'s custom VJP.
+``_flash_fn``'s custom VJP.  :func:`attention` (output only, K1q for int8
+``k``/``v``) and :func:`attention_ref` are the registry's ``attention``
+kernel entry and oracle.
 
 A tensor on the CPU takes the plain version (:func:`flash_attention_ref`,
 :func:`flash_attention_bwd_ref`); a CUDA tensor launches the kernel (``hd``
@@ -366,3 +368,31 @@ class FlashAttention(torch.autograd.Function):
                                          window=ctx.window, q_offset=q_offset,
                                          kv_len=kv_len)
         return dq, dk, dv, None, None, None, None
+
+
+def attention(q, k, v, *, causal: bool = True, window=0,
+              q_offset: Optional[torch.Tensor] = None,
+              kv_len: Optional[torch.Tensor] = None,
+              k_scale: Optional[torch.Tensor] = None,
+              v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The registry's ``attention`` entry: the output alone, differentiable
+    in q, k, v through :class:`FlashAttention` (K1 forward, K3 backward);
+    with ``k_scale``/``v_scale`` the int8 ``k``/``v`` go to K1q, forward
+    only, as the JAX kernel's quantized path.  Without a gradient to record
+    it calls the forward directly, past the autograd Function."""
+    window = 0 if window is None else int(window)
+    if k_scale is not None or not (torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad)):
+        return flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                               kv_len=kv_len, k_scale=k_scale, v_scale=v_scale)[0]
+    return FlashAttention.apply(q, k, v, q_offset, kv_len, causal, window)
+
+
+def attention_ref(q, k, v, *, causal: bool = True, window=0, q_offset=None,
+                  kv_len=None, k_scale=None, v_scale=None) -> torch.Tensor:
+    """The registry's attention oracle: :func:`flash_attention_ref`'s
+    output, differentiable by autograd."""
+    return flash_attention_ref(q, k, v, causal=causal,
+                               window=0 if window is None else int(window),
+                               q_offset=q_offset, kv_len=kv_len, k_scale=k_scale,
+                               v_scale=v_scale)[0]

@@ -15,9 +15,9 @@ strides, so neither is copied.  Ragged shapes are masked inside the kernel,
 so the JAX wrapper's divisor snapping and its oracle fallback have no
 counterpart.
 
-:func:`matmul` is the differentiable entry, the counterpart of
-``repro.kernels.strassen_matmul.matmul`` with the classical backend: its
-forward and both backward products run on the kernel.
+The differentiable entry is ``strassen_matmul.matmul``, the registry's
+``matmul`` op: its classical backend is one call of this kernel, forward
+and both backward products.
 
 A tensor on the CPU takes :func:`matmul_ref`, the plain version; a CUDA
 tensor launches the kernel or raises.  ``hbp_matmul.launches`` counts the
@@ -126,33 +126,3 @@ def hbp_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.Ten
 
 
 hbp_matmul.launches = 0
-
-
-class _Matmul(torch.autograd.Function):
-    """``a @ b`` on the kernel, with the JAX custom VJP's backward
-    (``strassen_matmul.py:119-139``): ``dA = g @ bᵀ`` and ``dB = aᵀ @ g``,
-    both on the kernel (the transposes are views), each cast to its
-    operand's dtype."""
-
-    @staticmethod
-    def forward(ctx, a, b):
-        ctx.save_for_backward(a, b)
-        return hbp_matmul(a, b)
-
-    @staticmethod
-    def backward(ctx, g):
-        a, b = ctx.saved_tensors
-        g = g.contiguous()
-        da = db = None
-        if ctx.needs_input_grad[0]:
-            da = hbp_matmul(g, b.T).to(a.dtype)
-        if ctx.needs_input_grad[1]:
-            db = hbp_matmul(a.T, g).to(b.dtype)
-        return da, db
-
-
-def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Differentiable ``a (m, k) @ b (k, n)`` on the kernel, output in
-    ``a``'s dtype.  Without a gradient to record (serving runs under
-    ``no_grad``) only the forward runs: one :func:`hbp_matmul` launch."""
-    return _Matmul.apply(a, b)

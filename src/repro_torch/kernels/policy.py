@@ -1,31 +1,36 @@
-"""Ambient execution policy: the port's copy of ``repro/kernels/policy.py``,
-the subset that the serving path reads.
+"""Ambient execution policy: the port's copy of ``repro/kernels/policy.py``.
 
-Model code never names a backend; it asks the *ambient*
-:class:`ExecutionPolicy`, a frozen value holding
+Model code never names a backend; it asks ``registry.resolve`` /
+``registry.dispatch``, which read the ambient :class:`ExecutionPolicy`, a
+frozen value holding
 
-  * ``impl``     — per-op backend map (``{"attention": "pallas", "*":
+  * ``impl``         — per-op backend map (``{"attention": "pallas", "*":
     "auto"}``); the ``"*"`` wildcard covers every op without its own entry,
     and the implicit default is ``"auto"``;
-  * ``variants`` — per-op variant-knob overrides (``{"attention":
-    {"kv_dtype": "int8"}}``).
+  * ``variants``     — per-op variant-knob overrides merged into dispatch
+    under explicit call-site kwargs (``{"matmul": {"backend":
+    "classical"}}``, ``{"attention": {"kv_dtype": "int8"}}``);
+  * ``interpret``    — the JAX knob that forces Pallas interpret mode.  The
+    port has no interpret mode: ``True`` on a CUDA tensor raises
+    ``ValueError``, and on a CPU tensor the plain version runs anyway;
+  * ``strict_tiles`` — raise instead of warning when tile overrides are
+    dropped on the oracle path;
+  * ``reason``       — free-text provenance of a scoped override (``pin``).
 
 Policies layer on a context stack, as in the JAX package:
 
-    base:   ambient()   — assembled from ``REPRO_IMPL``
-    pinned: install()   — the launcher-resolved process policy (``--impl``)
-    scoped: apply()     — ``with``-blocks deriving from ``current()``
+    base:   ambient()      — assembled from REPRO_IMPL, REPRO_STRICT_TILES,
+                             REPRO_INTERPRET
+    pinned: install()      — the launcher-resolved process policy (``--impl``)
+    scoped: apply()/pin()  — ``with``-blocks deriving from ``current()``
 
-What the port does with a policy: the attention knob ``kv_dtype=int8``
-selects the int8 KV cache (``models.common.kv_cache_dtype``), read by K1q.
-Backends name the route of a call: ``auto`` and ``pallas`` mean the port's
-hand-written kernel; ``jnp`` and ``ref`` mean the plain version, which the
-port runs only on CPU tensors.  :func:`require_kernel` raises for a plain
-backend on a CUDA tensor: the registry that would dispatch a plain version
-on the card comes with ROADMAP queue 2, and until then the port never runs
-the plain version there quietly.  ``pin``, ``bind``, ``from_run_options``
-and the ``interpret``, ``strict_tiles`` and ``autotune`` fields come with
-that registry.
+Op names are the registry's (``registry.names()``).  Backends name the
+route of a call: ``auto`` and ``pallas`` mean the op's kernel wrapper (the
+CUDA kernel on a CUDA tensor, its plain version on a CPU tensor); ``jnp``
+and ``ref`` mean the oracle, which the registry runs only on CPU tensors
+(``registry.route``).  The ``autotune`` field and ``bind`` /
+``from_run_options`` (the ``RunOptions`` knobs they read are not in the
+port's ``RunOptions``) wait for autotune.
 """
 from __future__ import annotations
 
@@ -37,13 +42,16 @@ from types import MappingProxyType
 from typing import Mapping, Optional
 
 IMPLS = ("auto", "jnp", "ref", "pallas")
-# the JAX registry's op names; a fixed tuple until the port has a registry
-OPS = ("scan", "matmul", "transpose", "attention", "fft")
-PLAIN_IMPLS = ("jnp", "ref")
 
 
 def _frozen_map(d: Optional[Mapping]) -> Mapping:
     return MappingProxyType(dict(d or {}))
+
+
+def _known_ops() -> set:
+    from repro_torch.kernels import registry  # the registry imports this module
+
+    return set(registry.names()) | {"*"}
 
 
 @dataclass(frozen=True)
@@ -54,13 +62,16 @@ class ExecutionPolicy:
 
     impl: Mapping[str, str] = field(default_factory=dict)
     variants: Mapping[str, Mapping] = field(default_factory=dict)
+    interpret: Optional[bool] = None
+    strict_tiles: bool = False
+    reason: Optional[str] = None
 
     def __post_init__(self):
         object.__setattr__(self, "impl", _frozen_map(self.impl))
         object.__setattr__(
             self, "variants",
             _frozen_map({k: _frozen_map(v) for k, v in dict(self.variants).items()}))
-        known = set(OPS) | {"*"}
+        known = _known_ops()
         for op, backend in self.impl.items():
             if op not in known:
                 raise ValueError(f"unknown op {op!r} in impl map; "
@@ -82,10 +93,10 @@ class ExecutionPolicy:
         return dict(self.variants.get(op, {}))
 
     def with_(self, *, impl: Optional[Mapping] = None,
-              variants: Optional[Mapping] = None) -> "ExecutionPolicy":
+              variants: Optional[Mapping] = None, **updates) -> "ExecutionPolicy":
         """Functional update: ``impl`` and ``variants`` entries MERGE over
-        the existing maps (an impl entry set to None deletes)."""
-        updates = {}
+        the existing maps (an impl entry set to None deletes); scalar fields
+        replace."""
         if impl is not None:
             merged = {**self.impl, **dict(impl)}
             updates["impl"] = {k: v for k, v in merged.items() if v is not None}
@@ -97,7 +108,7 @@ class ExecutionPolicy:
         return replace(self, **updates)
 
     def describe(self) -> str:
-        """One-line rendering that round-trips through
+        """One-line rendering whose impl/variant prefix round-trips through
         :func:`parse_impl_spec` (``op=backend:knob=value``; an op with
         variants but no impl entry prints as ``op=auto:...``)."""
         def _fmt_knob(v):
@@ -109,12 +120,16 @@ class ExecutionPolicy:
             for knob, v in sorted(self.variants.get(op, {}).items()):
                 entry += f":{knob}={_fmt_knob(v)}"
             parts.append(entry)
+        for f_name in ("interpret", "strict_tiles", "reason"):
+            v = getattr(self, f_name)
+            if v not in (None, False):
+                parts.append(f"{f_name}={v}")
         return ",".join(parts) or "auto"
 
 
 def _parse_knob_value(raw: str):
     """Typed variant-knob values: bools (``true``/``false``), ints, else the
-    raw string (e.g. a dtype name)."""
+    raw string (e.g. a dtype name or a matmul backend)."""
     low = raw.lower()
     if low in ("true", "false"):
         return low == "true"
@@ -127,12 +142,13 @@ def _parse_knob_value(raw: str):
 def parse_impl_spec(spec: str) -> tuple[dict[str, str], dict[str, dict]]:
     """The ``--impl`` / ``REPRO_IMPL`` grammar with variant knobs:
     ``op=backend[:knob=value]*[,op=backend...]`` — e.g.
-    ``attention=pallas:kv_dtype=int8``.  Returns ``(impl, variants)`` maps
-    ready for :meth:`ExecutionPolicy.with_`.  A bare backend with no ``=``
-    is shorthand for the wildcard (``pallas`` == ``*=pallas``); knobs on the
-    wildcard are rejected.  Unknown op names raise: a typo'd entry would
-    otherwise match nothing and leave every op on ``auto``."""
-    known = set(OPS) | {"*"}
+    ``matmul=pallas:backend=classical`` or ``attention=pallas:kv_dtype=int8``.
+    Returns ``(impl, variants)`` maps ready for :meth:`ExecutionPolicy.with_`.
+    A bare backend with no ``=`` is shorthand for the wildcard (``pallas`` ==
+    ``*=pallas``); knobs on the wildcard are rejected.  Unknown op names
+    raise: a typo'd entry would otherwise match nothing and leave every op on
+    ``auto``."""
+    known = _known_ops()
     impl: dict[str, str] = {}
     variants: dict[str, dict] = {}
     for part in spec.split(","):
@@ -170,19 +186,28 @@ def parse_impl_spec(spec: str) -> tuple[dict[str, str], dict[str, dict]]:
     return impl, variants
 
 
-# the assembled ambient, keyed on the env value it was read from
-_AMBIENT_CACHE: dict[Optional[str], ExecutionPolicy] = {}
+def _truthy(val: Optional[str]) -> bool:
+    return bool(val) and val.lower() not in ("0", "false", "no", "")
+
+
+# the assembled ambient, keyed on the env values it was read from
+_AMBIENT_CACHE: dict[tuple, ExecutionPolicy] = {}
 
 
 def ambient() -> ExecutionPolicy:
     """The base of the policy stack, from ``REPRO_IMPL`` (the ``--impl``
-    grammar).  Memoized per env value."""
-    key = os.environ.get("REPRO_IMPL")
+    grammar), ``REPRO_STRICT_TILES`` and ``REPRO_INTERPRET``.  Memoized per
+    env value."""
+    env = os.environ
+    key = (env.get("REPRO_IMPL"), env.get("REPRO_STRICT_TILES"), env.get("REPRO_INTERPRET"))
     hit = _AMBIENT_CACHE.get(key)
     if hit is not None:
         return hit
-    impl, variants = parse_impl_spec(key) if key else ({}, {})
-    pol = ExecutionPolicy(impl=impl, variants=variants)
+    impl_env, strict_env, interp_env = key
+    impl, variants = parse_impl_spec(impl_env) if impl_env else ({}, {})
+    pol = ExecutionPolicy(impl=impl, variants=variants,
+                          strict_tiles=_truthy(strict_env),
+                          interpret=True if _truthy(interp_env) else None)
     _AMBIENT_CACHE.clear()
     _AMBIENT_CACHE[key] = pol
     return pol
@@ -224,12 +249,12 @@ def apply(pol: Optional[ExecutionPolicy] = None, **updates):
         _STACK.reset(token)
 
 
-def require_kernel(op: str, device: "torch.device") -> None:  # noqa: F821
-    """Raise when the policy asks for ``op``'s plain version on a CUDA
-    tensor.  On the CPU the plain version is what runs anyway."""
-    backend = current().impl_for(op)
-    if device.type == "cuda" and backend in PLAIN_IMPLS:
-        raise NotImplementedError(
-            f"{op}={backend} asks for the plain version on {device}; the port "
-            "runs its hand-written kernel there (auto or pallas). Plain "
-            "backends on the card come with the registry, ROADMAP queue 2")
+def pin(op: str, backend: str, *, reason: str):
+    """Scoped single-op override with recorded provenance.  ``reason`` is
+    mandatory: a pin without a why is a hardcoded string with extra steps."""
+    return apply(impl={op: backend}, reason=reason)
+
+
+def pin_if(cond, op: str, backend: str, *, reason: str):
+    """:func:`pin` when ``cond`` (a Python bool), else a no-op scope."""
+    return pin(op, backend, reason=reason) if cond else contextlib.nullcontext()

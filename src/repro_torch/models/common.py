@@ -1,15 +1,17 @@
 """Shared model blocks on the serving and training paths: the counterpart
 of the main-path subset of ``repro/models/common.py``.
 
-Every matrix product goes through the differentiable ``matmul`` (K2 forward
-and backward) and every attention call through ``FlashAttention`` (K1
-forward, K3 backward), or over an int8 cache through K1q; the JAX
-package's jnp routes (dense, blockwise, banded attention, einsum
-projections) have no counterpart here, and a policy that asks for one on
-the card raises (``policy.require_kernel``).  The int8 cache's scales and
-quantizer (``kv_scale``, ``quantize_kv``) are bit-equal to JAX's.  Norms,
-RoPE and the SwiGLU gate keep the JAX numerics: f32 inside, cast back to the
-activation dtype.
+Every matrix product and every attention call goes through the kernel
+registry's ``dispatch``, as the JAX models do: on a CUDA tensor the
+``matmul`` op runs K2 (or K4 over K2 for a square product past the
+planner's cutoff), forward and backward, and the ``attention`` op K1
+forward and K3 backward, or K1q over an int8 cache; on a CPU tensor each
+runs its plain version.  A policy that asks for a plain version on the card
+raises (``registry.route``).  The JAX package's jnp routes (dense,
+blockwise, banded attention, einsum projections) have no counterpart.  The
+int8 cache's scales and quantizer (``kv_scale``, ``quantize_kv``) are
+bit-equal to JAX's.  Norms, RoPE and the SwiGLU gate keep the JAX numerics:
+f32 inside, cast back to the activation dtype.
 """
 from __future__ import annotations
 
@@ -19,9 +21,7 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.kernels import policy
-from repro_torch.kernels.flash_attention import FlashAttention, flash_attention
-from repro_torch.kernels.hbp_matmul import matmul
+from repro_torch.kernels import policy, registry
 
 
 # ---------------------------------------------------------------------------
@@ -95,26 +95,24 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
               k_scale: Optional[torch.Tensor] = None,
               v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (b, sq, h, hd) against k, v (b, sk, kvh, hd) at their native head
-    count, through the flash-attention kernels.  Fresh self-attention passes
-    no ``q_offset``/``kv_len``; attention over a cache passes each row's
-    position and valid length as int32 device tensors (scalar or (b,)).
-    Differentiable in q, k, v (K3 backward); without a gradient to record
-    it launches the forward kernel alone.  ``k_scale``/``v_scale`` (f32
-    (b, kvh)) go with an int8 k/v: K1q dequantizes them at its block load,
-    forward only, as the JAX kernel's quantized path."""
-    policy.require_kernel("attention", q.device)
-    window = 0 if window is None else int(window)
-    if k_scale is not None:
-        return flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
-                               kv_len=kv_len, k_scale=k_scale, v_scale=v_scale)[0]
-    return FlashAttention.apply(q, k, v, q_offset, kv_len, causal, window)
+    count, through the registry's ``attention`` op.  Fresh self-attention
+    passes no ``q_offset``/``kv_len``; attention over a cache passes each
+    row's position and valid length as int32 device tensors (scalar or
+    (b,)).  Differentiable in q, k, v (K3 backward); without a gradient to
+    record it launches the forward kernel alone.  ``k_scale``/``v_scale``
+    (f32 (b, kvh)) go with an int8 k/v: K1q dequantizes them at its block
+    load, forward only, as the JAX kernel's quantized path."""
+    return registry.dispatch("attention", q, k, v, causal=causal,
+                             window=window, q_offset=q_offset, kv_len=kv_len,
+                             k_scale=k_scale, v_scale=v_scale)
 
 
 def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (..., d) @ w (d, f) -> (..., f) through the matmul kernel."""
-    policy.require_kernel("matmul", x.device)
+    """x (..., d) @ w (d, f) -> (..., f) through the registry's ``matmul``
+    op: the leading dims fold into the rows of one product."""
     lead = x.shape[:-1]
-    return matmul(x.reshape(-1, x.shape[-1]), w).reshape(*lead, w.shape[-1])
+    out = registry.dispatch("matmul", x.reshape(-1, x.shape[-1]), w)
+    return out.reshape(*lead, w.shape[-1])
 
 
 def qkv_project(x, wq, wk, wv):
@@ -124,13 +122,13 @@ def qkv_project(x, wq, wk, wv):
 def attn_out_project(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """(b, s, h, hd) heads -> (b, s, d); the head fold into the contraction
     is a view of the kernel's contiguous output."""
-    policy.require_kernel("matmul", o.device)
     b, s, h, hd = o.shape
-    return matmul(o.reshape(b * s, h * hd), wo).reshape(b, s, -1)
+    return registry.dispatch("matmul", o.reshape(b * s, h * hd), wo).reshape(b, s, -1)
 
 
 def gated_mlp(x, w_gate, w_up, w_down):
-    """SwiGLU MLP: silu in f32, cast back, times the up projection."""
+    """SwiGLU MLP: silu in f32, cast back, times the up projection; the
+    three products dispatch through :func:`project`."""
     g = project(x, w_gate)
     u = project(x, w_up)
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
@@ -141,9 +139,8 @@ def logits_matmul(h: torch.Tensor, embed_out: torch.Tensor) -> torch.Tensor:
     """h (..., d) @ embed_out (V, d)ᵀ: computed in the activation dtype, as
     the JAX kernel route does, then cast to f32.  ``embed_out.T`` is a view;
     the kernel reads the table in place."""
-    policy.require_kernel("matmul", h.device)
     lead = h.shape[:-1]
-    out = matmul(h.reshape(-1, h.shape[-1]), embed_out.T)
+    out = registry.dispatch("matmul", h.reshape(-1, h.shape[-1]), embed_out.T)
     return out.reshape(*lead, embed_out.shape[0]).float()
 
 

@@ -34,7 +34,7 @@ from repro.models.base import RunOptions  # noqa: E402
 from repro.runtime import fault_tolerance as jax_ft  # noqa: E402
 from repro_torch.checkpoint import params_from_numpy  # noqa: E402
 from repro_torch.configs import get_smoke_config, reduced  # noqa: E402
-from repro_torch.kernels import policy  # noqa: E402
+from repro_torch.kernels import policy, registry  # noqa: E402
 from repro_torch.launch.engine import Engine, SlotScheduler, check_lockstep_parity  # noqa: E402
 from repro_torch.launch.serve import Request  # noqa: E402
 from repro_torch.models import cache as dcache  # noqa: E402
@@ -363,7 +363,8 @@ def test_fault_injector_and_monitor_match_jax():
 def test_policy_stack_and_kernel_requirement(monkeypatch):
     """``REPRO_IMPL`` builds the ambient, ``install`` pins over it, ``apply``
     scopes over both; a plain backend on a CUDA device raises (the port
-    runs only its kernels there), on the CPU it is what runs anyway."""
+    runs only its kernels there), on the CPU it is what runs anyway.  The
+    rule is the registry's resolution (``registry.resolve``)."""
     monkeypatch.setenv("REPRO_IMPL", "attention=pallas:kv_dtype=int8")
     assert policy.current().variant_for("attention") == {"kv_dtype": "int8"}
     policy.install(policy.ExecutionPolicy(impl={"matmul": "ref"}))
@@ -372,12 +373,12 @@ def test_policy_stack_and_kernel_requirement(monkeypatch):
         assert policy.current().impl_for("attention") == "auto"
         with policy.apply(impl={"*": "jnp"}) as scoped:
             assert scoped.impl_for("attention") == "jnp"
-            policy.require_kernel("attention", torch.device("cpu"))
-            with pytest.raises(NotImplementedError, match="queue 2"):
-                policy.require_kernel("attention", torch.device("cuda"))
-        policy.require_kernel("attention", torch.device("cuda"))
+            assert registry.resolve("attention", device=torch.device("cpu")) == "jnp"
+            with pytest.raises(NotImplementedError, match="plain version on a CUDA tensor"):
+                registry.resolve("attention", device=torch.device("cuda"))
+        assert registry.resolve("attention", device=torch.device("cuda")) == "pallas"
         with pytest.raises(NotImplementedError):
-            policy.require_kernel("matmul", torch.device("cuda"))
+            registry.resolve("matmul", device=torch.device("cuda"))
     finally:
         policy.install(None)
     with pytest.raises(ValueError):

@@ -15,6 +15,7 @@ them against their plain versions on the card and skip without one
 (``PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_kernels.py`` on a
 machine with a GPU).  ``chip_smoke.py`` checks them at the serving shapes.
 """
+import importlib
 import math
 
 import numpy as np
@@ -22,7 +23,6 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import hbp_matmul as mm_mod  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     FlashAttention,
     flash_attention,
@@ -31,7 +31,11 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_int8,
     flash_attention_ref,
 )
-from repro_torch.kernels.hbp_matmul import hbp_matmul, matmul, matmul_ref  # noqa: E402
+from repro_torch.kernels.hbp_matmul import hbp_matmul, matmul_ref  # noqa: E402
+from repro_torch.kernels.strassen_matmul import matmul  # noqa: E402
+
+# the package exports the wrapper under the module's name
+mm_mod = importlib.import_module("repro_torch.kernels.hbp_matmul")
 
 ATOL = 1e-5
 BWD_ATOL = 1e-4
@@ -500,3 +504,99 @@ def test_flash_int8_kernel_matches_plain(cuda, dtype, case):
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-5)
     for row in (i for i, n in enumerate(kl) if n == 0):
         assert torch.count_nonzero(out[row]) == 0
+
+
+# -- K5, K6, K7 and K4 on the card (the registry's scan, transpose, fft and
+# matmul ops; tests/test_torch_substrate.py holds their plain versions to JAX)
+
+def _bf16_ulp(x):
+    mag = x.abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,n,block", [(3, 512, 64), (2, 16384, None), (5, 12288, 12288),
+                                          (3, 20000, 5000), (1, 100, 100)])
+def test_scan_kernel_matches_plain(cuda, dtype, rows, n, block):
+    """K5 against its leaf-structured plain version: f32 within 1e-6 of the
+    running sum of |x| (the two sum each leaf in other orders), bf16 within
+    one ulp plus that f32 slack (a last-bit difference of the f32 sums can
+    move a rounding)."""
+    from repro_torch.kernels import planner
+    from repro_torch.kernels.bp_scan import bp_scan, bp_scan_plain
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn(rows, n, device=cuda, generator=g).to(dt)
+    leaf = block or planner.plan_scan(x.shape, dt, planner.device_params(cuda))["block"]
+    before = bp_scan.launches
+    got = bp_scan(x, block=block).float()
+    assert bp_scan.launches == before + 1
+    want = bp_scan_plain(x, leaf).float()
+    slack = 1e-6 * torch.cumsum(x.float().abs(), dim=-1) + 1e-6
+    bound = slack if dt == torch.float32 else _bf16_ulp(torch.maximum(got, want)) + slack
+    assert ((got - want).abs() <= bound).all(), (got - want).abs().max()
+    with pytest.raises(ValueError, match="does not divide"):
+        bp_scan(x[:, :96].contiguous(), block=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8", "float64"])
+@pytest.mark.parametrize("m,n,bt,morton", [(96, 160, 32, True), (256, 256, 64, True),
+                                           (256, 256, 64, False), (1000, 24, 8, True),
+                                           (4096, 64, None, True), (64, 128, 128, True)])
+def test_transpose_kernel_is_exact(cuda, dtype, m, n, bt, morton):
+    from repro_torch.kernels.bi_transpose import bi_transpose
+
+    x = (torch.randn(m, n, device=cuda) * 50).to(getattr(torch, dtype))
+    before = bi_transpose.launches
+    got = bi_transpose(x, bt=bt, morton=morton)
+    assert bi_transpose.launches == before + 1
+    assert got.shape == (n, m) and torch.equal(got, x.T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,n1", [(4, 1024, None), (3, 512, None), (2, 256, 1),
+                                       (2, 4096, 8)])
+def test_fft_kernel_matches_plain(cuda, rows, n, n1):
+    """K7 (8 K2 launches, 4 on a degenerate split) against its plain
+    four-step version and torch.fft, normwise relative 1e-5 and 1e-4."""
+    from repro_torch.kernels.bi_fft import bi_fft, bi_fft_plain, fft_ref
+
+    x = torch.randn(rows, n, dtype=torch.complex64, device=cuda)
+    k2, k7 = hbp_matmul.launches, bi_fft.launches
+    got = bi_fft(x, n1=n1)
+    assert bi_fft.launches == k7 + 1
+    assert hbp_matmul.launches - k2 == (4 if n1 == 1 else 8)
+    want = bi_fft_plain(x, n1=n1)
+    scale = want.abs().max()
+    assert (got - want).abs().max() <= 1e-5 * scale
+    assert (got - fft_ref(x)).abs().max() <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,cutoff", [(256, 64), (192, 48), (130, 32)])
+def test_strassen_kernel_matches_plain(cuda, dtype, n, cutoff):
+    """K4 against its plain version (the same recursion on matmul_ref
+    leaves): K2 launches 7^levels times; f32 within 1e-4, bf16 within 2^-7
+    relative to the largest output (the operand combinations round alike,
+    the leaves sum in other orders)."""
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.strassen_matmul import strassen_matmul, strassen_matmul_plain
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(n)
+    a, b = (torch.randn(n, n, device=cuda, generator=g).to(dt) for _ in "ab")
+    levels, edge = 0, n
+    while edge > cutoff and edge % 2 == 0:
+        edge, levels = edge // 2, levels + 1
+    k2 = hbp_matmul.launches
+    got = registry.dispatch("matmul", a, b, backend="strassen", cutoff=cutoff)
+    assert hbp_matmul.launches - k2 == 7 ** levels
+    assert got.dtype == dt
+    want = strassen_matmul_plain(a, b, cutoff=cutoff).float()
+    tol = (1e-4 if dt == torch.float32 else 2 ** -7) * want.abs().max()
+    assert (got.float() - want).abs().max() <= tol
+    assert torch.equal(strassen_matmul(a, b, cutoff=cutoff), got)

@@ -131,6 +131,8 @@ def test_import_loads_neither_jax_nor_repro():
             "repro_torch.launch.steps, repro_torch.optim, repro_torch.data, "
             "repro_torch.kernels.ref, repro_torch.checkpoint, repro_torch.launch.engine, "
             "repro_torch.kernels.policy, repro_torch.core.pws, "
+            "repro_torch.kernels.registry, repro_torch.kernels.planner, "
+            "repro_torch.core.costmodel, "
             "repro_torch.runtime.fault_tolerance, sys; "
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))]; assert not bad, bad")

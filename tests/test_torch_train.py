@@ -17,6 +17,7 @@ once per module, jitted.  Tolerances, all at f32:
   difference (the 5e-3 above, at worst) into its update.
 """
 import dataclasses
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -38,13 +39,15 @@ from repro.optim import adamw_update as jax_adamw_update  # noqa: E402
 from repro_torch.checkpoint import params_from_numpy  # noqa: E402
 from repro_torch.configs import get_smoke_config, reduced  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLMDataset  # noqa: E402
-from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
-from repro_torch.kernels import hbp_matmul as mm_mod  # noqa: E402
 from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import RunOptions, build_model  # noqa: E402
 from repro_torch.models import common as pt_common  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, global_norm  # noqa: E402
+
+# the kernel modules (the package exports their wrappers under the same names)
+fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")
+mm_mod = importlib.import_module("repro_torch.kernels.hbp_matmul")
 
 BATCH, SEQ = 2, 32
 LOSS_RTOL = 1e-5
