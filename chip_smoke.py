@@ -6,8 +6,11 @@
 Phases, each of which fails the run (exit code 1, no result line):
 
 1. Build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
-   ``nvcc`` per source, in parallel) and print the card's name and power
-   limit.
+   ``nvcc`` per source, in parallel), print ``ptxas``'s registers and spill
+   stores of each bf16 tensor-core attention kernel (any spill fails the
+   run) and the tensor-core instructions (HMMA, HGMMA) in each library's
+   SASS (``cuobjdump -sass``; the attention libraries must have some), and
+   the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    serving path's shapes, within the tolerances printed beside each case.
 3. Serve the ``qwen3-1.7b`` smoke config at f32 with one set of parameters
@@ -19,7 +22,9 @@ Phases, each of which fails the run (exit code 1, no result line):
 5. Time each kernel, its plain version and the PyTorch library call for the
    same function at phase 4's shapes, beside the least time the card could
    take (bytes over 3.35 TB/s or operations over the bf16 peak of
-   989 TFLOP/s, whichever is larger; the H100 SXM data sheet).
+   989 TFLOP/s, whichever is larger; the H100 SXM data sheet).  Each row
+   names the instance it ran (``mma``: tensor cores by ``mma.sync``;
+   ``wmma``: K2's bf16 path; ``fma``: f32 FMA).
 6. Train ``qwen3-1.7b`` at full width in bf16 from a seeded init through
    ``repro_torch.launch.train.train``: batch 4 x 128 tokens, 3 AdamW steps.
    Prints each step's loss, grad norm and host ms, the peak memory and the
@@ -30,7 +35,7 @@ Phases, each of which fails the run (exit code 1, no result line):
    ``scaled_dot_product_attention`` call, and ``torch.matmul``), and one
    whole training step on the device (captured in a CUDA graph, replayed)
    against its host wall time in phase 6; count the device operations of
-   one step in a ``torch.profiler`` trace.
+   one step in a ``torch.profiler`` trace, ours by kernel name.
 8. Serve ``qwen3-1.7b`` at full width in bf16 through the continuous-batching
    ``Engine``: 8 slots, a 512-slot cache, chunk 64, 16 requests (prompts of
    16-192 tokens, 8-48 new tokens, seed 0), once with the bf16 cache and
@@ -62,10 +67,15 @@ Phases, each of which fails the run (exit code 1, no result line):
 Phase 2 also holds K1 and K2 at phase 6's shapes (512 token rows: every
 forward product, the logits, every ``g Wᵀ``), K3 and K2's transposed-A
 products (the backward's ``aᵀ g``) against their plain versions at the
-training shapes and at harder ones, and K1q at phase 8's decode and
-continuation-chunk shapes; phase 3 also takes one f32 training step of the
-smoke config on the card and on the CPU from the same parameters and
-compares the loss, every gradient and the updated parameters, and serves
+training shapes and at harder ones, K1 and K3 in bf16 at the tensor-core
+tiles' edges (hd 64 and 128, sequences of 57, 65 and 129, a window across a
+K/V tile, a 64-row chunk and decode against 512 slots with an empty lane),
+two K3 calls on the same inputs (bit-identical), a bf16 ``q`` whose head
+stride is not a whole number of 16-byte steps (K1 and K3 must raise), and
+K1q at phase 8's decode and continuation-chunk shapes; phase 3 also takes
+one f32 training step of the smoke config on the card and on the CPU from
+the same parameters and compares the loss, every gradient and the updated
+parameters, and serves
 the smoke config through the ``Engine`` with the fp and the int8 cache:
 card == CPU == lockstep tokens, and a run under an injected fault plan
 gives the clean run's tokens.
@@ -77,6 +87,7 @@ of the ``repro`` package.
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -158,6 +169,30 @@ def copies_past_l2(nbytes):
     return max(1, math.ceil(2 * L2_BYTES / max(nbytes, 1)))
 
 
+def ptxas_entries(log):
+    """(kernel, registers, bytes of spill stores) for each entry function
+    in an ``nvcc -Xptxas=-v`` log; the kernel named as ``name<hd>`` where
+    its mangled name carries one template int."""
+    out = []
+    for chunk in log.split("Compiling entry function")[1:]:
+        mangled = re.search(r"'(\S+)'", chunk).group(1)
+        m = re.search(r"\d+(flash_\w+?_kernel)ILi(\d+)E", mangled)
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores", chunk)
+        out.append((f"{m.group(1)}<{m.group(2)}>" if m else mangled,
+                    int(regs.group(1)) if regs else 0, int(spill.group(1)) if spill else 0))
+    return out
+
+
+def sass_counts(lib):
+    """Tensor-core instructions in a built library's SASS (``cuobjdump
+    -sass``): HMMA (mma.sync, WMMA) and HGMMA (wgmma)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HMMA", "HGMMA")}
+
+
 def main():
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch is not beside this script", file=sys.stderr)
@@ -178,10 +213,11 @@ def main():
     from repro_torch.kernels.bi_transpose import bi_transpose, transpose_ref
     from repro_torch.kernels.bp_scan import bp_scan, bp_scan_plain
     from repro_torch.kernels.morton import supports_morton as morton_order
-    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
+    from repro_torch.kernels.flash_attention import (bwd_path, flash_attention,
+                                                     flash_attention_bwd,
                                                      flash_attention_bwd_ref,
                                                      flash_attention_int8,
-                                                     flash_attention_ref)
+                                                     flash_attention_ref, fwd_path)
     from repro_torch.kernels.hbp_matmul import hbp_matmul, matmul_ref
     from repro_torch.launch.engine import Engine, check_lockstep_parity
     from repro_torch.launch.serve import Request, Server
@@ -224,11 +260,24 @@ def main():
     logs = _build.build()
     print(f"[1] built {sorted(logs) or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.1f} s")
+    mma_spills = []
     for name, log in logs.items():  # ptxas -v, one line per source
-        regs = [int(w) for w in re.findall(r"Used (\d+) registers", log)]
-        spills = sum(int(w) for w in re.findall(r"(\d+) bytes spill stores", log))
-        print(f"    {name}: {len(regs)} kernels, at most {max(regs, default=0)} "
-              f"registers, {spills} bytes of spill stores in all")
+        entries = ptxas_entries(log)
+        print(f"    {name}: {len(entries)} kernels, at most "
+              f"{max((r for _, r, _ in entries), default=0)} registers, "
+              f"{sum(sp for _, _, sp in entries)} bytes of spill stores in all")
+        for kern, regs, spill in entries:  # the bf16 tensor-core instances
+            if "_mma_kernel" in kern:
+                print(f"      {kern}: {regs} registers, {spill} bytes of spill stores")
+                if spill:
+                    mma_spills.append(kern)
+    for name in _build.sources():  # tensor-core instructions in each library
+        counts_ = sass_counts(_build.library_path(name))
+        print(f"    {name}: SASS has {counts_['HMMA']} HMMA and {counts_['HGMMA']} HGMMA")
+        if name.startswith("flash_attention"):
+            check(counts_["HMMA"] + counts_["HGMMA"] > 0,
+                  f"{name}: no tensor-core instruction in its SASS")
+    check(not mma_spills, f"the bf16 tensor-core kernels spill: {mma_spills}")
     print(smi)
 
     # -- 2. kernels against their plain versions ------------------------------
@@ -366,6 +415,73 @@ def main():
         compare("hbp_matmul", f"{dtype} dH (tied logits): g E ({T_train}x{V} @ {V}x{d})",
                 hbp_matmul(gr, table), matmul_ref(gr, table), dtype)
         del gr, table
+
+    # bf16 K1 and K3 (the tensor-core instances) where their tiles are
+    # ragged: sequences that end inside a 16-row warp tile or a 64-key K/V
+    # tile, a window that crosses a K/V tile, the engine's 64-row chunk and
+    # decode against 512 slots with empty lanes; hd 64 and 128, GQA 16/8
+    print(f"[2] bf16 K1 and K3 at the tensor-core tiles' edges (64-key K/V tiles, 16-row "
+          f"query warps, 16-key dk/dv blocks; {h}/{kvh} heads)")
+    edge_cases = [  # (label, b, sq, sk, hd, window, q_offset lanes, kv_len lanes, dead lanes)
+        *[(f"causal 2x{sq}, hd {hd_}", 2, sq, sq, hd_, 0, None, None, [])
+          for hd_ in (64, 128) for sq in (57, 65, 129)],
+        ("window 40 across a K/V tile, 2x129", 2, 129, 129, hd, 40, None, None, []),
+        ("64 rows vs 512 slots, q_offset 0/100/448, kv_len 0 lane", 4, 64, 512, hd, 0,
+         [0, 100, 448, 0], [64, 164, 512, 0], [3]),
+        ("decode vs 512 slots, kv_len 0 lane", 4, 1, 512, hd, 0, [0, 100, 511, 7],
+         [1, 101, 512, 0], [3]),
+    ]
+    bf = torch.bfloat16
+    for label, b, sq, sk, hd_, window, qo, kl, dead in edge_cases:
+        q, go = (torch.randn(b, sq, h, hd_, device=dev, generator=g).to(bf) for _ in "qg")
+        k, v = (torch.randn(b, sk, kvh, hd_, device=dev, generator=g).to(bf) for _ in "kv")
+        kw = dict(causal=True, window=window, q_offset=None if qo is None else lane(qo),
+                  kv_len=None if kl is None else lane(kl))
+        out, lse = flash_attention(q, k, v, **kw)
+        r_out, r_lse = flash_attention_ref(q, k, v, **kw)
+        compare("flash_attention", f"bfloat16 {label} out", out, r_out, "bfloat16")
+        compare("flash_attention", f"bfloat16 {label} lse", lse, r_lse, "bfloat16", 1e-4, 1e-5)
+        got = flash_attention_bwd(q, k, v, out, lse, go, **kw) if sq > 1 else ()
+        if got:
+            want = flash_attention_bwd_ref(q, k, v, out, lse, go, **kw)
+            for name, x, w in zip(("dq", "dk", "dv"), got, want):
+                compare("flash_attention_bwd", f"bfloat16 {label} {name}", x, w, "bfloat16")
+        if dead:
+            zero = all(torch.count_nonzero(x[row]).item() == 0
+                       for x in (out, *got) for row in dead)
+            print(f"    {'flash_attention':19s} lanes {dead}: out{', dq, dk, dv' if got else ''} "
+                  f"exact zeros: {zero}")
+            if not zero:
+                failures.append(f"bf16 {label}: lanes {dead} not exact zeros")
+    # K3 twice on the same inputs: the same bits (one writer per element,
+    # the dk/dv warps' partial sums added in a fixed order)
+    q, go = (torch.randn(TRAIN_BATCH, TRAIN_SEQ, h, hd, device=dev, generator=g).to(bf)
+             for _ in "qg")
+    k, v = (torch.randn(TRAIN_BATCH, TRAIN_SEQ, kvh, hd, device=dev, generator=g).to(bf)
+            for _ in "kv")
+    out, lse = flash_attention(q, k, v, causal=True)
+    first = flash_attention_bwd(q, k, v, out, lse, go, causal=True)
+    second = flash_attention_bwd(q, k, v, out, lse, go, causal=True)
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    print(f"    {'flash_attention_bwd':19s} bf16 {TRAIN_BATCH}x{TRAIN_SEQ} twice: dq, dk, dv "
+          f"bit-identical: {same}")
+    if not same:
+        failures.append("flash_attention_bwd: two calls on the same inputs differ")
+    # a head stride that is not a whole number of 16-byte steps must raise
+    odd = torch.randn(2, 32, h, hd + 1, device=dev, generator=g).to(bf)[..., :hd]
+    raised = []
+    for what, call in (("flash_attention", lambda: flash_attention(odd, k[:2, :32], v[:2, :32])),
+                       ("flash_attention_bwd", lambda: flash_attention_bwd(
+                           odd, k[:2, :32], v[:2, :32], odd, lse[:2, :, :32], odd))):
+        try:
+            call()
+        except ValueError as e:
+            raised.append(what)
+            print(f"    {what:19s} bf16 q with head stride {odd.stride(2)} raises: {e}")
+    missing = sorted({"flash_attention", "flash_attention_bwd"} - set(raised))
+    if missing:
+        failures.append(f"misaligned bf16 q did not raise in {missing}")
+    del q, go, k, v, out, lse, first, second, odd
 
     # K1q over an int8 cache quantized as the model does (per-(row, kv head)
     # scales over the slab), at phase 8's shapes
@@ -586,7 +702,7 @@ def main():
         b_ms, b_by = bound_ms(nbytes, 2 * m * n * k, "bfloat16")
         rows.append(dict(kernel="hbp_matmul", label=label, calls=calls, ms=t_k, plain_ms=t_p,
                          library_ms=t_l, bound_ms=b_ms, bytes=nbytes, ops=2 * m * n * k,
-                         bound_by=b_by, path=path))
+                         bound_by=b_by, path=path, instance="wmma"))
         del sets
 
     L = cfg.n_layers
@@ -631,16 +747,18 @@ def main():
         b_ms, b_by = bound_ms(nbytes, 4 * hd * pairs, "bfloat16")
         rows.append(dict(kernel="flash_attention", label=label, calls=calls, ms=t_k,
                          plain_ms=t_p, library_ms=t_l, bound_ms=b_ms, bytes=nbytes,
-                         ops=4 * hd * pairs, bound_by=b_by, path=path))
+                         ops=4 * hd * pairs, bound_by=b_by, path=path,
+                         instance=fwd_path(sets[0][0])))
 
     def print_rows(path):
-        print(f"    {'kernel':19s} {'shape':42s} {'calls':>5s} {'ms':>9s} {'plain_ms':>9s} "
-              f"{'library':>9s} {'bound_ms':>9s} {'by':>10s} {'% bound':>8s}")
+        print(f"    {'kernel':19s} {'inst':4s} {'shape':42s} {'calls':>5s} {'ms':>9s} "
+              f"{'plain_ms':>9s} {'library':>9s} {'bound_ms':>9s} {'by':>10s} {'% bound':>8s}")
         for r in rows:
             if r["path"] in path:
-                print(f"    {r['kernel']:19s} {r['label']:42s} {r['calls']:5d} {r['ms']:9.4f} "
-                      f"{r['plain_ms']:9.4f} {r['library_ms']:9.4f} {r['bound_ms']:9.4f} "
-                      f"{r['bound_by']:>10s} {100 * r['bound_ms'] / r['ms']:7.1f}%")
+                print(f"    {r['kernel']:19s} {r['instance']:4s} {r['label']:42s} "
+                      f"{r['calls']:5d} {r['ms']:9.4f} {r['plain_ms']:9.4f} "
+                      f"{r['library_ms']:9.4f} {r['bound_ms']:9.4f} {r['bound_by']:>10s} "
+                      f"{100 * r['bound_ms'] / r['ms']:7.1f}%")
 
     time_attention(f"decode 4x1x{h}x{hd} vs cache {MAX_LEN}, kv_len {mid_pos + 1}",
                    1, [mid_pos + 1] * BATCH, L, "decode")
@@ -744,7 +862,8 @@ def main():
     b_ms, b_by = bound_ms(nbytes, 10 * hd * pairs, "bfloat16")
     rows.append(dict(kernel="flash_attention_bwd", label=f"causal 4x{TRAIN_SEQ}x{h}x{hd}",
                      calls=L, ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
-                     bytes=nbytes, ops=10 * hd * pairs, bound_by=b_by, path="train"))
+                     bytes=nbytes, ops=10 * hd * pairs, bound_by=b_by, path="train",
+                     instance=bwd_path(sets[0][0])))
     del sets, lib_sets
     print_rows(("train",))
     for name in ("hbp_matmul", "flash_attention", "flash_attention_bwd"):
@@ -791,9 +910,16 @@ def main():
         train_step(opt_state, batch)
         torch.cuda.synchronize()
     dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    own = re.compile(r"\b(mm_kernel|splitk_reduce|flash_fwd_kernel|flash_bwd_dq_kernel"
-                     r"|flash_bwd_dkv_kernel)\b")
+    own = re.compile(r"\b(mm_kernel|splitk_reduce|flash_fwd_kernel|flash_fwd_mma_kernel"
+                     r"|flash_bwd_dq_kernel|flash_bwd_dkv_kernel|flash_bwd_dq_mma_kernel"
+                     r"|flash_bwd_dkv_mma_kernel)\b")
     ours = sum(1 for e in dev_events if own.search(e.name))
+    by_name = {}
+    for e in dev_events:
+        hit = own.search(e.name)
+        if hit:
+            by_name[hit.group(1)] = by_name.get(hit.group(1), 0) + 1
+    print(f"    our device operations in the trace, by kernel: {dict(sorted(by_name.items()))}")
     print(f"    profiler trace of one step: {len(dev_events)} device operations "
           f"({ours} of them K1, K2 (with its split-K reductions) or K3; "
           f"{len(dev_events) - ours} PyTorch kernels, "
@@ -942,6 +1068,7 @@ def main():
     t_lib = time_ms(torch, lib_two_calls, lib_sets)
     t_k1 = time_ms(torch, lambda qd, kb, vb, qo, kl: flash_attention(
         qd, kb, vb, causal=True, q_offset=qo, kv_len=kl), k1_sets)
+    k1_inst = fwd_path(k1_sets[0][0])
     valid = sum(mid_kl)
     # read the valid int8 k and v once, q, the scales and the lanes; write out
     # and lse.  Work: q.kᵀ and p.v over every visible key of every head
@@ -953,11 +1080,13 @@ def main():
     k1_bound, _ = bound_ms(k1_bytes, q8_ops, "bfloat16")
     rows.append(dict(kernel="flash_attention_int8", label=f"decode {SLOTS}x1 vs int8 {ENGINE_LEN}",
                      calls=L, ms=t_q8, plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
-                     bytes=q8_bytes, ops=q8_ops, bound_by=b_by, path="engine"))
-    print(f"    K1q {t_q8:.4f} ms (bound {b_ms:.4f} ms by {b_by}, {100 * b_ms / t_q8:.1f}% of it; "
-          f"{q8_bytes / 1e6:.3f} MB); plain {t_plain:.4f} ms; library, two calls "
-          f"(dequantize to bf16, then scaled_dot_product_attention) {t_lib:.4f} ms; K1 over "
-          f"the bf16 cache {t_k1:.4f} ms (its bound {k1_bound:.4f} ms)")
+                     bytes=q8_bytes, ops=q8_ops, bound_by=b_by, path="engine",
+                     instance=fwd_path(q8_sets[0][0], k_scale=q8_sets[0][3])))
+    print(f"    K1q ({rows[-1]['instance']} instance) {t_q8:.4f} ms (bound {b_ms:.4f} ms by "
+          f"{b_by}, {100 * b_ms / t_q8:.1f}% of it; {q8_bytes / 1e6:.3f} MB); plain "
+          f"{t_plain:.4f} ms; library, two calls (dequantize to bf16, then "
+          f"scaled_dot_product_attention) {t_lib:.4f} ms; K1 ({k1_inst} instance) over the "
+          f"bf16 cache {t_k1:.4f} ms (its bound {k1_bound:.4f} ms)")
     print(f"    one int8 decode step's {L} calls: K1q {L * t_q8:.4f} ms, K1 over bf16 "
           f"{L * t_k1:.4f} ms")
     del q8_sets, k1_sets, lib_sets

@@ -5,8 +5,9 @@ Each ``csrc/<name>.cu`` exports a plain C function.  It is compiled with
 under the repository root (listed in ``.gitignore``) on first use, and loaded
 with ``ctypes``; the wrappers pass tensor pointers, sizes and PyTorch's
 current stream as plain integers.  The file name carries a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged one is
-not.  :func:`build` starts one ``nvcc`` per source, all at once.
+source, of every shared header ``csrc/*.cuh`` and of the flags, so an edited
+source or header is rebuilt and an unchanged one is not.  :func:`build`
+starts one ``nvcc`` per source, all at once.
 
 No PyTorch headers are compiled, which keeps a build to seconds.  Nothing is
 built or loaded at import time: this module imports on a machine with no
@@ -44,8 +45,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode())
+    """Where ``csrc/<name>.cu`` is built: the name carries a hash of the
+    source, of every header under ``csrc/`` (any source may include any of
+    them) and of the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -4,30 +4,53 @@
 // Replaces src/repro/kernels/flash_attention.py:_flash_kernel (launched by
 // _fwd_call, entry flash_attention).
 //
-// Bound on the H100: bytes.  Decode reads each row's valid cache prefix once
-// per query head for 1 query row; prefill on the serving path is 64 x 64
-// per head.  Both sit far below the card's flop/byte ridge, so the kernel is
-// built to read K/V once per block and never to materialise anything
-// O(sq * sk) in device memory:
-//   * one block per (query batch-head, tile of BQ query rows); a loop inside
-//     the block takes the place of the TPU grid's sequential KV axis, with
-//     the running (m, l) in shared memory and acc in registers;
-//   * q, k, v are read in the model's (b, s, heads, hd) layout through their
-//     strides, so neither the head fold nor a GQA repeat is ever copied.
-//     Query head b_ = bi * h + hi reads KV head bi * kvh + hi / n_rep (the
-//     repro fold: batch-major, head = kv_head * n_rep + rep);
-//   * per-row lanes: q_offset / kv_len are int32 device vectors of `rows`
-//     entries, rows dividing b, lane = bi / (b / rows); null pointers mean
-//     q_offset 0 and kv_len sk.  KV tiles past kv_len, past the causal
-//     limit or before the window are skipped, not computed and masked;
-//   * masked probabilities are zeroed explicitly (NEG_INF = -1e30 never
-//     reaches an exp that counts), so a fully masked row or a kv_len == 0
-//     lane emits exact zeros through the l_safe guard, as the TPU kernel does.
-// A simple, correct kernel: f32 dot products in shared memory, BK = 32 keys
-// per tile (one per lane of the softmax warp).  Tensor cores, TMA and an
-// FA-3 style pipeline are later work.
+// Two instances share the contract below:
+//   * flash_fwd_mma_kernel, bf16 q/k/v, prefill, chunks and decode alike:
+//     the products on the tensor cores
+//     (mma.sync m16n8k16, bf16 in, f32 accumulate; mma_bf16.cuh).  What
+//     bounds it at the training shape (4 x 128 queries, 16 query heads over
+//     8 KV heads, hd 128, causal: 0.27 GFLOP and ~2 MB, a bound of ~2 us)
+//     is latency: a call is a few microseconds of work, so the design keeps
+//     every block's serial chain short and enough blocks in flight:
+//       - a block is one KV head's `rg` query heads (the largest of 4, 2, 1
+//         dividing n_rep) times `qg` groups of 16 query rows, one warp per
+//         (head, 16 rows), rg * qg = 4 where sq allows; each K/V tile is
+//         read once for all its warps (training shape: 32 x 4 = 128 blocks
+//         of 4 warps, one per SM, each K/V tile feeding four warps);
+//       - K/V tiles of 64 keys, bf16 in shared memory (rows padded to
+//         hd + 8 for conflict-free ldmatrix), filled by 16-byte cp.async
+//         with zero fill past sk, double-buffered so that tile t + 1 loads
+//         while tile t is multiplied; two barriers per tile;
+//       - Q is staged once and held as A fragments in registers; S = Q K^T
+//         and O += P V run on mma.sync from ldmatrix fragments; the online
+//         softmax (m, l, corr) stays in registers in the accumulator layout
+//         with quad shuffles and the fast exponential (__expf: a few f32
+//         ulps, far below P's bf16 rounding); P is rounded to bf16 and
+//         re-packed in registers as the A operand of P V (no shared-memory
+//         round trip);
+//       - bf16 rounding: P before P V (l is summed from the f32 P), and the
+//         output; S, m, l, the LSE and O's sums are f32.
+//     In decode (sq == 1) a block is a KV head's query heads, one row each,
+//     so the cache is read once per KV head; on the H100 that beat this
+//     file's FMA template at every decode shape measured (PERF.md, PR 15),
+//     which then left bf16.
+//   * flash_fwd_kernel, the FMA template: f32 (where the f32 gates leave no
+//     room for bf16 or TF32 rounding) and K1q's int8 K/V.  One block per
+//     (query batch-head, tile of BQ query rows), f32 dot products in shared
+//     memory, BK = 32 keys per tile.
+// Both read q, k, v in the model's (b, s, heads, hd) layout through their
+// strides, so neither the head fold nor a GQA repeat is ever copied: query
+// head b_ = bi * h + hi reads KV head bi * kvh + hi / n_rep (the repro
+// fold: batch-major, head = kv_head * n_rep + rep).  Per-row lanes:
+// q_offset / kv_len are int32 device vectors of `rows` entries, rows
+// dividing b, lane = bi / (b / rows); null pointers mean q_offset 0 and
+// kv_len sk.  KV tiles past kv_len, past the causal limit or before the
+// window are skipped, not computed and masked.  Masked probabilities are
+// zeroed explicitly (NEG_INF = -1e30 never reaches an exp that counts), so
+// a fully masked row or a kv_len == 0 lane emits exact zeros through the
+// l_safe guard, as the TPU kernel does.
 //
-// K1q, the same kernel over an int8 KV cache (KT = int8_t), replaces
+// K1q, the FMA template over an int8 KV cache (KT = int8_t), replaces
 // _flash_kernel with quantized=True (flash_attention.py:141-169, operands
 // :356-358).  K and V are int8 with one f32 scale per (batch row, KV head)
 // each, read at k_scale[bi * kvh + kv head]; every element is dequantized
@@ -42,6 +65,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -230,6 +255,184 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
   }
 }
 
+// ---- the tensor-core instance: bf16 q, k, v --------------------------------
+
+constexpr int MMA_BK = 64;  // keys per K/V tile
+
+template <int HD>
+constexpr int fwd_mma_smem_bytes(int warps) {
+  return (warps * 16 + 4 * MMA_BK) * mma_bf16::pad_ld<HD>() * 2;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS) flash_fwd_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse, const int* __restrict__ qoff, const int* __restrict__ kvlen,
+    int rows, int b, int sq, int sk, int h, int kvh, int rg, int qg, long long qsb,
+    long long qss, long long qsh, long long ksb, long long kss, long long ksh,
+    long long vsb, long long vss, long long vsh, int causal, int window, float scale) {
+  using namespace mma_bf16;
+  constexpr int LD = pad_ld<HD>();
+  constexpr int KS = HD / 16;     // k-steps of Q K^T
+  constexpr int NB = MMA_BK / 8;  // 8-key column blocks of S
+  constexpr int DB = HD / 8;      // 8-column blocks of O
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warps = rg * qg;
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [warps * 16][LD]
+  bf16* Ks = Qs + warps * 16 * LD;                // [2][MMA_BK][LD]
+  bf16* Vs = Ks + 2 * MMA_BK * LD;                // [2][MMA_BK][LD]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int n_rep = h / kvh, groups = n_rep / rg;
+  const int gi = blockIdx.x % groups;
+  const int kvhi = (blockIdx.x / groups) % kvh;
+  const int bi = blockIdx.x / (groups * kvh);
+  const int q0 = blockIdx.y * qg * 16;
+  const int lane_row = bi / (b / rows);
+  const int qo = qoff ? qoff[lane_row] : 0;
+  const int kl = kvlen ? min(max(kvlen[lane_row], 0), sk) : sk;
+
+  // this warp: query head hi, local rows wq0 .. wq0 + 15
+  const int hi = kvhi * n_rep + gi * rg + warp % rg;
+  const int wq0 = q0 + (warp / rg) * 16;
+  const bf16* kb = k + bi * ksb + kvhi * ksh;
+  const bf16* vb = v + bi * vsb + kvhi * vsh;
+  stage_rows<HD>(Qs + warp * 16 * LD, q + bi * qsb + hi * qsh, qss, wq0, 16, sq, lane, 32);
+
+  // the KV range the block's rows can see, and the warp's own
+  const int q_last = min(q0 + qg * 16, sq) - 1;
+  const int kv_end = causal ? min(kl, qo + q_last + 1) : kl;
+  int kv_begin = window > 0 ? max(0, qo + q0 - window + 1) : 0;
+  kv_begin = (kv_begin / MMA_BK) * MMA_BK;
+  const bool w_rows = wq0 < sq;
+  const int w_end = causal ? min(kl, qo + min(wq0 + 16, sq)) : kl;
+  const int w_begin = window > 0 ? max(0, qo + wq0 - window + 1) : 0;
+
+  auto load_kv = [&](int k0, int st) {
+    stage_rows<HD>(Ks + st * MMA_BK * LD, kb, kss, k0, MMA_BK, sk, tid, blockDim.x);
+    stage_rows<HD>(Vs + st * MMA_BK * LD, vb, vss, k0, MMA_BK, sk, tid, blockDim.x);
+  };
+  cp_async_commit();  // the warp's Q rows
+  if (kv_begin < kv_end) load_kv(kv_begin, 0);
+  cp_async_commit();
+
+  // Q as A fragments, held in registers for the whole KV loop (each warp
+  // staged and reads only its own rows, so a warp barrier suffices)
+  uint32_t qf[KS][4];
+  cp_async_wait<1>();
+  __syncwarp();
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) load_a(qf[ks], Qs + warp * 16 * LD, LD, ks * 16, lane);
+
+  const int r = lane / 4, c = 2 * (lane % 4);
+  const int qpos0 = qo + wq0 + r;  // the positions of rows r and r + 8
+  float o[DB][4];
+#pragma unroll
+  for (int j = 0; j < DB; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  int t = 0;
+  for (int k0 = kv_begin; k0 < kv_end; k0 += MMA_BK, ++t) {
+    const int st = t & 1;
+    if (k0 + MMA_BK < kv_end) load_kv(k0 + MMA_BK, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile has landed (this thread's copies)
+    __syncthreads();     // ... and every thread's
+    if (w_rows && k0 < w_end && k0 + MMA_BK > w_begin) {
+      const bf16* Kt = Ks + st * MMA_BK * LD;
+      const bf16* Vt = Vs + st * MMA_BK * LD;
+      float s[NB][4];
+#pragma unroll
+      for (int j = 0; j < NB; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+        for (int j = 0; j < NB; j += 2) {
+          uint32_t bb[4];
+          load_b_rows(bb, Kt, LD, j * 8, ks * 16, lane);
+          mma(s[j], qf[ks], bb[0], bb[1]);
+          mma(s[j + 1], qf[ks], bb[2], bb[3]);
+        }
+      }
+      // scale and mask; the tile's row maxima over the quad
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qpos = qpos0 + (e / 2) * 8, kpos = k0 + j * 8 + c + (e % 2);
+          const bool ok = kpos < kl && (!causal || kpos <= qpos) &&
+                          (window <= 0 || kpos > qpos - window);
+          s[j][e] = ok ? s[j][e] * scale : NEG_INF;
+          mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
+        }
+      }
+      float corr[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        corr[i] = __expf(m[i] - m_new);
+        m[i] = m_new;
+        l[i] *= corr[i];
+      }
+      // P = exp(S - m), masked entries exactly 0; l sums the f32 P (this
+      // thread's columns; the quad's partial sums are added at the end)
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = s[j][e] == NEG_INF ? 0.f : __expf(s[j][e] - m[e / 2]);
+          s[j][e] = p;
+          l[e / 2] += p;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < DB; ++j) {
+        o[j][0] *= corr[0];
+        o[j][1] *= corr[0];
+        o[j][2] *= corr[1];
+        o[j][3] *= corr[1];
+      }
+      // O += P V, P re-packed from the accumulators as bf16 A fragments
+#pragma unroll
+      for (int kk = 0; kk < NB / 2; ++kk) {
+        uint32_t a[4];
+        pack_a(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+        for (int j = 0; j < DB; j += 2) {
+          uint32_t bb[4];
+          load_b_cols(bb, Vt, LD, kk * 16, j * 8, lane);
+          mma(o[j], a, bb[0], bb[1]);
+          mma(o[j + 1], a, bb[2], bb[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with stage st before it is refilled
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qrow = wq0 + r + 8 * i;
+    if (!w_rows || qrow >= sq) continue;
+    const float l_safe = fmaxf(l[i], 1e-30f);
+    bf16* orow = out + (((long long)bi * sq + qrow) * h + hi) * HD;
+#pragma unroll
+    for (int j = 0; j < DB; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + c) =
+          __floats2bfloat162_rn(o[j][2 * i] / l_safe, o[j][2 * i + 1] / l_safe);
+    if (c == 0) lse[((long long)bi * h + hi) * sq + qrow] = m[i] + logf(l_safe);
+  }
+}
+
 // every pointer and size of one launch
 struct Args {
   const void *q, *k, *v;
@@ -273,6 +476,41 @@ int launch_hd(int hd, const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int HD>
+int launch_mma(const Args& a, cudaStream_t stream) {
+  const mma_bf16::QueryGrid qgrid = mma_bf16::query_grid(a.b, a.sq, a.h, a.kvh, false);
+  // raise the blocks' shared-memory limit once per instantiation, to the
+  // largest block's, so that a launch captured in a CUDA graph makes no
+  // attribute call
+  static bool limit_set = false;
+  if (!limit_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fwd_mma_smem_bytes<HD>(THREADS / 32));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    limit_set = true;
+  }
+  const long long* st = a.st;
+  flash_fwd_mma_kernel<HD><<<qgrid.grid, 32 * qgrid.warps(),
+                             fwd_mma_smem_bytes<HD>(qgrid.warps()), stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), static_cast<__nv_bfloat16*>(a.out),
+      static_cast<float*>(a.lse), a.qoff, a.kvlen, a.rows, a.b, a.sq, a.sk, a.h, a.kvh,
+      qgrid.rg, qgrid.qg, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      a.causal, a.window, 1.0f / sqrtf((float)HD));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_mma_hd(int hd, const Args& a, cudaStream_t stream) {
+  switch (hd) {
+    case 16: return launch_mma<16>(a, stream);
+    case 32: return launch_mma<32>(a, stream);
+    case 64: return launch_mma<64>(a, stream);
+    case 128: return launch_mma<128>(a, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // q: (b, sq, h, hd); k, v: (b, sk, kvh, hd), each with unit stride on hd and
@@ -280,8 +518,11 @@ int launch_hd(int hd, const Args& a, cudaStream_t stream) {
 // lse: contiguous f32 (b, h, sq).  qoff / kvlen: int32 device vectors of
 // `rows` entries, or null.  dtype (of q and out): 0 = float32, 1 = bfloat16.
 // kv_int8 = 0: k, v in q's dtype and kscale / vscale null (K1); kv_int8 = 1:
-// k, v int8 with contiguous f32 (b, kvh) kscale / vscale (K1q).  Returns the
-// launch's cudaGetLastError() (cudaErrorInvalidValue for an unsupported hd).
+// k, v int8 with contiguous f32 (b, kvh) kscale / vscale (K1q).  bf16 q,
+// k, v run the tensor-core instance (every pointer 16-byte aligned and
+// every stride a multiple of 8 elements), the rest the FMA template.
+// Returns the launch's cudaGetLastError() (cudaErrorInvalidValue for an
+// unsupported hd).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, void* lse,
     const void* qoff, const void* kvlen, const void* kscale, const void* vscale,
@@ -298,8 +539,7 @@ extern "C" int flash_attention_fwd(
   if (kv_int8 && (kscale == nullptr || vscale == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1)
-    return kv_int8 ? launch_hd<__nv_bfloat16, int8_t>(hd, a, s)
-                   : launch_hd<__nv_bfloat16, __nv_bfloat16>(hd, a, s);
+    return kv_int8 ? launch_hd<__nv_bfloat16, int8_t>(hd, a, s) : launch_mma_hd(hd, a, s);
   return kv_int8 ? launch_hd<float, int8_t>(hd, a, s)
                  : launch_hd<float, float>(hd, a, s);
 }

@@ -5,9 +5,10 @@ K3, the backward.
 Replaces ``src/repro/kernels/flash_attention.py:_flash_kernel`` (launched by
 ``_fwd_call``, entry ``flash_attention``).  The kernel is
 ``csrc/flash_attention.cu``, CUDA C++ for ``sm_90a``; its header says what
-bounds it on the H100 (bytes) and what the design does about it (one pass
-over each row's valid KV prefix, dead tiles skipped, no copy of the head
-fold or of a GQA repeat).
+bounds it on the H100 (latency at the training shape, bytes in decode) and
+what the design does about it (one pass over each row's valid KV prefix,
+dead tiles skipped, no copy of the head fold or of a GQA repeat, a KV
+head's query heads sharing each K/V tile).
 
 Contract, as the JAX kernel's, in the model's layout:
 
@@ -48,9 +49,20 @@ kernel entry and oracle.
 
 A tensor on the CPU takes the plain version (:func:`flash_attention_ref`,
 :func:`flash_attention_bwd_ref`); a CUDA tensor launches the kernel (``hd``
-in 16, 32, 64, 128) or raises.  ``flash_attention.launches`` (K1),
-``flash_attention_int8.launches`` (K1q) and ``flash_attention_bwd.launches``
-(K3) count the kernel launches.
+in 16, 32, 64, 128) or raises.  Each kernel has two instances
+(:func:`fwd_path`, :func:`bwd_path`).  bf16 ``q``/``k``/``v`` run on the
+tensor cores ("mma": ``mma.sync`` with f32 accumulation): K1 rounds P to
+bf16 where it feeds P V; K3 feeds P and dS to its products as hi + lo bf16
+pairs (16 bits) and forms delta = rowsum(dO * O) in its dq pass.  f32 and
+K1q's int8 cache run the FMA template ("fma", f32 throughout, delta from
+this wrapper), which the f32 gates (identical card and CPU tokens) need.
+The mma instances stage tiles with 16-byte copies, so they raise on a
+``q``/``k``/``v`` whose pointer is not 16-byte aligned or whose (batch,
+seq, head) strides are not multiples of 8 elements; no model path makes
+one (``out`` and the gradient are copied when they are not so).
+
+``flash_attention.launches`` (K1), ``flash_attention_int8.launches`` (K1q)
+and ``flash_attention_bwd.launches`` (K3) count the kernel launches.
 """
 from __future__ import annotations
 
@@ -182,6 +194,36 @@ def flash_attention_bwd_ref(q, k, v, out, lse, g, *, causal: bool = True,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def fwd_path(q, k_scale=None) -> str:
+    """The K1 instance a CUDA call with this ``q`` runs: ``"mma"`` for bf16
+    ``q``/``k``/``v`` (decode too), ``"fma"`` for f32 and for K1q's int8
+    ``k``/``v``."""
+    return "mma" if q.dtype == torch.bfloat16 and k_scale is None else "fma"
+
+
+def bwd_path(q) -> str:
+    """The K3 instance a CUDA call with this ``q`` runs: ``"mma"`` for bf16,
+    ``"fma"`` for f32."""
+    return "mma" if q.dtype == torch.bfloat16 else "fma"
+
+
+def _tensor_core_layout(x) -> bool:
+    """Whether the mma instances can stage ``x`` with 16-byte copies: a
+    16-byte aligned pointer and (batch, seq, head) strides that are
+    multiples of 16 bytes."""
+    step = 16 // x.element_size()
+    return x.data_ptr() % 16 == 0 and all(s % step == 0 for s in x.stride()[:3])
+
+
+def _require_tensor_core_layout(what, **tensors):
+    for name, x in tensors.items():
+        if not _tensor_core_layout(x):
+            raise ValueError(
+                f"{what}: {name} has pointer {x.data_ptr():#x} and strides {x.stride()}; "
+                f"the bf16 tensor-core kernel needs a 16-byte aligned pointer and "
+                f"strides that are multiples of {16 // x.element_size()} elements")
+
+
 def _lanes(q_offset, kv_len):
     """(rows, [q_offset, kv_len] as contiguous (rows,) vectors or None): one
     lane count for both, a scalar beside a (rows,) vector fanned out."""
@@ -212,6 +254,8 @@ def _launch_fwd(q, k, v, causal, window, q_offset, kv_len, k_scale, v_scale, wha
         raise ValueError(f"{what}: head_dim {hd} not in {HEAD_DIMS}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError(f"{what}: q, k, v need unit stride on head_dim")
+    if fwd_path(q, k_scale) == "mma":
+        _require_tensor_core_layout(what, q=q, k=k, v=v)
     rows, lanes = _lanes(q_offset, kv_len)
     scales = [None if x is None else x.contiguous() for x in (k_scale, v_scale)]
     out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
@@ -283,7 +327,7 @@ def _bwd_lib():
     fn = lib.flash_attention_bwd
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+        fn.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
                        ctypes.POINTER(ctypes.c_longlong), I, I, I, P]
         fn.restype = ctypes.c_int
     return fn
@@ -315,22 +359,32 @@ def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = True,
         raise ValueError(f"flash_attention_bwd: no kernel for device {q.device}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd: head_dim {hd} not in {HEAD_DIMS}")
-    if g.stride(3) != 1:
-        g = g.contiguous()
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_attention_bwd: q, k, v need unit stride on head_dim")
+    mma = bwd_path(q) == "mma"
+    if mma:
+        _require_tensor_core_layout("flash_attention_bwd", q=q, k=k, v=v)
+    # g (from autograd) and out come in whatever layout; the kernel reads a
+    # copy when it cannot read one itself
+    if g.stride(3) != 1 or (mma and not _tensor_core_layout(g)):
+        g = g.clone(memory_format=torch.contiguous_format)
+    if out.stride(3) != 1 or (mma and not _tensor_core_layout(out)):
+        out = out.clone(memory_format=torch.contiguous_format)
     rows, lanes = _lanes(q_offset, kv_len)
-    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()  # (b, h, sq)
+    # delta = rowsum(dO * O), (b, h, sq): the bf16 kernel's dq pass forms it
+    # (and writes it here); the f32 kernel takes it from this reduction
+    delta = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if mma else
+             (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous())
     lse = lse.contiguous()
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty((b, sk, kvh, hd), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, sk, kvh, hd), dtype=v.dtype, device=q.device)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    strides = (ctypes.c_longlong * 12)(*(x.stride(i) for x in (q, k, v, g)
+    strides = (ctypes.c_longlong * 15)(*(x.stride(i) for x in (q, k, v, g, out)
                                           for i in range(3)))
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _bwd_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+    err = _bwd_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), out.data_ptr(),
                      lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                      dv.data_ptr(), *(None if x is None else x.data_ptr() for x in lanes),
                      rows, b, sq, sk, h, kvh, hd, strides, int(causal), int(window),

@@ -298,6 +298,49 @@ def test_wrappers_reject_bad_inputs():
         flash_attention_bwd(q, q, q, out, lse[:, :2], out)
 
 
+def test_library_path_hashes_shared_headers(tmp_path, monkeypatch):
+    """Editing a shared ``csrc/*.cuh`` header moves every library's path, so
+    a stale build is never loaded; nothing is built (a copy of ``csrc``)."""
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    headers = sorted(csrc.glob("*.cuh"))
+    assert headers, "csrc has no shared header"
+    before = {name: _build.library_path(name) for name in _build.sources()}
+    assert before["flash_attention"] == _build.library_path("flash_attention")
+    headers[0].write_text(headers[0].read_text() + "\n// edited\n")
+    after = {name: _build.library_path(name) for name in _build.sources()}
+    assert all(after[n] != before[n] for n in before)
+    (csrc / "bp_scan.cu").write_text((csrc / "bp_scan.cu").read_text() + "\n")
+    assert _build.library_path("bp_scan") != after["bp_scan"]
+    assert _build.library_path("flash_attention") == after["flash_attention"]
+    assert not _build.BUILD_DIR.joinpath(after["flash_attention"].name).exists()
+
+
+def test_tensor_core_layout_rule():
+    """The bf16 mma instances take a pointer aligned to 16 bytes and
+    (batch, seq, head) strides of whole 16-byte steps; K1 and K3 pick them
+    for bf16 (decode too), never for f32 or K1q."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    q = torch.zeros(2, 8, 4, 64, dtype=torch.bfloat16)
+    assert fa._tensor_core_layout(q)
+    assert fa._tensor_core_layout(q[:, 2:])  # a later row: 2 * 4 * 64 elements on
+    assert not fa._tensor_core_layout(torch.zeros(2, 8, 4, 65, dtype=torch.bfloat16)[..., :64])
+    flat = torch.zeros(2 * 8 * 4 * 64 + 4, dtype=torch.bfloat16)
+    assert not fa._tensor_core_layout(flat[4:].view(2, 8, 4, 64))  # 8 bytes off
+    assert fa._tensor_core_layout(torch.zeros(2, 8, 4, 64)[..., :60])  # f32: 4-element steps
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa._require_tensor_core_layout("k1", q=flat[4:].view(2, 8, 4, 64))
+    assert fa.fwd_path(q) == "mma" and fa.bwd_path(q) == "mma"
+    assert fa.fwd_path(q[:, :1]) == "mma"
+    assert fa.fwd_path(q.float()) == "fma" and fa.bwd_path(q.float()) == "fma"
+    assert fa.fwd_path(q, k_scale=torch.ones(2, 4)) == "fma"
+
+
 # -- on the card ---------------------------------------------------------------
 
 @pytest.fixture
@@ -323,10 +366,27 @@ def test_matmul_kernel_matches_plain(cuda, dtype, m, k, n, trans):
     torch.testing.assert_close(got, want, atol=tol, rtol=tol)
 
 
+# cases at the bf16 tensor-core kernels' tile edges (64-key K/V tiles, 16-row
+# query warps, 16-key dk/dv blocks): (name, b, sq, sk, h, kvh, hd, causal,
+# window, q_offset, kv_len)
+EDGE_CASES = [
+    *[(f"gqa_16_8_hd{hd}_sq{sq}", 2, sq, sq, 16, 8, hd, True, 0, None, None)
+      for hd in (64, 128) for sq in (57, 65, 129)],
+    ("noncausal_hd64_sq65", 1, 65, 65, 4, 2, 64, False, 0, None, None),
+    ("window_40_across_tiles_hd128", 2, 129, 129, 16, 8, 128, True, 40, None, None),
+    ("chunk_64_vs_512_lanes_hd128", 4, 64, 512, 16, 8, 128, True, 0,
+     [0, 100, 448, 0], [64, 164, 512, 0]),
+    ("decode_vs_512_lanes_hd128", 4, 1, 512, 16, 8, 128, True, 0,
+     [0, 100, 511, 7], [1, 101, 512, 0]),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", FA_CASES, ids=lambda c: c[0])
+@pytest.mark.parametrize("case", FA_CASES + EDGE_CASES, ids=lambda c: c[0])
 def test_flash_kernel_matches_plain(cuda, dtype, case):
+    """K1 against its plain version on the card; a kv_len 0 lane gives exact
+    zeros."""
     name, *_, causal, window, qo, kl = case
     dt = getattr(torch, dtype)
     q, k, v = (torch.from_numpy(x).to(cuda, dt) for x in _fa_inputs(case))
@@ -336,11 +396,13 @@ def test_flash_kernel_matches_plain(cuda, dtype, case):
     tol = ATOL if dt == torch.float32 else 2e-2
     torch.testing.assert_close(out.float(), ref_out.float(), atol=tol, rtol=0)
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-5)
+    assert all(torch.count_nonzero(out[i]) == 0 for i, n in enumerate(kl or []) if n == 0)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", FA_CASES[:3] + BWD_CASES, ids=lambda c: c[0])
+@pytest.mark.parametrize("case", FA_CASES[:3] + BWD_CASES + [c for c in EDGE_CASES if c[2] > 1],
+                         ids=lambda c: c[0])
 def test_flash_bwd_kernel_matches_plain(cuda, dtype, case):
     """K3 against its plain version on the card; a kv_len 0 lane gives exact
     zeros."""
@@ -357,6 +419,54 @@ def test_flash_bwd_kernel_matches_plain(cuda, dtype, case):
     if kl is not None:
         for row in (i for i, n in enumerate(kl) if n == 0):
             assert all(torch.count_nonzero(d[row]) == 0 for d in got)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernel_is_deterministic(cuda):
+    """Two K3 calls on the same inputs give the same bits (one writer per
+    element, a fixed order for the dk/dv warps' partial sums)."""
+    case = EDGE_CASES[5]  # hd 128, sq 129, GQA 16/8
+    _, *_, causal, window, qo, kl = case
+    q, k, v, g = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in _bwd_inputs(case))
+    out, lse = flash_attention(q, k, v, causal=causal)
+    first = flash_attention_bwd(q, k, v, out, lse, g, causal=causal)
+    second = flash_attention_bwd(q, k, v, out, lse, g, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_flash_bwd_reads_out_and_grad_through_strides(cuda):
+    """The bf16 K3 forms delta from O and dO read through their strides: a
+    padded (b, s, h, hd + 8) view and a transposed-layout gradient give the
+    contiguous call's bits."""
+    case = EDGE_CASES[1]  # hd 64, sq 65
+    q, k, v, g = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in _bwd_inputs(case))
+    out, lse = flash_attention(q, k, v)
+    b, sq, h, hd = q.shape
+    padded = torch.zeros(b, sq, h, hd + 8, dtype=q.dtype, device=cuda)[..., :hd]
+    padded.copy_(out)
+    g_t = g.transpose(1, 2).contiguous().transpose(1, 2)  # (b, sq, h, hd) view of (b, h, sq, hd)
+    want = flash_attention_bwd(q, k, v, out, lse, g)
+    got = flash_attention_bwd(q, k, v, padded, lse, g_t)
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_flash_kernels_reject_misaligned_bf16(cuda):
+    """The tensor-core instances raise on a head stride that is not a whole
+    number of 16-byte steps, forward and backward; the f32 instance takes
+    it."""
+    wide = torch.randn(2, 32, 4, 65, device=cuda)
+    q, q32 = wide.bfloat16()[..., :64], wide[..., :64]  # head stride 65
+    k = torch.randn(2, 32, 2, 64, device=cuda)
+    kb = k.bfloat16()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(q, kb, kb)
+    out, lse = flash_attention(q.contiguous(), kb, kb)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_bwd(q, kb, kb, out, lse, out)
+    out32, _ = flash_attention(q32, k, k)
+    torch.testing.assert_close(out32, flash_attention_ref(q32, k, k)[0], atol=ATOL, rtol=0)
 
 
 @pytest.mark.cuda
