@@ -7,10 +7,12 @@ Phases, each of which fails the run (exit code 1, no result line):
 
 1. Build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, in parallel), print ``ptxas``'s registers and spill
-   stores of each bf16 tensor-core attention kernel (any spill fails the
-   run) and the tensor-core instructions (HMMA, HGMMA) in each library's
-   SASS (``cuobjdump -sass``; the attention libraries must have some), and
-   the card's name and power limit.
+   stores of each bf16 tensor-core kernel (the attention kernels' mma
+   instances and K2's wgmma and stream instances: any spill fails the run)
+   and of K2's other kernels, and the tensor-core instructions (HMMA,
+   HGMMA) in each library's SASS (``cuobjdump -sass``; the attention
+   libraries must have some, and K2's must have HGMMA), and the card's name
+   and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    serving path's shapes, within the tolerances printed beside each case.
 3. Serve the ``qwen3-1.7b`` smoke config at f32 with one set of parameters
@@ -23,8 +25,10 @@ Phases, each of which fails the run (exit code 1, no result line):
    same function at phase 4's shapes, beside the least time the card could
    take (bytes over 3.35 TB/s or operations over the bf16 peak of
    989 TFLOP/s, whichever is larger; the H100 SXM data sheet).  Each row
-   names the instance it ran (``mma``: tensor cores by ``mma.sync``;
-   ``wmma``: K2's bf16 path; ``fma``: f32 FMA).
+   names the instance it ran, as ``flash_attention.fwd_path`` and
+   ``hbp_matmul.path`` give it (``mma``: K1's tensor cores by ``mma.sync``;
+   K2's ``wgmma`` for more than 16 rows and ``stream`` for at most 16;
+   ``fma``: f32 FMA), and K2's rows its plan (tile width / splits).
 6. Train ``qwen3-1.7b`` at full width in bf16 from a seeded init through
    ``repro_torch.launch.train.train``: batch 4 x 128 tokens, 3 AdamW steps.
    Prints each step's loss, grad norm and host ms, the peak memory and the
@@ -123,6 +127,9 @@ STRASSEN_N = 8192
 SCAN_SLACK = 1e-6
 FFT_TOL = (1e-5, 1e-4)
 MM_TOL = (1e-4, 1e-3)
+# host µs of one direct K2 call at phase 10's decode product before the
+# wrapper memoized its plan and the SM count (this script, on that card)
+K2_HOST_US_BEFORE, K2_HOST_US_CARD = 65.13, "NVIDIA H100 80GB HBM3, 700.00 W"
 
 
 class SmokeFailure(Exception):
@@ -171,16 +178,18 @@ def copies_past_l2(nbytes):
 
 def ptxas_entries(log):
     """(kernel, registers, bytes of spill stores) for each entry function
-    in an ``nvcc -Xptxas=-v`` log; the kernel named as ``name<hd>`` where
-    its mangled name carries one template int."""
+    in an ``nvcc -Xptxas=-v`` log; an attention or K2 kernel named as
+    ``name<args>`` from the template ints and bools of its mangled name."""
     out = []
     for chunk in log.split("Compiling entry function")[1:]:
         mangled = re.search(r"'(\S+)'", chunk).group(1)
-        m = re.search(r"\d+(flash_\w+?_kernel)ILi(\d+)E", mangled)
+        m = re.search(r"\d+((?:flash|mm)_\w+?_kernel)I((?:L[ib]\d+E)+)E", mangled)
         regs = re.search(r"Used (\d+) registers", chunk)
         spill = re.search(r"(\d+) bytes spill stores", chunk)
-        out.append((f"{m.group(1)}<{m.group(2)}>" if m else mangled,
-                    int(regs.group(1)) if regs else 0, int(spill.group(1)) if spill else 0))
+        args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2))) if m else ""
+        name = f"{m.group(1)}<{args}>" if m else mangled
+        out.append((name, int(regs.group(1)) if regs else 0,
+                    int(spill.group(1)) if spill else 0))
     return out
 
 
@@ -219,6 +228,8 @@ def main():
                                                      flash_attention_int8,
                                                      flash_attention_ref, fwd_path)
     from repro_torch.kernels.hbp_matmul import hbp_matmul, matmul_ref
+    from repro_torch.kernels.hbp_matmul import path as mm_path
+    from repro_torch.kernels.hbp_matmul import plan as mm_plan
     from repro_torch.launch.engine import Engine, check_lockstep_parity
     from repro_torch.launch.serve import Request, Server
     from repro_torch.launch.steps import make_train_step
@@ -266,17 +277,19 @@ def main():
         print(f"    {name}: {len(entries)} kernels, at most "
               f"{max((r for _, r, _ in entries), default=0)} registers, "
               f"{sum(sp for _, _, sp in entries)} bytes of spill stores in all")
-        for kern, regs, spill in entries:  # the bf16 tensor-core instances
-            if "_mma_kernel" in kern:
+        for kern, regs, spill in entries:  # the bf16 tensor-core instances, K2's kernels
+            if "_mma_kernel" in kern or kern.startswith("mm_"):
                 print(f"      {kern}: {regs} registers, {spill} bytes of spill stores")
-                if spill:
-                    mma_spills.append(kern)
+            if spill and ("_mma_kernel" in kern or kern.startswith(("mm_wgmma", "mm_stream"))):
+                mma_spills.append(kern)
     for name in _build.sources():  # tensor-core instructions in each library
         counts_ = sass_counts(_build.library_path(name))
         print(f"    {name}: SASS has {counts_['HMMA']} HMMA and {counts_['HGMMA']} HGMMA")
         if name.startswith("flash_attention"):
             check(counts_["HMMA"] + counts_["HGMMA"] > 0,
                   f"{name}: no tensor-core instruction in its SASS")
+        if name == "hbp_matmul":
+            check(counts_["HGMMA"] > 0, "hbp_matmul: no HGMMA (wgmma) in its SASS")
     check(not mma_spills, f"the bf16 tensor-core kernels spill: {mma_spills}")
     print(smi)
 
@@ -308,21 +321,24 @@ def main():
     plen = max(map(len, prompts))
 
     T_train = TRAIN_BATCH * TRAIN_SEQ
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     print(f"[2] kernels vs plain versions on the card ({ARCH} shapes; phase 4 "
           f"prefills {BATCH} x {plen} tokens, phase 6 trains on {T_train} token rows)")
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
-        for T in (4, 256, BATCH * plen, T_train):
+        for T in (4, SLOTS, 256, BATCH * plen, T_train):  # SLOTS: the engine's decode
             x = {kk: torch.randn(T, kk, device=dev, generator=g).to(dt) for kk in (d, ff)}
             for name, (kk, n) in weights.items():
                 w = (torch.randn(kk, n, device=dev, generator=g) / math.sqrt(kk)).to(dt)
-                compare("hbp_matmul", f"{dtype} {name} ({T}x{kk} @ {kk}x{n})",
-                        hbp_matmul(x[kk], w), matmul_ref(x[kk], w), dtype)
+                compare("hbp_matmul", f"{dtype} {name} ({T}x{kk} @ {kk}x{n}) "
+                        f"{mm_path(x[kk], w)}", hbp_matmul(x[kk], w), matmul_ref(x[kk], w),
+                        dtype)
         table = (0.02 * torch.randn(V, d, device=dev, generator=g)).to(dt)
-        for T in (4, T_train):
+        for T in (4, SLOTS, T_train):
             xs = torch.randn(T, d, device=dev, generator=g).to(dt)
-            compare("hbp_matmul", f"{dtype} logits ({T}x{d} @ ({V}x{d})^T view)",
-                    hbp_matmul(xs, table.T), matmul_ref(xs, table.T), dtype)
+            compare("hbp_matmul", f"{dtype} logits ({T}x{d} @ ({V}x{d})^T view) "
+                    f"{mm_path(xs, table.T)}", hbp_matmul(xs, table.T),
+                    matmul_ref(xs, table.T), dtype)
         del table, xs
 
         for b, sq in ((BATCH, 64), (BATCH, plen), (TRAIN_BATCH, TRAIN_SEQ)):
@@ -412,7 +428,9 @@ def main():
             compare("hbp_matmul", f"{dtype} {label} ({T_train}x{n} @ ({d_in}x{n})ᵀ view)",
                     hbp_matmul(gr, w.T), matmul_ref(gr, w.T), dtype)
         gr, table = rnd(T_train, V), rnd(V, d, scale=V ** -0.5)
-        compare("hbp_matmul", f"{dtype} dH (tied logits): g E ({T_train}x{V} @ {V}x{d})",
+        compare("hbp_matmul", f"{dtype} dH (tied logits): g E ({T_train}x{V} @ {V}x{d}) "
+                f"{mm_path(gr, table)}, {mm_plan(T_train, d, V, mm_path(gr, table), sms).splits} "
+                "K splits",
                 hbp_matmul(gr, table), matmul_ref(gr, table), dtype)
         del gr, table
 
@@ -700,9 +718,12 @@ def main():
         t_l = time_ms(torch, torch.matmul, sets)
         nbytes = (m * k + k * n + m * n) * es
         b_ms, b_by = bound_ms(nbytes, 2 * m * n * k, "bfloat16")
+        inst = mm_path(*sets[0])
+        p = mm_plan(m, n, k, inst, sms)
         rows.append(dict(kernel="hbp_matmul", label=label, calls=calls, ms=t_k, plain_ms=t_p,
                          library_ms=t_l, bound_ms=b_ms, bytes=nbytes, ops=2 * m * n * k,
-                         bound_by=b_by, path=path, instance="wmma"))
+                         bound_by=b_by, path=path, instance=inst,
+                         tile=f"{p.tile_n}/{p.splits}"))
         del sets
 
     L = cfg.n_layers
@@ -751,11 +772,13 @@ def main():
                          instance=fwd_path(sets[0][0])))
 
     def print_rows(path):
-        print(f"    {'kernel':19s} {'inst':4s} {'shape':42s} {'calls':>5s} {'ms':>9s} "
-              f"{'plain_ms':>9s} {'library':>9s} {'bound_ms':>9s} {'by':>10s} {'% bound':>8s}")
+        print(f"    {'kernel':19s} {'inst':6s} {'tile/sk':7s} {'shape':42s} {'calls':>5s} "
+              f"{'ms':>9s} {'plain_ms':>9s} {'library':>9s} {'bound_ms':>9s} {'by':>10s} "
+              f"{'% bound':>8s}")
         for r in rows:
             if r["path"] in path:
-                print(f"    {r['kernel']:19s} {r['instance']:4s} {r['label']:42s} "
+                print(f"    {r['kernel']:19s} {r['instance']:6s} {r.get('tile', ''):7s} "
+                      f"{r['label']:42s} "
                       f"{r['calls']:5d} {r['ms']:9.4f} {r['plain_ms']:9.4f} "
                       f"{r['library_ms']:9.4f} {r['bound_ms']:9.4f} {r['bound_by']:>10s} "
                       f"{100 * r['bound_ms'] / r['ms']:7.1f}%")
@@ -910,7 +933,8 @@ def main():
         train_step(opt_state, batch)
         torch.cuda.synchronize()
     dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    own = re.compile(r"\b(mm_kernel|splitk_reduce|flash_fwd_kernel|flash_fwd_mma_kernel"
+    own = re.compile(r"\b(mm_wgmma_kernel|mm_stream_kernel|mm_wmma_kernel|mm_fma_kernel"
+                     r"|splitk_reduce|flash_fwd_kernel|flash_fwd_mma_kernel"
                      r"|flash_bwd_dq_kernel|flash_bwd_dkv_kernel|flash_bwd_dq_mma_kernel"
                      r"|flash_bwd_dkv_mma_kernel)\b")
     ours = sum(1 for e in dev_events if own.search(e.name))
@@ -1288,13 +1312,18 @@ def main():
         torch.cuda.synchronize()
         return 1e6 * (t1 - t0) / n
 
+    a_w = torch.randn(32, d, device=dev, generator=rg).to(torch.bfloat16)
     with torch.no_grad():
         us = {"hbp_matmul": host_us(lambda: hbp_matmul(a_h, w_h)),
+              "wgmma": host_us(lambda: hbp_matmul(a_w, w_h)),
               "entry": host_us(lambda: matmul_entry(a_h, w_h, backend="classical")),
               "dispatch": host_us(lambda: registry.dispatch("matmul", a_h, w_h)),
               "project": host_us(lambda: project(a_h, w_h))}
     print(f"    host us per call (4x{d} @ {d}x{d} bf16, 2000 calls, no grad): hbp_matmul "
-          f"{us['hbp_matmul']:.2f}; its autograd entry (strassen_matmul.matmul, classical) "
+          f"{us['hbp_matmul']:.2f} ({mm_path(a_h, w_h)}; {K2_HOST_US_BEFORE:.2f} before the "
+          f"wrapper memoized its plan and the SM count, {K2_HOST_US_CARD}), at 32 rows "
+          f"{us['wgmma']:.2f} ({mm_path(a_w, w_h)}: two tensor maps encoded per call); "
+          f"its autograd entry (strassen_matmul.matmul, classical) "
           f"{us['entry']:.2f}; registry.dispatch {us['dispatch']:.2f}; the models' project "
           f"(one dispatch) {us['project']:.2f}")
 

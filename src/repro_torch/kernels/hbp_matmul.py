@@ -2,18 +2,27 @@
 
 Replaces ``src/repro/kernels/hbp_matmul.py:_mm_kernel`` (entry
 ``hbp_matmul``).  The kernel is ``csrc/hbp_matmul.cu``, CUDA C++ for
-``sm_90a``; its header says what bounds it on the H100 (bytes, at every
-serving shape) and what the design does about it (skinny tiles for decode,
-deterministic split-K, vector loads, B read in either layout).
+``sm_90a`` (with ``csrc/hopper.cuh``'s TMA, mbarrier and wgmma helpers); its
+header says what bounds each instance on the H100 and what the design does
+about it.
 
 ``hbp_matmul(a, b, out_dtype=None)`` keeps the JAX entry's contract: ``a``
 ``(m, k)``, ``b`` ``(k, n)``, bf16 or f32, output in ``a``'s dtype unless
 ``out_dtype`` says otherwise.  Each operand may be a row-major matrix or the
 transposed view of a row-major one (``embed.T`` for the tied logits, ``a.T``
-for the backward's ``dB = Aᵀ g``); the kernel reads either through its
-strides, so neither is copied.  Ragged shapes are masked inside the kernel,
+for the backward's ``dB = Aᵀ g``); the kernel reads either in its stored
+layout, so neither is copied.  Ragged shapes are masked inside the kernel,
 so the JAX wrapper's divisor snapping and its oracle fallback have no
 counterpart.
+
+:func:`path` picks one of four instances from the dtype, the rows of ``a``
+and the operands' layouts: ``"wgmma"`` (bf16, more than 16 rows: a TMA ring
+feeding warpgroup MMAs), ``"stream"`` (bf16, at most 16 rows of a row-major
+``a``: B streamed through a ``cp.async`` ring into ``mma.sync``, split-K
+summed inside a thread-block cluster), ``"wmma"`` (bf16 operands that TMA
+cannot describe) and ``"fma"`` (f32).  :func:`plan` sizes the launch for the
+instance; both are memoized, and so is the SM count, so a call pays for
+neither twice.
 
 The differentiable entry is ``strassen_matmul.matmul``, the registry's
 ``matmul`` op: its classical backend is one call of this kernel, forward
@@ -26,14 +35,22 @@ kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-BN, BK = 64, 32  # the kernel's output tile width and K step
+INSTANCES = ("wgmma", "stream", "wmma", "fma")  # the C entry's instance codes, in order
+STREAM_MAX_M = 16  # the stream instance's rows: one m16 tile of mma.sync
+STREAM_MAX_SPLITS = 8  # its split-K is one thread-block cluster (portable size)
+# (tile rows, K step) of each instance; wgmma's tile widths, one template each
+TILE = {"wgmma": (128, 64), "stream": (16, 64), "wmma": (64, 32), "fma": (128, 16)}
+WGMMA_BN = (64, 128, 192, 256)
+L2_SHARE = 16 * 2 ** 20  # an A this small stays in L2 while every B panel streams by
 
 
 def matmul_ref(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor:
@@ -43,18 +60,83 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor
     return (a.float() @ b.float()).to(out_dtype)
 
 
-def plan(m: int, n: int, k: int, sms: int) -> tuple[int, int, int]:
-    """(bm, splits, kchunk) for one launch: a 16-row tile when ``a`` has at
-    most 16 rows, and split-K when the output tiles alone give fewer than
-    four blocks per SM.  Each split keeps at least four K steps; ``kchunk``
-    is a multiple of the K step, so no tile straddles two splits."""
-    bm = 16 if m <= 16 else 64
-    tiles = math.ceil(m / bm) * math.ceil(n / BN)
-    k_steps = math.ceil(k / BK)
-    splits = max(1, min(math.ceil(4 * sms / tiles), k_steps // 4))
-    kchunk = max(1, math.ceil(k_steps / splits)) * BK
-    splits = max(1, math.ceil(k / kchunk))
-    return bm, splits, kchunk
+class Plan(NamedTuple):
+    """One launch: the instance's tile (rows, columns), ``splits`` K ranges of
+    ``kchunk`` each (whole K steps; the last one ends at K), and ``group`` M
+    tiles per column of the raster (wgmma and fma)."""
+    tile_m: int
+    tile_n: int
+    splits: int
+    kchunk: int
+    group: int
+
+
+def _k_split(k: int, bk: int, splits: int) -> tuple[int, int]:
+    """(splits, kchunk): ``kchunk`` a whole number of K steps, ``splits`` the
+    ranges needed to cover ``k`` once."""
+    steps = math.ceil(k / bk)
+    kchunk = math.ceil(steps / max(1, min(splits, steps))) * bk
+    return math.ceil(k / kchunk), kchunk
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(m: int, n: int, k: int, instance: str, sms: int) -> Plan:
+    """The launch of one product on ``sms`` SMs.
+
+    * ``wgmma``: 128-row tiles; the width (64-256) and split-K that minimise
+      a wave model in µs: waves x K steps per split x (width + 32) x 2.6 ns
+      (a 128 x 128 x 64 step at ~660 TFLOP/s; the 32 stands for each step's
+      A tile and barriers), plus, with split-K, the f32 partials' traffic
+      at 3 TB/s and 3 µs for the reduction's launch.  Split-K is tried only
+      when a width's tiles leave SMs idle.  The raster's group is every M
+      tile when A fits a third of the L2, so each B panel streams from HBM
+      once.
+    * ``stream``: 64-column tiles, K split over a cluster of up to 8 blocks
+      until about 1.5 blocks per SM stream B and no block streams more than
+      16 K steps (the split counts ``tools/k2_tiles.py`` measured best on the
+      H100 at the decode products, within a few per cent).
+    * ``wmma`` (the first port's plan): 16- or 64-row tiles, split-K while
+      the tiles give fewer than four blocks per SM.
+    * ``fma``: 128 x 128 tiles, split-K while the tiles leave SMs idle, four
+      K steps per split at least.
+    """
+    bm, bk = TILE[instance]
+    steps = math.ceil(k / bk)
+    tiles_m = math.ceil(m / bm)
+    if instance == "wgmma":
+        group = tiles_m if m * k * 2 <= L2_SHARE else min(tiles_m, 8)
+        best = None
+        for bn in WGMMA_BN:
+            tiles = tiles_m * math.ceil(n / bn)
+            for want in {1, min(sms // tiles, steps // 4) if tiles < sms else 1}:
+                splits, kchunk = _k_split(k, bk, max(want, 1))
+                us = math.ceil(tiles * splits / sms) * (kchunk // bk) * (bn + 32) * 2.6e-3
+                if splits > 1:
+                    us += (2 * splits + 1) * m * n * 4 / 3e6 + 3.0
+                if best is None or us < best[0]:
+                    best = (us, Plan(bm, bn, splits, kchunk, group))
+        return best[1]
+    if instance == "stream":
+        bn = 64
+        tiles = math.ceil(n / bn)
+        want = max(math.ceil(1.5 * sms / tiles), math.ceil(steps / 16))
+        splits, kchunk = _k_split(k, bk, min(STREAM_MAX_SPLITS, want))
+        return Plan(bm, bn, splits, kchunk, 1)
+    if instance == "wmma":
+        bm = 16 if m <= 16 else 64
+        tiles = math.ceil(m / bm) * math.ceil(n / 64)
+        splits, kchunk = _k_split(k, bk, max(1, min(math.ceil(4 * sms / tiles), steps // 4)))
+        return Plan(bm, 64, splits, kchunk, 1)
+    if instance == "fma":
+        tiles = tiles_m * math.ceil(n / 128)
+        splits, kchunk = _k_split(k, bk, max(1, min(math.ceil(sms / tiles), steps // 4)))
+        return Plan(bm, 128, splits, kchunk, min(tiles_m, 8))
+    raise ValueError(f"hbp_matmul: no instance {instance!r}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _lib():
@@ -62,7 +144,7 @@ def _lib():
     fn = lib.hbp_matmul
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P, P, P, P, I, I, I, L, L, L, I, I, I, I, I, I, I, P]
+        fn.argtypes = [P, P, P, P, I, I, I, L, L, I, I, I, I, I, I, I, I, I, I, P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -82,6 +164,29 @@ def _layout(x: torch.Tensor, name: str) -> tuple[int, int]:
         raise ValueError(f"hbp_matmul: {name} is neither row-major nor a transposed "
                          f"row-major matrix, strides {x.stride()}")
     return x.stride(1), 1
+
+
+def _tma_layout(x: torch.Tensor, name: str) -> bool:
+    """Whether TMA (and 16-byte ``cp.async``) can read ``x`` in its stored
+    layout: a 16-byte aligned base and a row pitch of whole 16-byte steps."""
+    ld, _ = _layout(x, name)
+    return x.data_ptr() % 16 == 0 and (ld * x.element_size()) % 16 == 0
+
+
+def path(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> str:
+    """The instance a CUDA call on these operands runs: ``"fma"`` for f32;
+    for bf16, ``"wmma"`` when TMA cannot describe ``a`` or ``b``
+    (:func:`_tma_layout`), else ``"stream"`` when ``a`` is row-major with
+    at most 16 rows, else ``"wgmma"``.  Every instance writes either output
+    dtype, so ``out_dtype`` does not change the choice."""
+    del out_dtype
+    if a.dtype == torch.float32:
+        return "fma"
+    if not (_tma_layout(a, "a") and _tma_layout(b, "b")):
+        return "wmma"
+    if a.shape[0] <= STREAM_MAX_M and not _layout(a, "a")[1]:
+        return "stream"
+    return "wgmma"
 
 
 def hbp_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
@@ -111,15 +216,15 @@ def hbp_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.Ten
         return out
     if k == 0:
         return out.zero_()
-    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
-    bm, splits, kchunk = plan(m, n, k, sms)
-    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
-          if splits > 1 else None)
+    instance = path(a, b)
+    p = plan(m, n, k, instance, _sm_count(a.device.index or 0))
+    ws = (torch.empty((p.splits, m, n), dtype=torch.float32, device=a.device)
+          if p.splits > 1 and instance != "stream" else None)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = _lib()(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                 None if ws is None else ws.data_ptr(), m, n, k, lda, ldb, n,
-                 trans_a, trans_b, _DTYPE_CODES[a.dtype], _DTYPE_CODES[out_dtype], bm,
-                 splits, kchunk, stream)
+                 None if ws is None else ws.data_ptr(), m, n, k, lda, ldb, trans_a, trans_b,
+                 _DTYPE_CODES[a.dtype], _DTYPE_CODES[out_dtype], INSTANCES.index(instance),
+                 p.tile_m, p.tile_n, p.splits, p.kchunk, p.group, stream)
     _build.check(err, "hbp_matmul")
     hbp_matmul.launches += 1
     return out

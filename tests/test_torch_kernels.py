@@ -180,13 +180,49 @@ def test_matmul_wrapper_cpu_transposed_b_and_out_dtype():
 
 
 @pytest.mark.parametrize("m,n,k", [(4, 2048, 2048), (4, 2048, 6144), (256, 6144, 2048),
-                                   (4, 151936, 2048), (5, 70, 37), (1, 1, 1)])
-def test_matmul_plan_covers_k(m, n, k):
-    """Split-K chunks are whole K steps and cover K exactly once."""
-    bm, splits, kchunk = mm_mod.plan(m, n, k, sms=132)
-    assert bm == (16 if m <= 16 else 64)
-    assert kchunk % mm_mod.BK == 0
-    assert (splits - 1) * kchunk < k <= splits * kchunk
+                                   (4, 151936, 2048), (5, 70, 37), (1, 1, 1),
+                                   (512, 2048, 151936), (17, 65, 2056)])
+@pytest.mark.parametrize("instance", mm_mod.INSTANCES)
+def test_matmul_plan_covers_k(instance, m, n, k):
+    """For each instance the splits are whole K steps that cover K exactly
+    once, within the instance's limits (stream: one cluster of at most 8;
+    wgmma: one of its tile widths)."""
+    p = mm_mod.plan(m, n, k, instance, sms=132)
+    bm, bk = mm_mod.TILE[instance]
+    assert p.kchunk % bk == 0 and p.splits >= 1 and p.group >= 1
+    assert (p.splits - 1) * p.kchunk < k <= p.splits * p.kchunk
+    if instance == "wgmma":
+        assert p.tile_m == bm and p.tile_n in mm_mod.WGMMA_BN
+    if instance == "stream":
+        assert p.splits <= mm_mod.STREAM_MAX_SPLITS
+    if instance == "wmma":
+        assert p.tile_m == (16 if m <= 16 else 64)
+    assert mm_mod.plan(m, n, k, instance, sms=132) is p  # memoized
+
+
+def test_matmul_path_rule():
+    """K2's instance from dtype, rows and layout, decided on CPU tensors
+    without a launch: wgmma for bf16 above 16 rows, stream for a row-major
+    bf16 A of at most 16 rows, wmma where TMA cannot describe an operand (a
+    base off 16 bytes, a row pitch of 100 elements), fma for f32."""
+    bf = torch.bfloat16
+    w = torch.zeros(2048, 1024, dtype=bf)
+    for m, want in ((4, "stream"), (16, "stream"), (17, "wgmma"), (512, "wgmma")):
+        assert mm_mod.path(torch.zeros(m, 2048, dtype=bf), w) == want, m
+    act = torch.zeros(512, 2048, dtype=bf)
+    assert mm_mod.path(act.T, torch.zeros(512, 1024, dtype=bf)) == "wgmma"  # dW = xᵀ g
+    assert mm_mod.path(torch.zeros(2048, 8, dtype=bf).T, w) == "wgmma"  # 8 rows, transposed
+    table = torch.zeros(1000, 2048, dtype=bf)
+    assert mm_mod.path(torch.zeros(4, 2048, dtype=bf), table.T) == "stream"  # embed.T
+    assert mm_mod.path(act, table.T) == "wgmma"
+    flat = torch.zeros(512 * 2048 + 8, dtype=bf)
+    assert flat.data_ptr() % 16 == 0
+    assert mm_mod.path(flat[4:4 + 512 * 2048].view(512, 2048), w) == "wmma"  # 8 bytes off
+    assert mm_mod.path(flat[8:].view(512, 2048), w) == "wgmma"  # 16 bytes off
+    assert mm_mod.path(torch.zeros(70, 100, dtype=bf), torch.zeros(100, 65, dtype=bf)) == "wmma"
+    assert mm_mod.path(act, torch.zeros(2048, 100, dtype=bf)) == "wmma"  # b's pitch
+    assert mm_mod.path(torch.zeros(4, 2048), w.float()) == "fma"
+    assert mm_mod.path(act.float().T, torch.zeros(512, 7)) == "fma"
 
 
 @pytest.mark.parametrize("case", FA_CASES, ids=lambda c: c[0])
@@ -484,6 +520,115 @@ def test_matmul_kernel_transposed_a_matches_plain(cuda, dtype, m, k, n, trans_b)
     want = matmul_ref(act.T, b).float()
     tol = 1e-4 if dt == torch.float32 else 2 ** -7
     torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+# K2's instances at their edges.  Each operand is a view of a matrix stored
+# with a row pitch rounded up to 8 elements (so TMA can describe it) whose
+# padding holds NaN: a kernel that reads past a ragged edge poisons its
+# output.  layout (trans_a, trans_b): A stored (k, m) and B stored (n, k).
+MM_LAYOUTS = [(False, False), (False, True), (True, False), (True, True)]
+MM_EDGE_M = [1, 4, 8, 16, 17, 64, 65, 129, 512]
+MM_MODES = {"bf16": (torch.bfloat16, None), "bf16_to_f32": (torch.bfloat16, torch.float32),
+            "f32": (torch.float32, None)}
+
+
+def _padded_operand(rows, cols, trans, dtype, device, gen, scale=1.0):
+    """A (rows, cols) operand: a row-major matrix, or with ``trans`` the
+    transposed view of a row-major (cols, rows) one, in storage whose rows
+    are padded to a multiple of 8 elements and filled with NaN."""
+    r, c = (cols, rows) if trans else (rows, cols)
+    store = torch.full((r, -(-c // 8) * 8), float("nan"), dtype=dtype, device=device)
+    view = store[:, :c]
+    view.copy_(scale * torch.randn(r, c, device=device, generator=gen))
+    return view.T if trans else view
+
+
+def _mm_tol(dtype, out_dtype):
+    return 2 ** -7 if (out_dtype or dtype) == torch.bfloat16 else 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(MM_MODES))
+@pytest.mark.parametrize("layout", MM_LAYOUTS, ids=lambda t: "AT%d_BT%d" % t)
+@pytest.mark.parametrize("m", MM_EDGE_M)
+def test_matmul_instances_at_edges(cuda, m, layout, mode):
+    """Every instance against the plain version at ragged M, N and K (65,
+    100, 2056), in all four layouts, with bf16, bf16 -> f32 and f32."""
+    dtype, out_dtype = MM_MODES[mode]
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    for n, k in ((65, 100), (100, 2056)):
+        a = _padded_operand(m, k, layout[0], dtype, cuda, gen)
+        b = _padded_operand(k, n, layout[1], dtype, cuda, gen, scale=k ** -0.5)
+        inst = mm_mod.path(a, b)
+        want_inst = ("fma" if dtype == torch.float32 else
+                     "stream" if m <= 16 and not layout[0] else "wgmma")
+        assert inst == want_inst
+        got = hbp_matmul(a, b, out_dtype=out_dtype)
+        assert got.dtype == (out_dtype or dtype) and got.shape == (m, n)
+        tol = _mm_tol(dtype, out_dtype)
+        torch.testing.assert_close(got.float(), matmul_ref(a, b, out_dtype).float(),
+                                   atol=tol, rtol=tol, msg=f"{inst} n={n} k={k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", MM_LAYOUTS, ids=lambda t: "AT%d_BT%d" % t)
+@pytest.mark.parametrize("m,n,k,bn", [(512, 2048, 2048, 64), (2048, 1024, 512, 128),
+                                      (512, 6144, 2048, 192), (2048, 2048, 512, 256)])
+def test_matmul_wgmma_widths(cuda, m, n, k, bn, layout):
+    """Each wgmma tile width at a training shape that the plan gives it."""
+    gen = torch.Generator(device=cuda).manual_seed(bn)
+    a = _padded_operand(m, k, layout[0], torch.bfloat16, cuda, gen)
+    b = _padded_operand(k, n, layout[1], torch.bfloat16, cuda, gen, scale=k ** -0.5)
+    assert mm_mod.path(a, b) == "wgmma"
+    assert mm_mod.plan(m, n, k, "wgmma", mm_mod._sm_count(cuda.index or 0)).tile_n == bn
+    torch.testing.assert_close(hbp_matmul(a, b).float(), matmul_ref(a, b).float(),
+                               atol=2 ** -7, rtol=2 ** -7)
+
+
+# (label, m, n, k, dtype): split-K active in each instance that has it
+MM_SPLIT_CASES = [("wgmma", 128, 256, 16384, torch.bfloat16),
+                  ("stream", 8, 2048, 2048, torch.bfloat16),
+                  ("fma", 4, 512, 4096, torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MM_SPLIT_CASES, ids=lambda c: c[0])
+def test_matmul_split_k_is_deterministic(cuda, case):
+    """Two calls on the same inputs give the same bits with split-K on
+    (the splits are summed in a fixed order, no atomics)."""
+    inst, m, n, k, dtype = case
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    a = torch.randn(m, k, device=cuda, generator=gen).to(dtype)
+    b = (torch.randn(k, n, device=cuda, generator=gen) / math.sqrt(k)).to(dtype)
+    assert mm_mod.path(a, b) == inst
+    assert mm_mod.plan(m, n, k, inst, mm_mod._sm_count(cuda.index or 0)).splits > 1
+    first, second = hbp_matmul(a, b), hbp_matmul(a, b)
+    assert torch.equal(first, second)
+    tol = _mm_tol(dtype, None)
+    torch.testing.assert_close(first.float(), matmul_ref(a, b).float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [("wgmma", 512, 2048), ("stream", 8, 2048),
+                                  ("wmma", 70, 100), ("fma", 64, 256)], ids=lambda c: c[0])
+def test_matmul_graph_replay_matches_eager(cuda, case):
+    """A K2 call captured in a CUDA graph and replayed gives the eager
+    call's bits (the tensor maps and launch parameters are captured by
+    value)."""
+    inst, m, k = case
+    dtype = torch.float32 if inst == "fma" else torch.bfloat16
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    a = torch.randn(m, k, device=cuda, generator=gen).to(dtype)
+    b = torch.randn(k, 1000, device=cuda, generator=gen).to(dtype)
+    assert mm_mod.path(a, b) == inst  # wmma: a's row pitch, 100 elements
+    eager = hbp_matmul(a, b)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = hbp_matmul(a, b)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
 
 
 # -- K1q: attention over an int8 KV cache --------------------------------------
