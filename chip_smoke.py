@@ -7,12 +7,13 @@ Phases, each of which fails the run (exit code 1, no result line):
 
 1. Build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, in parallel), print ``ptxas``'s registers and spill
-   stores of each bf16 tensor-core kernel (the attention kernels' mma
-   instances and K2's wgmma and stream instances: any spill fails the run)
-   and of K2's other kernels, and the tensor-core instructions (HMMA,
-   HGMMA) in each library's SASS (``cuobjdump -sass``; the attention
-   libraries must have some, and K2's must have HGMMA), and the card's name
-   and power limit.
+   stores of each tensor-core kernel (the attention kernels' mma instances,
+   K1q's among them, and K2's wgmma and stream instances) and of K6's
+   vector kernels (any spill in these fails the run) and of K2's other
+   kernels, and the tensor-core instructions (HMMA, HGMMA) in each
+   library's SASS (``cuobjdump -sass``; the attention libraries must have
+   some, each of K1q's four tensor-core kernels HMMA, and K2's HGMMA), and
+   the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    serving path's shapes, within the tolerances printed beside each case.
 3. Serve the ``qwen3-1.7b`` smoke config at f32 with one set of parameters
@@ -49,10 +50,12 @@ Phases, each of which fails the run (exit code 1, no result line):
    the int8 cache (the reverse with bf16).  Prints decode ms per step, ms
    per prefill chunk, tok/s, the telemetry, and the share of requests whose
    tokens agree between the two caches (not a gate).
-9. Time K1q per call at phase 8's decode shape and mid-run lanes as in
-   phase 5, beside its bound, its plain version, the library's two calls
-   (dequantize to bf16, then ``scaled_dot_product_attention``) and K1 at
-   the same shape over a bf16 cache.
+9. Time K1q per call as in phase 5 at phase 8's decode shape and mid-run
+   lanes, and at a 64-row continuation chunk at those lanes' offsets,
+   beside its bound, its plain version, the library's two calls (dequantize
+   to bf16, then ``scaled_dot_product_attention``) and K1 at the same shape
+   over a bf16 cache (K1q's yardstick); each row names K1q's instance and
+   cluster split (``flash_attention.fwd_path``, ``kv_splits``).
 10. Run the kernel registry (``repro_torch.kernels.registry.dispatch``, the
    default policy) at sizes past the 50 MB L2: the scan (K5) on f32 and
    bf16 (64, 2^20), the transpose (K6) on f32 8192^2 (a Morton grid of bt
@@ -65,8 +68,10 @@ Phases, each of which fails the run (exit code 1, no result line):
    its plain version within the tolerances printed; times each op, its
    plain version and the library call (``torch.cumsum``,
    ``x.t().contiguous()``, ``torch.fft.fft``, ``torch.matmul``) beside its
-   bound; and prints the host microseconds of one ``dispatch`` beside a
-   direct K2 call.  Phases 4, 6 and 8 must launch none of K4-K7.
+   bound and its share of it (each transpose with the instance
+   ``bi_transpose.path`` names); and prints the host microseconds of one
+   ``dispatch`` beside a direct K2 call.  Phases 4, 6 and 8 must launch
+   none of K4-K7.
 
 Phase 2 also holds K1 and K2 at phase 6's shapes (512 token rows: every
 forward product, the logits, every ``g Wᵀ``), K3 and K2's transposed-A
@@ -76,7 +81,9 @@ tiles' edges (hd 64 and 128, sequences of 57, 65 and 129, a window across a
 K/V tile, a 64-row chunk and decode against 512 slots with an empty lane),
 two K3 calls on the same inputs (bit-identical), a bf16 ``q`` whose head
 stride is not a whole number of 16-byte steps (K1 and K3 must raise), and
-K1q at phase 8's decode and continuation-chunk shapes; phase 3 also takes
+K1q at phase 8's decode and continuation-chunk shapes (bf16 ``q`` on the
+tensor cores, f32 ``q`` on the FMA template; an int8 cache whose head
+stride is no whole 16-byte step must raise); phase 3 also takes
 one f32 training step of the smoke config on the card and on the CPU from
 the same parameters and compares the loss, every gradient and the updated
 parameters, and serves
@@ -176,30 +183,43 @@ def copies_past_l2(nbytes):
     return max(1, math.ceil(2 * L2_BYTES / max(nbytes, 1)))
 
 
+def kernel_name(mangled):
+    """An attention, K2 or K6 kernel's mangled name as ``name<args>``, from
+    the template ints and bools it carries (K1q's tensor-core kernel is
+    ``flash_fwd_mma_kernel<hd,1>``); any other name unchanged."""
+    m = re.search(r"\d+((?:flash|mm|transpose)_\w+?_kernel)I((?:L[ib]\d+E)+)E", mangled)
+    if not m:
+        return mangled
+    args = re.findall(r"L[ib](\d+)E", m.group(2))
+    return f"{m.group(1)}<{','.join(args)}>"
+
+
 def ptxas_entries(log):
     """(kernel, registers, bytes of spill stores) for each entry function
-    in an ``nvcc -Xptxas=-v`` log; an attention or K2 kernel named as
-    ``name<args>`` from the template ints and bools of its mangled name."""
+    in an ``nvcc -Xptxas=-v`` log, named by :func:`kernel_name`."""
     out = []
     for chunk in log.split("Compiling entry function")[1:]:
         mangled = re.search(r"'(\S+)'", chunk).group(1)
-        m = re.search(r"\d+((?:flash|mm)_\w+?_kernel)I((?:L[ib]\d+E)+)E", mangled)
         regs = re.search(r"Used (\d+) registers", chunk)
         spill = re.search(r"(\d+) bytes spill stores", chunk)
-        args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2))) if m else ""
-        name = f"{m.group(1)}<{args}>" if m else mangled
-        out.append((name, int(regs.group(1)) if regs else 0,
+        out.append((kernel_name(mangled), int(regs.group(1)) if regs else 0,
                     int(spill.group(1)) if spill else 0))
     return out
 
 
 def sass_counts(lib):
     """Tensor-core instructions in a built library's SASS (``cuobjdump
-    -sass``): HMMA (mma.sync, WMMA) and HGMMA (wgmma)."""
+    -sass``): HMMA (mma.sync, WMMA) and HGMMA (wgmma), in all and in each
+    kernel (by :func:`kernel_name`)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
-    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HMMA", "HGMMA")}
+    ops = ("HMMA", "HGMMA")
+    per_kernel = {}
+    for chunk in sass.split("Function : ")[1:]:
+        name = kernel_name(chunk.split(None, 1)[0])
+        per_kernel[name] = {op: len(re.findall(rf"\b{op}\b", chunk)) for op in ops}
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ops}, per_kernel
 
 
 def main():
@@ -220,6 +240,7 @@ def main():
     from repro_torch.kernels import _build, planner, policy, registry
     from repro_torch.kernels.bi_fft import bi_fft, bi_fft_plain
     from repro_torch.kernels.bi_transpose import bi_transpose, transpose_ref
+    from repro_torch.kernels.bi_transpose import path as k6_path
     from repro_torch.kernels.bp_scan import bp_scan, bp_scan_plain
     from repro_torch.kernels.morton import supports_morton as morton_order
     from repro_torch.kernels.flash_attention import (bwd_path, flash_attention,
@@ -277,20 +298,28 @@ def main():
         print(f"    {name}: {len(entries)} kernels, at most "
               f"{max((r for _, r, _ in entries), default=0)} registers, "
               f"{sum(sp for _, _, sp in entries)} bytes of spill stores in all")
-        for kern, regs, spill in entries:  # the bf16 tensor-core instances, K2's kernels
-            if "_mma_kernel" in kern or kern.startswith("mm_"):
+        # the tensor-core instances (K1, K1q, K3), K2's kernels, K6's vector one
+        for kern, regs, spill in entries:
+            if "_mma_kernel" in kern or kern.startswith(("mm_", "transpose_vec")):
                 print(f"      {kern}: {regs} registers, {spill} bytes of spill stores")
-            if spill and ("_mma_kernel" in kern or kern.startswith(("mm_wgmma", "mm_stream"))):
+            if spill and ("_mma_kernel" in kern
+                          or kern.startswith(("mm_wgmma", "mm_stream", "transpose_vec"))):
                 mma_spills.append(kern)
     for name in _build.sources():  # tensor-core instructions in each library
-        counts_ = sass_counts(_build.library_path(name))
+        counts_, per_kernel = sass_counts(_build.library_path(name))
         print(f"    {name}: SASS has {counts_['HMMA']} HMMA and {counts_['HGMMA']} HGMMA")
         if name.startswith("flash_attention"):
             check(counts_["HMMA"] + counts_["HGMMA"] > 0,
                   f"{name}: no tensor-core instruction in its SASS")
+        if name == "flash_attention":  # K1q's tensor-core kernels, one per hd
+            k1q = {k: c["HMMA"] for k, c in per_kernel.items()
+                   if re.fullmatch(r"flash_fwd_mma_kernel<\d+,1>", k)}
+            print(f"      K1q's kernels' HMMA: {k1q}")
+            check(len(k1q) == 4 and all(k1q.values()),
+                  f"flash_attention: K1q's tensor-core kernels' HMMA counts {k1q}")
         if name == "hbp_matmul":
             check(counts_["HGMMA"] > 0, "hbp_matmul: no HGMMA (wgmma) in its SASS")
-    check(not mma_spills, f"the bf16 tensor-core kernels spill: {mma_spills}")
+    check(not mma_spills, f"the tensor-core and vector kernels spill: {mma_spills}")
     print(smi)
 
     # -- 2. kernels against their plain versions ------------------------------
@@ -529,6 +558,7 @@ def main():
             kw = dict(causal=True, window=window, q_offset=lane(qo), kv_len=lane(kl))
             out, lse = flash_attention_int8(q, k8, v8, ks, vs, **kw)
             r_out, r_lse = flash_attention_ref(q, k8, v8, k_scale=ks, v_scale=vs, **kw)
+            label = f"{fwd_path(q)} {label}"
             compare("flash_attention_int8", f"{dtype} {label} out", out, r_out, dtype)
             compare("flash_attention_int8", f"{dtype} {label} lse", lse, r_lse, dtype,
                     1e-4, 1e-5)
@@ -537,7 +567,17 @@ def main():
                 print(f"    {'flash_attention_int8':19s} rows {dead} exact zeros: {zero}")
                 if not zero:
                     failures.append(f"flash_attention_int8 {dtype} {label}: rows {dead}")
-    del k8, v8
+    # an int8 cache whose head stride (hd + 8) is no whole 16-byte step: the
+    # tensor-core instance must raise
+    wide8 = torch.zeros(SLOTS, CHUNK, kvh, hd + 8, dtype=torch.int8, device=dev)[..., :hd]
+    try:
+        flash_attention_int8(torch.zeros(SLOTS, 1, h, hd, dtype=bf, device=dev), wide8, wide8,
+                             ks, vs)
+        failures.append("flash_attention_int8: a misaligned int8 cache did not raise")
+    except ValueError as e:
+        print(f"    {'flash_attention_int8':19s} int8 cache with head stride {wide8.stride(2)} "
+              f"raises: {e}")
+    del k8, v8, wide8
     torch.cuda.synchronize()
     check(not failures, f"kernels disagree with their plain versions: {failures}")
 
@@ -1066,54 +1106,71 @@ def main():
     del engine
     torch.cuda.empty_cache()
 
-    # -- 9. K1q's time at phase 8's decode shape ---------------------------------
-    print(f"[9] K1q per call at phase 8's int8 decode step halfway through: q "
-          f"{SLOTS}x1x{h}x{hd} bf16, int8 cache {SLOTS}x{ENGINE_LEN}x{kvh}x{hd}, kv_len "
-          f"{mid_kl}; ({smi})")
-    q8_sets, k1_sets, lib_sets = [], [], []
-    for _ in range(L):  # one cache per layer, as the decode step reads them
-        qd = torch.randn(SLOTS, 1, h, hd, device=dev, generator=g).to(bf)
-        k8, v8, ks, vs = int8_cache(SLOTS)
-        qo_t, kl_t = lane(mid_qo), lane(mid_kl)
-        q8_sets.append((qd, k8, v8, ks, vs, qo_t, kl_t))
-        kb, vb = ((x.float() * sc[:, None, :, None]).to(bf) for x, sc in ((k8, ks), (v8, vs)))
-        k1_sets.append((qd, kb, vb, qo_t, kl_t))
-        mask = (torch.arange(ENGINE_LEN, device=dev)[None, :] < kl_t[:, None])[:, None, None, :]
-        lib_sets.append((qd, k8, v8, ks, vs, mask))
+    # -- 9. K1q's time at phase 8's decode and chunk shapes ----------------------
+    # decode at the int8 run's halfway lanes; a continuation chunk of CHUNK
+    # rows at those lanes' offsets (clamped to fit the cache)
+    chunk_at = [min(p, ENGINE_LEN - CHUNK) for p in mid_qo]
+    q8_shapes = [("decode", 1, mid_qo, mid_kl),
+                 ("chunk", CHUNK, chunk_at, [p + CHUNK for p in chunk_at])]
+    print(f"[9] K1q per call at phase 8's shapes: q {SLOTS}xSQx{h}x{hd} bf16, int8 cache "
+          f"{SLOTS}x{ENGINE_LEN}x{kvh}x{hd}; decode (SQ 1) at the int8 run's halfway lanes "
+          f"(kv_len {mid_kl}), a {CHUNK}-row chunk (SQ {CHUNK}) at q_offset {chunk_at}; "
+          f"each beside K1 over the same cache in bf16 ({smi})")
+    fa_mod = sys.modules[flash_attention.__module__]
 
     def lib_two_calls(qd, k8, v8, ks, vs, mask):
         kb, vb = ((x.float() * sc[:, None, :, None]).to(bf) for x, sc in ((k8, ks), (v8, vs)))
         return sdpa(qd, kb, vb, mask, False)
 
-    t_q8 = time_ms(torch, lambda qd, k8, v8, ks, vs, qo, kl: flash_attention_int8(
-        qd, k8, v8, ks, vs, causal=True, q_offset=qo, kv_len=kl), q8_sets)
-    t_plain = time_ms(torch, lambda qd, k8, v8, ks, vs, qo, kl: flash_attention_ref(
-        qd, k8, v8, causal=True, q_offset=qo, kv_len=kl, k_scale=ks, v_scale=vs), q8_sets)
-    t_lib = time_ms(torch, lib_two_calls, lib_sets)
-    t_k1 = time_ms(torch, lambda qd, kb, vb, qo, kl: flash_attention(
-        qd, kb, vb, causal=True, q_offset=qo, kv_len=kl), k1_sets)
-    k1_inst = fwd_path(k1_sets[0][0])
-    valid = sum(mid_kl)
-    # read the valid int8 k and v once, q, the scales and the lanes; write out
-    # and lse.  Work: q.kᵀ and p.v over every visible key of every head
-    q8_bytes = (2 * kvh * hd * valid + 2 * SLOTS * h * hd * es + SLOTS * h * 4
-                + 2 * SLOTS * kvh * 4 + 2 * SLOTS * 4)
-    q8_ops = 4 * hd * h * valid
-    b_ms, b_by = bound_ms(q8_bytes, q8_ops, "bfloat16")
-    k1_bytes = es * 2 * kvh * hd * valid + 2 * SLOTS * h * hd * es + SLOTS * h * 4 + 2 * SLOTS * 4
-    k1_bound, _ = bound_ms(k1_bytes, q8_ops, "bfloat16")
-    rows.append(dict(kernel="flash_attention_int8", label=f"decode {SLOTS}x1 vs int8 {ENGINE_LEN}",
-                     calls=L, ms=t_q8, plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
-                     bytes=q8_bytes, ops=q8_ops, bound_by=b_by, path="engine",
-                     instance=fwd_path(q8_sets[0][0], k_scale=q8_sets[0][3])))
-    print(f"    K1q ({rows[-1]['instance']} instance) {t_q8:.4f} ms (bound {b_ms:.4f} ms by "
-          f"{b_by}, {100 * b_ms / t_q8:.1f}% of it; {q8_bytes / 1e6:.3f} MB); plain "
-          f"{t_plain:.4f} ms; library, two calls (dequantize to bf16, then "
-          f"scaled_dot_product_attention) {t_lib:.4f} ms; K1 ({k1_inst} instance) over the "
-          f"bf16 cache {t_k1:.4f} ms (its bound {k1_bound:.4f} ms)")
-    print(f"    one int8 decode step's {L} calls: K1q {L * t_q8:.4f} ms, K1 over bf16 "
-          f"{L * t_k1:.4f} ms")
-    del q8_sets, k1_sets, lib_sets
+    for shape, sq, qo, kl in q8_shapes:
+        q8_sets, k1_sets, lib_sets = [], [], []
+        qo_t, kl_t = lane(qo), lane(kl)
+        # which key each row sees: kpos < kv_len and kpos <= q_offset + row
+        kpos = torch.arange(ENGINE_LEN, device=dev)
+        mask = ((kpos[None, None, :] < kl_t[:, None, None])
+                & (kpos[None, None, :] <= qo_t[:, None, None]
+                   + torch.arange(sq, device=dev)[None, :, None]))[:, None]
+        for _ in range(L):  # one cache per layer, as the decode step reads them
+            qd = torch.randn(SLOTS, sq, h, hd, device=dev, generator=g).to(bf)
+            k8, v8, ks, vs = int8_cache(SLOTS)
+            q8_sets.append((qd, k8, v8, ks, vs, qo_t, kl_t))
+            kb, vb = ((x.float() * sc[:, None, :, None]).to(bf) for x, sc in ((k8, ks), (v8, vs)))
+            k1_sets.append((qd, kb, vb, qo_t, kl_t))
+            lib_sets.append((qd, k8, v8, ks, vs, mask))
+        t_q8 = time_ms(torch, lambda qd, k8, v8, ks, vs, qo, kl: flash_attention_int8(
+            qd, k8, v8, ks, vs, causal=True, q_offset=qo, kv_len=kl), q8_sets)
+        t_plain = time_ms(torch, lambda qd, k8, v8, ks, vs, qo, kl: flash_attention_ref(
+            qd, k8, v8, causal=True, q_offset=qo, kv_len=kl, k_scale=ks, v_scale=vs), q8_sets)
+        t_lib = time_ms(torch, lib_two_calls, lib_sets)
+        t_k1 = time_ms(torch, lambda qd, kb, vb, qo, kl: flash_attention(
+            qd, kb, vb, causal=True, q_offset=qo, kv_len=kl), k1_sets)
+        splits = fa_mod.kv_splits(SLOTS, sq, h, kvh, ENGINE_LEN, sms)
+        instance = f"{fwd_path(q8_sets[0][0])}, {splits} split{'s' * (splits > 1)}"
+        # read the valid int8 k and v once, q, the scales and the lanes; write
+        # out and lse.  Work: q.kᵀ and p.v over every (row, key) pair a row
+        # sees, for every head
+        valid = sum(kl)
+        pairs = int(mask.sum())
+        io = 2 * SLOTS * sq * h * hd * es + SLOTS * sq * h * 4 + 2 * SLOTS * 4
+        q8_bytes = 2 * kvh * hd * valid + io + 2 * SLOTS * kvh * 4
+        q8_ops = 4 * hd * h * pairs
+        b_ms, b_by = bound_ms(q8_bytes, q8_ops, "bfloat16")
+        k1_bound, _ = bound_ms(es * 2 * kvh * hd * valid + io, q8_ops, "bfloat16")
+        rows.append(dict(kernel="flash_attention_int8",
+                         label=f"{shape} {SLOTS}x{sq} vs int8 {ENGINE_LEN}", calls=L, ms=t_q8,
+                         plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms, bytes=q8_bytes,
+                         ops=q8_ops, bound_by=b_by,
+                         path="engine" if shape == "decode" else "engine chunk",
+                         instance=instance))
+        print(f"    {shape} {SLOTS}x{sq}: K1q ({instance}) {t_q8:.4f} ms (bound {b_ms:.4f} ms "
+              f"by {b_by}, {100 * b_ms / t_q8:.1f}% of it; {q8_bytes / 1e6:.3f} MB); plain "
+              f"{t_plain:.4f} ms; library, two calls (dequantize to bf16, then "
+              f"scaled_dot_product_attention) {t_lib:.4f} ms; K1 ({fwd_path(k1_sets[0][0])}) "
+              f"over the bf16 cache {t_k1:.4f} ms (its bound {k1_bound:.4f} ms); K1q / K1 "
+              f"{t_q8 / t_k1:.3f}")
+        print(f"    {shape}: {L} calls (one per layer): K1q {L * t_q8:.4f} ms, K1 over bf16 "
+              f"{L * t_k1:.4f} ms")
+        del q8_sets, k1_sets, lib_sets
 
     # -- 10. the kernel registry at sizes past the L2 --------------------------------
     # Everything through registry.dispatch under the default policy, seeded
@@ -1254,6 +1311,7 @@ def main():
             lib, lib_name = (lambda x: x.t().contiguous()), "x.t().contiguous()"
             nbytes, ops, peak = 2 * x.numel() * es, 0, "float32"
             name, iters = "bi_transpose", None
+            instance = k6_path(x, registry.get(op).plan(x)["bt"])
         elif op == "fft":
             plain = bi_fft_plain
             lib, lib_name = (lambda x: torch.fft.fft(x, dim=-1)), "torch.fft.fft"
@@ -1277,7 +1335,8 @@ def main():
         b_ms, b_by = bound_ms(nbytes, ops, peak)
         reg_rows.append(dict(kernel=name, label=label, ms=t_k, plain_ms=t_p, library_ms=t_l,
                              bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=ops))
-        print(f"    {name:15s} {label:32s} {t_k:9.4f} (bound {b_ms:.4f} by {b_by}, "
+        inst = f" [{instance}]" if op == "transpose" else ""
+        print(f"    {name:15s} {label:32s} {t_k:9.4f}{inst} (bound {b_ms:.4f} by {b_by}, "
               f"{100 * b_ms / t_k:5.1f}% of it); plain {t_p:9.4f}; {lib_name} {t_l:9.4f}")
         if op == "fft":
             n1 = planner.plan_fft(n_)["n1"]

@@ -1,7 +1,8 @@
-// Tensor-core helpers shared by the bf16 attention kernels (K1 in
-// flash_attention.cu, K3 in flash_attention_bwd.cu): 16-byte cp.async with
-// zero fill, ldmatrix, mma.sync m16n8k16 (bf16 in, f32 accumulate) and the
-// repacking of an f32 accumulator into a bf16 operand.
+// Tensor-core helpers shared by the attention kernels' mma instances (K1
+// and K1q in flash_attention.cu, K3 in flash_attention_bwd.cu): 16-byte
+// cp.async with zero fill, ldmatrix, mma.sync m16n8k16 (bf16 or f16 in, f32
+// accumulate), the repacking of an f32 accumulator into a bf16 or f16
+// operand, and the exact widening of int8 to bf16 and to f16.
 //
 // Fragment layouts of mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32,
 // for lane l of the warp, with r = l / 4 and c = 2 * (l % 4):
@@ -21,6 +22,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -83,6 +85,17 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint3
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// c += a b with f16 operands (K1q's P V: P in [0, 1] keeps three more bits
+// in f16 than in bf16, and an int8 V is exact in either)
+__device__ __forceinline__ void mma_f16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // two f32 -> one register of two bf16 (lo in the low half), rounded to nearest
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -97,6 +110,43 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&left)[4],
   a[1] = pack2(left[2], left[3]);
   a[2] = pack2(right[0], right[1]);
   a[3] = pack2(right[2], right[3]);
+}
+
+// pack_a with f16 operands
+__device__ __forceinline__ void pack_a_f16(uint32_t (&a)[4], const float (&left)[4],
+                                           const float (&right)[4]) {
+  const __half2 h[4] = {__floats2half2_rn(left[0], left[1]), __floats2half2_rn(left[2], left[3]),
+                        __floats2half2_rn(right[0], right[1]),
+                        __floats2half2_rn(right[2], right[3])};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const uint32_t*>(&h[i]);
+}
+
+// Four int8 (one 32-bit word) widened exactly, without the conversion units
+// (I2F runs at a quarter of the integer rate).  x ^ 0x80 is x + 128 as an
+// unsigned byte u.  bf16: the f32 with bits 0x4B0000uu is 2^23 + u, so
+// subtracting 2^23 + 128 leaves x exactly, and an f32 integer of at most
+// 8 bits has zero low halves, so its bf16 is its high half.  f16: the f16
+// with bits 0x64uu is 1024 + u (spacing 1 in [1024, 2048)), and
+// subtracting 1152 leaves x exactly.  lo gets elements 0, 1, hi 2, 3.
+__device__ __forceinline__ void widen_i8x4_bf16(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + i)) - 8388736.f;
+  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+}
+
+__device__ __forceinline__ void widen_i8x4_f16(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  const __half2 bias = __halves2half2(__ushort_as_half(0x6480), __ushort_as_half(0x6480));
+  uint32_t p[2] = {__byte_perm(u, 0x64646464u, 0x5140), __byte_perm(u, 0x64646464u, 0x5342)};
+  const __half2 a = __hsub2(*reinterpret_cast<const __half2*>(&p[0]), bias);
+  const __half2 b = __hsub2(*reinterpret_cast<const __half2*>(&p[1]), bias);
+  lo = *reinterpret_cast<const uint32_t*>(&a);
+  hi = *reinterpret_cast<const uint32_t*>(&b);
 }
 
 // two f32 as hi + lo, each a bf16 pair: hi rounded to nearest, lo the

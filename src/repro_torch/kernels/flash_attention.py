@@ -31,11 +31,10 @@ Contract, as the JAX kernel's, in the model's layout:
 K1q, :func:`flash_attention_int8`, replaces the same kernel with
 ``quantized=True`` (``flash_attention.py:141-169``, operands ``:356-358``):
 ``k``/``v`` are int8 with f32 scales per (batch row, KV head), ``k_scale``
-and ``v_scale`` of shape ``(b, kvh)``, dequantized at the block load in the
-JAX order (``k * k_scale`` first, then ``q·kᵀ·scale``).  It is forward only,
-as the TPU kernel is.  :func:`flash_attention` takes the scales too and
-hands an int8 call to it; int8 ``k``/``v`` need both scales, and scales need
-int8 ``k``/``v``.
+and ``v_scale`` of shape ``(b, kvh)``.  It is forward only, as the TPU
+kernel is.  :func:`flash_attention` takes the scales too and hands an int8
+call to it; int8 ``k``/``v`` need both scales, and scales need int8
+``k``/``v``.
 
 K3, :func:`flash_attention_bwd`, replaces ``_bwd_dq_kernel`` and
 ``_bwd_dkv_kernel`` (launched by ``_bwd_call``) with
@@ -49,17 +48,24 @@ kernel entry and oracle.
 
 A tensor on the CPU takes the plain version (:func:`flash_attention_ref`,
 :func:`flash_attention_bwd_ref`); a CUDA tensor launches the kernel (``hd``
-in 16, 32, 64, 128) or raises.  Each kernel has two instances
-(:func:`fwd_path`, :func:`bwd_path`).  bf16 ``q``/``k``/``v`` run on the
-tensor cores ("mma": ``mma.sync`` with f32 accumulation): K1 rounds P to
-bf16 where it feeds P V; K3 feeds P and dS to its products as hi + lo bf16
-pairs (16 bits) and forms delta = rowsum(dO * O) in its dq pass.  f32 and
-K1q's int8 cache run the FMA template ("fma", f32 throughout, delta from
-this wrapper), which the f32 gates (identical card and CPU tokens) need.
-The mma instances stage tiles with 16-byte copies, so they raise on a
-``q``/``k``/``v`` whose pointer is not 16-byte aligned or whose (batch,
-seq, head) strides are not multiples of 8 elements; no model path makes
-one (``out`` and the gradient are copied when they are not so).
+in 16, 32, 64, 128) or raises.  Each kernel has two instances, picked by
+the dtype of ``q`` (:func:`fwd_path`, :func:`bwd_path`).  bf16 ``q`` runs
+on the tensor cores ("mma": ``mma.sync`` with f32 accumulation): K1 rounds
+P to bf16 where it feeds P V; K1q widens its int8 tiles exactly in shared
+memory (K to bf16, V to f16), folds the scales into S and O with one
+multiply each (``S = (q·k_int)·(k_scale/√hd)``, ``O = (P·v_int)·v_scale/l``;
+the JAX kernel dequantizes first, ``k * k_scale``, and the two orders differ
+by f32 rounding), rounds P to f16 where it feeds P V, and in decode splits
+the keys over the warps of each query head and over a thread-block cluster
+that :func:`kv_splits` plans; K3 feeds P and dS to its products as hi + lo bf16
+pairs (16 bits) and forms delta = rowsum(dO * O) in its dq pass.  f32 ``q``
+runs the FMA template ("fma", f32 throughout, K1q dequantizing at the block
+load in the JAX order, delta from this wrapper), which the f32 gates
+(identical card and CPU tokens) need.  The mma instances stage tiles with
+16-byte copies, so they raise on a ``q``/``k``/``v`` whose pointer is not
+16-byte aligned or whose (batch, seq, head) strides are not whole 16-byte
+steps (8 bf16 or 16 int8 elements); no model path makes one (``out`` and
+the gradient are copied when they are not so).
 
 ``flash_attention.launches`` (K1), ``flash_attention_int8.launches`` (K1q)
 and ``flash_attention_bwd.launches`` (K3) count the kernel launches.
@@ -67,6 +73,7 @@ and ``flash_attention_bwd.launches`` (K3) count the kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -194,11 +201,11 @@ def flash_attention_bwd_ref(q, k, v, out, lse, g, *, causal: bool = True,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def fwd_path(q, k_scale=None) -> str:
-    """The K1 instance a CUDA call with this ``q`` runs: ``"mma"`` for bf16
-    ``q``/``k``/``v`` (decode too), ``"fma"`` for f32 and for K1q's int8
-    ``k``/``v``."""
-    return "mma" if q.dtype == torch.bfloat16 and k_scale is None else "fma"
+def fwd_path(q) -> str:
+    """The K1 or K1q instance a CUDA call with this ``q`` runs: ``"mma"``
+    for bf16 ``q`` over a bf16 or an int8 cache (decode too), ``"fma"`` for
+    f32."""
+    return "mma" if q.dtype == torch.bfloat16 else "fma"
 
 
 def bwd_path(q) -> str:
@@ -207,10 +214,34 @@ def bwd_path(q) -> str:
     return "mma" if q.dtype == torch.bfloat16 else "fma"
 
 
+@functools.lru_cache(maxsize=None)
+def kv_splits(b: int, sq: int, h: int, kvh: int, sk: int, sms: int) -> int:
+    """The cluster over which K1q's tensor-core instance splits each block's
+    K/V tiles: doubled, up to 8 and to the cache's 64-key tiles, while the
+    split grid still fits the ``sms`` SMs once (one block per SM: a decode
+    block holds ~150 KB of shared memory at hd 128).  Its blocks are csrc's: four warps,
+    one KV head's ``rg`` query heads (4, 2 or 1, whichever divides the group
+    first) times 16-row groups.  The engine's decode (8 rows x 8 KV heads: 64
+    blocks on 132 SMs) splits in two; its 64-row chunks do not split."""
+    n_rep = h // kvh
+    rg = 4 if n_rep % 4 == 0 else 2 if n_rep % 2 == 0 else 1
+    rows = 16 * (4 // rg)
+    blocks = b * kvh * (n_rep // rg) * (-(-sq // rows))
+    splits = 1
+    while splits < 8 and 2 * splits * blocks <= sms and 2 * splits <= -(-sk // 64):
+        splits *= 2
+    return splits
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _tensor_core_layout(x) -> bool:
     """Whether the mma instances can stage ``x`` with 16-byte copies: a
     16-byte aligned pointer and (batch, seq, head) strides that are
-    multiples of 16 bytes."""
+    multiples of 16 bytes (8 bf16 or 16 int8 elements)."""
     step = 16 // x.element_size()
     return x.data_ptr() % 16 == 0 and all(s % step == 0 for s in x.stride()[:3])
 
@@ -220,7 +251,7 @@ def _require_tensor_core_layout(what, **tensors):
         if not _tensor_core_layout(x):
             raise ValueError(
                 f"{what}: {name} has pointer {x.data_ptr():#x} and strides {x.stride()}; "
-                f"the bf16 tensor-core kernel needs a 16-byte aligned pointer and "
+                f"the tensor-core kernel needs a 16-byte aligned pointer and "
                 f"strides that are multiples of {16 // x.element_size()} elements")
 
 
@@ -238,7 +269,7 @@ def _lib():
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
-                       L, L, L, L, L, L, L, L, L, I, I, I, I, P]
+                       L, L, L, L, L, L, L, L, L, I, I, I, I, I, P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -254,7 +285,7 @@ def _launch_fwd(q, k, v, causal, window, q_offset, kv_len, k_scale, v_scale, wha
         raise ValueError(f"{what}: head_dim {hd} not in {HEAD_DIMS}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError(f"{what}: q, k, v need unit stride on head_dim")
-    if fwd_path(q, k_scale) == "mma":
+    if fwd_path(q) == "mma":
         _require_tensor_core_layout(what, q=q, k=k, v=v)
     rows, lanes = _lanes(q_offset, kv_len)
     scales = [None if x is None else x.contiguous() for x in (k_scale, v_scale)]
@@ -262,6 +293,8 @@ def _launch_fwd(q, k, v, causal, window, q_offset, kv_len, k_scale, v_scale, wha
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
+    splits = (kv_splits(b, sq, h, kvh, sk, _sm_count(q.device.index or 0))
+              if k_scale is not None and fwd_path(q) == "mma" else 1)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  lse.data_ptr(),
@@ -271,7 +304,7 @@ def _launch_fwd(q, k, v, causal, window, q_offset, kv_len, k_scale, v_scale, wha
                  k.stride(0), k.stride(1), k.stride(2),
                  v.stride(0), v.stride(1), v.stride(2),
                  int(causal), int(window), _DTYPE_CODES[q.dtype],
-                 int(k_scale is not None), stream)
+                 int(k_scale is not None), splits, stream)
     _build.check(err, what)
     return out, lse
 

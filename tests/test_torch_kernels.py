@@ -374,7 +374,71 @@ def test_tensor_core_layout_rule():
     assert fa.fwd_path(q) == "mma" and fa.bwd_path(q) == "mma"
     assert fa.fwd_path(q[:, :1]) == "mma"
     assert fa.fwd_path(q.float()) == "fma" and fa.bwd_path(q.float()) == "fma"
-    assert fa.fwd_path(q, k_scale=torch.ones(2, 4)) == "fma"
+
+
+def test_int8_cache_takes_the_tensor_cores():
+    """K1q's instance follows q alone: bf16 q over an int8 cache runs the
+    mma instance (decode and chunks), f32 q the FMA template.  The layout
+    rule on int8 k/v asks for 16-element steps (16 bytes)."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    cache = torch.zeros(8, 512, 8, 128, dtype=torch.int8)
+    for sq in (1, 64):
+        q = torch.zeros(8, sq, 16, 128, dtype=torch.bfloat16)
+        assert fa.fwd_path(q) == "mma" and fa.fwd_path(q.float()) == "fma"
+    assert fa._tensor_core_layout(cache) and fa._tensor_core_layout(cache[:, :77])
+    assert fa._tensor_core_layout(torch.zeros(3, 16, 2, 16, dtype=torch.int8))
+    # a head stride of 24 int8 (not a 16-byte step), and 8 bytes off
+    assert not fa._tensor_core_layout(torch.zeros(2, 8, 2, 24, dtype=torch.int8)[..., :16])
+    flat = torch.zeros(2 * 8 * 2 * 16 + 8, dtype=torch.int8)
+    assert not fa._tensor_core_layout(flat[8:].view(2, 8, 2, 16))
+    with pytest.raises(ValueError, match="multiples of 16 elements"):
+        fa._require_tensor_core_layout("k1q", k=torch.zeros(2, 8, 2, 24, dtype=torch.int8)[..., :16])
+
+
+@pytest.mark.parametrize("b,sq,h,kvh,sk,sms,want", [
+    (8, 1, 16, 8, 512, 132, 2),    # the engine's decode: 64 blocks on 132 SMs
+    (8, 64, 16, 8, 512, 132, 1),   # its 64-row chunks: 128 blocks
+    (4, 1, 16, 8, 256, 132, 4),    # the lockstep decode: 32 blocks
+    (1, 1, 16, 8, 512, 132, 8),    # at most 8 blocks a cluster
+    (1, 1, 16, 8, 128, 132, 2),    # no more than the cache's 64-key tiles
+    (3, 1, 4, 2, 16, 132, 1),      # a single tile
+    (8, 1, 16, 8, 512, 100, 1),    # fewer SMs than a doubled grid
+])
+def test_kv_splits_plan(b, sq, h, kvh, sk, sms, want):
+    """K1q's cluster split doubles while the split grid fits the SMs once,
+    up to 8 and to the cache's 64-key tiles."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    assert fa.kv_splits(b, sq, h, kvh, sk, sms) == want
+
+
+# (dtype, (m, n), bt, the instance): 16-byte pitches and tile edges take vec
+TRANSPOSE_PATHS = [
+    *[(dt, (96, 160), 32, "vec") for dt in ("int8", "bfloat16", "float32", "float64")],
+    *[(dt, (64, 99), 128, "scalar") for dt in ("int8", "bfloat16", "float32", "float64")],
+    *[(dt, (1000, 24), 8, want) for dt, want in (("int8", "scalar"), ("bfloat16", "vec"),
+                                                 ("float32", "vec"), ("float64", "vec"))],
+    ("int8", (96, 160), 8, "scalar"),     # a tile edge of 8 bytes
+    ("bfloat16", (100, 160), 20, "scalar"),  # 100 rows: an output pitch of 200 bytes
+    ("float64", (6, 10), 2, "vec"),
+    ("float32", (8192, 8192), None, "vec"),  # the planner's tile
+]
+
+
+@pytest.mark.parametrize("case", TRANSPOSE_PATHS, ids=lambda c: f"{c[0]}_{c[1][0]}x{c[1][1]}_{c[2]}")
+def test_transpose_path_rule(case):
+    """bi_transpose.path names vec where the pointer, both row pitches and
+    both tile edges are whole 16-byte steps, scalar elsewhere, by layout
+    alone; a view 1 element off 16 bytes takes scalar; the sub-tile edge
+    follows the instance."""
+    k6 = importlib.import_module("repro_torch.kernels.bi_transpose")
+    dt, (m, n), bt, want = case
+    x = torch.zeros(m, n, dtype=getattr(torch, dt))
+    assert k6.path(x, bt) == want
+    flat = torch.zeros(m * n + 1, dtype=x.dtype)
+    assert k6.path(flat[1:].view(m, n), bt) == "scalar"
+    size = x.element_size()
+    assert k6.tile("vec", size) == 16 * 16 // size
+    assert k6.tile("scalar", size) == (32 if size >= 4 else 64)
 
 
 # -- on the card ---------------------------------------------------------------
@@ -761,6 +825,63 @@ def test_flash_int8_kernel_matches_plain(cuda, dtype, case):
         assert torch.count_nonzero(out[row]) == 0
 
 
+# the engine's shapes (qwen3-1.7b: 8 slots, 16 query heads over 8 KV heads,
+# hd 128, a 512-position cache): decode with an empty lane, and a 64-row
+# continuation chunk at per-row offsets; (name, sq, q_offset, kv_len)
+Q8_ENGINE_CASES = [
+    ("decode_8x1_vs_512", 1, [0, 76, 127, 254, 255, 399, 511, 0],
+     [1, 77, 128, 255, 256, 400, 512, 0]),
+    ("chunk_8x64_vs_512", 64, [64 * i for i in range(8)], [64 * i + 64 for i in range(8)]),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", Q8_ENGINE_CASES, ids=lambda c: c[0])
+def test_flash_int8_mma_at_engine_shapes(cuda, case):
+    """K1q's tensor-core instance against its plain version at the engine's
+    decode and chunk shapes, over a cache quantized as the engine quantizes
+    it (per-(row, KV head) absmax scales of N(0, 1) keys and values): the
+    output within 2e-2 (bf16; P rounds to f16 before P V), the lse within
+    1e-3, and exact zeros in the empty lane."""
+    from repro_torch.models.common import kv_scale, quantize_kv
+
+    name, sq, qo, kl = case
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    r = _rng(17)
+    q = torch.from_numpy(r.standard_normal((8, sq, 16, 128)).astype(np.float32))
+    q = q.to(cuda, torch.bfloat16)
+    fp = [torch.from_numpy(r.standard_normal((8, 512, 8, 128)).astype(np.float32)).to(cuda)
+          for _ in "kv"]
+    ks, vs = (kv_scale(x) for x in fp)
+    k8, v8 = quantize_kv(fp[0], ks), quantize_kv(fp[1], vs)
+    kw = dict(causal=True, q_offset=_lanes(qo, cuda), kv_len=_lanes(kl, cuda))
+    assert fa.fwd_path(q) == "mma"
+    before = flash_attention_int8.launches
+    out, lse = flash_attention_int8(q, k8, v8, ks, vs, **kw)
+    assert flash_attention_int8.launches == before + 1
+    ref_out, ref_lse = flash_attention_ref(q, k8, v8, k_scale=ks, v_scale=vs, **kw)
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-5)
+    for row in (i for i, n in enumerate(kl) if n == 0):
+        assert torch.count_nonzero(out[row]) == 0
+
+
+@pytest.mark.cuda
+def test_flash_int8_mma_rejects_misaligned_cache(cuda):
+    """The tensor-core instance raises on an int8 cache whose head stride is
+    not a whole 16-byte step (24 int8); the FMA template (f32 q) takes it."""
+    wide = torch.randint(-127, 128, (2, 32, 2, 24), dtype=torch.int8, device=cuda)
+    k = wide[..., :16]
+    s = torch.full((2, 2), 0.02, device=cuda)
+    q = torch.randn(2, 1, 4, 16, device=cuda)
+    kw = dict(q_offset=_lanes([31], cuda), kv_len=_lanes([32], cuda))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_int8(q.bfloat16(), k, k, s, s, **kw)
+    out, _ = flash_attention_int8(q, k, k, s, s, **kw)
+    torch.testing.assert_close(out, flash_attention_ref(q, k, k, k_scale=s, v_scale=s, **kw)[0],
+                               atol=ATOL, rtol=0)
+
+
 # -- K5, K6, K7 and K4 on the card (the registry's scan, transpose, fft and
 # matmul ops; tests/test_torch_substrate.py holds their plain versions to JAX)
 
@@ -797,14 +918,24 @@ def test_scan_kernel_matches_plain(cuda, dtype, rows, n, block):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8", "float64"])
 @pytest.mark.parametrize("m,n,bt,morton", [(96, 160, 32, True), (256, 256, 64, True),
                                            (256, 256, 64, False), (1000, 24, 8, True),
-                                           (4096, 64, None, True), (64, 128, 128, True)])
-def test_transpose_kernel_is_exact(cuda, dtype, m, n, bt, morton):
-    from repro_torch.kernels.bi_transpose import bi_transpose
+                                           (4096, 64, None, True), (64, 128, 128, True),
+                                           (2048, 2048, 128, True)])
+def test_transpose_kernel_is_exact(cuda, dtype, m, n, bt, morton, offset):
+    """Each K6 instance moves every element exactly: vec on the aligned
+    layouts (all but int8 1000x24 at tile 8), scalar on the same matrices
+    one element off 16 bytes; 2048^2 at tile 128 is a Morton grid of 16 x 16
+    bt tiles."""
+    from repro_torch.kernels.bi_transpose import bi_transpose, path
 
-    x = (torch.randn(m, n, device=cuda) * 50).to(getattr(torch, dtype))
+    dt = getattr(torch, dtype)
+    x = torch.empty(m * n + offset, dtype=dt, device=cuda)[offset:].view(m, n)
+    x.copy_(torch.randn(m, n, device=cuda) * 50)
+    aligned = not offset and not (dtype == "int8" and m == 1000)
+    assert path(x, bt) == ("vec" if aligned else "scalar")
     before = bi_transpose.launches
     got = bi_transpose(x, bt=bt, morton=morton)
     assert bi_transpose.launches == before + 1
