@@ -8,9 +8,9 @@ Phases, each of which fails the run (exit code 1, no result line):
 1. Build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, in parallel), print ``ptxas``'s registers and spill
    stores of each tensor-core kernel (the attention kernels' mma instances,
-   K1q's among them, and K2's wgmma and stream instances) and of K6's
-   vector kernels (any spill in these fails the run) and of K2's other
-   kernels, and the tensor-core instructions (HMMA, HGMMA) in each
+   K1q's among them, and K2's wgmma and stream instances), of K6's vector
+   kernels and of K7's FFT kernels (any spill in these fails the run) and of
+   K2's other kernels, and the tensor-core instructions (HMMA, HGMMA) in each
    library's SASS (``cuobjdump -sass``; the attention libraries must have
    some, each of K1q's four tensor-core kernels HMMA, and K2's HGMMA), and
    the card's name and power limit.
@@ -60,11 +60,12 @@ Phases, each of which fails the run (exit code 1, no result line):
    default policy) at sizes past the 50 MB L2: the scan (K5) on f32 and
    bf16 (64, 2^20), the transpose (K6) on f32 8192^2 (a Morton grid of bt
    tiles) and bf16 4096x16384 and 6144x10240 (row-major grids), the FFT
-   (K7 over K2) on complex64 (256, 65536), and an f32 8192^2 product, which
+   (K7, two CUDA passes) on complex64 (256, 65536), and an f32 8192^2
+   product, which
    the planner sends to Strassen (K4 over K2).  Prints the device
    parameters the planner reads and each plan; the launch counts are set to
    0 just before the run and read just after (one per call, K2 7^levels
-   times per Strassen call and 8 times per FFT); holds each result against
+   times per Strassen call and never for the FFT); holds each result against
    its plain version within the tolerances printed; times each op, its
    plain version and the library call (``torch.cumsum``,
    ``x.t().contiguous()``, ``torch.fft.fft``, ``torch.matmul``) beside its
@@ -127,8 +128,9 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 128, 3  # the JAX trainer's CLI default
 SMOKE_LOSS_RTOL, SMOKE_GRAD_TOL, SMOKE_PARAM_ATOL = 1e-5, (1e-5, 5e-3), 3e-6
 # phase 10: the registry's ops past the L2.  The f32 sum's slack per unit of
 # sum |x| (~16 f32 ulps); normwise tolerances of the FFT against its plain
-# four-step and against torch.fft.fft (f32 DFT tables, products over 256
-# terms), and of the Strassen product against its plain version and against
+# two-pass version (which rounds as the kernel does) and against
+# torch.fft.fft (f32 twiddle tables, four radix-4 stages a pass at 256 x
+# 256), and of the Strassen product against its plain version and against
 # the classical f32 product (two levels of combinations).
 STRASSEN_N = 8192
 SCAN_SLACK = 1e-6
@@ -187,7 +189,7 @@ def kernel_name(mangled):
     """An attention, K2 or K6 kernel's mangled name as ``name<args>``, from
     the template ints and bools it carries (K1q's tensor-core kernel is
     ``flash_fwd_mma_kernel<hd,1>``); any other name unchanged."""
-    m = re.search(r"\d+((?:flash|mm|transpose)_\w+?_kernel)I((?:L[ib]\d+E)+)E", mangled)
+    m = re.search(r"\d+((?:flash|mm|transpose|fft)_\w+?_kernel)I((?:L[ib]\d+E)+)E", mangled)
     if not m:
         return mangled
     args = re.findall(r"L[ib](\d+)E", m.group(2))
@@ -300,10 +302,10 @@ def main():
               f"{sum(sp for _, _, sp in entries)} bytes of spill stores in all")
         # the tensor-core instances (K1, K1q, K3), K2's kernels, K6's vector one
         for kern, regs, spill in entries:
-            if "_mma_kernel" in kern or kern.startswith(("mm_", "transpose_vec")):
+            if "_mma_kernel" in kern or kern.startswith(("mm_", "transpose_vec", "fft_")):
                 print(f"      {kern}: {regs} registers, {spill} bytes of spill stores")
-            if spill and ("_mma_kernel" in kern
-                          or kern.startswith(("mm_wgmma", "mm_stream", "transpose_vec"))):
+            if spill and ("_mma_kernel" in kern or kern.startswith(
+                    ("mm_wgmma", "mm_stream", "transpose_vec", "fft_"))):
                 mma_spills.append(kern)
     for name in _build.sources():  # tensor-core instructions in each library
         counts_, per_kernel = sass_counts(_build.library_path(name))
@@ -1225,11 +1227,15 @@ def main():
     n_ops = {op: sum(1 for _, o, _ in reg_cases if o == op) for _, op, _ in reg_cases}
     want_launches = {"bp_scan": n_ops["scan"], "bi_transpose": n_ops["transpose"],
                      "bi_fft": n_ops["fft"], "strassen_matmul": n_ops["matmul"],
-                     "hbp_matmul": 8 * n_ops["fft"] + 7 ** levels * n_ops["matmul"],
+                     "hbp_matmul": 7 ** levels * n_ops["matmul"],
                      "flash_attention": 0, "flash_attention_int8": 0,
                      "flash_attention_bwd": 0}
+    fft_x = next(args[0] for _, op, args in reg_cases if op == "fft")
+    fft_n1 = registry.get("fft").plan(fft_x)["n1"]
     print(f"    launches in the run {reg_launches}; K2 launches per Strassen call "
-          f"{7 ** levels} = 7^{levels} (cutoff {mm_plan['cutoff']}), per FFT call 8")
+          f"{7 ** levels} = 7^{levels} (cutoff {mm_plan['cutoff']}), per FFT call 0; "
+          f"K7 per FFT call: one pass of columns, then one of lines, at the plan's split "
+          f"{fft_n1} x {fft_x.shape[1] // fft_n1} (one pass where a factor is 1)")
     check(reg_launches == want_launches,
           f"registry run launched {reg_launches}, expected {want_launches}")
 
@@ -1274,7 +1280,7 @@ def main():
             del want
             e_lib = normwise(got, torch.fft.fft(x, dim=-1))
             ok = e_plain <= FFT_TOL[0] and e_lib <= FFT_TOL[1]
-            print(f"    {label}: normwise err vs plain four-step {e_plain:.3e} (tol "
+            print(f"    {label}: normwise err vs plain two-pass {e_plain:.3e} (tol "
                   f"{FFT_TOL[0]:g}), vs torch.fft.fft {e_lib:.3e} (tol {FFT_TOL[1]:g}) "
                   f"{'ok' if ok else 'FAIL'}")
         else:
@@ -1339,10 +1345,9 @@ def main():
         print(f"    {name:15s} {label:32s} {t_k:9.4f}{inst} (bound {b_ms:.4f} by {b_by}, "
               f"{100 * b_ms / t_k:5.1f}% of it); plain {t_p:9.4f}; {lib_name} {t_l:9.4f}")
         if op == "fft":
-            n1 = planner.plan_fft(n_)["n1"]
-            fs_ops = 8 * 2 * n1 * n1 * (rows_ * (n_ // n1))
-            print(f"    {'':15s} the four-step's own {fs_ops:.3e} f32 FLOP (8 real products) "
-                  f"need >= {1e3 * fs_ops / PEAK_OPS['float32']:.4f} ms at 67 TFLOP/s")
+            floor = 2 * nbytes / HBM_BYTES_PER_S  # each pass reads and writes the data
+            print(f"    {'':15s} the two passes move {2 * nbytes:.4e} bytes: >= "
+                  f"{1e3 * floor:.4f} ms at 3.35 TB/s, {100e3 * floor / t_k:5.1f}% of K7's time")
         if op == "matmul":
             t_c = time_ms(torch, lambda a, b: registry.dispatch("matmul", a, b,
                                                                 backend="classical"),
@@ -1416,7 +1421,7 @@ def main():
             "library_ms": tot["library_ms"],
         })
     # K5, K6, K7 and K4 summed over phase 10's calls (and their launches
-    # there); K7 and K4 are compositions over K2's CUDA source
+    # there); K4 is a composition over K2's CUDA source
     reg_replaces = {"bp_scan": "src/repro/kernels/bp_scan.py:26",
                     "bi_transpose": "src/repro/kernels/bi_transpose.py:24",
                     "bi_fft": "src/repro/kernels/bi_fft.py:51",
@@ -1425,7 +1430,7 @@ def main():
         rs = [r for r in reg_rows if r["kernel"] == name]
         tot = {key: sum(r[key] for r in rs)
                for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "ops")}
-        over = name in ("bi_fft", "strassen_matmul")
+        over = name == "strassen_matmul"
         entries.append({
             "name": name, "route": "cuda",
             "source": (f"src/repro_torch/kernels/{name}.py" if over

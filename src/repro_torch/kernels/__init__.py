@@ -23,8 +23,9 @@ models dispatch ``matmul`` and ``attention`` through it.
   ``repro/kernels/bp_scan.py``: the blocked prefix scan.
 - ``bi_transpose`` (K6, ``csrc/bi_transpose.cu``) replaces
   ``repro/kernels/bi_transpose.py``: the Morton-ordered tiled transpose.
-- ``bi_fft`` (K7, over K2) replaces ``repro/kernels/bi_fft.py``: the
-  four-step FFT.
+- ``bi_fft`` (K7, ``csrc/bi_fft.cu``) replaces ``repro/kernels/bi_fft.py``:
+  the four-step split, each small DFT a radix-4 FFT in shared memory, in
+  two passes.
 
 Each wrapper runs its plain version on CPU tensors and its kernel on CUDA
 tensors, counts its kernel calls in ``<wrapper>.launches``, and builds its

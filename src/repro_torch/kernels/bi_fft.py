@@ -1,50 +1,54 @@
-"""K7, the four-step FFT over K2: DFT along the last axis.
+"""K7, the two-pass FFT: the DFT along the last axis, complex64.
 
-Replaces ``src/repro/kernels/bi_fft.py:bi_fft`` and ``:_cmatmul``.  It adds
-no CUDA source: as in the JAX package, every O(n^1.5) flop is a real f32
-product on K2 (``hbp_matmul``), a complex product being four of them
-(:func:`_cmatmul`), and the O(n) folds, twiddle and readout between the
-stages are plain torch (XLA's in the JAX package).
+Replaces ``src/repro/kernels/bi_fft.py:bi_fft`` and ``:_cmatmul``.  The
+kernel is ``csrc/bi_fft.cu``, CUDA C++ for ``sm_90a``; its header says what
+bounds it on the H100 (bytes) and how the tiles are laid out.
 
 For ``x`` ``(rows, n)``, ``n`` a power of two (``ValueError`` otherwise),
-real or complex, with ``n = n1 * n2`` (``n1`` from ``planner.plan_fft``,
-``n1 ~ sqrt(n)``):
+real or complex, it keeps the JAX code's four-step split ``n = n1 * n2``
+(``n1`` from ``planner.plan_fft``, ``n1 ~ sqrt(n)``, or the caller's), the
+paper's Type 2 HBP recursion unrolled one level, but each small DFT is a
+radix-4 Stockham FFT (one radix-2 stage first where log2 of its length is
+odd) in place of a dense DFT product:
 
-  1. fold the rows into ``A`` ``(n1, rows * n2)``, ``A[j1, r*n2 + j2] =
-     x[r, j1*n2 + j2]`` (a copy);
-  2. column DFTs ``B = W(n1) @ A`` (4 K2 products);
-  3. twiddle ``B[k1, r, j2] *= exp(-2 pi i k1 j2 / n)``;
-  4. row DFTs ``C = B @ W(n2)`` (4 K2 products; ``W`` is symmetric);
-  5. read out transposed, ``X[r, k2*n1 + k1] = C[k1, r, k2]`` (a copy).
+  1. pass 1 (columns): for each row ``r`` and column ``j2``, the length-``n1``
+     FFT of ``x[r, j1*n2 + j2]`` over ``j1``, times the twiddle
+     ``exp(-2 pi i k1 j2 / n)``, into ``B[r, k1, j2]`` (laid out like ``x``);
+  2. pass 2 (lines): for each line ``(r, k1)``, the length-``n2`` FFT of
+     ``B[r, k1, :]``, read out transposed, ``X[r, k2*n1 + k1] = C[r, k1, k2]``.
 
-A degenerate split (``n1`` or ``n2`` is 1) is one dense DFT product (4 K2
-products).  Returns complex64 ``(rows, n)``.
+A degenerate split (``n1`` or ``n2`` is 1) is one pass of length ``n``
+over the rows.  A pass takes lines of at most :data:`MAX_PASS` (the
+kernel's shared-memory tile); a longer factor raises ``ValueError``, on
+every device.  ``plan_fft``'s split stays within it for every ``n <=
+2**24``.  Any other dtype than complex64 is cast to it first, on ``x``'s
+device, as the JAX code casts.
 
-The DFT and twiddle tables are built with numpy in f64, as the JAX code
-builds them, cast to f32 and uploaded once per (n1, n2, device) into a
-cache, so a call inside a CUDA-graph capture makes no host-to-device copy
-(warm up outside the capture first).
+Every twiddle comes from tables built with numpy in f64 and rounded to
+f32: the roots of unity of each pass's length and the ``n1 x n2``
+inter-pass table, uploaded once per (n1, n2, device), so a call inside a
+CUDA-graph capture copies nothing from the host (warm up outside it).
 
-On the CPU every K2 call takes ``matmul_ref``, so :func:`bi_fft` runs its
-plain version there; :func:`bi_fft_plain` is the same composition with
-``matmul_ref`` on any device (the card's comparisons) and :func:`fft_ref`
-the oracle (``torch.fft.fft``).  ``bi_fft.launches`` counts the calls on
-CUDA tensors (8 K2 launches each, 4 on a degenerate split).
+A CUDA tensor launches the kernel (two launches, one on a degenerate
+split); a CPU tensor takes :func:`bi_fft_plain`, the same stages in torch
+ops, each product and sum rounded as the kernel rounds it;
+:func:`fft_ref` is the oracle (``torch.fft.fft``).  ``bi_fft.launches``
+counts the calls on CUDA tensors.
 """
 from __future__ import annotations
 
-import importlib
+import ctypes
 from typing import Optional
 
 import numpy as np
 import torch
 
-from repro_torch.kernels.hbp_matmul import matmul_ref
+from repro_torch.kernels import _build
 
-# the K2 module, not the function the package exports under its name
-_k2 = importlib.import_module("repro_torch.kernels.hbp_matmul")
+# the longest line a pass takes (csrc/bi_fft.cu's LOG_MAX_PASS)
+MAX_PASS = 4096
 
-# (n1, n2, device) -> the f32 DFT and twiddle tables on that device
+# (n1, n2, device) -> the f32 twiddle tables on that device
 _TABLES: dict = {}
 
 
@@ -54,11 +58,9 @@ def fft_ref(x: torch.Tensor) -> torch.Tensor:
     return torch.fft.fft(x.to(torch.complex64), dim=-1)
 
 
-def _dft_factors(n: int) -> tuple[np.ndarray, np.ndarray]:
-    """Dense DFT matrix W[k, j] = exp(-2 pi i k j / n) as (real, imag) f32."""
-    kj = np.outer(np.arange(n), np.arange(n))
-    w = np.exp(-2j * np.pi * kj / n)
-    return w.real.astype(np.float32), w.imag.astype(np.float32)
+def _roots(length: int) -> np.ndarray:
+    """exp(-2 pi i t / length) for t < length, in f64, rounded to complex64."""
+    return np.exp(-2j * np.pi * np.arange(length) / length).astype(np.complex64)
 
 
 def _tables(n1: int, n2: int, device) -> dict:
@@ -68,25 +70,13 @@ def _tables(n1: int, n2: int, device) -> dict:
         return hit
     up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
     if n1 == 1 or n2 == 1:
-        wr, wi = _dft_factors(n1 * n2)
-        t = {"wr": up(wr), "wi": up(wi)}
+        t = {"t2": up(_roots(n1 * n2))}
     else:
-        w1r, w1i = _dft_factors(n1)
-        w2r, w2i = _dft_factors(n2)
         k1j2 = np.outer(np.arange(n1), np.arange(n2)).astype(np.float64)
-        tw = np.exp(-2j * np.pi * k1j2 / (n1 * n2))
-        t = {"w1r": up(w1r), "w1i": up(w1i), "w2r": up(w2r), "w2i": up(w2i),
-             "twr": up(tw.real.astype(np.float32))[:, None, :],
-             "twi": up(tw.imag.astype(np.float32))[:, None, :]}
+        tw = np.exp(-2j * np.pi * k1j2 / (n1 * n2)).astype(np.complex64)
+        t = {"t1": up(_roots(n1)), "t2": up(_roots(n2)), "tw": up(tw)}
     _TABLES[key] = t
     return t
-
-
-def _cmatmul(ar, ai, br, bi, mm):
-    """(ar + i ai) @ (br + i bi) as four real products."""
-    rr = mm(ar, br) - mm(ai, bi)
-    ri = mm(ar, bi) + mm(ai, br)
-    return rr, ri
 
 
 def _split(n: int, n1: Optional[int]) -> tuple[int, int]:
@@ -99,33 +89,12 @@ def _split(n: int, n1: Optional[int]) -> tuple[int, int]:
     n1 = max(min(int(n1), n), 1)
     while n % n1 != 0:
         n1 //= 2
-    return n1, n // n1
-
-
-def _four_step(x, n1, n2, mm):
-    rows, n = x.shape
-    t = _tables(n1, n2, x.device)
-    xr = (x.real if x.is_complex() else x).float()
-    xi = x.imag.float() if x.is_complex() else torch.zeros_like(xr)
-    if n1 == 1 or n2 == 1:  # one dense DFT product (W is symmetric)
-        yr, yi = _cmatmul(xr.contiguous(), xi.contiguous(), t["wr"], t["wi"], mm)
-        return torch.complex(yr, yi)
-    # step 1: (rows, n) -> (n1, rows * n2)
-    ar = xr.reshape(rows, n1, n2).transpose(0, 1).reshape(n1, rows * n2)
-    ai = xi.reshape(rows, n1, n2).transpose(0, 1).reshape(n1, rows * n2)
-    # step 2: column DFTs
-    br, bi = _cmatmul(t["w1r"], t["w1i"], ar, ai, mm)
-    # step 3: twiddle, broadcast over rows
-    b3r, b3i = br.reshape(n1, rows, n2), bi.reshape(n1, rows, n2)
-    cr = b3r * t["twr"] - b3i * t["twi"]
-    ci = b3r * t["twi"] + b3i * t["twr"]
-    # step 4: row DFTs
-    dr, di = _cmatmul(cr.reshape(n1 * rows, n2), ci.reshape(n1 * rows, n2),
-                      t["w2r"], t["w2i"], mm)
-    # step 5: transposed readout X[r, k2*n1 + k1] = C[k1, r, k2]
-    outr = dr.reshape(n1, rows, n2).permute(1, 2, 0).reshape(rows, n)
-    outi = di.reshape(n1, rows, n2).permute(1, 2, 0).reshape(rows, n)
-    return torch.complex(outr, outi)
+    n2 = n // n1
+    longest = n if n1 == 1 or n2 == 1 else max(n1, n2)
+    if longest > MAX_PASS:
+        raise ValueError(f"bi_fft: a pass of length {longest} (split {n1} x {n2}) exceeds "
+                         f"the kernel's cap of {MAX_PASS} per pass")
+    return n1, n2
 
 
 def _check(x):
@@ -133,24 +102,132 @@ def _check(x):
         raise ValueError(f"bi_fft: x must be (rows, n), got {tuple(x.shape)}")
 
 
+def _operand(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the kernel reads it: complex64."""
+    return x.to(torch.complex64)
+
+
+# -- the plain version ----------------------------------------------------------------------
+
+def _radices(length: int) -> list[int]:
+    """The kernel's stages for one line: radix 2 first where log2(length)
+    is odd, then radix 4."""
+    p = length.bit_length() - 1
+    return [2] * (p & 1) + [4] * (p // 2)
+
+
+def _cmul(ar, ai, tr, ti):
+    return ar * tr - ai * ti, ar * ti + ai * tr
+
+
+def _dft(radix, vr, vi):
+    if radix == 2:
+        return [vr[0] + vr[1], vr[0] - vr[1]], [vi[0] + vi[1], vi[0] - vi[1]]
+    t0r, t0i = vr[0] + vr[2], vi[0] + vi[2]
+    t1r, t1i = vr[0] - vr[2], vi[0] - vi[2]
+    t2r, t2i = vr[1] + vr[3], vi[1] + vi[3]
+    t3r, t3i = vi[1] - vi[3], -(vr[1] - vr[3])  # (v1 - v3) * -i
+    return ([t0r + t2r, t1r + t3r, t0r - t2r, t1r - t3r],
+            [t0i + t2i, t1i + t3i, t0i - t2i, t1i - t3i])
+
+
+def _lines_fft(re, im, roots):
+    """The Stockham FFT of every line of ``re + i im`` ``(lines, L)``, as
+    ``csrc/bi_fft.cu``'s ``stage`` computes it; ``roots`` the length-L
+    roots of unity (complex64)."""
+    lines, length = re.shape
+    tr_all, ti_all = roots.real, roots.imag
+    ns = 1
+    for radix in _radices(length):
+        m = length // radix
+        vr = list(re.reshape(lines, radix, m).unbind(1))
+        vi = list(im.reshape(lines, radix, m).unbind(1))
+        if ns > 1:
+            k = torch.arange(m, device=re.device) % ns
+            for r in range(1, radix):
+                idx = r * k * (length // (ns * radix))
+                vr[r], vi[r] = _cmul(vr[r], vi[r], tr_all[idx], ti_all[idx])
+        yr, yi = _dft(radix, vr, vi)
+        # butterfly b = q ns + k writes row q ns radix + r ns + k
+        re, im = (torch.stack(y, 1).reshape(lines, radix, m // ns, ns).transpose(1, 2)
+                  .reshape(lines, length) for y in (yr, yi))
+        ns *= radix
+    return re, im
+
+
+def _two_pass(x, n1, n2):
+    rows, n = x.shape
+    if x.numel() == 0:
+        return torch.empty((rows, n), dtype=torch.complex64, device=x.device)
+    t = _tables(n1, n2, x.device)
+    xr, xi = x.real, x.imag
+    if n1 == 1 or n2 == 1:
+        yr, yi = _lines_fft(xr.contiguous(), xi.contiguous(), t["t2"])
+        return torch.complex(yr, yi)
+    # pass 1: the columns j2 of each row, over j1; then the twiddle
+    cr = xr.reshape(rows, n1, n2).transpose(1, 2).reshape(rows * n2, n1)
+    ci = xi.reshape(rows, n1, n2).transpose(1, 2).reshape(rows * n2, n1)
+    br, bi = _lines_fft(cr, ci, t["t1"])
+    br = br.reshape(rows, n2, n1).transpose(1, 2)  # B[r, k1, j2]
+    bi = bi.reshape(rows, n2, n1).transpose(1, 2)
+    br, bi = _cmul(br, bi, t["tw"].real, t["tw"].imag)
+    # pass 2: the lines (r, k1), over j2; read out X[r, k2*n1 + k1]
+    dr, di = _lines_fft(br.reshape(rows * n1, n2), bi.reshape(rows * n1, n2), t["t2"])
+    dr = dr.reshape(rows, n1, n2).transpose(1, 2).reshape(rows, n)
+    di = di.reshape(rows, n1, n2).transpose(1, 2).reshape(rows, n)
+    return torch.complex(dr, di)
+
+
+def bi_fft_plain(x: torch.Tensor, *, n1: Optional[int] = None) -> torch.Tensor:
+    """Plain version: the kernel's two passes, stage for stage, in torch ops
+    on any device."""
+    _check(x)
+    n1, n2 = _split(x.shape[1], n1)
+    return _two_pass(_operand(x), n1, n2)
+
+
+# -- the kernel -----------------------------------------------------------------------------
+
+def _lib():
+    lib = _build.load("bi_fft")
+    fn = lib.bi_fft
+    if fn.argtypes is None:
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [P, P, P, L, I, I, P, P, P, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def bi_fft(x: torch.Tensor, *, n1: Optional[int] = None) -> torch.Tensor:
-    """DFT of ``x`` ``(rows, n)`` along its last axis on K2; see the module
+    """DFT of ``x`` ``(rows, n)`` along its last axis; see the module
     docstring."""
     _check(x)
     n1, n2 = _split(x.shape[1], n1)
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type == "cpu":
+        return _two_pass(_operand(x), n1, n2)
+    if x.device.type != "cuda":
         raise ValueError(f"bi_fft: no kernel for device {x.device}")
-    out = _four_step(x, n1, n2, _k2.hbp_matmul)
-    if x.device.type == "cuda":
-        bi_fft.launches += 1
+    x = _operand(x)
+    if not x.is_contiguous():
+        raise ValueError(f"bi_fft: x must be contiguous, strides {x.stride()}")
+    if x.data_ptr() % 16:
+        raise ValueError("bi_fft: x must be 16-byte aligned")
+    rows, n = x.shape
+    out = torch.empty((rows, n), dtype=torch.complex64, device=x.device)
+    if out.numel() == 0:
+        return out
+    t = _tables(n1, n2, x.device)
+    degenerate = n1 == 1 or n2 == 1
+    scratch = None if degenerate else torch.empty_like(out)
+    ptr = lambda a: None if a is None else a.data_ptr()  # noqa: E731
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _lib()(x.data_ptr(), ptr(scratch), out.data_ptr(), rows,
+                 n1.bit_length() - 1, n2.bit_length() - 1, ptr(t.get("t1")), t["t2"].data_ptr(),
+                 ptr(t.get("tw")), stream)
+    _build.check(err, "bi_fft")
+    bi_fft.launches += 1
     return out
 
 
 bi_fft.launches = 0
 
-
-def bi_fft_plain(x: torch.Tensor, *, n1: Optional[int] = None) -> torch.Tensor:
-    """Plain version: the same four steps with ``matmul_ref`` products."""
-    _check(x)
-    n1, n2 = _split(x.shape[1], n1)
-    return _four_step(x, n1, n2, matmul_ref)

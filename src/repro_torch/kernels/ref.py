@@ -3,7 +3,7 @@
 lives beside its kernel.  ``bp_scan_ref`` rounds once where K5 and its plain
 version ``bp_scan_plain`` round twice (the TPU kernel's leaf structure);
 ``transpose_ref`` is K6's plain version too (the transpose is exact);
-``fft_ref`` is ``torch.fft.fft``, beside K7's four-step ``bi_fft_plain``.
+``fft_ref`` is ``torch.fft.fft``, beside K7's two-pass ``bi_fft_plain``.
 ``flash_attention_ref`` returns ``(out, lse)``; the registry's attention
 oracle keeps ``out``."""
 from repro_torch.kernels.bi_fft import fft_ref

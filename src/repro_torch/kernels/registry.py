@@ -5,8 +5,7 @@ Each op registers a :class:`KernelSpec`: the kernel's wrapper, the plain
 oracle (``ref.py``), a planner hook deriving the tile kwargs from the
 device's parameters (``planner.py``), and capability metadata (``has_vjp``,
 the ``needs`` gate).  Registered ops: ``scan`` (K5), ``matmul`` (K4 over
-K2), ``transpose`` (K6), ``attention`` (K1, K1q, K3) and ``fft`` (K7 over
-K2).
+K2), ``transpose`` (K6), ``attention`` (K1, K1q, K3) and ``fft`` (K7).
 
 Where JAX asks ``supported()`` of the process (``default_backend() ==
 "tpu"``), the port asks the tensor: a process with a card also runs CPU

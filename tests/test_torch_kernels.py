@@ -943,22 +943,52 @@ def test_transpose_kernel_is_exact(cuda, dtype, m, n, bt, morton, offset):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("real", [False, True])
 @pytest.mark.parametrize("rows,n,n1", [(4, 1024, None), (3, 512, None), (2, 256, 1),
-                                       (2, 4096, 8)])
-def test_fft_kernel_matches_plain(cuda, rows, n, n1):
-    """K7 (8 K2 launches, 4 on a degenerate split) against its plain
-    four-step version and torch.fft, normwise relative 1e-5 and 1e-4."""
+                                       (2, 4096, 8), (256, 65536, None), (3, 2 ** 20, None),
+                                       (5, 4096, 4096)])
+def test_fft_kernel_matches_plain(cuda, rows, n, n1, real):
+    """K7 (one bi_fft call: two kernels, one on a degenerate split, and no K2
+    launch) against its plain two-pass version and torch.fft, normwise
+    relative 1e-5 and 1e-4, on complex64 and real f32 input: both passes at
+    each tile size (lines of 16-256 and 512-1024), and the one-pass split
+    with n1 = 1 and n1 = n."""
     from repro_torch.kernels.bi_fft import bi_fft, bi_fft_plain, fft_ref
 
-    x = torch.randn(rows, n, dtype=torch.complex64, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(n + rows)
+    x = torch.randn(rows, n, device=cuda, generator=g)
+    if not real:
+        x = torch.complex(x, torch.randn(rows, n, device=cuda, generator=g))
     k2, k7 = hbp_matmul.launches, bi_fft.launches
     got = bi_fft(x, n1=n1)
     assert bi_fft.launches == k7 + 1
-    assert hbp_matmul.launches - k2 == (4 if n1 == 1 else 8)
+    assert hbp_matmul.launches == k2
+    assert got.dtype == torch.complex64 and got.shape == (rows, n)
     want = bi_fft_plain(x, n1=n1)
     scale = want.abs().max()
     assert (got - want).abs().max() <= 1e-5 * scale
     assert (got - fft_ref(x)).abs().max() <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,n1", [(8, 65536, None), (4, 2048, 1)])
+def test_fft_kernel_in_a_cuda_graph(cuda, rows, n, n1):
+    """K7 captured in a CUDA graph after a warm-up call (its tables are
+    on the card by then) gives the uncaptured call's result on replay."""
+    from repro_torch.kernels.bi_fft import bi_fft
+
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.complex(*(torch.randn(rows, n, device=cuda, generator=g) for _ in "ri"))
+    want = bi_fft(x, n1=n1)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = bi_fft(x, n1=n1)
+    x.copy_(torch.complex(*(torch.randn(rows, n, device=cuda, generator=g) for _ in "ri")))
+    want2 = bi_fft(x, n1=n1)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want2) and not torch.equal(want, want2)
 
 
 @pytest.mark.cuda

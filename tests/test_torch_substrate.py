@@ -15,8 +15,9 @@ wrapper of the port runs its plain version.  Tolerances:
   a leaf in f32 in other orders, and a last-bit difference can move one
   rounding) and within ``tests/test_kernels.py``'s bf16 bound of the
   oracle, which rounds once;
-* ``bi_fft``: rtol 1e-5 / atol 1e-4 (the same four steps in f32, products
-  summed in other orders; values are O(sqrt(n)));
+* ``bi_fft``: rtol 1e-5 / atol 1e-4 against JAX (the same split in f32,
+  the port's radix stages against JAX's dense DFT products; values are
+  O(sqrt(n))), and normwise 1e-5 against ``np.fft.fft`` in complex128;
 * ``strassen_matmul``: ``tests/test_strassen.py``'s tolerances; gradients
   of ``matmul`` rtol = atol = 1e-4 (f32 sums of products of f32 sums).
 
@@ -45,7 +46,7 @@ from repro.kernels.strassen_matmul import matmul as jax_matmul  # noqa: E402
 from repro.kernels.strassen_matmul import strassen_matmul as jax_strassen  # noqa: E402
 from repro_torch.core import costmodel  # noqa: E402
 from repro_torch.kernels import morton, planner, policy, ref, registry  # noqa: E402
-from repro_torch.kernels.bi_fft import bi_fft, bi_fft_plain  # noqa: E402
+from repro_torch.kernels.bi_fft import MAX_PASS, bi_fft, bi_fft_plain  # noqa: E402
 from repro_torch.kernels.bi_transpose import bi_transpose  # noqa: E402
 from repro_torch.kernels.bp_scan import bp_scan, bp_scan_plain  # noqa: E402
 from repro_torch.kernels.strassen_matmul import (  # noqa: E402
@@ -313,6 +314,52 @@ def test_bi_fft_rejects_non_power_of_two():
         bi_fft(x)
     with pytest.raises(ValueError, match="power-of-two"):
         jax_bi_fft(jnp.zeros((2, 96), jnp.complex64))
+
+
+def _fft_numpy_cases():
+    """(rows, n, n1, real): every n from 2 to 2^14 at plan_fft's split, and
+    at n1 = 1 and n1 = n (one pass of length n) where n is within the pass
+    cap; odd rows, real f32 input at plan_fft's split."""
+    cases = []
+    for p in range(1, 15):
+        n = 1 << p
+        cases += [(3, n, None, False), (5, n, None, True)]
+        if n <= MAX_PASS:
+            cases += [(3, n, 1, False), (1, n, n, False)]
+    return cases
+
+
+@pytest.mark.parametrize("case", _fft_numpy_cases(), ids=lambda c: "x".join(map(str, c)))
+def test_bi_fft_plain_matches_numpy(case):
+    """The two-pass plain version (what ``bi_fft`` runs on the CPU) against
+    numpy's complex128 FFT, normwise 1e-5."""
+    rows, n, n1, real = case
+    rng = np.random.default_rng(n + rows)
+    x = rng.standard_normal((rows, n)).astype(np.float32)
+    if not real:
+        x = (x + 1j * rng.standard_normal((rows, n))).astype(np.complex64)
+    xt = torch.from_numpy(x)
+    got = bi_fft_plain(xt, n1=n1)
+    assert got.dtype == torch.complex64 and got.shape == (rows, n)
+    assert torch.equal(bi_fft(xt, n1=n1), got)
+    want = np.fft.fft(x.astype(np.complex128), axis=-1)
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("n,n1", [(8192, 1), (8192, 8192), (16384, 2), (16384, 1)])
+def test_bi_fft_rejects_a_pass_past_the_cap(n, n1):
+    """A factor longer than the kernel's shared-memory tile raises, naming
+    the cap, in the wrapper and in the plain version alike."""
+    x = torch.zeros(1, n, dtype=torch.complex64)
+    for fn in (bi_fft, bi_fft_plain):
+        with pytest.raises(ValueError, match=f"cap of {MAX_PASS}"):
+            fn(x, n1=n1)
+
+
+@pytest.mark.parametrize("p", range(0, 25))
+def test_plan_fft_split_is_within_the_pass_cap(p):
+    n1 = planner.plan_fft(1 << p)["n1"]
+    assert n1 * ((1 << p) // n1) == 1 << p and max(n1, (1 << p) // n1) <= MAX_PASS
 
 
 # -- K4: strassen_matmul and the differentiable matmul ------------------------------------
