@@ -9,8 +9,8 @@ Phases, each of which fails the run (exit code 1, no result line):
    ``nvcc`` per source, in parallel), print ``ptxas``'s registers and spill
    stores of each tensor-core kernel (the attention kernels' mma instances,
    K1q's among them, and K2's wgmma and stream instances), of K6's vector
-   kernels and of K7's FFT kernels (any spill in these fails the run) and of
-   K2's other kernels, and the tensor-core instructions (HMMA, HGMMA) in each
+   kernels, of K7's FFT kernels, of K4's fused Strassen kernels and of K5's
+   scan kernels (any spill in these fails the run) and of K2's other kernels, and the tensor-core instructions (HMMA, HGMMA) in each
    library's SASS (``cuobjdump -sass``; the attention libraries must have
    some, each of K1q's four tensor-core kernels HMMA, and K2's HGMMA), and
    the card's name and power limit.
@@ -54,25 +54,28 @@ Phases, each of which fails the run (exit code 1, no result line):
    lanes, and at a 64-row continuation chunk at those lanes' offsets,
    beside its bound, its plain version, the library's two calls (dequantize
    to bf16, then ``scaled_dot_product_attention``) and K1 at the same shape
-   over a bf16 cache (K1q's yardstick); each row names K1q's instance and
-   cluster split (``flash_attention.fwd_path``, ``kv_splits``).
+   over a bf16 cache (K1q's yardstick) with K1's own library call
+   (``scaled_dot_product_attention`` over that cache); each row names K1q's
+   instance and cluster split (``flash_attention.fwd_path``, ``kv_splits``).
 10. Run the kernel registry (``repro_torch.kernels.registry.dispatch``, the
-   default policy) at sizes past the 50 MB L2: the scan (K5) on f32 and
-   bf16 (64, 2^20), the transpose (K6) on f32 8192^2 (a Morton grid of bt
-   tiles) and bf16 4096x16384 and 6144x10240 (row-major grids), the FFT
-   (K7, two CUDA passes) on complex64 (256, 65536), and an f32 8192^2
-   product, which
-   the planner sends to Strassen (K4 over K2).  Prints the device
-   parameters the planner reads and each plan; the launch counts are set to
-   0 just before the run and read just after (one per call, K2 7^levels
-   times per Strassen call and never for the FFT); holds each result against
-   its plain version within the tolerances printed; times each op, its
-   plain version and the library call (``torch.cumsum``,
-   ``x.t().contiguous()``, ``torch.fft.fft``, ``torch.matmul``) beside its
-   bound and its share of it (each transpose with the instance
-   ``bi_transpose.path`` names); and prints the host microseconds of one
-   ``dispatch`` beside a direct K2 call.  Phases 4, 6 and 8 must launch
-   none of K4-K7.
+   default policy) at sizes past the 50 MB L2: the scan (K5, one launch of
+   the chained scan) on f32 and bf16 (64, 2^20), the transpose (K6) on f32
+   8192^2 (a Morton grid of bt tiles) and bf16 4096x16384 and 6144x10240
+   (row-major grids), the FFT (K7, two CUDA passes) on complex64 (256,
+   65536) and on one row of 2^25, past the 4096-line pass (pass 1, a nested
+   K7 call for pass 2, a K6 readout), and 8192^2 products in f32, which the
+   planner sends to Strassen (K4: one fused launch, no K2), and in bf16
+   (Strassen over 49 K2 wgmma leaves).  Prints the device parameters the
+   planner reads and each plan; the launch counts are set to 0 just before
+   the run and read just after and must be those the calls make by
+   construction; holds each result against its plain version within the
+   tolerances printed, and the scans and the f32 product to the same bits
+   on a second call; times each op, its plain version and the library call
+   (``torch.cumsum``, ``x.t().contiguous()``, ``torch.fft.fft``,
+   ``torch.matmul``) beside its bound and its share of it (each transpose
+   and scan with its instance), the two scans against their bound; and
+   prints the host microseconds of one ``dispatch`` beside a direct K2
+   call.  Phases 4, 6 and 8 must launch none of K4-K7.
 
 Phase 2 also holds K1 and K2 at phase 6's shapes (512 token rows: every
 forward product, the logits, every ``g Wᵀ``), K3 and K2's transposed-A
@@ -128,14 +131,19 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 128, 3  # the JAX trainer's CLI default
 SMOKE_LOSS_RTOL, SMOKE_GRAD_TOL, SMOKE_PARAM_ATOL = 1e-5, (1e-5, 5e-3), 3e-6
 # phase 10: the registry's ops past the L2.  The f32 sum's slack per unit of
 # sum |x| (~16 f32 ulps); normwise tolerances of the FFT against its plain
-# two-pass version (which rounds as the kernel does) and against
-# torch.fft.fft (f32 twiddle tables, four radix-4 stages a pass at 256 x
-# 256), and of the Strassen product against its plain version and against
-# the classical f32 product (two levels of combinations).
+# version (which rounds as the kernel does, a pass past the cap included)
+# and against torch.fft.fft (f32 twiddle tables, four radix-4 stages a pass
+# at 256 x 256), and of the Strassen product against its plain version and
+# against the classical f32 product (two levels of combinations).
 STRASSEN_N = 8192
 SCAN_SLACK = 1e-6
 FFT_TOL = (1e-5, 1e-4)
 MM_TOL = (1e-4, 1e-3)
+# bf16 Strassen (the composition over K2), normwise: against its plain
+# version 2^-7, as the card's tests hold it; against torch.matmul in bf16 8e-2,
+# tests/test_strassen.py's bf16 rtol against the classical product (the
+# operand combinations round to bf16 at each level)
+MM_TOL_BF16 = (2 ** -7, 8e-2)
 # host µs of one direct K2 call at phase 10's decode product before the
 # wrapper memoized its plan and the SM count (this script, on that card)
 K2_HOST_US_BEFORE, K2_HOST_US_CARD = 65.13, "NVIDIA H100 80GB HBM3, 700.00 W"
@@ -186,10 +194,11 @@ def copies_past_l2(nbytes):
 
 
 def kernel_name(mangled):
-    """An attention, K2 or K6 kernel's mangled name as ``name<args>``, from
+    """An attention, K2, K4, K5, K6 or K7 kernel's mangled name as ``name<args>``, from
     the template ints and bools it carries (K1q's tensor-core kernel is
     ``flash_fwd_mma_kernel<hd,1>``); any other name unchanged."""
-    m = re.search(r"\d+((?:flash|mm|transpose|fft)_\w+?_kernel)I((?:L[ib]\d+E)+)E", mangled)
+    m = re.search(r"\d+((?:flash|mm|transpose|fft|scan|add)_\w+?_kernel|strassen_kernel)"
+                  r"I((?:L[ib]\d+E)+)E", mangled)
     if not m:
         return mangled
     args = re.findall(r"L[ib](\d+)E", m.group(2))
@@ -240,10 +249,13 @@ def main():
     from repro_torch.configs import get_config, get_smoke_config, reduced
     from repro_torch.data import DataConfig, SyntheticLMDataset
     from repro_torch.kernels import _build, planner, policy, registry
-    from repro_torch.kernels.bi_fft import bi_fft, bi_fft_plain
+    from repro_torch.kernels.bi_fft import MAX_PASS, bi_fft, bi_fft_plain
+    from repro_torch.kernels.bi_fft import split as fft_split
     from repro_torch.kernels.bi_transpose import bi_transpose, transpose_ref
     from repro_torch.kernels.bi_transpose import path as k6_path
     from repro_torch.kernels.bp_scan import bp_scan, bp_scan_plain
+    from repro_torch.kernels.bp_scan import path as k5_path
+    from repro_torch.kernels.bp_scan import tile as k5_tile
     from repro_torch.kernels.morton import supports_morton as morton_order
     from repro_torch.kernels.flash_attention import (bwd_path, flash_attention,
                                                      flash_attention_bwd,
@@ -259,6 +271,7 @@ def main():
     from repro_torch.launch.train import train
     from repro_torch.models import build_model
     from repro_torch.kernels.strassen_matmul import matmul as matmul_entry
+    from repro_torch.kernels.strassen_matmul import path as k4_path
     from repro_torch.kernels.strassen_matmul import strassen_matmul, strassen_matmul_plain
     from repro_torch.models.common import kv_scale, project, quantize_kv
     from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
@@ -300,12 +313,14 @@ def main():
         print(f"    {name}: {len(entries)} kernels, at most "
               f"{max((r for _, r, _ in entries), default=0)} registers, "
               f"{sum(sp for _, _, sp in entries)} bytes of spill stores in all")
-        # the tensor-core instances (K1, K1q, K3), K2's kernels, K6's vector one
+        # the tensor-core instances (K1, K1q, K3), K2's kernels, K6's vector
+        # one, K7's, K4's and K5's
+        gated = ("mm_wgmma", "mm_stream", "transpose_vec", "fft_", "strassen_", "scan_",
+                 "add_offsets")
         for kern, regs, spill in entries:
-            if "_mma_kernel" in kern or kern.startswith(("mm_", "transpose_vec", "fft_")):
+            if "_mma_kernel" in kern or kern.startswith(("mm_", "transpose_vec") + gated):
                 print(f"      {kern}: {regs} registers, {spill} bytes of spill stores")
-            if spill and ("_mma_kernel" in kern or kern.startswith(
-                    ("mm_wgmma", "mm_stream", "transpose_vec", "fft_"))):
+            if spill and ("_mma_kernel" in kern or kern.startswith(gated)):
                 mma_spills.append(kern)
     for name in _build.sources():  # tensor-core instructions in each library
         counts_, per_kernel = sass_counts(_build.library_path(name))
@@ -1125,7 +1140,7 @@ def main():
         return sdpa(qd, kb, vb, mask, False)
 
     for shape, sq, qo, kl in q8_shapes:
-        q8_sets, k1_sets, lib_sets = [], [], []
+        q8_sets, k1_sets, lib_sets, k1_lib_sets = [], [], [], []
         qo_t, kl_t = lane(qo), lane(kl)
         # which key each row sees: kpos < kv_len and kpos <= q_offset + row
         kpos = torch.arange(ENGINE_LEN, device=dev)
@@ -1139,6 +1154,7 @@ def main():
             kb, vb = ((x.float() * sc[:, None, :, None]).to(bf) for x, sc in ((k8, ks), (v8, vs)))
             k1_sets.append((qd, kb, vb, qo_t, kl_t))
             lib_sets.append((qd, k8, v8, ks, vs, mask))
+            k1_lib_sets.append((qd, kb, vb, mask))
         t_q8 = time_ms(torch, lambda qd, k8, v8, ks, vs, qo, kl: flash_attention_int8(
             qd, k8, v8, ks, vs, causal=True, q_offset=qo, kv_len=kl), q8_sets)
         t_plain = time_ms(torch, lambda qd, k8, v8, ks, vs, qo, kl: flash_attention_ref(
@@ -1146,6 +1162,9 @@ def main():
         t_lib = time_ms(torch, lib_two_calls, lib_sets)
         t_k1 = time_ms(torch, lambda qd, kb, vb, qo, kl: flash_attention(
             qd, kb, vb, causal=True, q_offset=qo, kv_len=kl), k1_sets)
+        # K1's library call over the same bf16 cache: one masked
+        # scaled_dot_product_attention
+        t_k1_lib = time_ms(torch, lambda qd, kb, vb, m: sdpa(qd, kb, vb, m, False), k1_lib_sets)
         splits = fa_mod.kv_splits(SLOTS, sq, h, kvh, ENGINE_LEN, sms)
         instance = f"{fwd_path(q8_sets[0][0])}, {splits} split{'s' * (splits > 1)}"
         # read the valid int8 k and v once, q, the scales and the lanes; write
@@ -1168,11 +1187,12 @@ def main():
               f"by {b_by}, {100 * b_ms / t_q8:.1f}% of it; {q8_bytes / 1e6:.3f} MB); plain "
               f"{t_plain:.4f} ms; library, two calls (dequantize to bf16, then "
               f"scaled_dot_product_attention) {t_lib:.4f} ms; K1 ({fwd_path(k1_sets[0][0])}) "
-              f"over the bf16 cache {t_k1:.4f} ms (its bound {k1_bound:.4f} ms); K1q / K1 "
+              f"over the bf16 cache {t_k1:.4f} ms (its bound {k1_bound:.4f} ms; "
+              f"scaled_dot_product_attention over it {t_k1_lib:.4f} ms); K1q / K1 "
               f"{t_q8 / t_k1:.3f}")
         print(f"    {shape}: {L} calls (one per layer): K1q {L * t_q8:.4f} ms, K1 over bf16 "
-              f"{L * t_k1:.4f} ms")
-        del q8_sets, k1_sets, lib_sets
+              f"{L * t_k1:.4f} ms, scaled_dot_product_attention over bf16 {L * t_k1_lib:.4f} ms")
+        del q8_sets, k1_sets, lib_sets, k1_lib_sets
 
     # -- 10. the kernel registry at sizes past the L2 --------------------------------
     # Everything through registry.dispatch under the default policy, seeded
@@ -1190,6 +1210,10 @@ def main():
     levels, edge = 0, n_mm
     while mm_plan["backend"] == "strassen" and edge > mm_plan["cutoff"] and edge % 2 == 0:
         edge, levels = edge // 2, levels + 1
+    bf_plan = planner.plan_matmul_backend(n_mm, n_mm, n_mm, "bfloat16", dp)
+    bf_levels, bf_edge = 0, n_mm
+    while bf_plan["backend"] == "strassen" and bf_edge > bf_plan["cutoff"] and bf_edge % 2 == 0:
+        bf_edge, bf_levels = bf_edge // 2, bf_levels + 1
     print(f"[10] the kernel registry past the L2 ({smi}); the planner reads {dp}: budget "
           f"M/3 = {dp.fast_bytes // 3} bytes; Strassen cutoff f32 "
           f"{planner.strassen_cutoff('float32', dp)}, bf16 {planner.strassen_cutoff('bfloat16', dp)}")
@@ -1205,8 +1229,13 @@ def main():
          (torch.randn(6144, 10240, device=dev, generator=rg).to(torch.bfloat16),)),
         ("fft complex64 256x65536", "fft",
          (torch.randn(256, 2 ** 16, dtype=torch.complex64, device=dev, generator=rg),)),
+        ("fft complex64 1x2^25", "fft",  # past the pass cap: pass 2 a bi_fft of its own
+         (torch.randn(1, 2 ** 25, dtype=torch.complex64, device=dev, generator=rg),)),
         (f"matmul f32 {n_mm}x{n_mm} @ {n_mm}x{n_mm}", "matmul",
          tuple(torch.randn(n_mm, n_mm, device=dev, generator=rg) for _ in "ab")),
+        (f"matmul bf16 {n_mm}x{n_mm} @ {n_mm}x{n_mm}", "matmul",
+         tuple(torch.randn(n_mm, n_mm, device=dev, generator=rg).to(torch.bfloat16)
+               for _ in "ab")),
     ]
     for label, op, args in reg_cases:
         x = args[0]
@@ -1217,25 +1246,41 @@ def main():
             extra = (f": a {nm}x{nn} grid of bt tiles, "
                      f"{'Morton' if morton_order(nm, nn) else 'row-major'} order")
         print(f"    {label}: plan {plan}{extra}")
-    check(mm_plan["backend"] == "strassen" and levels > 0,
-          f"the planner does not pick Strassen for f32 {n_mm}^2: {mm_plan}")
+    check(mm_plan["backend"] == "strassen" and levels > 0 and bf_levels > 0,
+          f"the planner does not pick Strassen for {n_mm}^2: f32 {mm_plan}, bf16 {bf_plan}")
     torch.cuda.synchronize()
     reset_counts()
     reg_out = [registry.dispatch(op, *args) for _, op, args in reg_cases]
     torch.cuda.synchronize()
     reg_launches = counts()
-    n_ops = {op: sum(1 for _, o, _ in reg_cases if o == op) for _, op, _ in reg_cases}
-    want_launches = {"bp_scan": n_ops["scan"], "bi_transpose": n_ops["transpose"],
-                     "bi_fft": n_ops["fft"], "strassen_matmul": n_ops["matmul"],
-                     "hbp_matmul": 7 ** levels * n_ops["matmul"],
-                     "flash_attention": 0, "flash_attention_int8": 0,
-                     "flash_attention_bwd": 0}
-    fft_x = next(args[0] for _, op, args in reg_cases if op == "fft")
-    fft_n1 = registry.get("fft").plan(fft_x)["n1"]
-    print(f"    launches in the run {reg_launches}; K2 launches per Strassen call "
-          f"{7 ** levels} = 7^{levels} (cutoff {mm_plan['cutoff']}), per FFT call 0; "
-          f"K7 per FFT call: one pass of columns, then one of lines, at the plan's split "
-          f"{fft_n1} x {fft_x.shape[1] // fft_n1} (one pass where a factor is 1)")
+    # one launch a scan and a transpose; a K7 call (two kernels) an FFT whose
+    # passes fit the cap, and past it pass 1, the nested call and one K6
+    # readout a row; the fused K4 once an f32 Strassen call of up to two
+    # levels and no K2; bf16 Strassen 7^levels K2 leaves
+    want_launches = dict.fromkeys(kernels, 0)
+    fft_lines = []
+    for _, op, args in reg_cases:
+        x = args[0]
+        if op == "scan":
+            want_launches["bp_scan"] += 1
+        elif op == "transpose":
+            want_launches["bi_transpose"] += 1
+        elif op == "fft":
+            n1_, n2_ = fft_split(x.shape[1])
+            past = max(n1_, n2_) > MAX_PASS
+            want_launches["bi_fft"] += 2 if past else 1
+            want_launches["bi_transpose"] += x.shape[0] if past else 0
+            fft_lines.append(f"{x.shape[1]} at {n1_} x {n2_}" + (
+                f": pass 1, then a bi_fft of {n2_} at {fft_split(n2_)[0]} x "
+                f"{fft_split(n2_)[1]} and {x.shape[0]} K6 readout" if past else ""))
+        elif x.dtype == torch.float32:
+            want_launches["strassen_matmul"] += 7 ** max(levels - 2, 0)
+        else:
+            want_launches["hbp_matmul"] += 7 ** bf_levels
+    print(f"    launches in the run {reg_launches}; per f32 Strassen call: the fused K4 "
+          f"once ({levels} levels, cutoff {mm_plan['cutoff']}, {k4_path(*reg_cases[-2][2])}), "
+          f"K2 0; per bf16 Strassen call K2 {7 ** bf_levels} = 7^{bf_levels}; per FFT call K2 0, "
+          f"K7 at the plan's split: {'; '.join(fft_lines)}")
     check(reg_launches == want_launches,
           f"registry run launched {reg_launches}, expected {want_launches}")
 
@@ -1264,8 +1309,12 @@ def main():
             del want, slack, diff
             tol_text = ("1 bf16 ulp + " if x.dtype == torch.bfloat16 else "") + \
                 f"{SCAN_SLACK:g} * cumsum|x| + {SCAN_SLACK:g}"
-            print(f"    {label}: leaf {block}; max abs err vs plain {err:.3e} ({tol_text}); "
-                  f"{note} {'ok' if ok else 'FAIL'}")
+            same = torch.equal(registry.dispatch("scan", x), got)
+            ok = ok and same
+            print(f"    {label}: leaf {block}, {k5_path(x, block)} instance, tile "
+                  f"{k5_tile(x.dtype)}; max abs err vs plain "
+                  f"{err:.3e} ({tol_text}); {note}; a second call bitwise equal {same} "
+                  f"{'ok' if ok else 'FAIL'}")
         elif op == "transpose":
             want = transpose_ref(x)
             ok = torch.equal(got, want)
@@ -1280,19 +1329,27 @@ def main():
             del want
             e_lib = normwise(got, torch.fft.fft(x, dim=-1))
             ok = e_plain <= FFT_TOL[0] and e_lib <= FFT_TOL[1]
-            print(f"    {label}: normwise err vs plain two-pass {e_plain:.3e} (tol "
+            print(f"    {label}: normwise err vs plain version {e_plain:.3e} (tol "
                   f"{FFT_TOL[0]:g}), vs torch.fft.fft {e_lib:.3e} (tol {FFT_TOL[1]:g}) "
                   f"{'ok' if ok else 'FAIL'}")
-        else:
+        elif x.dtype == torch.float32:
             want = strassen_matmul_plain(*args)
             e_plain = normwise(got, want)
             max_err["strassen_matmul"] = (got - want).abs().max().item()
             del want
             e_lib = normwise(got, torch.matmul(*args))
-            ok = e_plain <= MM_TOL[0] and e_lib <= MM_TOL[1]
+            same = torch.equal(registry.dispatch("matmul", *args), got)
+            ok = e_plain <= MM_TOL[0] and e_lib <= MM_TOL[1] and same
             print(f"    {label}: normwise err vs plain Strassen {e_plain:.3e} (tol "
                   f"{MM_TOL[0]:g}), vs torch.matmul f32 (TF32 off) {e_lib:.3e} (tol "
-                  f"{MM_TOL[1]:g}) {'ok' if ok else 'FAIL'}")
+                  f"{MM_TOL[1]:g}); a second call bitwise equal {same} {'ok' if ok else 'FAIL'}")
+        else:
+            e_plain = normwise(got.float(), strassen_matmul_plain(*args).float())
+            e_lib = normwise(got.float(), torch.matmul(*args).float())
+            ok = e_plain <= MM_TOL_BF16[0] and e_lib <= MM_TOL_BF16[1]
+            print(f"    {label} (over K2 {mm_path(*args)}): normwise err vs plain Strassen "
+                  f"{e_plain:.3e} (tol {MM_TOL_BF16[0]:g}), vs torch.matmul bf16 {e_lib:.3e} "
+                  f"(tol {MM_TOL_BF16[1]:g}) {'ok' if ok else 'FAIL'}")
         if not ok:
             reg_fail.append(label)
     del reg_out
@@ -1312,6 +1369,7 @@ def main():
             lib, lib_name = (lambda x: torch.cumsum(x, dim=-1)), "torch.cumsum"
             nbytes, ops, peak = 2 * x.numel() * es, x.numel(), "float32"
             name, iters = "bp_scan", None
+            instance = f"{k5_path(x, block)}, one launch"
         elif op == "transpose":
             plain = transpose_ref
             lib, lib_name = (lambda x: x.t().contiguous()), "x.t().contiguous()"
@@ -1323,7 +1381,17 @@ def main():
             lib, lib_name = (lambda x: torch.fft.fft(x, dim=-1)), "torch.fft.fft"
             rows_, n_ = x.shape
             nbytes, ops, peak = 2 * x.numel() * es, 5 * n_ * math.log2(n_) * rows_, "float32"
-            name, iters = "bi_fft", None
+            # the row past the pass cap is timed and gated, and kept out of
+            # K7's entry, which stays at the (256, 65536) of earlier runs
+            past = max(fft_split(n_)) > MAX_PASS
+            name, iters = ("bi_fft past cap", 2) if past else ("bi_fft", None)
+        elif x.dtype == torch.bfloat16:
+            plain = strassen_matmul_plain
+            lib, lib_name = torch.matmul, "torch.matmul bf16"
+            ops = 7 ** bf_levels * 2 * bf_edge ** 3 + sum(
+                7 ** lv * 18 * (n_mm >> (lv + 1)) ** 2 for lv in range(bf_levels))
+            nbytes, peak = 3 * n_mm * n_mm * 2, "bfloat16"
+            name, iters = "strassen bf16", 2
         else:
             plain = strassen_matmul_plain
             lib, lib_name = torch.matmul, "torch.matmul f32, TF32 off"
@@ -1341,23 +1409,31 @@ def main():
         b_ms, b_by = bound_ms(nbytes, ops, peak)
         reg_rows.append(dict(kernel=name, label=label, ms=t_k, plain_ms=t_p, library_ms=t_l,
                              bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=ops))
-        inst = f" [{instance}]" if op == "transpose" else ""
+        inst = f" [{instance}]" if op in ("transpose", "scan") else ""
         print(f"    {name:15s} {label:32s} {t_k:9.4f}{inst} (bound {b_ms:.4f} by {b_by}, "
               f"{100 * b_ms / t_k:5.1f}% of it); plain {t_p:9.4f}; {lib_name} {t_l:9.4f}")
-        if op == "fft":
-            floor = 2 * nbytes / HBM_BYTES_PER_S  # each pass reads and writes the data
-            print(f"    {'':15s} the two passes move {2 * nbytes:.4e} bytes: >= "
-                  f"{1e3 * floor:.4f} ms at 3.35 TB/s, {100e3 * floor / t_k:5.1f}% of K7's time")
-        if op == "matmul":
+        if op == "fft":  # each pass reads and writes the data
+            passes = 4 if past else 2
+            floor = passes * nbytes / 2 / HBM_BYTES_PER_S
+            print(f"    {'':15s} the {passes} passes move {passes * nbytes / 2:.4e} bytes: >= "
+                  f"{1e3 * floor:.4f} ms at 3.35 TB/s, {100e3 * floor / t_k:5.1f}% of K7's time"
+                  + (" (pass 1, the nested call's two, the K6 readout)" if past else ""))
+        if name == "strassen_matmul":
             t_c = time_ms(torch, lambda a, b: registry.dispatch("matmul", a, b,
                                                                 backend="classical"),
                           [args], reps=2, iters=2)
             c_ms, c_by = bound_ms(nbytes, 2 * n_mm ** 3, "float32")
             print(f"    {'':15s} the Strassen bound counts {ops:.4e} f32 FLOP ({7 ** levels} "
                   f"leaves of {edge}^3 and the combinations)")
-            print(f"    {'':15s} backend='classical' (one K2 call) {t_c:9.4f} (bound {c_ms:.4f} "
-                  f"by {c_by}: 2n^3 = {2 * n_mm ** 3:.4e} FLOP, {100 * c_ms / t_c:5.1f}% of it); "
-                  f"classical / Strassen time on K2 {t_c / t_k:.3f}")
+            print(f"    {'':15s} backend='classical' (one K2 fma call) {t_c:9.4f} (bound "
+                  f"{c_ms:.4f} by {c_by}: 2n^3 = {2 * n_mm ** 3:.4e} FLOP, {100 * c_ms / t_c:5.1f}% "
+                  f"of it); classical K2 / fused Strassen time {t_c / t_k:.3f}; the leaves at "
+                  f"{7 ** levels * 2 * edge ** 3 / t_k / 1e9:.2f} TFLOP/s")
+    scans = [r for r in reg_rows if r["kernel"] == "bp_scan"]
+    t_scans, b_scans = sum(r["ms"] for r in scans), sum(r["bound_ms"] for r in scans)
+    print(f"    K5, the two scans: {t_scans:.4f} ms against their {b_scans:.4f} ms bound, "
+          f"{100 * b_scans / t_scans:.1f}% of it; torch.cumsum "
+          f"{sum(r['library_ms'] for r in scans):.4f}")
     del reg_cases
     torch.cuda.empty_cache()
 
@@ -1421,7 +1497,7 @@ def main():
             "library_ms": tot["library_ms"],
         })
     # K5, K6, K7 and K4 summed over phase 10's calls (and their launches
-    # there); K4 is a composition over K2's CUDA source
+    # there): K7 at (256, 65536), K4 the f32 product
     reg_replaces = {"bp_scan": "src/repro/kernels/bp_scan.py:26",
                     "bi_transpose": "src/repro/kernels/bi_transpose.py:24",
                     "bi_fft": "src/repro/kernels/bi_fft.py:51",
@@ -1430,12 +1506,9 @@ def main():
         rs = [r for r in reg_rows if r["kernel"] == name]
         tot = {key: sum(r[key] for r in rs)
                for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "ops")}
-        over = name == "strassen_matmul"
         entries.append({
             "name": name, "route": "cuda",
-            "source": (f"src/repro_torch/kernels/{name}.py" if over
-                       else f"src/repro_torch/kernels/csrc/{name}.cu"),
-            **({"over": "src/repro_torch/kernels/csrc/hbp_matmul.cu"} if over else {}),
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": reg_replaces[name], "launches": reg_launches[name],
             "max_abs_err": max_err[name], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"],

@@ -12,7 +12,8 @@ models dispatch ``matmul`` and ``attention`` through it.
 
 - ``hbp_matmul`` (K2, ``csrc/hbp_matmul.cu``) replaces
   ``repro/kernels/hbp_matmul.py:_mm_kernel``: every matrix product.
-- ``strassen_matmul`` (K4, over K2) replaces
+- ``strassen_matmul`` (K4, ``csrc/strassen_matmul.cu`` for f32: up to two
+  levels of the recursion fused into one launch; bf16 over K2) replaces
   ``repro/kernels/strassen_matmul.py``; its ``matmul`` is the registry's
   ``matmul`` op (classical or Strassen by the planner, differentiable).
 - ``flash_attention`` (K1, ``csrc/flash_attention.cu``),
@@ -20,12 +21,13 @@ models dispatch ``matmul`` and ``attention`` through it.
   ``flash_attention_bwd`` (K3, ``csrc/flash_attention_bwd.cu``) replace
   ``repro/kernels/flash_attention.py``'s forward and backward kernels.
 - ``bp_scan`` (K5, ``csrc/bp_scan.cu``) replaces
-  ``repro/kernels/bp_scan.py``: the blocked prefix scan.
+  ``repro/kernels/bp_scan.py``: the blocked prefix scan, one chained pass.
 - ``bi_transpose`` (K6, ``csrc/bi_transpose.cu``) replaces
   ``repro/kernels/bi_transpose.py``: the Morton-ordered tiled transpose.
 - ``bi_fft`` (K7, ``csrc/bi_fft.cu``) replaces ``repro/kernels/bi_fft.py``:
   the four-step split, each small DFT a radix-4 FFT in shared memory, in
-  two passes.
+  two passes (past a pass's 4096 lines, pass 2 a nested call read out by
+  K6).
 
 Each wrapper runs its plain version on CPU tensors and its kernel on CUDA
 tensors, counts its kernel calls in ``<wrapper>.launches``, and builds its

@@ -19,10 +19,16 @@ odd) in place of a dense DFT product:
 
 A degenerate split (``n1`` or ``n2`` is 1) is one pass of length ``n``
 over the rows.  A pass takes lines of at most :data:`MAX_PASS` (the
-kernel's shared-memory tile); a longer factor raises ``ValueError``, on
-every device.  ``plan_fft``'s split stays within it for every ``n <=
-2**24``.  Any other dtype than complex64 is cast to it first, on ``x``'s
-device, as the JAX code casts.
+kernel's shared-memory tile; read at call time).  A split with a longer
+factor is the same DFT at another split, so it is planned again
+(:func:`split`): ``plan_fft``'s split, its ``n1`` capped at ``MAX_PASS``.
+``plan_fft``'s split is within the cap for every ``n <= 2**24``; past it
+``n2`` is longer than a pass, and the lines of pass 2 are themselves a
+``bi_fft`` of length ``n2`` over ``rows * n1`` lines (natural order), whose
+result ``C[r, k1, k2]`` is read out as ``X[r, k2*n1 + k1]`` by K6
+(``bi_transpose``, one launch a row), the same recursion on every device.
+Any other dtype than complex64 is cast to it first, on ``x``'s device, as
+the JAX code casts.
 
 Every twiddle comes from tables built with numpy in f64 and rounded to
 f32: the roots of unity of each pass's length and the ``n1 x n2``
@@ -30,10 +36,11 @@ inter-pass table, uploaded once per (n1, n2, device), so a call inside a
 CUDA-graph capture copies nothing from the host (warm up outside it).
 
 A CUDA tensor launches the kernel (two launches, one on a degenerate
-split); a CPU tensor takes :func:`bi_fft_plain`, the same stages in torch
-ops, each product and sum rounded as the kernel rounds it;
-:func:`fft_ref` is the oracle (``torch.fft.fft``).  ``bi_fft.launches``
-counts the calls on CUDA tensors.
+split; past the cap pass 1 alone, then the nested call and the readout);
+a CPU tensor takes :func:`bi_fft_plain`, the same stages in torch ops, each
+product and sum rounded as the kernel rounds it; :func:`fft_ref` is the
+oracle (``torch.fft.fft``).  ``bi_fft.launches`` counts the calls of the C
+entries on CUDA tensors (each one or two kernels).
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.bi_transpose import bi_transpose
 
 # the longest line a pass takes (csrc/bi_fft.cu's LOG_MAX_PASS)
 MAX_PASS = 4096
@@ -79,22 +87,29 @@ def _tables(n1: int, n2: int, device) -> dict:
     return t
 
 
-def _split(n: int, n1: Optional[int]) -> tuple[int, int]:
+def _longest(n1: int, n2: int) -> int:
+    """The longest line a pass of the split takes."""
+    return n1 * n2 if n1 == 1 or n2 == 1 else max(n1, n2)
+
+
+def split(n: int, n1: Optional[int] = None) -> tuple[int, int]:
+    """``(n1, n2)``, the four-step split a call of length ``n`` runs: the
+    caller's ``n1`` (default ``plan_fft``'s), halved until it divides
+    ``n``; where a pass of it is longer than :data:`MAX_PASS`,
+    ``plan_fft``'s split with ``n1`` capped at ``MAX_PASS`` (``n2`` may
+    then pass the cap, and pass 2 recurses)."""
     if n & (n - 1) != 0:
         raise ValueError(f"bi_fft needs a power-of-two length, got {n}")
-    if n1 is None:
-        from repro_torch.kernels import planner
+    from repro_torch.kernels import planner
 
+    if n1 is None:
         n1 = planner.plan_fft(n)["n1"]
     n1 = max(min(int(n1), n), 1)
     while n % n1 != 0:
         n1 //= 2
-    n2 = n // n1
-    longest = n if n1 == 1 or n2 == 1 else max(n1, n2)
-    if longest > MAX_PASS:
-        raise ValueError(f"bi_fft: a pass of length {longest} (split {n1} x {n2}) exceeds "
-                         f"the kernel's cap of {MAX_PASS} per pass")
-    return n1, n2
+    if _longest(n1, n // n1) > MAX_PASS:
+        n1 = min(planner.plan_fft(n)["n1"], MAX_PASS)
+    return n1, n // n1
 
 
 def _check(x):
@@ -171,6 +186,9 @@ def _two_pass(x, n1, n2):
     br = br.reshape(rows, n2, n1).transpose(1, 2)  # B[r, k1, j2]
     bi = bi.reshape(rows, n2, n1).transpose(1, 2)
     br, bi = _cmul(br, bi, t["tw"].real, t["tw"].imag)
+    if n2 > MAX_PASS:  # pass 2 is a bi_fft of its own, read out by K6
+        c = bi_fft_plain(torch.complex(br, bi).reshape(rows * n1, n2))
+        return c.reshape(rows, n1, n2).transpose(1, 2).reshape(rows, n)
     # pass 2: the lines (r, k1), over j2; read out X[r, k2*n1 + k1]
     dr, di = _lines_fft(br.reshape(rows * n1, n2), bi.reshape(rows * n1, n2), t["t2"])
     dr = dr.reshape(rows, n1, n2).transpose(1, 2).reshape(rows, n)
@@ -179,21 +197,22 @@ def _two_pass(x, n1, n2):
 
 
 def bi_fft_plain(x: torch.Tensor, *, n1: Optional[int] = None) -> torch.Tensor:
-    """Plain version: the kernel's two passes, stage for stage, in torch ops
+    """Plain version: the kernel's passes, stage for stage, in torch ops
     on any device."""
     _check(x)
-    n1, n2 = _split(x.shape[1], n1)
+    n1, n2 = split(x.shape[1], n1)
     return _two_pass(_operand(x), n1, n2)
 
 
 # -- the kernel -----------------------------------------------------------------------------
 
-def _lib():
+def _lib(entry):
     lib = _build.load("bi_fft")
-    fn = lib.bi_fft
+    fn = getattr(lib, entry)
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P, P, P, L, I, I, P, P, P, P]
+        fn.argtypes = ([P, P, P, L, I, I, P, P, P, P] if entry == "bi_fft"
+                       else [P, P, L, I, I, P, P, P])
         fn.restype = ctypes.c_int
     return fn
 
@@ -202,7 +221,7 @@ def bi_fft(x: torch.Tensor, *, n1: Optional[int] = None) -> torch.Tensor:
     """DFT of ``x`` ``(rows, n)`` along its last axis; see the module
     docstring."""
     _check(x)
-    n1, n2 = _split(x.shape[1], n1)
+    n1, n2 = split(x.shape[1], n1)
     if x.device.type == "cpu":
         return _two_pass(_operand(x), n1, n2)
     if x.device.type != "cuda":
@@ -221,9 +240,20 @@ def bi_fft(x: torch.Tensor, *, n1: Optional[int] = None) -> torch.Tensor:
     scratch = None if degenerate else torch.empty_like(out)
     ptr = lambda a: None if a is None else a.data_ptr()  # noqa: E731
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _lib()(x.data_ptr(), ptr(scratch), out.data_ptr(), rows,
-                 n1.bit_length() - 1, n2.bit_length() - 1, ptr(t.get("t1")), t["t2"].data_ptr(),
-                 ptr(t.get("tw")), stream)
+    log_n1, log_n2 = n1.bit_length() - 1, n2.bit_length() - 1
+    if not degenerate and n2 > MAX_PASS:
+        # pass 1 alone into scratch, its lines a bi_fft of their own, then
+        # each row's (n1, n2) result transposed into X by K6
+        err = _lib("bi_fft_cols")(x.data_ptr(), scratch.data_ptr(), rows, log_n1, log_n2,
+                                  t["t1"].data_ptr(), t["tw"].data_ptr(), stream)
+        _build.check(err, "bi_fft")
+        bi_fft.launches += 1
+        c = bi_fft(scratch.view(rows * n1, n2)).view(rows, n1, n2)
+        for r in range(rows):
+            bi_transpose(c[r], out=out[r].view(n2, n1))
+        return out
+    err = _lib("bi_fft")(x.data_ptr(), ptr(scratch), out.data_ptr(), rows, log_n1, log_n2,
+                         ptr(t.get("t1")), t["t2"].data_ptr(), ptr(t.get("tw")), stream)
     _build.check(err, "bi_fft")
     bi_fft.launches += 1
     return out

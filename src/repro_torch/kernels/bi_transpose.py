@@ -89,29 +89,37 @@ def _lib():
     return fn
 
 
-def bi_transpose(x: torch.Tensor, *, bt=None, morton: bool = True) -> torch.Tensor:
-    """``x`` ``(m, n)`` -> ``(n, m)``; see the module docstring."""
+def bi_transpose(x: torch.Tensor, *, bt=None, morton: bool = True,
+                 out=None) -> torch.Tensor:
+    """``x`` ``(m, n)`` -> ``(n, m)``, into ``out`` (a contiguous ``(n, m)``
+    tensor of ``x``'s dtype and device) where given; see the module
+    docstring."""
     if x.dim() != 2:
         raise ValueError(f"bi_transpose: x must be (m, n), got {tuple(x.shape)}")
     m, n = x.shape
+    if out is not None and (out.shape != (n, m) or out.dtype != x.dtype
+                            or out.device != x.device or not out.is_contiguous()):
+        raise ValueError(f"bi_transpose: out must be a contiguous {(n, m)} {x.dtype} "
+                         f"tensor on {x.device}")
     if x.numel() == 0:
-        return x.new_empty((n, m))
+        return x.new_empty((n, m)) if out is None else out
     bt_m, bt_n = _tiles(x, bt)
     if x.device.type == "cpu":
-        return transpose_ref(x)
+        return transpose_ref(x) if out is None else out.copy_(x.t())
     if x.device.type != "cuda":
         raise ValueError(f"bi_transpose: no kernel for device {x.device}")
     if not x.is_contiguous():
         raise ValueError(f"bi_transpose: x must be contiguous, strides {x.stride()}")
     if x.element_size() not in (1, 2, 4, 8):
         raise TypeError(f"bi_transpose: {x.element_size()}-byte elements")
-    instance = _path(x, bt_m, bt_n)
+    instance = _path(x, bt_m, bt_n) if out is None or out.data_ptr() % 16 == 0 else "scalar"
     nm, nn = m // bt_m, n // bt_n
     edge = tile(instance, x.element_size())
     blocks = nm * nn * (-(-bt_m // edge)) * (-(-bt_n // edge))
     if blocks >= 2 ** 31:
         raise ValueError(f"bi_transpose: {blocks} CUDA blocks exceed the grid limit")
-    out = torch.empty((n, m), dtype=x.dtype, device=x.device)
+    if out is None:
+        out = torch.empty((n, m), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _lib()(x.data_ptr(), out.data_ptr(), m, n, bt_m, bt_n,
                  int(morton and supports_morton(nm, nn)), x.element_size(),

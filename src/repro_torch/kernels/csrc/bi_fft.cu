@@ -33,7 +33,11 @@
 //     k1 of one k2, whole 128-byte segments where n1 >= W; where n1 < W the
 //     tile is W / n1 whole rows of X, one contiguous block;
 //   * a degenerate split (n1 or n2 is 1) is one fft_lines_kernel pass of
-//     length n over the rows of x, with n1 = 1 in its readout.
+//     length n over the rows of x, with n1 = 1 in its readout;
+//   * past a pass's MAX_PASS lines (n2 > 4096: n past 2^24 at plan_fft's
+//     split) the C entry bi_fft_cols runs pass 1 alone, and the wrapper runs
+//     pass 2 as a bi_fft of length n2 over the rows n1 lines of B and reads
+//     it out transposed through K6 (bi_transpose).
 // The tile keeps element (j, w) of row j and line (column) w with its
 // 16-byte chunk w / 2 at chunk (w / 2) ^ ((j / 2) & min(7, W / 2 - 1)): each
 // row is a permutation of its own chunks, so the butterflies (lanes on
@@ -382,4 +386,17 @@ extern "C" int bi_fft(const void* x, void* scratch, void* out, long long rows,
                        static_cast<const float2*>(t1), static_cast<const float2*>(tw), s);
   if (err != 0) return err;
   return lines(b, o, rows << log_n1, log_n2, log_n1, static_cast<const float2*>(t2), s);
+}
+
+// Pass 1 alone, for a split whose n2 is longer than a pass (the wrapper runs
+// pass 2 as a bi_fft of its own and reads it out through K6): x (rows, n)
+// as above into b (rows, n1, n2), each column's FFT times the inter-pass
+// twiddle.  n1 = 2^log_n1 at most 2^LOG_MAX_PASS; n below 2^31.
+extern "C" int bi_fft_cols(const void* x, void* b, long long rows, int log_n1, int log_n2,
+                           const void* t1, const void* tw, void* stream) {
+  if (log_n1 < 1 || log_n1 > LOG_MAX_PASS || log_n2 < 1 || log_n1 + log_n2 > 30 || rows < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return cols(static_cast<const float2*>(x), static_cast<float2*>(b), rows << log_n2, log_n1,
+              log_n2, static_cast<const float2*>(t1), static_cast<const float2*>(tw),
+              static_cast<cudaStream_t>(stream));
 }

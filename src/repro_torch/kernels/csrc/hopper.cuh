@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: the
 // Tensor Memory Accelerator (TMA) with its tensor maps, mbarrier waits,
 // warpgroup matrix multiply (wgmma) with its shared-memory descriptors,
-// and setmaxnreg.  K2's wgmma instance (hbp_matmul.cu) is built from them.
+// and setmaxnreg.  K2's wgmma instance (hbp_matmul.cu) is built from them;
+// K4 (strassen_matmul.cu) takes the TMA loads, stores and reduce-adds of f32
+// boxes with no swizzle.
 //
-// Shared-memory layouts.  Every operand tile is loaded by TMA with the
+// Shared-memory layouts.  Every K2 operand tile is loaded by TMA with the
 // 128-byte swizzle: a box whose inner dimension is 64 bf16 (128 bytes)
 // lands as rows of 128 bytes in which the eight 16-byte chunks of row r are
 // permuted by XOR with r % 8, in atoms of 8 rows (1024 bytes).  A tile
@@ -111,19 +113,65 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-inline int encode_bf16_sw128(CUtensorMap* map, const void* base, long long rows,
-                             long long cols, long long ld, int box_rows) {
+// A 2-D tensor map of a row-major matrix (rows x cols, row pitch `ld`
+// elements of elem_bytes, a 16-byte aligned base and a pitch of whole
+// 16-byte steps) read in boxes of box_rows x box_cols.  Returns a CUDA error
+// code, 0 on success.
+inline int encode_2d(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                     const void* base, long long rows, long long cols, long long ld,
+                     int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
   const EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * elem_bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// bf16, boxes of box_rows x 64 columns in the 128-byte swizzle (K2's wgmma)
+inline int encode_bf16_sw128(CUtensorMap* map, const void* base, long long rows,
+                             long long cols, long long ld, int box_rows) {
+  return encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rows, cols, ld, 64, box_rows,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// f32, dense boxes with no swizzle (K4's fused Strassen kernel)
+inline int encode_f32(CUtensorMap* map, const void* base, long long rows, long long cols,
+                      long long ld, int box_cols, int box_rows) {
+  return encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, rows, cols, ld, box_cols,
+                   box_rows, CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+// Shared memory to a box of a 2-D tensor map: a store, or an f32 reduce-add
+// performed at L2.  One thread issues them, after the writes to `src` and a
+// fence.proxy.async; commit_group closes a group, and wait_all returns when
+// every group this thread committed has been written.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_reduce_add_2d(const CUtensorMap* map, const void* src, int c0,
+                                                  int c1) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.2d.global.shared::cta.add.bulk_group [%0, {%2, %3}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // -- wgmma ---------------------------------------------------------------------

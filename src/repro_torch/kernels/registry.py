@@ -4,8 +4,9 @@ copy of ``repro/kernels/registry.py``.
 Each op registers a :class:`KernelSpec`: the kernel's wrapper, the plain
 oracle (``ref.py``), a planner hook deriving the tile kwargs from the
 device's parameters (``planner.py``), and capability metadata (``has_vjp``,
-the ``needs`` gate).  Registered ops: ``scan`` (K5), ``matmul`` (K4 over
-K2), ``transpose`` (K6), ``attention`` (K1, K1q, K3) and ``fft`` (K7).
+the ``needs`` gate).  Registered ops: ``scan`` (K5), ``matmul`` (K2, or
+K4 for a square product past the cutoff), ``transpose`` (K6), ``attention``
+(K1, K1q, K3) and ``fft`` (K7).
 
 Where JAX asks ``supported()`` of the process (``default_backend() ==
 "tpu"``), the port asks the tensor: a process with a card also runs CPU
@@ -273,7 +274,8 @@ register(KernelSpec(
 
 register(KernelSpec(
     name="matmul",
-    # classical -> one K2 call, strassen -> the recursion over K2; carries
+    # classical -> one K2 call, strassen -> K4 (f32: fused launches; bf16:
+    # the recursion over K2); carries
     # its backward (dA = g Bᵀ, dB = Aᵀ g, each re-planned).  K2 fixes its
     # own per-block tile, so the plan is the backend verdict alone
     kernel=backend_matmul,

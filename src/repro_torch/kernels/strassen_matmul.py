@@ -1,38 +1,52 @@
-"""K4, the Strassen-schedule matmul over K2, and the registry's ``matmul``
-entry.
+"""K4, the Strassen-schedule matmul, and the registry's ``matmul`` entry.
 
 Replaces ``src/repro/kernels/strassen_matmul.py:strassen_matmul`` and
-``:matmul``.  It adds no CUDA source: every product runs on K2
-(``hbp_matmul``), as the JAX recursion runs on the Pallas ``hbp_matmul``.
+``:matmul``.  For f32 operands the kernel is ``csrc/strassen_matmul.cu``,
+CUDA C++ for ``sm_90a``: up to two levels of the recursion in one launch,
+each leaf product forming its operand sums as it loads them and adding its
+result into its C targets (its header says what bounds it and how).  bf16
+operands keep the composition over K2 (``hbp_matmul``'s tensor-core
+instances), as the JAX recursion runs on the Pallas ``hbp_matmul``.
 
 :func:`strassen_matmul` recurses the 7-product quadrant decomposition
 (``_STRASSEN_LHS/RHS/OUT`` with the sign tables below) while the edge is
-even and above ``cutoff`` (default: ``planner.strassen_cutoff``), down to
-leaves on K2 with an f32 output: operand combinations are summed in f32 and
-rounded to the input dtype right before their leaf, output combinations
-stay in f32, and only the final result is rounded.  A single-quadrant
-operand is a row-major view with row stride ``n``, which K2 reads in place;
-the combinations are fresh tensors.  Any other shape falls through to one
-K2 call.  The elementwise combinations are plain torch, as the JAX package
-leaves them to XLA outside any Pallas kernel.
+even and above ``cutoff`` (default: ``planner.strassen_cutoff``): operand
+combinations are summed in f32 and rounded to the input dtype right before
+their leaf, output combinations stay in f32, and only the final result is
+rounded.  Any other shape falls through to one K2 call.
+
+* f32 on CUDA: :func:`leaf_plan` lists the ``7 ** levels`` leaves of (at
+  most) two levels, each with its signed operand terms and its signed C
+  targets as element offsets (memoized per edge, levels and strides), and
+  one kernel launch runs them all.  A third level and beyond keep the
+  composition's combination step (:func:`_strassen`) for the outer levels,
+  each of whose products is one fused launch.  Transposed views (the
+  backward's ``g Bᵀ`` and ``Aᵀ g``) are read in place.
+* bf16 on CUDA: the recursion with K2 leaves (an f32 output each) and
+  plain-torch combinations, as before.
 
 :func:`matmul` is the differentiable entry the registry dispatches: it asks
 the planner for the backend (``classical``: one K2 call; ``strassen``: the
 recursion) and its backward re-plans each of ``dA = g Bᵀ`` and
 ``dB = Aᵀ g`` on its own shape, as the JAX custom VJP does.
 
-On the CPU every K2 call takes ``matmul_ref``, so these functions run their
-plain versions there; :func:`strassen_matmul_plain` is the same recursion
-with ``matmul_ref`` leaves on any device (the card's comparisons).
-``strassen_matmul.launches`` counts the calls that recurse on CUDA tensors
-(each launches ``7 ** levels`` K2 leaves).
+On the CPU :func:`strassen_matmul` runs :func:`strassen_matmul_plain`, the
+recursion with ``matmul_ref`` leaves (also the card's comparisons);
+:func:`leaf_plan_plain` evaluates the kernel's leaf table with
+``matmul_ref`` leaves in the kernel's order.  ``strassen_matmul.launches``
+counts the fused kernel's launches.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import importlib
 from typing import Optional
 
+import numpy as np
 import torch
+
+from repro_torch.kernels import _build
 
 from repro_torch.kernels.hbp_matmul import matmul_ref
 
@@ -86,6 +100,151 @@ def _strassen(a, b, cutoff, leaf):
     return rec(a, b, a.shape[0]).to(dtype)
 
 
+# -- the fused kernel's leaf table -------------------------------------------------
+
+FUSED_LEVELS = 2  # levels one launch runs (csrc/strassen_matmul.cu's MAX_LEAVES = 7^2)
+_QUAD = ((0, 0), (0, 1), (1, 0), (1, 1))  # quadrants 11, 12, 21, 22 as (row, col)
+# csrc/strassen_matmul.cu's Leaf, 160 bytes
+_LEAF = np.dtype([("a", "<i8", 4), ("b", "<i8", 4), ("c", "<i8", 4), ("sa", "<f4", 4),
+                  ("sb", "<f4", 4), ("sc", "<f4", 4), ("na", "<i4"), ("nb", "<i4"),
+                  ("nc", "<i4"), ("first", "<i4")])
+_TABLES: dict = {}  # (leaf_plan's key, device) -> the packed table on that device
+
+
+@functools.lru_cache(maxsize=64)
+def leaf_plan(n: int, levels: int, a_stride, b_stride, c_stride):
+    """The leaves of ``levels`` Strassen levels of an ``n x n`` product, in
+    the kernel's order (products of the outer level slowest): a tuple of
+    ``(a_terms, b_terms, c_targets)``.  A term is ``(offset, sign)``, the
+    element offset of its ``n >> levels`` sub-block from the operand's
+    origin under the operand's strides; terms run level one's pair fastest,
+    so adding neighbours pairwise, ``((t0 + t1) + (t2 + t3))``, is the
+    plain version's association.  A target is ``(offset, sign, first)``:
+    ``first`` where no earlier leaf writes that C sub-block."""
+    nodes = [(((0, 0, 1),), ((0, 0, 1),), ((0, 0, 1),))]
+    edge = n
+    for _ in range(levels):
+        edge //= 2
+        nxt = []
+        for at, bt, ct in nodes:
+            for p in range(7):
+                def terms(old, idxs, signs):
+                    return tuple((r + _QUAD[q][0] * edge, c + _QUAD[q][1] * edge, s * sq)
+                                 for q, sq in zip(idxs, signs) for r, c, s in old)
+                cn = tuple((r + _QUAD[q][0] * edge, c + _QUAD[q][1] * edge,
+                            s * _OUT_SIGNS[q][_STRASSEN_OUT[q].index(p)])
+                           for r, c, s in ct for q in range(4) if p in _STRASSEN_OUT[q])
+                nxt.append((terms(at, _STRASSEN_LHS[p], _LHS_SIGNS[p]),
+                            terms(bt, _STRASSEN_RHS[p], _RHS_SIGNS[p]), cn))
+        nodes = nxt
+    seen, leaves = set(), []
+    for at, bt, ct in nodes:
+        def offs(ts, st):
+            return tuple((r * st[0] + c * st[1], s) for r, c, s in ts)
+        tg = []
+        for r, c, s in ct:
+            tg.append((r * c_stride[0] + c * c_stride[1], s, (r, c) not in seen))
+            seen.add((r, c))
+        leaves.append((offs(at, a_stride), offs(bt, b_stride), tuple(tg)))
+    return tuple(leaves)
+
+
+def _sub(x: torch.Tensor, off: int, e: int) -> torch.Tensor:
+    return x.as_strided((e, e), x.stride(), x.storage_offset() + off)
+
+
+def _tree(parts):
+    """Neighbours added pairwise, level by level (a power-of-two count)."""
+    while len(parts) > 1:
+        parts = [parts[i] + parts[i + 1] for i in range(0, len(parts), 2)]
+    return parts[0]
+
+
+def leaf_plan_plain(a: torch.Tensor, b: torch.Tensor, levels: int) -> torch.Tensor:
+    """The kernel's leaf table evaluated in torch for f32 operands: each
+    leaf's operand sums by :func:`_tree`, its ``matmul_ref`` product, added
+    into its targets in the table's order (the first writer stores)."""
+    n = a.shape[0]
+    e = n >> levels
+    c = torch.empty((n, n), dtype=torch.float32, device=a.device)
+    for at, bt, ct in leaf_plan(n, levels, a.stride(), b.stride(), c.stride()):
+        x = _tree([s * _sub(a, o, e).float() for o, s in at])
+        y = _tree([s * _sub(b, o, e).float() for o, s in bt])
+        m = matmul_ref(x, y, torch.float32)
+        for o, s, first in ct:
+            dst = _sub(c, o, e)
+            if first:
+                dst.copy_(s * m)
+            else:
+                dst.add_(s * m)
+    return c
+
+
+def _table(plan, device) -> torch.Tensor:
+    key = (plan, device)
+    hit = _TABLES.get(key)
+    if hit is None:
+        rec = np.zeros(len(plan), dtype=_LEAF)
+        for i, (at, bt, ct) in enumerate(plan):
+            for name, terms in (("a", at), ("b", bt)):
+                rec[name][i, :len(terms)] = [o for o, _ in terms]
+                rec["s" + name][i] = 1.0
+                rec["s" + name][i, :len(terms)] = [s for _, s in terms]
+            rec["c"][i, :len(ct)] = [o for o, _, _ in ct]
+            rec["sc"][i, :len(ct)] = [s for _, s, _ in ct]
+            rec["na"][i], rec["nb"][i], rec["nc"][i] = len(at), len(bt), len(ct)
+            rec["first"][i] = sum(1 << t for t, (_, _, f) in enumerate(ct) if f)
+        hit = torch.from_numpy(rec.view(np.uint8).copy()).to(device)
+        _TABLES[key] = hit
+    return hit
+
+
+def _fused_lib():
+    lib = _build.load("strassen_matmul")
+    fn = lib.strassen_matmul
+    if fn.argtypes is None:
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [P, P, P, P, I, I, I, L, L, L, I, I, I, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def path(a: torch.Tensor, b: torch.Tensor, cutoff: Optional[int] = None) -> str:
+    """The fused kernel's instance for these f32 operands: ``"vec"`` (TMA
+    boxes of the stored matrices) where both pointers are 16-byte aligned,
+    both row strides are multiples of 4 elements and the leaf edge of 16,
+    else ``"scalar"``.  The leaf edge is ``n >> levels`` (``levels`` from
+    ``cutoff``, the planner's by default); an outer level past the two a
+    launch runs hands the launch a fresh combination or a quadrant view,
+    whose layout this does not see."""
+    n = a.shape[0]
+    return _path(a, b, n >> min(_levels(n, _cutoff(a, cutoff)), FUSED_LEVELS))
+
+
+def _path(a, b, e):
+    lds = (_k2._layout(a, "a")[0], _k2._layout(b, "b")[0])
+    ok = (a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0 and e % 16 == 0
+          and all(ld % 4 == 0 for ld in lds))
+    return "vec" if ok else "scalar"
+
+
+def _fused(a: torch.Tensor, b: torch.Tensor, levels: int) -> torch.Tensor:
+    """One launch of ``levels`` (1 or 2) fused Strassen levels: f32 ``a @ b``."""
+    n = a.shape[0]
+    e = n >> levels
+    lda, trans_a = _k2._layout(a, "a")
+    ldb, trans_b = _k2._layout(b, "b")
+    c = torch.empty((n, n), dtype=torch.float32, device=a.device)
+    plan = leaf_plan(n, levels, a.stride(), b.stride(), c.stride())
+    table = _table(plan, a.device)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    err = _fused_lib()(a.data_ptr(), b.data_ptr(), c.data_ptr(), table.data_ptr(), len(plan),
+                       e, n, lda, ldb, n, trans_a, trans_b, int(_path(a, b, e) == "vec"), stream)
+    _build.check(err, "strassen_matmul")
+    strassen_matmul.launches += 1
+    return c
+
+
 def _eligible(a, b, cutoff) -> bool:
     m, k = a.shape
     n = b.shape[1]
@@ -105,19 +264,35 @@ def _check(a, b):
         raise ValueError(f"strassen_matmul: shapes {tuple(a.shape)} @ {tuple(b.shape)}")
 
 
+def _levels(n: int, cutoff: int) -> int:
+    levels = 0
+    while n > cutoff and n % 2 == 0:
+        n, levels = n // 2, levels + 1
+    return levels
+
+
 def strassen_matmul(a: torch.Tensor, b: torch.Tensor, *,
                     cutoff: Optional[int] = None) -> torch.Tensor:
-    """``a @ b`` through the Strassen recursion with K2 leaves; see the
-    module docstring."""
+    """``a @ b`` through the Strassen recursion; see the module docstring."""
     _check(a, b)
     cutoff = _cutoff(a, cutoff)
     if not _eligible(a, b, cutoff):
         return _k2.hbp_matmul(a, b)
-    out = _strassen(a, b, cutoff,
-                    lambda x, y: _k2.hbp_matmul(x, y, out_dtype=torch.float32))
-    if a.device.type == "cuda":
-        strassen_matmul.launches += 1
-    return out
+    if a.device.type == "cpu":
+        return strassen_matmul_plain(a, b, cutoff=cutoff)
+    if a.dtype != torch.float32 or b.dtype != torch.float32:
+        return _strassen(a, b, cutoff,
+                         lambda x, y: _k2.hbp_matmul(x, y, out_dtype=torch.float32))
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(f"strassen_matmul: no kernel for devices {a.device}, {b.device}")
+    n = a.shape[0]
+    levels = _levels(n, cutoff)
+    inner = min(levels, FUSED_LEVELS)
+    if levels == inner:
+        return _fused(a, b, inner)
+    # the outer levels as the composition's combination step, each product
+    # one fused launch of the inner levels
+    return _strassen(a, b, n >> (levels - inner), lambda x, y: _fused(x, y, inner))
 
 
 strassen_matmul.launches = 0

@@ -3,8 +3,8 @@ of the main-path subset of ``repro/models/common.py``.
 
 Every matrix product and every attention call goes through the kernel
 registry's ``dispatch``, as the JAX models do: on a CUDA tensor the
-``matmul`` op runs K2 (or K4 over K2 for a square product past the
-planner's cutoff), forward and backward, and the ``attention`` op K1
+``matmul`` op runs K2 (or K4 for a square product past the planner's
+cutoff), forward and backward, and the ``attention`` op K1
 forward and K3 backward, or K1q over an int8 cache; on a CPU tensor each
 runs its plain version.  A policy that asks for a plain version on the card
 raises (``registry.route``).  The JAX package's jnp routes (dense,

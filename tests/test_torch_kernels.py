@@ -918,6 +918,65 @@ def test_scan_kernel_matches_plain(cuda, dtype, rows, n, block):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,n,block", [(3, 2 ** 18, 2 ** 16), (2, 3 * 2 ** 15, 2 ** 15),
+                                          (4, 2 ** 20, None)])
+def test_scan_kernel_instances_and_determinism(cuda, dtype, rows, n, block):
+    """K5's two instances on the same values (a view one element off 16
+    bytes takes scalar) give the same bits, and two calls give the same
+    bits; leaves longer than a tile with several a row (the leaves' chain
+    and the offsets' second launch) and one leaf a row, within the
+    tolerances of test_scan_kernel_matches_plain."""
+    from repro_torch.kernels import planner
+    from repro_torch.kernels.bp_scan import bp_scan, bp_scan_plain, path
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(rows * n)
+    step = 16 // torch.empty((), dtype=dt).element_size()
+    x = torch.randn(rows, n + step, device=cuda, generator=g).to(dt)[:, step:]
+    y = torch.empty(rows, n + 1, dtype=dt, device=cuda)[:, 1:]
+    y.copy_(x)  # the same values, one element off 16 bytes
+    assert path(x, block) == "vec" and path(y, block) == "scalar"
+    got = bp_scan(x, block=block)
+    assert torch.equal(bp_scan(x, block=block), got)
+    assert torch.equal(bp_scan(y, block=block), got)
+    leaf = block or planner.plan_scan(x.shape, dt, planner.device_params(cuda))["block"]
+    want = bp_scan_plain(x, leaf).float()
+    slack = 1e-6 * torch.cumsum(x.float().abs(), dim=-1) + 1e-6
+    if dt == torch.float32:
+        bound = slack
+    else:
+        # both sides round the leaf's own prefix to bf16 before the leaf
+        # offset is added, from f32 sums in other orders: one ulp of that
+        # prefix, then one of the result
+        local = torch.cumsum(x.float().reshape(rows, -1, leaf), dim=-1).reshape(rows, n)
+        bound = _bf16_ulp(torch.maximum(got.float(), want)) + _bf16_ulp(local) + slack
+    assert ((got.float() - want).abs() <= bound).all(), (got.float() - want).abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [None, 2 ** 14])
+def test_scan_kernel_in_a_cuda_graph(cuda, block):
+    """K5 captured in a CUDA graph (its status words are zeroed inside the
+    call) gives the uncaptured call's bits on every replay."""
+    from repro_torch.kernels.bp_scan import bp_scan
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(8, 2 ** 16, device=cuda, generator=g)
+    bp_scan(x, block=block)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = bp_scan(x, block=block)
+    for _ in range(2):
+        x.copy_(torch.randn(8, 2 ** 16, device=cuda, generator=g))
+        want = bp_scan(x, block=block)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8", "float64"])
 @pytest.mark.parametrize("m,n,bt,morton", [(96, 160, 32, True), (256, 256, 64, True),
@@ -971,6 +1030,29 @@ def test_fft_kernel_matches_plain(cuda, rows, n, n1, real):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,n1", [(1, 8192, 1), (1, 2 ** 25, None)])
+def test_fft_kernel_past_the_cap(cuda, rows, n, n1):
+    """Lengths the kernel's 4096-line passes do not hold at the given split:
+    a degenerate 8192 re-planned to 64 x 128 (two K7 kernels, one call);
+    2^25 at 4096 x 8192, pass 1 alone, then pass 2 as a bi_fft of 8192 over
+    4096 lines and the readout by K6 (two calls, one K6 launch a row).
+    Against torch.fft.fft normwise 1e-4, and the plain version's bits."""
+    from repro_torch.kernels.bi_fft import bi_fft, bi_fft_plain, fft_ref, split
+    from repro_torch.kernels.bi_transpose import bi_transpose
+
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.complex(*(torch.randn(rows, n, device=cuda, generator=g) for _ in "ri"))
+    past = max(split(n, n1)) > 4096
+    k7, k6 = bi_fft.launches, bi_transpose.launches
+    got = bi_fft(x, n1=n1)
+    assert bi_fft.launches - k7 == (2 if past else 1)
+    assert bi_transpose.launches - k6 == (rows if past else 0)
+    want = fft_ref(x)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    assert torch.equal(got, bi_fft_plain(x, n1=n1))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("rows,n,n1", [(8, 65536, None), (4, 2048, 1)])
 def test_fft_kernel_in_a_cuda_graph(cuda, rows, n, n1):
     """K7 captured in a CUDA graph after a warm-up call (its tables are
@@ -991,28 +1073,92 @@ def test_fft_kernel_in_a_cuda_graph(cuda, rows, n, n1):
     assert torch.equal(out, want2) and not torch.equal(want, want2)
 
 
+def _strassen_levels(n, cutoff):
+    levels, edge = 0, n
+    while edge > cutoff and edge % 2 == 0:
+        edge, levels = edge // 2, levels + 1
+    return levels
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n,cutoff", [(256, 64), (192, 48), (130, 32)])
 def test_strassen_kernel_matches_plain(cuda, dtype, n, cutoff):
     """K4 against its plain version (the same recursion on matmul_ref
-    leaves): K2 launches 7^levels times; f32 within 1e-4, bf16 within 2^-7
-    relative to the largest output (the operand combinations round alike,
-    the leaves sum in other orders)."""
+    leaves): f32 runs the fused kernel, one launch and no K2 launch (the
+    130 -> 65 leaf edge on its scalar instance); bf16 the composition, K2
+    launching 7^levels times; f32 within 1e-4, bf16 within 2^-7 relative to
+    the largest output (the operand combinations round alike, the leaves
+    sum in other orders); a repeat call gives the same bits."""
     from repro_torch.kernels import registry
     from repro_torch.kernels.strassen_matmul import strassen_matmul, strassen_matmul_plain
 
     dt = getattr(torch, dtype)
     g = torch.Generator(device=cuda).manual_seed(n)
     a, b = (torch.randn(n, n, device=cuda, generator=g).to(dt) for _ in "ab")
-    levels, edge = 0, n
-    while edge > cutoff and edge % 2 == 0:
-        edge, levels = edge // 2, levels + 1
-    k2 = hbp_matmul.launches
+    levels = _strassen_levels(n, cutoff)
+    k2, k4 = hbp_matmul.launches, strassen_matmul.launches
     got = registry.dispatch("matmul", a, b, backend="strassen", cutoff=cutoff)
-    assert hbp_matmul.launches - k2 == 7 ** levels
+    f32 = dt == torch.float32
+    assert hbp_matmul.launches - k2 == (0 if f32 else 7 ** levels)
+    assert strassen_matmul.launches - k4 == (1 if f32 else 0)
     assert got.dtype == dt
     want = strassen_matmul_plain(a, b, cutoff=cutoff).float()
-    tol = (1e-4 if dt == torch.float32 else 2 ** -7) * want.abs().max()
+    tol = (1e-4 if f32 else 2 ** -7) * want.abs().max()
     assert (got.float() - want).abs().max() <= tol
     assert torch.equal(strassen_matmul(a, b, cutoff=cutoff), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,cutoff,layout", [(256, 32, (False, False)), (512, 64, (True, False)),
+                                             (256, 64, (False, True)), (260, 65, (True, True)),
+                                             (512, 128, (False, False)), (512, 128, (True, True))])
+def test_strassen_kernel_levels_and_layouts(cuda, n, cutoff, layout):
+    """The fused kernel past two levels (the outer level in the
+    composition's combination step: 7 launches of two fused levels), on
+    transposed views read in place (the backward's layouts; a leaf edge of
+    65 on the scalar instance) and with whole 128 x 128 leaf tiles (the TMA
+    store and reduce-add epilogue), against the plain version within 1e-4
+    relative to the largest output, no K2 launch, the same bits twice."""
+    from repro_torch.kernels.strassen_matmul import path, strassen_matmul, strassen_matmul_plain
+
+    g = torch.Generator(device=cuda).manual_seed(n + cutoff)
+    a, b = (torch.randn(n, n, device=cuda, generator=g) for _ in "ab")
+    a = a.T.contiguous().T if layout[0] else a
+    b = b.T.contiguous().T if layout[1] else b
+    levels = _strassen_levels(n, cutoff)
+    assert path(a, b, cutoff) == ("scalar" if (n >> min(levels, 2)) % 16 else "vec")
+    k2, k4 = hbp_matmul.launches, strassen_matmul.launches
+    got = strassen_matmul(a, b, cutoff=cutoff)
+    assert hbp_matmul.launches == k2
+    assert strassen_matmul.launches - k4 == 7 ** max(levels - 2, 0)
+    want = strassen_matmul_plain(a, b, cutoff=cutoff)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    assert torch.equal(strassen_matmul(a, b, cutoff=cutoff), got)
+
+
+@pytest.mark.cuda
+def test_strassen_kernel_gradient_at_4096(cuda):
+    """The f32 4096^2 gradient through backend="strassen": the forward and
+    both backward products (g Bᵀ and Aᵀ g, re-planned onto Strassen over
+    transposed views) are fused launches, no K2, each within 1e-4 of the
+    plain version relative to its largest value."""
+    from repro_torch.kernels.strassen_matmul import strassen_matmul, strassen_matmul_plain
+
+    n = 4096
+    g = torch.Generator(device=cuda).manual_seed(n)
+    a, b, w = (torch.randn(n, n, device=cuda, generator=g) for _ in "abw")
+    a.requires_grad_()
+    b.requires_grad_()
+    k2, k4 = hbp_matmul.launches, strassen_matmul.launches
+    out = matmul(a, b, backend="strassen")
+    (out * w).sum().backward()
+    torch.cuda.synchronize()
+    assert hbp_matmul.launches == k2 and strassen_matmul.launches - k4 == 3
+    with torch.no_grad():
+        for got, want in ((out, strassen_matmul_plain(a, b)),
+                          (a.grad, strassen_matmul_plain(w, b.detach().T)),
+                          (b.grad, strassen_matmul_plain(a.detach().T, w))):
+            assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+

@@ -25,6 +25,7 @@ The rule by which the registry picks a backend per tensor device
 (``registry.route``) is checked for ``cpu`` and ``cuda`` device types
 without a card.
 """
+import importlib
 import warnings
 
 import jax
@@ -54,6 +55,8 @@ from repro_torch.kernels.strassen_matmul import (  # noqa: E402
     strassen_matmul,
     strassen_matmul_plain,
 )
+
+bi_fft_mod = importlib.import_module("repro_torch.kernels.bi_fft")
 
 JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "int8": jnp.int8}
 
@@ -249,6 +252,37 @@ def test_bp_scan_planned_leaf_and_bad_leaf():
         bp_scan(x.double())
 
 
+# (dtype, base shape, view, block, instance): the kernel's 16-byte instance
+# needs the pointer, the row pitch and the leaf edge in whole 16-byte steps
+SCAN_PATHS = [
+    ("float32", (4, 1024), (slice(None), slice(None)), None, "vec"),
+    ("float32", (3, 20000), (slice(None), slice(None)), 5000, "vec"),
+    ("float32", (4, 1025), (slice(None), slice(1, None)), None, "scalar"),  # off 4 bytes
+    ("float32", (4, 1028), (slice(None), slice(4, None)), 256, "vec"),  # 16 bytes in
+    ("float32", (5, 1024), (slice(1, None), slice(None)), 512, "vec"),  # a row in
+    ("float32", (2, 1000), (slice(None), slice(None)), 250, "scalar"),  # 1000-byte leaf
+    ("bfloat16", (3, 100), (slice(None), slice(None)), 100, "scalar"),  # 200-byte pitch
+    ("bfloat16", (3, 104), (slice(None), slice(None)), 104, "vec"),
+    ("bfloat16", (2, 1032), (slice(None), slice(8, None)), 256, "vec"),
+    ("bfloat16", (2, 1028), (slice(None), slice(4, None)), 256, "scalar"),  # off 8 bytes
+]
+
+
+@pytest.mark.parametrize("case", SCAN_PATHS, ids=lambda c: f"{c[0]}_{c[1][0]}x{c[1][1]}_{c[4]}")
+def test_bp_scan_path_on_views(case):
+    """``bp_scan.path`` on aligned and misaligned views, and the wrapper on
+    the view (its plain version on the CPU) equal to the plain version of
+    the view's contiguous copy."""
+    from repro_torch.kernels.bp_scan import path
+
+    dtype, shape, view, block, want = case
+    base = _t(np.random.default_rng(shape[1]).standard_normal(shape).astype(np.float32), dtype)
+    x = base[view]
+    assert path(x, block) == want
+    leaf = block or planner.plan_scan(x.shape, x.dtype)["block"]
+    assert torch.equal(bp_scan(x, block=block), bp_scan_plain(x.contiguous(), leaf))
+
+
 # -- K6: bi_transpose ------------------------------------------------------------------
 
 # (m, n, bt, morton): Morton grids, the row-major fallback (non-square and
@@ -347,13 +381,53 @@ def test_bi_fft_plain_matches_numpy(case):
 
 
 @pytest.mark.parametrize("n,n1", [(8192, 1), (8192, 8192), (16384, 2), (16384, 1)])
-def test_bi_fft_rejects_a_pass_past_the_cap(n, n1):
-    """A factor longer than the kernel's shared-memory tile raises, naming
-    the cap, in the wrapper and in the plain version alike."""
-    x = torch.zeros(1, n, dtype=torch.complex64)
-    for fn in (bi_fft, bi_fft_plain):
-        with pytest.raises(ValueError, match=f"cap of {MAX_PASS}"):
-            fn(x, n1=n1)
+def test_bi_fft_past_the_cap_matches_numpy(n, n1):
+    """A caller's split with a pass longer than the kernel's tile is the
+    same DFT at plan_fft's split: computed, not refused, and held to
+    numpy's complex128 FFT normwise 1e-5, the wrapper equal to the plain
+    version."""
+    rng = np.random.default_rng(n + n1)
+    x = (rng.standard_normal((2, n)) + 1j * rng.standard_normal((2, n))).astype(np.complex64)
+    xt = torch.from_numpy(x)
+    got = bi_fft(xt, n1=n1)
+    assert bi_fft_mod.split(n, n1) == bi_fft_mod.split(n, None)
+    assert got.dtype == torch.complex64 and got.shape == xt.shape
+    assert torch.equal(got, bi_fft_plain(xt, n1=n1))
+    want = np.fft.fft(x.astype(np.complex128), axis=-1)
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+# n = 512 with the pass cap lowered to 16: n1 = 1 and n1 = n re-plan to
+# plan_fft's 16 x 32, whose n2 = 32 is past the cap, so pass 2 recurses
+# (8 x 4 ... a bi_fft of its own) and is read out by K6's plain version
+LOW_CAP_CASES = [(3, 512, 1), (3, 512, 512), (2, 512, None)]
+
+
+@pytest.fixture(scope="module")
+def jax_low_cap_ffts():
+    out = {}
+    for rows, n, n1 in LOW_CAP_CASES:
+        rng = np.random.default_rng(rows + n)
+        x = (rng.standard_normal((rows, n)) + 1j * rng.standard_normal((rows, n)))
+        x = x.astype(np.complex64)
+        out[(rows, n, n1)] = (x, np.asarray(jax_bi_fft(jnp.asarray(x), n1=n1)))
+    return out
+
+
+@pytest.mark.parametrize("case", LOW_CAP_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_bi_fft_recursion_past_a_lowered_cap_matches_jax(jax_low_cap_ffts, monkeypatch, case):
+    """MAX_PASS is read at call time: at 16, n = 512 runs pass 1 at n1 = 16
+    and a nested bi_fft of length 32 for pass 2, equal to the plain version
+    and to the JAX bi_fft (interpret mode) at rtol 1e-5 / atol 1e-4."""
+    x, want = jax_low_cap_ffts[case]
+    monkeypatch.setattr(bi_fft_mod, "MAX_PASS", 16)
+    assert bi_fft_mod.split(case[1], case[2]) == (16, 32)
+    xt = torch.from_numpy(x)
+    got = bi_fft(xt, n1=case[2])
+    assert torch.equal(got, bi_fft_plain(xt, n1=case[2]))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+    ref128 = np.fft.fft(x.astype(np.complex128), axis=-1)
+    assert np.abs(got.numpy() - ref128).max() <= 1e-5 * np.abs(ref128).max()
 
 
 @pytest.mark.parametrize("p", range(0, 25))
@@ -394,6 +468,84 @@ def test_strassen_matches_jax(jax_strassens, case, dtype):
     assert torch.equal(got, strassen_matmul_plain(at, bt, cutoff=case[1]))
     np.testing.assert_allclose(_np(got), want, **STRASSEN_TOL[dtype])
     np.testing.assert_allclose(_np(got), _np(ref.matmul_ref(at, bt)), **STRASSEN_TOL[dtype])
+
+
+# K4's leaf table (what the fused kernel runs): n = 64 at 1, 2 and 3 levels
+LEAF_LEVELS = [1, 2, 3]
+
+
+@pytest.fixture(scope="module")
+def jax_leaf_refs():
+    rng = np.random.default_rng(64)
+    a, b = (rng.standard_normal((64, 64)).astype(np.float32) for _ in "ab")
+    return a, b, {lv: _np(jax_strassen(_j(a), _j(b), cutoff=64 >> lv)) for lv in LEAF_LEVELS}
+
+
+@pytest.mark.parametrize("levels", LEAF_LEVELS)
+def test_strassen_leaf_plan_matches_jax(jax_leaf_refs, levels):
+    """The fused kernel's leaf table, evaluated in torch in the kernel's
+    order (``leaf_plan_plain``), against JAX's strassen_matmul within
+    STRASSEN_TOL and against the plain recursion normwise 1e-5 (the
+    products are added into C in another order; one level is the same
+    order, so the same bits); operands read as transposed views give the
+    same bits."""
+    from repro_torch.kernels.strassen_matmul import leaf_plan_plain
+
+    a, b, want = jax_leaf_refs
+    at, bt = _t(a), _t(b)
+    got = leaf_plan_plain(at, bt, levels)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(_np(got), want[levels], **STRASSEN_TOL["float32"])
+    plain = strassen_matmul_plain(at, bt, cutoff=64 >> levels)
+    assert (got - plain).abs().max() <= 1e-5 * plain.abs().max()
+    if levels == 1:
+        assert torch.equal(got, plain)
+    views = leaf_plan_plain(at.T.contiguous().T, bt.T.contiguous().T, levels)
+    assert torch.equal(views, got)
+
+
+@pytest.mark.parametrize("levels", LEAF_LEVELS)
+def test_strassen_leaf_plan_structure(levels):
+    """7^levels leaves, 2^levels terms at most per operand, 12^levels
+    target writes (144 at two levels), and each of the 4^levels C
+    sub-blocks written first by exactly one leaf, the earliest to touch
+    it; the offsets follow the strides (a transposed view swaps them)."""
+    from repro_torch.kernels.strassen_matmul import leaf_plan
+
+    n, e = 64, 64 >> levels
+    plan = leaf_plan(n, levels, (n, 1), (n, 1), (n, 1))
+    assert len(plan) == 7 ** levels
+    assert sum(len(ct) for _, _, ct in plan) == 12 ** levels
+    assert all(len(t) in (1, 2, 4, 8) and len(t) <= 2 ** levels
+               for at, bt, _ in plan for t in (at, bt))
+    firsts = [o for _, _, ct in plan for o, _, f in ct if f]
+    assert sorted(firsts) == sorted(r * e * n + c * e for r in range(2 ** levels)
+                                    for c in range(2 ** levels))
+    seen = set()
+    for _, _, ct in plan:
+        for o, s, f in ct:
+            assert f == (o not in seen) and s in (1, -1)
+            seen.add(o)
+    tplan = leaf_plan(n, levels, (1, n), (n, 1), (n, 1))
+    for (at, _, _), (tt, _, _) in zip(plan, tplan):
+        assert [(o // n + (o % n) * n, s) for o, s in at] == list(tt)
+
+
+def test_strassen_packed_table_matches_the_plan():
+    """The 160-byte records the kernel reads hold the plan's offsets, signs,
+    counts and first-writer bits; unused term slots have sign +1."""
+    sm_mod = importlib.import_module("repro_torch.kernels.strassen_matmul")
+    plan = sm_mod.leaf_plan(256, 2, (1, 256), (256, 1), (256, 1))
+    rec = sm_mod._table(plan, torch.device("cpu")).numpy().view(sm_mod._LEAF)
+    assert rec.dtype.itemsize == 160 and len(rec) == 49
+    for r, (at, bt, ct) in zip(rec, plan):
+        assert (r["na"], r["nb"], r["nc"]) == (len(at), len(bt), len(ct))
+        for key, terms in (("a", at), ("b", bt)):
+            assert list(r[key][:len(terms)]) == [o for o, _ in terms]
+            assert list(r["s" + key]) == [s for _, s in terms] + [1.0] * (4 - len(terms))
+        assert list(r["c"][:len(ct)]) == [o for o, _, _ in ct]
+        assert list(r["sc"][:len(ct)]) == [s for _, s, _ in ct]
+        assert r["first"] == sum(1 << i for i, (_, _, f) in enumerate(ct) if f)
 
 
 # (m, k, n, backend, cutoff)
