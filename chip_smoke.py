@@ -10,14 +10,19 @@ Phases, each of which fails the run (exit code 1, no result line):
    stores of each tensor-core kernel (the attention kernels' mma instances,
    K1q's among them, and K2's wgmma and stream instances), of K6's vector
    kernels, of K7's FFT kernels, of K4's fused Strassen kernels and of K5's
-   scan kernels (any spill in these fails the run) and of K2's other kernels, and the tensor-core instructions (HMMA, HGMMA) in each
+   scan kernels (any spill in these fails the run; K2's kernels carry its
+   batched products too) and of K2's other kernels, and the tensor-core
+   instructions (HMMA, HGMMA) in each
    library's SASS (``cuobjdump -sass``; the attention libraries must have
    some, each of K1q's four tensor-core kernels HMMA, and K2's HGMMA), and
    the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    serving path's shapes, within the tolerances printed beside each case.
 3. Serve the ``qwen3-1.7b`` smoke config at f32 with one set of parameters
-   on the card and on the CPU (plain versions): identical greedy tokens.
+   on the card and on the CPU (plain versions): identical greedy tokens;
+   likewise the smoke configs of ``qwen3-moe-30b-a3b``, ``olmoe-1b-7b``,
+   ``qwen2.5-14b`` and ``qwen3-32b`` through the ``Engine`` (and
+   ``qwen2.5-14b`` through the ``Server``).
 4. Serve ``qwen3-1.7b`` at full width in bf16 from a seeded init: 4
    requests, prompts of 16-64 tokens, 16 new tokens each, a 256-slot cache.
    Every kernel's launch count is set to 0 just before the run and read
@@ -76,6 +81,21 @@ Phases, each of which fails the run (exit code 1, no result line):
    and scan with its instance), the two scans against their bound; and
    prints the host microseconds of one ``dispatch`` beside a direct K2
    call.  Phases 4, 6 and 8 must launch none of K4-K7.
+11. The MoE path at full width: ``qwen3-moe-30b-a3b`` (48 layers, 128
+   experts top-8, untied head, bf16, nothing cut; 61 GB of weights drawn
+   once on the card from a CUDA generator, after the earlier phases freed
+   theirs) through the ``Engine`` with phase 8's traffic, bf16 and then
+   int8 cache, and through the lockstep ``Server.run_batch`` with phase 4's
+   traffic.  Every request completes with finite logits, and every decode
+   step launches the batched K2 144 times (3 x 48: one launch per expert
+   product), the 2-D K2 193 times and the layer's attention kernel 48
+   times.  Prints decode ms per step (wall) and on the device (CUDA graph
+   replay) beside the weights' floor, and the batched K2 timed alone per
+   decode step beside its bound, its plain version and ``torch.bmm``.
+   Then ``olmoe-1b-7b`` at full width and depth through the ``Engine`` (bf16
+   cache, the same gates), and ``qwen2.5-14b`` and ``qwen3-32b`` at full
+   width with 2 layers through the ``Server`` (finite logits, their launch
+   counts).
 
 Phase 2 also holds K1 and K2 at phase 6's shapes (512 token rows: every
 forward product, the logits, every ``g Wᵀ``), K3 and K2's transposed-A
@@ -87,7 +107,10 @@ two K3 calls on the same inputs (bit-identical), a bf16 ``q`` whose head
 stride is not a whole number of 16-byte steps (K1 and K3 must raise), and
 K1q at phase 8's decode and continuation-chunk shapes (bf16 ``q`` on the
 tensor cores, f32 ``q`` on the FMA template; an int8 cache whose head
-stride is no whole 16-byte step must raise); phase 3 also takes
+stride is no whole 16-byte step must raise), the batched K2 at phase 11's
+expert products (one launch each) in bf16 and f32, and K1 and K1q at the
+GQA ratios of the other dense-family configs (32/4, 64/8, 40/8, 16/16
+heads); phase 3 also takes
 one f32 training step of the smoke config on the card and on the CPU from
 the same parameters and compares the loss, every gradient and the updated
 parameters, and serves
@@ -99,6 +122,7 @@ The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or
 of the ``repro`` package.
 """
+import gc
 import json
 import math
 import re
@@ -119,6 +143,11 @@ BATCH, MAX_NEW, MAX_LEN = 4, 16, 256
 # phase 8: the engine at full width
 SLOTS, ENGINE_LEN, CHUNK, ENGINE_REQUESTS = 8, 512, 64, 16
 INT8 = dict(impl={"attention": "pallas"}, variants={"attention": {"kv_dtype": "int8"}})
+# the rest of the dense family (phases 2, 3 and 11): two MoE configs, QKV
+# bias, untied output heads, GQA ratios 8, 16/16 and 5
+MOE_ARCH, OLMOE_ARCH = "qwen3-moe-30b-a3b", "olmoe-1b-7b"
+FAMILY_ARCHS = (MOE_ARCH, OLMOE_ARCH, "qwen2.5-14b", "qwen3-32b")
+WIDE_LAYERS, WIDE_NEW = 2, 4  # qwen2.5-14b and qwen3-32b at full width, 2 layers
 FAULT_PLAN = "decode@3=raise,slot@1=nan_logits"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 128, 3  # the JAX trainer's CLI defaults
 # card vs CPU at f32: loss, gradients (as the CPU tests hold the port to
@@ -233,6 +262,271 @@ def sass_counts(lib):
     return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ops}, per_kernel
 
 
+def device_breakdown(torch, fn, top=8):
+    """The device operations of one call of ``fn`` in a ``torch.profiler``
+    trace: K2's and the attention kernels' share (ours, by kernel name) and
+    the rest (PyTorch's kernels, copies and sets) with its ``top`` costliest
+    names; ``None`` when the trace shows no device operation."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        return None
+    own = re.compile(r"\b(mm_\w+_kernel|splitk_reduce|flash_\w+_kernel)\b")
+    by_name, ours = {}, {}
+    for e in events:
+        hit = own.search(e.name)
+        key = hit.group(1) if hit else e.name[:60]
+        table = ours if hit else by_name
+        n, us = table.get(key, (0, 0.0))
+        table[key] = (n + 1, us + e.time_range.elapsed_us())
+    rest = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    return dict(n=len(events), ours=ours, ours_ms=sum(us for _, us in ours.values()) / 1e3,
+                rest_n=sum(n for n, _ in by_name.values()),
+                rest_ms=sum(us for _, us in by_name.values()) / 1e3, top=rest[:top])
+
+
+def engine_moe_run(torch, engine, workload, label, cache_kind, counts, reset_counts, trace,
+                   per_step_want, smi, profile=False):
+    """Serve ``workload`` through ``engine`` (phase 11) with the ``cache_kind``
+    cache: every request complete with finite logits and each decode step
+    launching ``per_step_want``; prints the walls and one decode step's
+    device time (and with ``profile`` its device operations by kind).
+    Returns the run's launches, the device and the wall ms per step."""
+    from repro_torch.kernels import policy
+    from repro_torch.launch.serve import Request
+
+    trace.update(decode=[], prefill=[], pos=[],
+                 finite=torch.ones((), dtype=torch.bool, device=engine.device))
+    reqs = [Request(i, p, max_new=m) for i, (p, m) in enumerate(workload)]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with policy.apply(**(INT8 if cache_kind == "int8" else {})):
+        out = engine.run(reqs)
+    run_launches = counts()
+    steps, chunks = out["decode_steps"], out["prefill_chunks"]
+    per_step = trace["decode"]
+    wall_ms = 1e3 * out["decode_s"] / max(steps, 1)
+    print(f"    {label}, {cache_kind} cache ({engine.cache.k.dtype}): completed "
+          f"{len(out['completed'])}/{len(reqs)}; logits finite {bool(trace['finite'])}; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    print(f"    decode {wall_ms:.3f} ms/step over {steps} steps (host wall); prefill "
+          f"{1e3 * out['prefill_s'] / max(chunks, 1):.3f} ms/chunk over {chunks} chunk "
+          f"launches; {out['tok_per_s']:.1f} tok/s ({out['tokens']} tokens in "
+          f"{out['wall_s']:.3f} s)")
+    print(f"    launches in the run {run_launches}; per decode step "
+          f"{sorted({tuple(sorted(c.items())) for c in per_step})}")
+    check(all(len(r.out) == r.max_new for r in reqs) and len(out["completed"]) == len(reqs),
+          f"{label} {cache_kind}: requests not completed: {out['completed']}")
+    tel = out["telemetry"]
+    check(bool(trace["finite"]) and tel["slots_poisoned"] == 0 and tel["retries"] == 0,
+          f"{label} {cache_kind}: non-finite logits or a failed launch ({tel})")
+    check(steps == len(per_step) > 0, f"{label}: {steps} decode steps, {len(per_step)} traced")
+    for c in per_step:
+        check(all(c[k] == n for k, n in per_step_want.items()),
+              f"{label} {cache_kind} decode step launched {c}; expected {per_step_want}")
+    mid_pos = trace["pos"][len(trace["pos"]) // 2]
+    tok = torch.zeros((engine.max_batch, 1), dtype=torch.int32, device=engine.device)
+    dev_ms = time_ms(torch, lambda: type(engine.model).decode_step(
+        engine.model, tok, mid_pos, engine.cache), [()], reps=2)
+    print(f"    decode step on the device (CUDA graph replay, halfway lanes "
+          f"{mid_pos.tolist()}): {dev_ms:.4f} ms; device busy {100 * dev_ms / wall_ms:.1f}% of "
+          f"the {wall_ms:.3f} ms wall per step ({smi})")
+    if profile:
+        bd = device_breakdown(torch, lambda: type(engine.model).decode_step(
+            engine.model, tok, mid_pos, engine.cache))
+        if bd is None:
+            print("    profiler trace of one decode step: no device operations seen "
+                  "(not measured)")
+        else:
+            print(f"    profiler trace of one decode step: {bd['n']} device operations; ours "
+                  f"{sum(n for n, _ in bd['ours'].values())} in {bd['ours_ms']:.4f} ms "
+                  f"({ {k: (n, round(us / 1e3, 4)) for k, (n, us) in bd['ours'].items()} }); "
+                  f"PyTorch's {bd['rest_n']} in {bd['rest_ms']:.4f} ms, the costliest (count, "
+                  f"ms): { {k: (n, round(us / 1e3, 4)) for k, (n, us) in bd['top']} }")
+    return run_launches, dev_ms, wall_ms
+
+
+def phase_11(torch, np, dev, g, smi, workload, prompts, counts, reset_counts, trace, counted,
+             finite_logits, registry_kernels):
+    """The MoE path at full width (phase 11): ``qwen3-moe-30b-a3b`` (48 layers,
+    128 experts top-8, untied head, bf16, nothing cut) built once on the card
+    from a CUDA generator, served through the Engine (bf16, then int8 cache)
+    and the lockstep Server; the batched K2 timed alone per decode step;
+    ``olmoe-1b-7b`` at full width and depth through the Engine;
+    ``qwen2.5-14b`` and ``qwen3-32b`` at full width with 2 layers through the
+    Server.  Returns the batched K2's entry for the kernels line."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels.hbp_matmul import hbp_matmul, matmul_ref
+    from repro_torch.kernels.hbp_matmul import path as mm_path
+    from repro_torch.launch.engine import Engine
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models.moe_layer import gapped_capacity
+
+    cfg = get_config(MOE_ARCH)
+    L, d, E, f = cfg.n_layers, cfg.d_model, cfg.n_experts, cfg.expert_d_ff
+    print(f"[11] {MOE_ARCH} at full width and depth, bf16 ({L} layers, d={d}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd={cfg.head_dim_}, {E} experts top-"
+          f"{cfg.experts_per_token}, expert d_ff={f}, vocab={cfg.vocab_size}, untied head; "
+          f"{cfg.param_count() / 1e9:.3f}e9 parameters) ({smi})")
+    print(f"    memory held before the build: {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = Engine(cfg, device="cuda", max_batch=SLOTS, max_len=ENGINE_LEN, chunk=CHUNK)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in engine.model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in engine.model.parameters())
+    print(f"    weights built on the card from a CUDA generator in "
+          f"{time.perf_counter() - t0:.2f} s: {n_params / 1e9:.3f}e9 values, "
+          f"{w_bytes / 1e9:.2f} GB; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    check(n_params == cfg.param_count(), f"{n_params} parameters, param_count "
+          f"{cfg.param_count()}")
+    engine._decode_rows = counted("decode", engine._decode_rows)
+    engine._chunk_first = counted("prefill", engine._chunk_first)
+    engine._chunk_cont = counted("prefill", engine._chunk_cont)
+    engine.model.decode_step = finite_logits(engine.model.decode_step)
+    engine.model.prefill_chunk = finite_logits(engine.model.prefill_chunk)
+    # the bytes one decode step must read: every weight but the input
+    # embedding (one row a token) once
+    step_bytes = w_bytes - engine.model.embed.numel() * 2
+    expert_bytes = sum(getattr(lyr, n).numel() * 2 for lyr in engine.model.layers
+                       for n in ("e_gate", "e_up", "e_down"))
+    floor_ms = 1e3 * step_bytes / HBM_BYTES_PER_S
+    print(f"    {len(workload)} requests, {SLOTS} slots, {ENGINE_LEN} positions, chunk {CHUNK}; "
+          f"a decode step reads {step_bytes / 1e9:.2f} GB of weights ({expert_bytes / 1e9:.2f} "
+          f"GB of experts): >= {floor_ms:.2f} ms at 3.35 TB/s")
+    zero = {k: 0 for k in registry_kernels}
+    walls = {}
+    for cache_kind, attn, other in (("bf16", "flash_attention", "flash_attention_int8"),
+                                    ("int8", "flash_attention_int8", "flash_attention")):
+        want = {"hbp_matmul_batched": 3 * L, "hbp_matmul": 4 * L + 1, attn: L, other: 0,
+                "flash_attention_bwd": 0, **zero}
+        launches, dev_ms, wall_ms = engine_moe_run(
+            torch, engine, workload, MOE_ARCH, cache_kind, counts, reset_counts, trace, want, smi,
+            profile=cache_kind == "bf16")
+        walls[cache_kind] = (dev_ms, wall_ms)
+        if cache_kind == "bf16":
+            moe_launches = launches["hbp_matmul_batched"]
+        print(f"    {cache_kind}: device {dev_ms:.4f} ms per decode step against the "
+              f"{floor_ms:.2f} ms floor ({100 * floor_ms / dev_ms:.1f}% of it); no per-expert "
+              f"K2 launch: {3 * L} batched and {4 * L + 1} 2-D K2 launches a step")
+
+    # the lockstep Server's path (Server.run_batch, which the Engine inherits)
+    # over the same model: phase 4's traffic, into a 512-slot cache
+    reqs = [Request(i, p, max_new=MAX_NEW) for i, p in enumerate(prompts)]
+    reset_counts()
+    out = Server.run_batch(engine, reqs)
+    launches = counts()
+    steps = out["decode_steps"]
+    print(f"    lockstep Server (phase 4's traffic: {BATCH} prompts of {[len(p) for p in prompts]} "
+          f"tokens, {MAX_NEW} new): completed {out['completed']}; logits finite "
+          f"{out['logits_finite']}; prefill {1e3 * out['prefill_s']:.3f} ms; decode "
+          f"{1e3 * out['decode_s'] / max(steps, 1):.3f} ms/step over {steps} steps; launches "
+          f"{launches}")
+    check(all(len(r.out) == MAX_NEW for r in reqs) and out["logits_finite"],
+          f"{MOE_ARCH} lockstep: {out['completed']}, finite {out['logits_finite']}")
+    check(launches["hbp_matmul_batched"] == 3 * L * (1 + steps)
+          and launches["hbp_matmul"] == (4 * L + 1) * (1 + steps),
+          f"{MOE_ARCH} lockstep launches {launches} over a prefill and {steps} steps")
+
+    # the batched K2 alone at the decode step's products, each layer's own
+    # experts (403 MB a product, past the L2), beside its bound, its plain
+    # version and torch.bmm over the same slabs
+    cap = gapped_capacity(SLOTS, E, cfg.experts_per_token, cfg.capacity_factor)
+    bf = torch.bfloat16
+    layers = engine.model.layers
+    shapes = (("gate/up", d, "e_gate", 2), ("down", f, "e_down", 1))
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes=0, ops=0)
+    for name, k_in, weight, per_layer in shapes:
+        sets = [(torch.randn(E, cap, k_in, device=dev, generator=g).to(bf),
+                 getattr(lyr, weight)) for lyr in layers]
+        n_out = sets[0][1].shape[-1]
+        t_k = time_ms(torch, hbp_matmul, sets, reps=3)
+        t_p = time_ms(torch, matmul_ref, sets, reps=1)
+        t_l = time_ms(torch, torch.bmm, sets, reps=3)
+        nbytes = (E * cap * k_in + E * k_in * n_out + E * cap * n_out) * 2
+        ops = 2 * E * cap * k_in * n_out
+        b_ms, b_by = bound_ms(nbytes, ops, "bfloat16")
+        calls = per_layer * L
+        for key, v in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l), ("bound_ms", b_ms),
+                       ("bytes", nbytes), ("ops", ops)):
+            tot[key] += calls * v
+        print(f"    batched K2 {name} ({E}x{cap}x{k_in} @ {E}x{k_in}x{n_out}, "
+              f"{mm_path(*sets[0])}): {t_k:.4f} ms a call (bound {b_ms:.4f} by {b_by}, "
+              f"{100 * b_ms / t_k:.1f}% of it); plain {t_p:.4f}; torch.bmm {t_l:.4f}; "
+              f"{calls} calls a decode step")
+        del sets
+    print(f"    batched K2 per decode step ({3 * L} launches): {tot['ms']:.4f} ms against its "
+          f"{tot['bound_ms']:.4f} ms bound ({100 * tot['bound_ms'] / tot['ms']:.1f}%); plain "
+          f"{tot['plain_ms']:.4f}; torch.bmm {tot['library_ms']:.4f} ({smi})")
+    print(f"    of the bf16 engine's {walls['bf16'][0]:.4f} ms device step: batched K2 "
+          f"{tot['ms']:.4f} ms (timed alone), the rest {walls['bf16'][0] - tot['ms']:.4f} ms")
+    del engine, layers
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # olmoe-1b-7b at full width and depth through the engine (bf16 cache)
+    ocfg = get_config(OLMOE_ARCH)
+    orng = np.random.default_rng(0)
+    oload = [(orng.integers(3, ocfg.vocab_size, int(orng.integers(16, 193))).astype(np.int32),
+              int(orng.integers(8, 49))) for _ in range(ENGINE_REQUESTS)]
+    t0 = time.perf_counter()
+    engine = Engine(ocfg, device="cuda", max_batch=SLOTS, max_len=ENGINE_LEN, chunk=CHUNK)
+    torch.cuda.synchronize()
+    o_bytes = sum(p.numel() * p.element_size() for p in engine.model.parameters())
+    o_experts = sum(getattr(lyr, n).numel() * 2 for lyr in engine.model.layers
+                    for n in ("e_gate", "e_up", "e_down"))
+    OL = ocfg.n_layers
+    print(f"[11] {OLMOE_ARCH} at full width and depth, bf16 ({OL} layers, d={ocfg.d_model}, "
+          f"{ocfg.n_heads}/{ocfg.n_kv_heads} heads, {ocfg.n_experts} experts top-"
+          f"{ocfg.experts_per_token}): {o_bytes / 1e9:.2f} GB built in "
+          f"{time.perf_counter() - t0:.2f} s; experts {o_experts / 1e9:.2f} GB a decode step: "
+          f">= {1e3 * o_experts / HBM_BYTES_PER_S:.2f} ms ({smi})")
+    engine._decode_rows = counted("decode", engine._decode_rows)
+    engine._chunk_first = counted("prefill", engine._chunk_first)
+    engine._chunk_cont = counted("prefill", engine._chunk_cont)
+    engine.model.decode_step = finite_logits(engine.model.decode_step)
+    engine.model.prefill_chunk = finite_logits(engine.model.prefill_chunk)
+    want = {"hbp_matmul_batched": 3 * OL, "hbp_matmul": 4 * OL + 1, "flash_attention": OL,
+            "flash_attention_int8": 0, "flash_attention_bwd": 0, **zero}
+    engine_moe_run(torch, engine, oload, OLMOE_ARCH, "bf16", counts, reset_counts, trace,
+                   want, smi, profile=True)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # qwen2.5-14b (QKV bias, GQA 40/8) and qwen3-32b (GQA 64/8) at full width,
+    # 2 layers, through the lockstep Server
+    for arch in ("qwen2.5-14b", "qwen3-32b"):
+        wcfg = reduced(get_config(arch), n_layers=WIDE_LAYERS)
+        wrng = np.random.default_rng(0)
+        wreqs = [Request(i, wrng.integers(3, wcfg.vocab_size, int(n)).astype(np.int32),
+                         max_new=WIDE_NEW) for i, n in enumerate(wrng.integers(16, 65, BATCH))]
+        srv = Server(wcfg, device="cuda", max_batch=BATCH, max_len=MAX_LEN)
+        reset_counts()
+        out = srv.run_batch(wreqs)
+        launches = counts()
+        steps = out["decode_steps"]
+        per = {"hbp_matmul": 7 * WIDE_LAYERS + 1, "flash_attention": WIDE_LAYERS,
+               "hbp_matmul_batched": 0}
+        print(f"[11] {arch} at full width, {WIDE_LAYERS} of {get_config(arch).n_layers} layers "
+              f"(d={wcfg.d_model}, {wcfg.n_heads}/{wcfg.n_kv_heads} heads, d_ff={wcfg.d_ff}, "
+              f"vocab={wcfg.vocab_size}, qkv_bias {wcfg.qkv_bias}, untied head) through the "
+              f"Server: completed {out['completed']}; logits finite {out['logits_finite']}; "
+              f"decode {1e3 * out['decode_s'] / max(steps, 1):.3f} ms/step over {steps} steps; "
+              f"launches {launches} ({smi})")
+        check(all(len(r.out) == WIDE_NEW for r in wreqs) and out["logits_finite"],
+              f"{arch}: {out['completed']}, finite {out['logits_finite']}")
+        check(all(launches[k] == n * (1 + steps) for k, n in per.items()),
+              f"{arch}: launches {launches} over a prefill and {steps} steps, expected {per} each")
+        del srv
+        gc.collect()
+        torch.cuda.empty_cache()
+    return dict(launches=moe_launches, **tot)
+
+
 def main():
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch is not beside this script", file=sys.stderr)
@@ -293,9 +587,16 @@ def main():
     def reset_counts():
         for k in kernels.values():
             k.launches = 0
+        hbp_matmul.batched_launches = 0
 
     def counts():
-        return {name: k.launches for name, k in kernels.items()}
+        """Launches per kernel since the last reset; K2's split in two:
+        ``hbp_matmul`` its 2-D products, ``hbp_matmul_batched`` its batched
+        ones (one launch for all the experts of a product)."""
+        c = {name: k.launches for name, k in kernels.items()}
+        c["hbp_matmul_batched"] = hbp_matmul.batched_launches
+        c["hbp_matmul"] -= c["hbp_matmul_batched"]
+        return c
 
     # -- 1. build ------------------------------------------------------------
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -347,7 +648,7 @@ def main():
                "wo": (cfg.q_dim, d), "w_gate": (d, ff), "w_up": (d, ff), "w_down": (ff, d)}
     tol = {"bfloat16": (1e-2, 2 ** -7), "float32": (1e-4, 1e-4)}  # (atol, rtol)
     g = torch.Generator(device=dev).manual_seed(0)
-    max_err = {name: 0.0 for name in kernels}
+    max_err = {name: 0.0 for name in (*kernels, "hbp_matmul_batched")}
     failures = []
 
     def compare(kernel, label, got, want, dtype, atol=None, rtol=None):
@@ -552,8 +853,8 @@ def main():
     print(f"[2] K1q vs its plain version ({SLOTS} slots, an int8 cache of "
           f"{ENGINE_LEN} positions, phase 8's decode and {CHUNK}-token chunks)")
 
-    def int8_cache(b):
-        fp = [torch.randn(b, ENGINE_LEN, kvh, hd, device=dev, generator=g) for _ in "kv"]
+    def int8_cache(b, kv_heads=kvh):
+        fp = [torch.randn(b, ENGINE_LEN, kv_heads, hd, device=dev, generator=g) for _ in "kv"]
         scales = [kv_scale(x) for x in fp]
         return [quantize_kv(x, sc) for x, sc in zip(fp, scales)] + scales
 
@@ -595,6 +896,59 @@ def main():
         print(f"    {'flash_attention_int8':19s} int8 cache with head stride {wide8.stride(2)} "
               f"raises: {e}")
     del k8, v8, wide8
+
+    # the batched K2: the MoE experts' products, every expert's slab in one
+    # launch, at phase 11's shapes (qwen3-moe-30b-a3b's 8-row decode slabs and
+    # its 512-row chunk's 40-row slabs, olmoe-1b-7b's 80-row chunk slabs) and
+    # at slab and row counts that match no tile
+    batched_cases = [  # (label, slabs, rows, k, n)
+        (f"{MOE_ARCH} decode gate/up", 128, 8, 2048, 768),
+        (f"{MOE_ARCH} decode down", 128, 8, 768, 2048),
+        (f"{MOE_ARCH} 512-row chunk gate/up", 128, 40, 2048, 768),
+        (f"{MOE_ARCH} 512-row chunk down", 128, 40, 768, 2048),
+        (f"{OLMOE_ARCH} 512-row chunk gate/up", 64, 80, 2048, 1024),
+        ("ragged slabs", 3, 13, 72, 104), ("ragged slabs", 5, 37, 136, 72),
+        ("ragged slabs, b's pitch 100", 3, 13, 72, 100)]
+    print("[2] batched K2 vs its plain version (C[e] = A[e] @ B[e], one launch)")
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for label, e, m, k, n in batched_cases:
+            a = torch.randn(e, m, k, device=dev, generator=g).to(dt)
+            b = (torch.randn(e, k, n, device=dev, generator=g) / math.sqrt(k)).to(dt)
+            before = (hbp_matmul.launches, hbp_matmul.batched_launches)
+            got = hbp_matmul(a, b)
+            if (hbp_matmul.launches - before[0], hbp_matmul.batched_launches - before[1]) != (1, 1):
+                failures.append(f"hbp_matmul_batched {label}: not one batched launch")
+            compare("hbp_matmul_batched", f"{dtype} {label} ({e}x{m}x{k} @ {e}x{k}x{n}) "
+                    f"{mm_path(a, b)}", got, matmul_ref(a, b), dtype)
+            del a, b, got
+
+    # K1 and K1q at the dense family's other GQA ratios (query / KV heads:
+    # 32/4, 64/8, 40/8, 16/16), at phase 8's decode lanes and continuation
+    # chunks, hd 128
+    ratios = sorted({(get_config(a).n_heads, get_config(a).n_kv_heads) for a in FAMILY_ARCHS})
+    print(f"[2] K1 and K1q at the GQA ratios of {', '.join(FAMILY_ARCHS)}: heads {ratios}, "
+          f"{SLOTS} slots, caches of {ENGINE_LEN}")
+    for h_, kvh_ in ratios:
+        k8, v8, ks, vs = int8_cache(SLOTS, kvh_)
+        kf = [torch.randn(SLOTS, ENGINE_LEN, kvh_, hd, device=dev, generator=g) for _ in "kv"]
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            kb, vb = (x.to(dt) for x in kf)
+            for label, sq, _, qo, kl, _ in q8_cases[:2]:
+                q = torch.randn(SLOTS, sq, h_, hd, device=dev, generator=g).to(dt)
+                kw = dict(causal=True, q_offset=lane(qo), kv_len=lane(kl))
+                tag = f"{dtype} {h_}/{kvh_} heads {fwd_path(q)} {label}"
+                out, lse = flash_attention(q, kb, vb, **kw)
+                r_out, r_lse = flash_attention_ref(q, kb, vb, **kw)
+                compare("flash_attention", f"{tag} out", out, r_out, dtype,
+                        *((1e-5, 0.0) if dtype == "float32" else (None, None)))
+                compare("flash_attention", f"{tag} lse", lse, r_lse, dtype, 1e-4, 1e-5)
+                out, lse = flash_attention_int8(q, k8, v8, ks, vs, **kw)
+                r_out, r_lse = flash_attention_ref(q, k8, v8, k_scale=ks, v_scale=vs, **kw)
+                compare("flash_attention_int8", f"{tag} out", out, r_out, dtype)
+                compare("flash_attention_int8", f"{tag} lse", lse, r_lse, dtype, 1e-4, 1e-5)
+        del k8, v8, kf, kb, vb
     torch.cuda.synchronize()
     check(not failures, f"kernels disagree with their plain versions: {failures}")
 
@@ -700,6 +1054,37 @@ def main():
         check(ok and faults["retries"] == 1 and faults["slots_poisoned"] == 1,
               f"smoke engine ({cache_kind} cache): tokens {got}, lockstep parity {lockstep}, "
               f"faults {faults}")
+
+    # the rest of the dense family's smoke configs at f32: one set of
+    # parameters, card == CPU tokens through the Engine (the MoE configs'
+    # expert products on the batched fma instance), and through the lockstep
+    # Server for qwen2.5-14b (QKV bias, untied head)
+    for arch in FAMILY_ARCHS:
+        fam = reduced(get_smoke_config(arch), dtype="float32")
+        fam_model = build_model(fam, device="cpu")
+        fam_model.init(torch.Generator().manual_seed(0))
+        fam_params = fam_model.state_dict()
+        got = {}
+        for where in ("cuda", "cpu"):
+            eng = Engine(fam, device=where, params=fam_params, max_batch=3, max_len=64,
+                         chunk=8)
+            reqs = smoke_requests(6)
+            eng.run(reqs)
+            got[where] = [r.out for r in reqs]
+            if arch == "qwen2.5-14b":
+                srv = Server(fam, device=where, params=fam_params, max_batch=BATCH, max_len=64)
+                reqs = [Request(i, p, max_new=12) for i, p in enumerate(small_prompts)]
+                srv.run_batch(reqs)
+                got[f"{where} lockstep"] = [r.out for r in reqs]
+        ok = all(got[key] == got[key.replace("cuda", "cpu")] for key in got if "cuda" in key)
+        print(f"[3] smoke f32 {arch} ({fam.n_experts or 'no'} experts, qkv_bias "
+              f"{fam.qkv_bias}, untied head): cuda == cpu through the Engine "
+              f"{got['cuda'] == got['cpu']}"
+              + (f", through the Server {got['cuda lockstep'] == got['cpu lockstep']}"
+                 if "cuda lockstep" in got else "")
+              + f" ({sum(map(len, got['cuda']))} tokens) {'ok' if ok else 'FAIL'}")
+        check(ok, f"smoke {arch}: card and CPU tokens differ: {got}")
+    del fam_model, fam_params, eng
 
     # -- 4. full width ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -985,28 +1370,16 @@ def main():
           f"device busy {100 * train_step_ms / wall_train_ms:.1f}% of the wall time")
     # what the device ran in one step, by the profiler's trace: every kernel,
     # copy and set, ours and PyTorch's
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        train_step(opt_state, batch)
-        torch.cuda.synchronize()
-    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    own = re.compile(r"\b(mm_wgmma_kernel|mm_stream_kernel|mm_wmma_kernel|mm_fma_kernel"
-                     r"|splitk_reduce|flash_fwd_kernel|flash_fwd_mma_kernel"
-                     r"|flash_bwd_dq_kernel|flash_bwd_dkv_kernel|flash_bwd_dq_mma_kernel"
-                     r"|flash_bwd_dkv_mma_kernel)\b")
-    ours = sum(1 for e in dev_events if own.search(e.name))
-    by_name = {}
-    for e in dev_events:
-        hit = own.search(e.name)
-        if hit:
-            by_name[hit.group(1)] = by_name.get(hit.group(1), 0) + 1
-    print(f"    our device operations in the trace, by kernel: {dict(sorted(by_name.items()))}")
-    print(f"    profiler trace of one step: {len(dev_events)} device operations "
-          f"({ours} of them K1, K2 (with its split-K reductions) or K3; "
-          f"{len(dev_events) - ours} PyTorch kernels, "
-          f"copies and sets), {sum(e.time_range.elapsed_us() for e in dev_events) / 1e3:.4f} ms of "
-          f"device time in them" if dev_events else
-          "    profiler trace of one step: no device operations seen (not measured)")
+    bd = device_breakdown(torch, lambda: train_step(opt_state, batch))
+    if bd is None:
+        print("    profiler trace of one step: no device operations seen (not measured)")
+    else:
+        ours = sum(n for n, _ in bd["ours"].values())
+        print(f"    our device operations in the trace, by kernel: "
+              f"{ {k: n for k, (n, _) in sorted(bd['ours'].items())} }")
+        print(f"    profiler trace of one step: {bd['n']} device operations ({ours} of them K1, "
+              f"K2 (with its split-K reductions) or K3; {bd['rest_n']} PyTorch kernels, copies "
+              f"and sets), {bd['ours_ms'] + bd['rest_ms']:.4f} ms of device time in them")
     # the optimizer alone: one AdamW update of every parameter from bf16 grads
     params = dict(model.named_parameters())
     grads = {n: torch.randn(p.shape, device=dev, generator=g).to(p.dtype) * 1e-3
@@ -1257,7 +1630,7 @@ def main():
     # passes fit the cap, and past it pass 1, the nested call and one K6
     # readout a row; the fused K4 once an f32 Strassen call of up to two
     # levels and no K2; bf16 Strassen 7^levels K2 leaves
-    want_launches = dict.fromkeys(kernels, 0)
+    want_launches = dict.fromkeys(counts(), 0)
     fft_lines = []
     for _, op, args in reg_cases:
         x = args[0]
@@ -1467,6 +1840,13 @@ def main():
           f"{us['entry']:.2f}; registry.dispatch {us['dispatch']:.2f}; the models' project "
           f"(one dispatch) {us['project']:.2f}")
 
+    # -- 11. the MoE path at full width ----------------------------------------------
+    del a_h, w_h, a_w, args, x, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = phase_11(torch, np, dev, g, smi, workload, prompts, counts, reset_counts, trace,
+                   counted, finite_logits, registry_kernels)
+
     # one entry per kernel: K1 and K2 summed over one decode step's calls
     # (their launches from phase 4's run), K3 over one training step's calls
     # (its launches from phase 6's run), K1q over one int8 engine decode
@@ -1516,6 +1896,18 @@ def main():
                          >= tot["ops"] / PEAK_OPS["float32"] else "operations"),
             "library_ms": tot["library_ms"],
         })
+    # the batched K2 over one qwen3-moe-30b-a3b decode step's 144 calls, its
+    # launches from phase 11's bf16 engine run
+    entries.append({
+        "name": "hbp_matmul_batched", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/hbp_matmul.cu",
+        "replaces": "src/repro/kernels/hbp_matmul.py:33", "launches": moe["launches"],
+        "max_abs_err": max_err["hbp_matmul_batched"], "ms": moe["ms"],
+        "plain_ms": moe["plain_ms"], "bound_ms": moe["bound_ms"],
+        "bound_by": ("bytes" if moe["bytes"] / HBM_BYTES_PER_S
+                     >= moe["ops"] / PEAK_OPS["bfloat16"] else "operations"),
+        "library_ms": moe["library_ms"],
+    })
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -4,6 +4,7 @@ from repro_torch.configs.base import (
     ShapeConfig,
     get_config,
     get_smoke_config,
+    list_archs,
     reduced,
 )
 
@@ -13,5 +14,6 @@ __all__ = [
     "ShapeConfig",
     "get_config",
     "get_smoke_config",
+    "list_archs",
     "reduced",
 ]

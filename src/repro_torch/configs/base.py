@@ -3,7 +3,11 @@
 ``ModelConfig`` keeps every field of the JAX package's dataclass, with the
 same names and defaults, so that a configuration means the same on both
 sides (a test holds the two field lists equal).  ``activation_dtype`` is a
-``torch.dtype``.  Only the architectures this slice serves are registered.
+``torch.dtype``.  ``param_count`` and ``active_param_count`` are the JAX
+package's analytic counts.  Only the architectures the port serves are
+registered: the dense family (``qwen3-1.7b``, ``qwen3-32b``,
+``qwen2.5-14b``) and its MoE configs (``olmoe-1b-7b``,
+``qwen3-moe-30b-a3b``); ``list_archs`` names them.
 """
 from __future__ import annotations
 
@@ -97,6 +101,83 @@ class ModelConfig:
     def activation_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_n_heads(self) -> int:
+        return self.ssm_d_inner // self.ssm_head_dim
+
+    def param_count(self) -> int:
+        """Analytic parameter count N (JAX ``configs/base.py:131-193``)."""
+        d, ff, v = self.d_model, self.d_ff, self.vocab_size
+        hd = self.head_dim_
+        emb = v * d * (1 if self.tie_embeddings else 2)
+
+        def attn_params() -> int:
+            p = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+            if self.qkv_bias:
+                p += self.q_dim + 2 * self.kv_dim
+            if self.qk_norm:
+                p += 2 * hd
+            return p
+
+        def mlp_params(f: int) -> int:
+            return 3 * d * f  # gated (SwiGLU-style): up, gate, down
+
+        def norm_params() -> int:
+            return 2 * d
+
+        total = emb + d  # final norm
+        if self.family in ("dense", "vlm"):
+            per_layer = attn_params() + mlp_params(ff) + norm_params()
+            total += self.n_layers * per_layer
+            if self.cross_attn_every:
+                n_cross = self.n_layers // self.cross_attn_every
+                total += n_cross * (attn_params() + norm_params())
+        elif self.family == "moe":
+            per_layer = attn_params() + norm_params()
+            per_layer += d * self.n_experts  # router
+            per_layer += self.n_experts * 3 * d * self.expert_d_ff
+            total += self.n_layers * per_layer
+        elif self.family == "hybrid":
+            w = self.lru_width or d
+            n_attn = sum(1 for b in self._layer_kinds() if b == "attn")
+            n_rec = self.n_layers - n_attn
+            rec = d * w * 2 + w * self.conv1d_width + 2 * w + w * d
+            total += n_rec * (rec + norm_params()) + n_attn * (attn_params() + norm_params())
+            total += self.n_layers * mlp_params(ff)
+        elif self.family == "ssm":
+            di, ds = self.ssm_d_inner, self.ssm_state
+            nh = self.ssm_n_heads
+            per_layer = d * (2 * di + 2 * ds + nh)
+            per_layer += di * self.conv1d_width + nh + nh
+            per_layer += di * d + norm_params()
+            total += self.n_layers * per_layer
+        elif self.family == "audio":
+            per_enc = attn_params() + mlp_params(ff) + norm_params()
+            per_dec = 2 * attn_params() + mlp_params(ff) + norm_params()
+            total += self.encoder_layers * per_enc + self.n_layers * per_dec
+        return total
+
+    def active_param_count(self) -> int:
+        """Active params per token (== param_count for dense)."""
+        if self.family != "moe":
+            return self.param_count()
+        inactive = (self.n_layers * (self.n_experts - self.experts_per_token) * 3
+                    * self.d_model * self.expert_d_ff)
+        return self.param_count() - inactive
+
+    def _layer_kinds(self) -> list[str]:
+        """Per-layer kind sequence for pattern archs (hybrid)."""
+        if not self.block_pattern:
+            return ["attn"] * self.n_layers
+        kinds: list[str] = []
+        while len(kinds) < self.n_layers:
+            kinds.extend(self.block_pattern)
+        return kinds[: self.n_layers]
+
 
 _REGISTRY: dict[str, ModelConfig] = {}
 _SMOKE_REGISTRY: dict[str, ModelConfig] = {}
@@ -122,9 +203,21 @@ def get_smoke_config(name: str) -> ModelConfig:
     return _SMOKE_REGISTRY[name]
 
 
+def list_archs() -> list[str]:
+    """The architectures the port registers."""
+    _ensure_loaded()
+    return sorted(_REGISTRY)
+
+
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     return dataclasses.replace(cfg, **overrides)
 
 
 def _ensure_loaded() -> None:
-    from repro_torch.configs import qwen3_1_7b  # noqa: F401  (registers itself)
+    from repro_torch.configs import (  # noqa: F401  (each registers itself)
+        olmoe_1b_7b,
+        qwen2_5_14b,
+        qwen3_1_7b,
+        qwen3_32b,
+        qwen3_moe_30b_a3b,
+    )

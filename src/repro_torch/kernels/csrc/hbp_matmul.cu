@@ -52,6 +52,19 @@
 // order is a schedule for a sequential grid; a grouped raster gives the
 // same sharing to a parallel one with a single division.
 //
+// Batched products (the MoE experts' FFN: C[e] = A[e] @ B[e] for e < batch,
+// one launch).  Every instance takes the slab index as one more grid
+// dimension: blockIdx.z for stream, fma and wmma, one more factor of the
+// persistent wgmma grid's work units (split, slab, tile; the raster walks
+// the tiles of one slab, so its groups never straddle two).  Each operand is
+// a stack of matrices a fixed stride apart, each read in its stored layout as
+// above; the output is a contiguous (batch, M, N) stack.  wgmma reads the
+// slabs through 3-D tensor maps with boxes of depth 1, so a 40-row slab's
+// 128-row tile reads zeros past the slab, never the next slab's rows; the
+// other instances mask their loads per slab as they mask a ragged M.  Split-K
+// through the workspace is off for batched calls (stream's, summed inside
+// its cluster, stays): batch x tiles blocks fill the SMs anyway.
+//
 // Split-K (wgmma, fma, wmma) only where the output tiles cannot fill the
 // SMs (dH has 64 tiles of 128 x 128): each split writes f32 partials to a
 // workspace from the wrapper, and splitk_reduce sums the splits in a fixed
@@ -201,7 +214,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     mm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                     const __grid_constant__ CUtensorMap map_b, void* __restrict__ C,
                     float* __restrict__ ws, int M, int N, int K, int kchunk, int splits,
-                    int group, int out_f32) {
+                    int group, int batch, int out_f32) {
   using S = WgSmem<BN>;
   wait_prior_grid();
   extern __shared__ uint8_t smem_raw[];
@@ -212,7 +225,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 
   const int tiles_m = (M + WG_BM - 1) / WG_BM, tiles_n = (N + BN - 1) / BN;
   const int tiles = tiles_m * tiles_n;
-  const int units = tiles * splits;
+  const int per_split = tiles * batch;  // a split's units: every slab's tiles
+  const int units = per_split * splits;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < WG_STAGES; ++s) {
@@ -229,9 +243,17 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     if (threadIdx.x == 0) {
       int g = 0;  // stages issued so far: the ring position
       for (int u = blockIdx.x; u < units; u += gridDim.x) {
-        const Tile t = raster(u % tiles, tiles_m, tiles_n, group);
+        const int r = u % per_split, e = r / tiles;
+        const Tile t = raster(r % tiles, tiles_m, tiles_n, group);
         const int m0 = t.m * WG_BM, n0 = t.n * BN;
-        const int k_begin = (u / tiles) * kchunk;
+        const int k_begin = (u / per_split) * kchunk;
+        // a box of slab e: 3-D maps for a batch, 2-D for one product
+        auto load = [&](void* dst, const CUtensorMap* map, int s, int c0, int c1) {
+          if (batch > 1)
+            hopper::tma_load_3d(dst, map, &full[s], c0, c1, e);
+          else
+            hopper::tma_load_2d(dst, map, &full[s], c0, c1);
+        };
         const int iters = (min(K, k_begin + kchunk) - k_begin + WG_BK - 1) / WG_BK;
         for (int it = 0; it < iters; ++it, ++g) {
           const int s = g % WG_STAGES;
@@ -241,17 +263,16 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
           const int k = k_begin + it * WG_BK;
           hopper::mbar_arrive_expect_tx(&full[s], S::STAGE);
           if (A_MN) {  // two boxes of 64 M values x 64 K rows
-            hopper::tma_load_2d(a_tile, &map_a, &full[s], m0, k);
-            hopper::tma_load_2d(a_tile + BOX_BYTES, &map_a, &full[s], m0 + 64, k);
+            load(a_tile, &map_a, s, m0, k);
+            load(a_tile + BOX_BYTES, &map_a, s, m0 + 64, k);
           } else {  // one box of 64 K values x 128 M rows
-            hopper::tma_load_2d(a_tile, &map_a, &full[s], k, m0);
+            load(a_tile, &map_a, s, k, m0);
           }
           if (B_MN) {  // BN / 64 boxes of 64 N values x 64 K rows
 #pragma unroll
-            for (int j = 0; j < BN / 64; ++j)
-              hopper::tma_load_2d(b_tile + j * BOX_BYTES, &map_b, &full[s], n0 + 64 * j, k);
+            for (int j = 0; j < BN / 64; ++j) load(b_tile + j * BOX_BYTES, &map_b, s, n0 + 64 * j, k);
           } else {  // one box of 64 K values x BN N rows
-            hopper::tma_load_2d(b_tile, &map_b, &full[s], k, n0);
+            load(b_tile, &map_b, s, k, n0);
           }
         }
       }
@@ -263,10 +284,13 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     const int lt = threadIdx.x % 128;
     int g = 0;
     for (int u = blockIdx.x; u < units; u += gridDim.x) {
-      const Tile t = raster(u % tiles, tiles_m, tiles_n, group);
+      const int r = u % per_split, e = r / tiles;
+      const Tile t = raster(r % tiles, tiles_m, tiles_n, group);
       const int m0 = t.m * WG_BM, n0 = t.n * BN;
-      const int split = u / tiles;
+      const int split = u / per_split;
       const int k_begin = split * kchunk;
+      // slab e of the (batch, M, N) output
+      void* Ce = static_cast<uint8_t*>(C) + (long long)e * M * N * (out_f32 ? 4 : 2);
       const int iters = (min(K, k_begin + kchunk) - k_begin + WG_BK - 1) / WG_BK;
       float acc[BN / 2];
 #pragma unroll
@@ -306,16 +330,16 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
         float* split_ws = splits > 1 ? ws : nullptr;
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j) {
-          store_pair(C, split_ws, split, out_f32, M, N, m0 + 64 * c + r0, n0 + c0 + 8 * j,
+          store_pair(Ce, split_ws, split, out_f32, M, N, m0 + 64 * c + r0, n0 + c0 + 8 * j,
                      acc[4 * j], acc[4 * j + 1]);
-          store_pair(C, split_ws, split, out_f32, M, N, m0 + 64 * c + r0 + 8, n0 + c0 + 8 * j,
+          store_pair(Ce, split_ws, split, out_f32, M, N, m0 + 64 * c + r0 + 8, n0 + c0 + 8 * j,
                      acc[4 * j + 2], acc[4 * j + 3]);
         }
       } else {
         // bf16 out: each 64 x 64 chunk of this warpgroup's rows goes through
         // shared memory, so that every warp store writes whole 128-byte rows
         bf16* chunk = epi + c * 64 * EPI_LD;
-        bf16* out = static_cast<bf16*>(C);
+        bf16* out = static_cast<bf16*>(Ce);
 #pragma unroll
         for (int q = 0; q < BN / 64; ++q) {
           wg_sync(c);  // the previous chunk's reads are done
@@ -330,10 +354,10 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
           wg_sync(c);
 #pragma unroll
           for (int i = 0; i < 4; ++i) {  // 64 rows x 8 pieces of 16 bytes
-            const int r = 16 * i + lt / 8, piece = lt % 8;
-            const int row = m0 + 64 * c + r, col = n0 + 64 * q + 8 * piece;
+            const int rr = 16 * i + lt / 8, piece = lt % 8;
+            const int row = m0 + 64 * c + rr, col = n0 + 64 * q + 8 * piece;
             if (row >= M || col >= N) continue;
-            const bf16* src = chunk + r * EPI_LD + 8 * piece;
+            const bf16* src = chunk + rr * EPI_LD + 8 * piece;
             bf16* dst = out + (long long)row * N + col;
             if (N % 8 == 0 && col + 8 <= N) {
               *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
@@ -349,14 +373,14 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 
 template <int A_MN, int B_MN, int BN>
 int launch_wgmma(const void* a, const void* b, void* c, float* ws, int m, int n, int k,
-                 long long lda, long long ldb, int splits, int kchunk, int group, int out_f32,
-                 cudaStream_t stream) {
+                 long long lda, long long ldb, int splits, int kchunk, int group, int batch,
+                 long long sa, long long sb, int out_f32, cudaStream_t stream) {
   CUtensorMap map_a, map_b;
-  int err = A_MN ? hopper::encode_bf16_sw128(&map_a, a, k, m, lda, 64)
-                 : hopper::encode_bf16_sw128(&map_a, a, m, k, lda, WG_BM);
+  int err = A_MN ? hopper::encode_bf16_sw128(&map_a, a, k, m, lda, 64, batch, sa)
+                 : hopper::encode_bf16_sw128(&map_a, a, m, k, lda, WG_BM, batch, sa);
   if (err) return err;
-  err = B_MN ? hopper::encode_bf16_sw128(&map_b, b, k, n, ldb, 64)
-             : hopper::encode_bf16_sw128(&map_b, b, n, k, ldb, BN);
+  err = B_MN ? hopper::encode_bf16_sw128(&map_b, b, k, n, ldb, 64, batch, sb)
+             : hopper::encode_bf16_sw128(&map_b, b, n, k, ldb, BN, batch, sb);
   if (err) return err;
   // the dynamic shared memory limit, raised once per instantiation (the
   // first call runs eagerly, before any graph capture)
@@ -368,30 +392,32 @@ int launch_wgmma(const void* a, const void* b, void* c, float* ws, int m, int n,
     if (e != cudaSuccess) return static_cast<int>(e);
     limit_set = true;
   }
-  const int units = ((m + WG_BM - 1) / WG_BM) * ((n + BN - 1) / BN) * splits;
-  const int blocks = units < mma_bf16::sm_count() ? units : mma_bf16::sm_count();
+  const long long units = (long long)((m + WG_BM - 1) / WG_BM) * ((n + BN - 1) / BN) * batch *
+                          splits;
+  if (units > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = units < mma_bf16::sm_count() ? (int)units : mma_bf16::sm_count();
   return launch_dependent(mm_wgmma_kernel<A_MN, B_MN, BN>, dim3(blocks), WG_THREADS,
                           WgSmem<BN>::BYTES, 0, stream, map_a, map_b, c, ws, m, n, k, kchunk,
-                          splits, group, out_f32);
+                          splits, group, batch, out_f32);
 }
 
 template <int A_MN, int B_MN>
 int launch_wgmma_bn(int bn, const void* a, const void* b, void* c, float* ws, int m, int n,
                     int k, long long lda, long long ldb, int splits, int kchunk, int group,
-                    int out_f32, cudaStream_t stream) {
+                    int batch, long long sa, long long sb, int out_f32, cudaStream_t stream) {
   switch (bn) {
     case 64:
       return launch_wgmma<A_MN, B_MN, 64>(a, b, c, ws, m, n, k, lda, ldb, splits, kchunk,
-                                          group, out_f32, stream);
+                                          group, batch, sa, sb, out_f32, stream);
     case 128:
       return launch_wgmma<A_MN, B_MN, 128>(a, b, c, ws, m, n, k, lda, ldb, splits, kchunk,
-                                           group, out_f32, stream);
+                                           group, batch, sa, sb, out_f32, stream);
     case 192:
       return launch_wgmma<A_MN, B_MN, 192>(a, b, c, ws, m, n, k, lda, ldb, splits, kchunk,
-                                           group, out_f32, stream);
+                                           group, batch, sa, sb, out_f32, stream);
     case 256:
       return launch_wgmma<A_MN, B_MN, 256>(a, b, c, ws, m, n, k, lda, ldb, splits, kchunk,
-                                           group, out_f32, stream);
+                                           group, batch, sa, sb, out_f32, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -422,14 +448,18 @@ __device__ __forceinline__ int chunk_bytes(int valid) {
 }
 
 // B_KM: B is the view of a row-major (N, K) matrix (embed.T); else row-major
-// (K, N).  A is row-major (M, K), M <= 16.  Block (x, y): split x of the K
-// range (x is the cluster's rank), output columns 64 y .. 64 y + 63.
+// (K, N).  A is row-major (M, K), M <= 16.  Block (x, y, z): split x of the K
+// range (x is the cluster's rank), output columns 64 y .. 64 y + 63 of slab
+// z (A and B sa and sb elements on per slab).
 template <int B_KM>
 __global__ void __launch_bounds__(ST_THREADS)
     mm_stream_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
                      void* __restrict__ C, int M, int N, int K, long long lda, long long ldb,
-                     int kchunk, int out_f32) {
+                     long long sa, long long sb, int kchunk, int out_f32) {
   __shared__ __align__(128) bf16 smem[ST_STAGES * (ST_A + ST_B)];
+  A += blockIdx.z * sa;
+  B += blockIdx.z * sb;
+  C = static_cast<uint8_t*>(C) + (long long)blockIdx.z * M * N * (out_f32 ? 4 : 2);
   wait_prior_grid();
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int n0 = blockIdx.y * ST_BN;
@@ -525,10 +555,12 @@ __global__ void __launch_bounds__(ST_THREADS)
 
 template <int B_KM>
 int launch_stream(const void* a, const void* b, void* c, int m, int n, int k, long long lda,
-                  long long ldb, int splits, int kchunk, int out_f32, cudaStream_t stream) {
-  return launch_dependent(mm_stream_kernel<B_KM>, dim3(splits, (n + ST_BN - 1) / ST_BN),
+                  long long ldb, int splits, int kchunk, int batch, long long sa, long long sb,
+                  int out_f32, cudaStream_t stream) {
+  return launch_dependent(mm_stream_kernel<B_KM>, dim3(splits, (n + ST_BN - 1) / ST_BN, batch),
                           ST_THREADS, 0, splits, stream, static_cast<const bf16*>(a),
-                          static_cast<const bf16*>(b), c, m, n, k, lda, ldb, kchunk, out_f32);
+                          static_cast<const bf16*>(b), c, m, n, k, lda, ldb, sa, sb, kchunk,
+                          out_f32);
 }
 
 // -- fma: f32 ----------------------------------------------------------------------
@@ -550,9 +582,13 @@ template <bool TRANS_A, bool TRANS_B>
 __global__ void __launch_bounds__(F_THREADS, 2)
     mm_fma_kernel(const float* __restrict__ A, const float* __restrict__ B,
                   void* __restrict__ C, float* __restrict__ ws, int M, int N, int K,
-                  long long lda, long long ldb, int kchunk, int group, int out_f32) {
+                  long long lda, long long ldb, long long sa, long long sb, int kchunk,
+                  int group, int out_f32) {
   __shared__ __align__(16) float As[2][F_BK][F_LD];
   __shared__ __align__(16) float Bs[2][F_BK][F_LD];
+  A += blockIdx.z * sa;  // slab z of a batched product
+  B += blockIdx.z * sb;
+  C = static_cast<uint8_t*>(C) + (long long)blockIdx.z * M * N * (out_f32 ? 4 : 2);
   wait_prior_grid();
   const int tiles_m = (M + F_BM - 1) / F_BM, tiles_n = (N + F_BN - 1) / F_BN;
   const Tile t = raster(blockIdx.x, tiles_m, tiles_n, group);
@@ -641,12 +677,12 @@ __global__ void __launch_bounds__(F_THREADS, 2)
 
 template <bool TRANS_A, bool TRANS_B>
 int launch_fma(const void* a, const void* b, void* c, float* ws, int m, int n, int k,
-               long long lda, long long ldb, int splits, int kchunk, int group, int out_f32,
-               cudaStream_t stream) {
+               long long lda, long long ldb, int splits, int kchunk, int group, int batch,
+               long long sa, long long sb, int out_f32, cudaStream_t stream) {
   const int tiles = ((m + F_BM - 1) / F_BM) * ((n + F_BN - 1) / F_BN);
-  return launch_dependent(mm_fma_kernel<TRANS_A, TRANS_B>, dim3(tiles, splits), F_THREADS, 0, 0,
-                          stream, static_cast<const float*>(a), static_cast<const float*>(b), c,
-                          ws, m, n, k, lda, ldb, kchunk, group, out_f32);
+  return launch_dependent(mm_fma_kernel<TRANS_A, TRANS_B>, dim3(tiles, splits, batch), F_THREADS,
+                          0, 0, stream, static_cast<const float*>(a), static_cast<const float*>(b),
+                          c, ws, m, n, k, lda, ldb, sa, sb, kchunk, group, out_f32);
 }
 
 // -- wmma: bf16 operands that TMA cannot describe ---------------------------------------
@@ -683,13 +719,16 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long 
 }
 
 // One (BM x 64) output tile over the K range of split blockIdx.y, blockIdx.x
-// walking N, then M.
+// walking N, then M, of slab blockIdx.z.
 template <bool TRANS_A, bool TRANS_B, int BM>
 __global__ void __launch_bounds__(WM_THREADS)
     mm_wmma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
                    void* __restrict__ C, float* __restrict__ ws, int M, int N, int K,
-                   long long lda, long long ldb, int kchunk, bool vec_a, bool vec_b,
-                   int out_f32) {
+                   long long lda, long long ldb, long long sa, long long sb, int kchunk,
+                   bool vec_a, bool vec_b, int out_f32) {
+  A += blockIdx.z * sa;
+  B += blockIdx.z * sb;
+  C = static_cast<uint8_t*>(C) + (long long)blockIdx.z * M * N * (out_f32 ? 4 : 2);
   constexpr int PAD = 8;
   constexpr int LDA = TRANS_A ? BM + PAD : WM_BK + PAD;  // As: [BK][LDA] or [BM][LDA]
   constexpr int LDB = TRANS_B ? WM_BK + PAD : WM_BN + PAD;  // Bs: [BN][LDB] or [BK][LDB]
@@ -777,26 +816,27 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 
 template <bool TRANS_A, bool TRANS_B, int BM>
 int launch_wmma(const void* a, const void* b, void* c, float* ws, int m, int n, int k,
-                long long lda, long long ldb, int splits, int kchunk, int out_f32,
-                cudaStream_t stream) {
-  const bool vec_a = lda % 8 == 0 && aligned16(a);
-  const bool vec_b = ldb % 8 == 0 && aligned16(b);
-  const dim3 grid(((n + WM_BN - 1) / WM_BN) * ((m + BM - 1) / BM), splits);
+                long long lda, long long ldb, int splits, int kchunk, int batch, long long sa,
+                long long sb, int out_f32, cudaStream_t stream) {
+  // 16-byte loads need every slab's rows on 16-byte steps too
+  const bool vec_a = lda % 8 == 0 && sa % 8 == 0 && aligned16(a);
+  const bool vec_b = ldb % 8 == 0 && sb % 8 == 0 && aligned16(b);
+  const dim3 grid(((n + WM_BN - 1) / WM_BN) * ((m + BM - 1) / BM), splits, batch);
   mm_wmma_kernel<TRANS_A, TRANS_B, BM><<<grid, WM_THREADS, 0, stream>>>(
-      static_cast<const bf16*>(a), static_cast<const bf16*>(b), c, ws, m, n, k, lda, ldb,
-      kchunk, vec_a, vec_b, out_f32);
+      static_cast<const bf16*>(a), static_cast<const bf16*>(b), c, ws, m, n, k, lda, ldb, sa,
+      sb, kchunk, vec_a, vec_b, out_f32);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool TRANS_A, bool TRANS_B>
 int launch_wmma_bm(int bm, const void* a, const void* b, void* c, float* ws, int m, int n,
-                   int k, long long lda, long long ldb, int splits, int kchunk, int out_f32,
-                   cudaStream_t stream) {
+                   int k, long long lda, long long ldb, int splits, int kchunk, int batch,
+                   long long sa, long long sb, int out_f32, cudaStream_t stream) {
   if (bm == 16)
     return launch_wmma<TRANS_A, TRANS_B, 16>(a, b, c, ws, m, n, k, lda, ldb, splits, kchunk,
-                                             out_f32, stream);
+                                             batch, sa, sb, out_f32, stream);
   return launch_wmma<TRANS_A, TRANS_B, 64>(a, b, c, ws, m, n, k, lda, ldb, splits, kchunk,
-                                           out_f32, stream);
+                                           batch, sa, sb, out_f32, stream);
 }
 
 // -- split-K reduction -------------------------------------------------------------
@@ -825,14 +865,20 @@ enum Instance { WGMMA = 0, STREAM = 1, WMMA = 2, FMA = 3 };
 // 128, 192 or 256) pick the template, `splits` K ranges of `kchunk` each,
 // `group` M tiles per column of the raster.  ws holds splits * m * n floats
 // when splits > 1 (the stream instance reduces in its cluster instead).
+// batch > 1: `batch` such products in one launch, slab e of a at a + e * sa
+// and of b at b + e * sb (elements), c a contiguous (batch, m, n) stack;
+// splits must be 1 then, but for the stream instance.
 // Returns the first CUDA error code of the launch, 0 if none.
 extern "C" int hbp_matmul(const void* a, const void* b, void* c, void* ws, int m, int n, int k,
                           long long lda, long long ldb, int trans_a, int trans_b,
                           int in_dtype, int out_dtype, int instance, int tile_m, int tile_n,
-                          int splits, int kchunk, int group, void* stream) {
+                          int splits, int kchunk, int group, int batch, long long sa,
+                          long long sb, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* w = splits > 1 ? static_cast<float*>(ws) : nullptr;
   const int out_f32 = out_dtype == 0;
+  if (batch < 1 || batch > 65535 || (batch > 1 && splits > 1 && instance != STREAM))
+    return static_cast<int>(cudaErrorInvalidValue);
   int err;
   switch (instance) {
     case WGMMA:
@@ -841,51 +887,53 @@ extern "C" int hbp_matmul(const void* a, const void* b, void* c, void* ws, int m
       // stored (k, n)
       if (trans_a && trans_b)
         err = launch_wgmma_bn<1, 0>(tile_n, a, b, c, w, m, n, k, lda, ldb, splits, kchunk,
-                                    group, out_f32, s);
+                                    group, batch, sa, sb, out_f32, s);
       else if (trans_a)
         err = launch_wgmma_bn<1, 1>(tile_n, a, b, c, w, m, n, k, lda, ldb, splits, kchunk,
-                                    group, out_f32, s);
+                                    group, batch, sa, sb, out_f32, s);
       else if (trans_b)
         err = launch_wgmma_bn<0, 0>(tile_n, a, b, c, w, m, n, k, lda, ldb, splits, kchunk,
-                                    group, out_f32, s);
+                                    group, batch, sa, sb, out_f32, s);
       else
         err = launch_wgmma_bn<0, 1>(tile_n, a, b, c, w, m, n, k, lda, ldb, splits, kchunk,
-                                    group, out_f32, s);
+                                    group, batch, sa, sb, out_f32, s);
       break;
     case STREAM:
       if (in_dtype != 1 || trans_a || m > 16 || splits > 8)
         return static_cast<int>(cudaErrorInvalidValue);
-      return trans_b ? launch_stream<1>(a, b, c, m, n, k, lda, ldb, splits, kchunk, out_f32, s)
-                     : launch_stream<0>(a, b, c, m, n, k, lda, ldb, splits, kchunk, out_f32, s);
+      return trans_b ? launch_stream<1>(a, b, c, m, n, k, lda, ldb, splits, kchunk, batch, sa,
+                                        sb, out_f32, s)
+                     : launch_stream<0>(a, b, c, m, n, k, lda, ldb, splits, kchunk, batch, sa,
+                                        sb, out_f32, s);
     case WMMA:
       if (in_dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
       if (trans_a && trans_b)
         err = launch_wmma_bm<true, true>(tile_m, a, b, c, w, m, n, k, lda, ldb, splits,
-                                         kchunk, out_f32, s);
+                                         kchunk, batch, sa, sb, out_f32, s);
       else if (trans_a)
         err = launch_wmma_bm<true, false>(tile_m, a, b, c, w, m, n, k, lda, ldb, splits,
-                                          kchunk, out_f32, s);
+                                          kchunk, batch, sa, sb, out_f32, s);
       else if (trans_b)
         err = launch_wmma_bm<false, true>(tile_m, a, b, c, w, m, n, k, lda, ldb, splits,
-                                          kchunk, out_f32, s);
+                                          kchunk, batch, sa, sb, out_f32, s);
       else
         err = launch_wmma_bm<false, false>(tile_m, a, b, c, w, m, n, k, lda, ldb, splits,
-                                           kchunk, out_f32, s);
+                                           kchunk, batch, sa, sb, out_f32, s);
       break;
     case FMA:
       if (in_dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
       if (trans_a && trans_b)
         err = launch_fma<true, true>(a, b, c, w, m, n, k, lda, ldb, splits, kchunk, group,
-                                     out_f32, s);
+                                     batch, sa, sb, out_f32, s);
       else if (trans_a)
         err = launch_fma<true, false>(a, b, c, w, m, n, k, lda, ldb, splits, kchunk, group,
-                                      out_f32, s);
+                                      batch, sa, sb, out_f32, s);
       else if (trans_b)
         err = launch_fma<false, true>(a, b, c, w, m, n, k, lda, ldb, splits, kchunk, group,
-                                      out_f32, s);
+                                      batch, sa, sb, out_f32, s);
       else
         err = launch_fma<false, false>(a, b, c, w, m, n, k, lda, ldb, splits, kchunk, group,
-                                       out_f32, s);
+                                       batch, sa, sb, out_f32, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: the
 // Tensor Memory Accelerator (TMA) with its tensor maps, mbarrier waits,
 // warpgroup matrix multiply (wgmma) with its shared-memory descriptors,
-// and setmaxnreg.  K2's wgmma instance (hbp_matmul.cu) is built from them;
+// and setmaxnreg.  K2's wgmma instance (hbp_matmul.cu) is built from them
+// (its batched products read 3-D tensor maps, one slab a box);
 // K4 (strassen_matmul.cu) takes the TMA loads, stores and reduce-adds of f32
 // boxes with no swizzle.
 //
@@ -87,6 +88,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// The same for a 3-D tensor map: the box at (c0, c1) of slab c2 (a box of
+// depth 1, so a box never reads into the next slab; rows past the slab's
+// end arrive as zeros).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // Encode the tensor map of a row-major bf16 matrix (rows x cols, row pitch
 // `ld` elements, a 16-byte aligned base and a pitch of whole 16-byte steps)
 // read in boxes of box_rows x 64 columns with the 128-byte swizzle.  The
@@ -117,27 +130,38 @@ inline EncodeTiledFn encode_tiled_fn() {
 // elements of elem_bytes, a 16-byte aligned base and a pitch of whole
 // 16-byte steps) read in boxes of box_rows x box_cols.  Returns a CUDA error
 // code, 0 on success.
+//
+// With depth > 1 the map is 3-D: `depth` such matrices, `batch_ld`
+// elements apart (a whole number of 16-byte steps), read in boxes of depth
+// 1.
 inline int encode_2d(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
                      const void* base, long long rows, long long cols, long long ld,
-                     int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
+                     int box_cols, int box_rows, CUtensorMapSwizzle swizzle,
+                     long long depth = 1, long long batch_ld = 0) {
   const EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * elem_bytes};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+  const cuuint32_t rank = depth > 1 ? 3 : 2;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(depth)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld) * elem_bytes,
+                                 static_cast<cuuint64_t>(batch_ld) * elem_bytes};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, type, rank, const_cast<void*>(base), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// bf16, boxes of box_rows x 64 columns in the 128-byte swizzle (K2's wgmma)
+// bf16, boxes of box_rows x 64 columns in the 128-byte swizzle (K2's wgmma);
+// `depth` > 1 stacks that many matrices `batch_ld` elements apart (K2's
+// batched products)
 inline int encode_bf16_sw128(CUtensorMap* map, const void* base, long long rows,
-                             long long cols, long long ld, int box_rows) {
+                             long long cols, long long ld, int box_rows, long long depth = 1,
+                             long long batch_ld = 0) {
   return encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rows, cols, ld, 64, box_rows,
-                   CU_TENSOR_MAP_SWIZZLE_128B);
+                   CU_TENSOR_MAP_SWIZZLE_128B, depth, batch_ld);
 }
 
 // f32, dense boxes with no swizzle (K4's fused Strassen kernel)

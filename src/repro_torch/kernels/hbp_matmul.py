@@ -24,13 +24,26 @@ cannot describe) and ``"fma"`` (f32).  :func:`plan` sizes the launch for the
 instance; both are memoized, and so is the SM count, so a call pays for
 neither twice.
 
+**Batched.**  With 3-D operands, ``a (E, m, k) @ b (E, k, n)``, one launch
+computes all ``E`` products, ``C[e] = A[e] @ B[e]``: the counterpart of
+``_mm_kernel`` under ``jax.vmap`` (the MoE expert products of
+``common.expert_project``, where Pallas batching makes the expert axis one
+more grid dimension).  Each slab may be row-major or a transposed view, as
+above, and the slabs lie a fixed stride apart; the output is a contiguous
+``(E, m, n)`` stack.  The instance is picked from one slab as for a 2-D
+call (TMA also needs the stride between slabs on 16-byte steps), and the
+plan counts the ``E`` slabs' tiles in its wave model; split-K through the
+workspace is off for a batched call.
+
 The differentiable entry is ``strassen_matmul.matmul``, the registry's
 ``matmul`` op: its classical backend is one call of this kernel, forward
-and both backward products.
+and both backward products (2-D only: the batched products have no
+backward yet).
 
 A tensor on the CPU takes :func:`matmul_ref`, the plain version; a CUDA
 tensor launches the kernel or raises.  ``hbp_matmul.launches`` counts the
-kernel launches.
+kernel launches, each once, and ``hbp_matmul.batched_launches`` those of
+batched calls among them.
 """
 from __future__ import annotations
 
@@ -55,7 +68,8 @@ L2_SHARE = 16 * 2 ** 20  # an A this small stays in L2 while every B panel strea
 
 def matmul_ref(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """Plain version: the product in f32, cast to ``out_dtype`` (default
-    ``a``'s dtype), as ``repro.kernels.ref.matmul_ref``."""
+    ``a``'s dtype), as ``repro.kernels.ref.matmul_ref``; batched over a
+    leading axis for 3-D operands."""
     out_dtype = a.dtype if out_dtype is None else out_dtype
     return (a.float() @ b.float()).to(out_dtype)
 
@@ -80,8 +94,11 @@ def _k_split(k: int, bk: int, splits: int) -> tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=4096)
-def plan(m: int, n: int, k: int, instance: str, sms: int) -> Plan:
-    """The launch of one product on ``sms`` SMs.
+def plan(m: int, n: int, k: int, instance: str, sms: int, batch: int = 1) -> Plan:
+    """The launch of one product, or of ``batch`` products of this shape in
+    one launch, on ``sms`` SMs.  A batch multiplies the tiles of every wave
+    model below, and turns off the split-K that goes through the workspace
+    (wgmma, wmma, fma): ``batch`` x tiles blocks fill the SMs anyway.
 
     * ``wgmma``: 128-row tiles; the width (64-256) and split-K that minimise
       a wave model in µs: waves x K steps per split x (width + 32) x 2.6 ns
@@ -103,12 +120,13 @@ def plan(m: int, n: int, k: int, instance: str, sms: int) -> Plan:
     bm, bk = TILE[instance]
     steps = math.ceil(k / bk)
     tiles_m = math.ceil(m / bm)
+    may_split = batch == 1
     if instance == "wgmma":
         group = tiles_m if m * k * 2 <= L2_SHARE else min(tiles_m, 8)
         best = None
         for bn in WGMMA_BN:
-            tiles = tiles_m * math.ceil(n / bn)
-            for want in {1, min(sms // tiles, steps // 4) if tiles < sms else 1}:
+            tiles = batch * tiles_m * math.ceil(n / bn)
+            for want in {1, min(sms // tiles, steps // 4) if tiles < sms and may_split else 1}:
                 splits, kchunk = _k_split(k, bk, max(want, 1))
                 us = math.ceil(tiles * splits / sms) * (kchunk // bk) * (bn + 32) * 2.6e-3
                 if splits > 1:
@@ -118,18 +136,20 @@ def plan(m: int, n: int, k: int, instance: str, sms: int) -> Plan:
         return best[1]
     if instance == "stream":
         bn = 64
-        tiles = math.ceil(n / bn)
+        tiles = batch * math.ceil(n / bn)
         want = max(math.ceil(1.5 * sms / tiles), math.ceil(steps / 16))
         splits, kchunk = _k_split(k, bk, min(STREAM_MAX_SPLITS, want))
         return Plan(bm, bn, splits, kchunk, 1)
     if instance == "wmma":
         bm = 16 if m <= 16 else 64
         tiles = math.ceil(m / bm) * math.ceil(n / 64)
-        splits, kchunk = _k_split(k, bk, max(1, min(math.ceil(4 * sms / tiles), steps // 4)))
+        want = min(math.ceil(4 * sms / tiles), steps // 4) if may_split else 1
+        splits, kchunk = _k_split(k, bk, max(1, want))
         return Plan(bm, 64, splits, kchunk, 1)
     if instance == "fma":
         tiles = tiles_m * math.ceil(n / 128)
-        splits, kchunk = _k_split(k, bk, max(1, min(math.ceil(sms / tiles), steps // 4)))
+        want = min(math.ceil(sms / tiles), steps // 4) if may_split else 1
+        splits, kchunk = _k_split(k, bk, max(1, want))
         return Plan(bm, 128, splits, kchunk, min(tiles_m, 8))
     raise ValueError(f"hbp_matmul: no instance {instance!r}")
 
@@ -144,7 +164,7 @@ def _lib():
     fn = lib.hbp_matmul
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P, P, P, P, I, I, I, L, L, I, I, I, I, I, I, I, I, I, I, P]
+        fn.argtypes = [P, P, P, P, I, I, I, L, L, I, I, I, I, I, I, I, I, I, I, I, L, L, P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -166,33 +186,46 @@ def _layout(x: torch.Tensor, name: str) -> tuple[int, int]:
     return x.stride(1), 1
 
 
+def _slab(x: torch.Tensor) -> torch.Tensor:
+    """The first matrix of a batched operand (the matrix itself if 2-D): a
+    view with the slabs' layout and the stack's base."""
+    return x.as_strided(x.shape[-2:], x.stride()[-2:]) if x.dim() == 3 else x
+
+
 def _tma_layout(x: torch.Tensor, name: str) -> bool:
     """Whether TMA (and 16-byte ``cp.async``) can read ``x`` in its stored
-    layout: a 16-byte aligned base and a row pitch of whole 16-byte steps."""
-    ld, _ = _layout(x, name)
-    return x.data_ptr() % 16 == 0 and (ld * x.element_size()) % 16 == 0
+    layout: a 16-byte aligned base and a row pitch of whole 16-byte steps,
+    and for a batched operand a stride between slabs of whole 16-byte
+    steps."""
+    ld, _ = _layout(_slab(x), name)
+    es = x.element_size()
+    batch_ok = x.dim() == 2 or (x.stride(0) > 0 and (x.stride(0) * es) % 16 == 0)
+    return x.data_ptr() % 16 == 0 and (ld * es) % 16 == 0 and batch_ok
 
 
 def path(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> str:
     """The instance a CUDA call on these operands runs: ``"fma"`` for f32;
     for bf16, ``"wmma"`` when TMA cannot describe ``a`` or ``b``
     (:func:`_tma_layout`), else ``"stream"`` when ``a`` is row-major with
-    at most 16 rows, else ``"wgmma"``.  Every instance writes either output
-    dtype, so ``out_dtype`` does not change the choice."""
+    at most 16 rows (per slab, for a batched call), else ``"wgmma"``.
+    Every instance writes either output dtype, so ``out_dtype`` does not
+    change the choice."""
     del out_dtype
     if a.dtype == torch.float32:
         return "fma"
     if not (_tma_layout(a, "a") and _tma_layout(b, "b")):
         return "wmma"
-    if a.shape[0] <= STREAM_MAX_M and not _layout(a, "a")[1]:
+    if a.shape[-2] <= STREAM_MAX_M and not _layout(_slab(a), "a")[1]:
         return "stream"
     return "wgmma"
 
 
 def hbp_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
-    """``a (m, k) @ b (k, n)`` with an f32 accumulator; see the module
-    docstring."""
-    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+    """``a (m, k) @ b (k, n)``, or ``a (E, m, k) @ b (E, k, n)`` in one
+    launch, with an f32 accumulator; see the module docstring."""
+    batched = a.dim() == 3
+    if (a.dim() not in (2, 3) or b.dim() != a.dim() or a.shape[-1] != b.shape[-2]
+            or (batched and a.shape[0] != b.shape[0])):
         raise ValueError(f"hbp_matmul: shapes {tuple(a.shape)} @ {tuple(b.shape)}")
     if a.dtype != b.dtype or a.dtype not in _DTYPE_CODES:
         raise TypeError(f"hbp_matmul: dtypes {a.dtype}, {b.dtype}; "
@@ -207,27 +240,32 @@ def hbp_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.Ten
     if a.device.type != "cuda":
         raise ValueError(f"hbp_matmul: no kernel for device {a.device}")
 
-    m, k = a.shape
-    n = b.shape[1]
-    lda, trans_a = _layout(a, "a")
-    ldb, trans_b = _layout(b, "b")
-    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
+    batch = a.shape[0] if batched else 1
+    out = torch.empty((*a.shape[:-2], m, n), dtype=out_dtype, device=a.device)
     if out.numel() == 0:
         return out
     if k == 0:
         return out.zero_()
+    lda, trans_a = _layout(_slab(a), "a")
+    ldb, trans_b = _layout(_slab(b), "b")
+    sa, sb = (a.stride(0), b.stride(0)) if batched else (0, 0)
     instance = path(a, b)
-    p = plan(m, n, k, instance, _sm_count(a.device.index or 0))
+    p = plan(m, n, k, instance, _sm_count(a.device.index or 0), batch)
     ws = (torch.empty((p.splits, m, n), dtype=torch.float32, device=a.device)
           if p.splits > 1 and instance != "stream" else None)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = _lib()(a.data_ptr(), b.data_ptr(), out.data_ptr(),
                  None if ws is None else ws.data_ptr(), m, n, k, lda, ldb, trans_a, trans_b,
                  _DTYPE_CODES[a.dtype], _DTYPE_CODES[out_dtype], INSTANCES.index(instance),
-                 p.tile_m, p.tile_n, p.splits, p.kchunk, p.group, stream)
+                 p.tile_m, p.tile_n, p.splits, p.kchunk, p.group, batch, sa, sb, stream)
     _build.check(err, "hbp_matmul")
     hbp_matmul.launches += 1
+    if batched:
+        hbp_matmul.batched_launches += 1
     return out
 
 
 hbp_matmul.launches = 0
+hbp_matmul.batched_launches = 0

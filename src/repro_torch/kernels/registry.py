@@ -272,16 +272,25 @@ register(KernelSpec(
     pallas_only=("block",),
 ))
 
+def _plan_matmul(a, b) -> dict:
+    """The backend verdict for a 2-D product; a batched (E, m, k) @ (E, k, n)
+    one (the MoE experts' products, ``common.expert_project``) is one
+    batched K2 launch, the classical backend: no expert product is square."""
+    if a.dim() == 3:
+        return {"backend": "classical"}
+    return planner.plan_matmul_backend(a.shape[0], a.shape[1], b.shape[1], a.dtype, _dp(a))
+
+
 register(KernelSpec(
     name="matmul",
     # classical -> one K2 call, strassen -> K4 (f32: fused launches; bf16:
     # the recursion over K2); carries
     # its backward (dA = g Bᵀ, dB = Aᵀ g, each re-planned).  K2 fixes its
-    # own per-block tile, so the plan is the backend verdict alone
+    # own per-block tile, so the plan is the backend verdict alone.  3-D
+    # operands: E products in one batched K2 launch, forward only
     kernel=backend_matmul,
     ref=matmul_ref,
-    plan=lambda a, b: planner.plan_matmul_backend(a.shape[0], a.shape[1], b.shape[1],
-                                                  a.dtype, _dp(a)),
+    plan=_plan_matmul,
     pallas_only=("bm", "bn", "bk", "morton", "backend", "cutoff"),
     has_vjp=True,
 ))

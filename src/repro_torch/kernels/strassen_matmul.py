@@ -28,7 +28,9 @@ rounded.  Any other shape falls through to one K2 call.
 :func:`matmul` is the differentiable entry the registry dispatches: it asks
 the planner for the backend (``classical``: one K2 call; ``strassen``: the
 recursion) and its backward re-plans each of ``dA = g Bᵀ`` and
-``dB = Aᵀ g`` on its own shape, as the JAX custom VJP does.
+``dB = Aᵀ g`` on its own shape, as the JAX custom VJP does.  A batched
+``(E, m, k) @ (E, k, n)`` call is one batched K2 launch (Strassen is 2-D
+only), forward only: it raises where a gradient would be recorded.
 
 On the CPU :func:`strassen_matmul` runs :func:`strassen_matmul_plain`, the
 recursion with ``matmul_ref`` leaves (also the card's comparisons);
@@ -309,7 +311,13 @@ def strassen_matmul_plain(a: torch.Tensor, b: torch.Tensor, *,
 
 
 def _run(a, b, backend, cutoff):
-    """Run the backend (None: ask the planner for this shape)."""
+    """Run the backend (None: ask the planner for this shape); a batched
+    product is one batched K2 call."""
+    if a.dim() == 3:
+        if backend not in (None, "classical"):
+            raise ValueError(f"matmul: backend {backend!r} takes 2-D operands; a "
+                             "batched product runs on the classical backend")
+        return _k2.hbp_matmul(a, b)
     if backend is None:
         from repro_torch.kernels import planner
 
@@ -357,5 +365,9 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, backend: Optional[str] = None,
         raise ValueError(f"unknown matmul backend {backend!r}; expected "
                          "'classical' or 'strassen'")
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        if a.dim() == 3:
+            raise NotImplementedError(
+                "matmul: the batched (E, m, k) @ (E, k, n) product has no backward "
+                "yet (MoE training); call it under torch.no_grad()")
         return _Matmul.apply(a, b, backend, cutoff)
     return _run(a, b, backend, cutoff)

@@ -64,8 +64,13 @@ Numerics contract: with greedy decoding the engine's per-request tokens are
 IDENTICAL to running each request alone through the lockstep path
 (:func:`check_lockstep_parity`); with an int8 cache this needs ``chunk`` >=
 the longest prompt, since lockstep prefill calibrates the scales over the
-whole prompt and the engine over the first chunk.
+whole prompt and the engine over the first chunk.  An MoE config's expert
+capacity is per call, so a token that the batched step drops may be kept
+when its request runs alone (as in the JAX engine): the parity holds where
+no expert overflows.
 
+    python -m repro_torch.launch.engine --arch qwen3-moe-30b-a3b
+    python -m repro_torch.launch.engine --arch olmoe-1b-7b --reduced --device cpu
     python -m repro_torch.launch.engine --reduced --device cpu
     python -m repro_torch.launch.engine --reduced --device cpu \\
         --impl 'attention=pallas:kv_dtype=int8' --chunk 24 --check-lockstep
@@ -82,7 +87,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.core import pws
 from repro_torch.kernels import policy
 from repro_torch.launch.serve import Request, Server, install_impl
@@ -697,7 +702,7 @@ def check_lockstep_parity(engine: Engine, requests: list[Request]) -> bool:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="qwen3-1.7b")
+    ap.add_argument("--arch", default="qwen3-1.7b", choices=list_archs())
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--slots", type=int, default=4)

@@ -15,6 +15,7 @@ mesh in the port yet.  ``--impl`` installs the execution policy
 ``kv_dtype=int8``, which serves from an int8 KV cache read by K1q:
 
     python -m repro_torch.launch.serve --arch qwen3-1.7b --device cuda
+    python -m repro_torch.launch.serve --arch qwen2.5-14b --reduced --device cpu
     python -m repro_torch.launch.serve --reduced --device cpu \
         --impl 'attention=pallas:kv_dtype=int8'
 
@@ -33,7 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.kernels import policy
 from repro_torch.models import build_model
 
@@ -138,7 +139,7 @@ def install_impl(spec: str) -> None:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="qwen3-1.7b")
+    ap.add_argument("--arch", default="qwen3-1.7b", choices=list_archs())
     ap.add_argument("--reduced", action="store_true",
                     help="serve the arch's smoke config")
     ap.add_argument("--batch", type=int, default=4)

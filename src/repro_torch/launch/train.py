@@ -4,7 +4,9 @@ config -> model (seeded init) -> synthetic data -> AdamW steps, every
 matrix product on K2 (forward and backward), every attention forward on K1
 and every attention backward on K3.  One device; the JAX trainer's mesh,
 sharding planner, autotune and fault-tolerant checkpointing have no
-counterpart yet (``ROADMAP.md``).
+counterpart yet (``ROADMAP.md``).  An MoE config raises: the batched expert
+products have no backward yet, and a full-width MoE needs sharding to
+train.
 
     python -m repro_torch.launch.train --arch qwen3-1.7b --steps 3
     python -m repro_torch.launch.train --reduced --device cpu --steps 2
@@ -18,10 +20,10 @@ import time
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.data import DataConfig, SyntheticLMDataset
 from repro_torch.launch.steps import make_train_step
-from repro_torch.models import RunOptions, build_model
+from repro_torch.models import RunOptions, UnsupportedFamilyError, build_model
 from repro_torch.optim import AdamWConfig, adamw_init
 
 log = logging.getLogger("repro_torch.train")
@@ -34,7 +36,10 @@ def train(cfg, *, steps: int, data_cfg: DataConfig,
     steps on ``device`` (CUDA unless told otherwise; raises without it).
     Returns the model, the optimizer state, per-step ``losses``,
     ``grad_norms`` and ``step_s`` (host wall time of each step, ended by
-    reading its loss on the host), and ``wall_s``."""
+    reading its loss on the host), and ``wall_s``.  Raises
+    ``UnsupportedFamilyError`` on an MoE config, on every device."""
+    if cfg.n_experts:
+        raise UnsupportedFamilyError(cfg.family, "MoE training")
     dev = resolve_device(device)
     ds = SyntheticLMDataset(data_cfg, cfg)
     model = build_model(cfg, opts, device=dev)
@@ -61,7 +66,7 @@ def train(cfg, *, steps: int, data_cfg: DataConfig,
 def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="qwen3-1.7b")
+    ap.add_argument("--arch", default="qwen3-1.7b", choices=list_archs())
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=128)

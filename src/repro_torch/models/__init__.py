@@ -10,9 +10,10 @@ from repro_torch.models.base import Model, RunOptions, UnsupportedFamilyError
 def build_model(cfg: ModelConfig, opts: Optional[RunOptions] = None, *,
                 device=None) -> Model:
     """The family's model on ``device`` (CUDA unless told otherwise), with
-    uninitialised parameters: call ``init`` or ``load_state_dict``.  Only the
-    dense family is ported; any other family raises."""
-    if cfg.family != "dense":
+    uninitialised parameters: call ``init`` or ``load_state_dict``.  The
+    dense family and its MoE configs (whose layers live inside ``DenseLM``,
+    as in JAX) are ported; any other family raises."""
+    if cfg.family not in ("dense", "moe"):
         raise UnsupportedFamilyError(cfg.family, "model class")
     from repro_torch.models.dense import DenseLM
 

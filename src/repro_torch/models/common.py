@@ -4,7 +4,8 @@ of the main-path subset of ``repro/models/common.py``.
 Every matrix product and every attention call goes through the kernel
 registry's ``dispatch``, as the JAX models do: on a CUDA tensor the
 ``matmul`` op runs K2 (or K4 for a square product past the planner's
-cutoff), forward and backward, and the ``attention`` op K1
+cutoff), forward and backward, the MoE experts' products one batched K2
+launch each (forward only), and the ``attention`` op K1
 forward and K3 backward, or K1q over an int8 cache; on a CPU tensor each
 runs its plain version.  A policy that asks for a plain version on the card
 raises (``registry.route``).  The JAX package's jnp routes (dense,
@@ -124,6 +125,24 @@ def attn_out_project(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     is a view of the kernel's contiguous output."""
     b, s, h, hd = o.shape
     return registry.dispatch("matmul", o.reshape(b * s, h * hd), wo).reshape(b, s, -1)
+
+
+def expert_project(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Per-expert product h (..., E, C, d) @ w (E, d, f) -> (..., E, C, f),
+    the MoE experts' FFN products (JAX ``common.py:648-659``): ONE
+    ``matmul`` dispatch of (E, rows, d) @ (E, d, f), a batched K2 launch on
+    the card, as Pallas batching makes the JAX expert axis one more grid
+    dimension.  Leading dims fold into each expert's rows (a copy only when
+    there are some, under ``moe_groups`` > 1), in the order the JAX vmap of
+    :func:`project` gives them."""
+    e, c, d = h.shape[-3:]
+    lead = h.shape[:-3]
+    if math.prod(lead) == 1:
+        out = registry.dispatch("matmul", h.reshape(e, c, d), w)
+        return out.reshape(*lead, e, c, w.shape[-1])
+    hh = h.movedim(-3, 0).reshape(e, -1, d)
+    out = registry.dispatch("matmul", hh, w)
+    return out.reshape(e, *lead, c, w.shape[-1]).movedim(0, -3)
 
 
 def gated_mlp(x, w_gate, w_up, w_down):

@@ -1,14 +1,18 @@
-"""Dense decoder-only LM without MoE: the counterpart of
-``repro/models/dense.py``.
+"""Dense decoder-only LM, also hosting MoE layers: the counterpart of
+``repro/models/dense.py``.  It serves ``qwen3-1.7b``, ``qwen3-32b``,
+``qwen2.5-14b`` (QKV bias) and the MoE configs ``olmoe-1b-7b`` and
+``qwen3-moe-30b-a3b``; an untied config reads its logits from ``lm_head``.
 
 The JAX model scans one program over layer-stacked parameters; here an
 ``nn.ModuleList`` of layers and a Python loop take its place, and the
 per-layer window and RoPE theta are plain Python values.  Parameter names
 follow the JAX pytree (``embed``, ``final_norm``, ``layers.<i>.<name>``),
 so ``repro_torch.checkpoint`` carries JAX parameters across by unstacking
-the layer axis.  Every matrix product runs on ``hbp_matmul`` and every
-attention call on ``flash_attention``; in training their backward runs on
-``hbp_matmul`` and ``flash_attention_bwd``.  Over an int8 KV cache (the
+the layer axis.  Every matrix product runs on ``hbp_matmul`` (an MoE
+layer's expert products on its batched launches, ``models/moe_layer.py``)
+and every attention call on ``flash_attention``; in training their
+backward runs on ``hbp_matmul`` and ``flash_attention_bwd`` (dense configs
+only: the batched products have no backward yet).  Over an int8 KV cache (the
 policy's attention ``kv_dtype=int8`` variant) decode and continuation
 chunks attend through ``flash_attention_int8`` (K1q).  The parameters are
 trainable; ``prefill``, ``prefill_chunk`` and ``decode_step`` run under
@@ -26,10 +30,11 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import cache as dcache
 from repro_torch.models import common
-from repro_torch.models.base import (Model, RunOptions, UnsupportedFamilyError,
-                                     maybe_remat, right_shift)
+from repro_torch.models.base import Model, RunOptions, maybe_remat, right_shift
+from repro_torch.models.moe_layer import moe_ffn
 
-_NORMS = ("ln1", "ln2", "q_norm", "k_norm", "final_norm")
+# leaves that start at zero: the norms' scales (1 + w) and the QKV biases
+_ZEROS = ("ln1", "ln2", "q_norm", "k_norm", "final_norm", "bq", "bk", "bv")
 
 
 def layer_windows(cfg: ModelConfig) -> list[Optional[int]]:
@@ -56,6 +61,11 @@ def _param(*shape, dtype, device) -> nn.Parameter:
 
 
 class DenseLayer(nn.Module):
+    """One layer's parameters, with the JAX names and shapes (``dense.py:63-88``):
+    the QKV biases under ``qkv_bias``; under ``n_experts`` an f32 ``router``
+    (d, E) and the experts' ``e_gate``/``e_up`` (E, d, f) and ``e_down``
+    (E, f, d) in place of the SwiGLU MLP's weights."""
+
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
         d, hd = cfg.d_model, cfg.head_dim_
@@ -63,26 +73,31 @@ class DenseLayer(nn.Module):
         self.ln1, self.ln2 = p(d), p(d)
         self.wq, self.wk = p(d, cfg.q_dim), p(d, cfg.kv_dim)
         self.wv, self.wo = p(d, cfg.kv_dim), p(cfg.q_dim, d)
+        if cfg.qkv_bias:
+            self.bq, self.bk, self.bv = p(cfg.q_dim), p(cfg.kv_dim), p(cfg.kv_dim)
         if cfg.qk_norm:
             self.q_norm, self.k_norm = p(hd), p(hd)
-        self.w_gate, self.w_up = p(d, cfg.d_ff), p(d, cfg.d_ff)
-        self.w_down = p(cfg.d_ff, d)
+        if cfg.n_experts:
+            e, f = cfg.n_experts, cfg.expert_d_ff
+            self.router = _param(d, e, dtype=torch.float32, device=device)
+            self.e_gate, self.e_up, self.e_down = p(e, d, f), p(e, d, f), p(e, f, d)
+        else:
+            self.w_gate, self.w_up = p(d, cfg.d_ff), p(d, cfg.d_ff)
+            self.w_down = p(cfg.d_ff, d)
 
 
 class DenseLM(Model):
     def __init__(self, cfg: ModelConfig, opts: Optional[RunOptions] = None, *,
                  device=None):
         super().__init__(cfg, opts)
-        for missing, needed in (("MoE layers", cfg.n_experts), ("qkv_bias", cfg.qkv_bias),
-                                ("untied lm_head", not cfg.tie_embeddings)):
-            if needed:
-                raise UnsupportedFamilyError(cfg.family, missing)
         self.device = resolve_device(device)
         dt = cfg.activation_dtype
         self.embed = _param(cfg.vocab_size, cfg.d_model, dtype=dt, device=self.device)
         self.layers = nn.ModuleList(DenseLayer(cfg, dt, self.device)
                                     for _ in range(cfg.n_layers))
         self.final_norm = _param(cfg.d_model, dtype=dt, device=self.device)
+        if not cfg.tie_embeddings:
+            self.lm_head = _param(cfg.vocab_size, cfg.d_model, dtype=dt, device=self.device)
         self.windows = layer_windows(cfg)
         self.thetas = layer_thetas(cfg)
 
@@ -90,14 +105,16 @@ class DenseLM(Model):
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> None:
         """The JAX ``init``'s distributions (``dense.py:57-98``): truncated
-        normal over fan-in for the projections, std 0.02 for the embedding,
-        zeros for the norms.  ``jax.random`` cannot be reproduced, so the
-        numbers differ from a JAX init with any seed."""
+        normal over fan-in (``shape[-2]``) for the projections, the experts
+        and the f32 router, std 0.02 for the embedding and ``lm_head``,
+        zeros for the norms and the QKV biases.  ``jax.random`` cannot be
+        reproduced, so the numbers differ from a JAX init with any seed.
+        Each leaf is drawn where it lives, in place."""
         for name, p in self.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if leaf in _NORMS:
+            if leaf in _ZEROS:
                 p.zero_()
-            elif leaf == "embed":
+            elif leaf in ("embed", "lm_head"):
                 common.dense_init(p, generator, scale=0.02)
             else:
                 common.dense_init(p, generator)
@@ -123,6 +140,8 @@ class DenseLM(Model):
         hd = cfg.head_dim_
         h = common.rms_norm(x, layer.ln1, cfg.norm_eps)
         q, k, v = common.qkv_project(h, layer.wq, layer.wk, layer.wv)
+        if cfg.qkv_bias:  # after the product, in the activation dtype
+            q, k, v = q + layer.bq, k + layer.bk, v + layer.bv
         q = q.reshape(b, s, cfg.n_heads, hd)
         k = k.reshape(b, s, cfg.n_kv_heads, hd)
         v = v.reshape(b, s, cfg.n_kv_heads, hd)
@@ -162,18 +181,35 @@ class DenseLM(Model):
             o = common.attention(q, k, v, causal=True, window=window)
         return x + common.attn_out_project(o, layer.wo)
 
-    def _ffn(self, layer: DenseLayer, x):
-        h = common.rms_norm(x, layer.ln2, self.cfg.norm_eps)
-        return x + common.gated_mlp(h, layer.w_gate, layer.w_up, layer.w_down)
+    def _ffn(self, layer: DenseLayer, x, aux: bool):
+        """The FFN sub-block (JAX ``dense.py:182-194``): the SwiGLU MLP, or
+        under ``n_experts`` the MoE layer over the (b * s) rows of the call,
+        whose router's load-balance term comes back beside the output (None
+        for a dense layer, or when ``aux`` is False)."""
+        cfg = self.cfg
+        h = common.rms_norm(x, layer.ln2, cfg.norm_eps)
+        if cfg.n_experts:
+            b, s, d = h.shape
+            y, a = moe_ffn(h.reshape(b * s, d), layer.router, layer.e_gate, layer.e_up,
+                           layer.e_down, k=cfg.experts_per_token,
+                           capacity_factor=cfg.capacity_factor,
+                           dispatch=self.opts.moe_dispatch, n_groups=self.opts.moe_groups,
+                           aux=aux)
+            return x + y.reshape(b, s, d), a
+        return x + common.gated_mlp(h, layer.w_gate, layer.w_up, layer.w_down), None
 
     def _layer(self, layer: DenseLayer, x, rope, window, *cache_args):
-        return self._ffn(layer, self._attn(layer, x, rope, window, *cache_args))
+        # the router's aux term is read by the loss only (no cache)
+        return self._ffn(layer, self._attn(layer, x, rope, window, *cache_args),
+                         aux=not cache_args)
 
     def _backbone(self, tokens, q_pos, cache: Optional[dcache.LinearKV] = None,
                   write_at=None, q_offset=None, kv_len=None, chunked=False,
                   calib_len=None):
         """The layer stack.  Without a cache (training) each layer is
-        rematerialised per ``opts.remat``; with one it writes k/v there."""
+        rematerialised per ``opts.remat``; with one it writes k/v there.
+        Returns the final-normed hidden states and the router's aux term
+        summed over the layers (None for a dense model, and with a cache)."""
         cfg = self.cfg
         x = common.embed_lookup(self.embed, tokens).to(cfg.activation_dtype)
         if cfg.scale_embeddings:
@@ -181,24 +217,35 @@ class DenseLM(Model):
         ropes = {th: common.rope_cos_sin(q_pos, cfg.head_dim_, th)
                  for th in set(self.thetas)}
         layer_fn = self._layer if cache is not None else maybe_remat(self._layer, self.opts)
+        aux = None
         for i, layer in enumerate(self.layers):
             cache_args = (() if cache is None else
                           (cache, i, write_at, q_offset, kv_len, chunked, calib_len))
-            x = layer_fn(layer, x, ropes[self.thetas[i]], self.windows[i], *cache_args)
-        return common.rms_norm(x, self.final_norm, cfg.norm_eps)
+            x, a = layer_fn(layer, x, ropes[self.thetas[i]], self.windows[i], *cache_args)
+            if a is not None:
+                aux = a if aux is None else aux + a
+        return common.rms_norm(x, self.final_norm, cfg.norm_eps), aux
+
+    def _out_embed(self) -> torch.Tensor:
+        """The output table: ``embed`` when tied, else ``lm_head``."""
+        return self.embed if self.cfg.tie_embeddings else self.lm_head
 
     # -- training ------------------------------------------------------------
     def loss(self, batch: dict) -> torch.Tensor:
         """JAX ``dense.py:250-260``: teacher forcing on ``right_shift``ed
-        tokens, the chunked cross-entropy over the tied table, plus the
-        router's aux term (0 for a dense model)."""
+        tokens, the chunked cross-entropy over the output table, plus the
+        router's aux term summed over the layers (none for a dense model).
+        An MoE config computes its loss under ``torch.no_grad`` only: the
+        batched expert products have no backward yet."""
         cfg = self.cfg
         tokens, labels = batch["tokens"], batch["labels"]
         s = tokens.shape[1]
         pos = torch.arange(s, dtype=torch.int32, device=tokens.device)
-        x = self._backbone(right_shift(tokens), pos)
-        ce = common.chunked_softmax_xent(x, self.embed, labels, chunk=self.opts.ce_chunk)
-        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+        x, aux = self._backbone(right_shift(tokens), pos)
+        ce = common.chunked_softmax_xent(x, self._out_embed(), labels,
+                                         chunk=self.opts.ce_chunk)
+        if aux is None:
+            return ce
         return ce + cfg.router_aux_weight * aux / max(cfg.n_layers, 1)
 
     # -- inference -----------------------------------------------------------
@@ -227,9 +274,9 @@ class DenseLM(Model):
         kv = self.init_cache(b, max_len)
         q_offset, kv_len = self._cache_lanes(
             kv, torch.zeros((), dtype=torch.int32, device=self.device), s)
-        x = self._backbone(tokens, q_pos, kv, write_at=0, q_offset=q_offset,
-                           kv_len=kv_len)
-        logits = common.logits_matmul(x[:, -1], self.embed)
+        x, _ = self._backbone(tokens, q_pos, kv, write_at=0, q_offset=q_offset,
+                              kv_len=kv_len)
+        logits = common.logits_matmul(x[:, -1], self._out_embed())
         pos = torch.full((b,), s, dtype=torch.int32, device=self.device)
         return logits, kv.replace(pos=pos)
 
@@ -250,10 +297,10 @@ class DenseLM(Model):
         q_pos = (offset[:, None] if offset.dim() else offset) + torch.arange(
             s, dtype=torch.int32, device=self.device)
         q_offset, kv_len = self._cache_lanes(cache, offset, s)
-        x = self._backbone(tokens, q_pos, cache, write_at=offset, q_offset=q_offset,
-                           kv_len=kv_len, chunked=not first,
-                           calib_len=s if lens is None else lens)
-        logits = common.logits_matmul(dcache.pick_last(x, lens), self.embed)
+        x, _ = self._backbone(tokens, q_pos, cache, write_at=offset, q_offset=q_offset,
+                              kv_len=kv_len, chunked=not first,
+                              calib_len=s if lens is None else lens)
+        logits = common.logits_matmul(dcache.pick_last(x, lens), self._out_embed())
         new_pos = offset + (s if lens is None else lens.to(torch.int32))
         return logits, cache.replace(pos=new_pos.expand(b).contiguous())
 
@@ -267,7 +314,7 @@ class DenseLM(Model):
         pos = pos.to(torch.int32)
         q_pos = pos[:, None] if pos.dim() else pos.reshape(1)
         q_offset, kv_len = self._cache_lanes(cache, pos, 1)
-        x = self._backbone(tokens, q_pos, cache, write_at=pos,
-                           q_offset=q_offset, kv_len=kv_len)
-        logits = common.logits_matmul(x[:, -1], self.embed)
+        x, _ = self._backbone(tokens, q_pos, cache, write_at=pos,
+                              q_offset=q_offset, kv_len=kv_len)
+        logits = common.logits_matmul(x[:, -1], self._out_embed())
         return logits, cache.replace(pos=(pos + 1).expand(b).contiguous())

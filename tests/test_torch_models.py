@@ -167,13 +167,16 @@ def test_init_distributions():
 
 
 def test_build_model_rejects_other_families():
-    cfg = reduced(get_smoke_config("qwen3-1.7b"), family="ssm")
-    with pytest.raises(UnsupportedFamilyError) as e:
-        build_model(cfg, device="cpu")
-    assert e.value.family == "ssm"
-    for unported in (dict(n_experts=4), dict(qkv_bias=True), dict(tie_embeddings=False)):
-        with pytest.raises(UnsupportedFamilyError):
-            build_model(reduced(get_smoke_config("qwen3-1.7b"), **unported), device="cpu")
+    """The families the port lacks raise; the dense family's MoE layers, QKV
+    bias and untied head, which it once refused, now build."""
+    for family in ("ssm", "hybrid", "audio", "vlm"):
+        cfg = reduced(get_smoke_config("qwen3-1.7b"), family=family)
+        with pytest.raises(UnsupportedFamilyError) as e:
+            build_model(cfg, device="cpu")
+        assert e.value.family == family
+    for ported in (dict(family="moe", n_experts=4, experts_per_token=2, expert_d_ff=32),
+                   dict(qkv_bias=True), dict(tie_embeddings=False)):
+        build_model(reduced(get_smoke_config("qwen3-1.7b"), **ported), device="cpu")
 
 
 def test_entry_points_need_cuda_unless_told_otherwise():
