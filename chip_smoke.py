@@ -8,21 +8,24 @@ Phases, each of which fails the run (exit code 1, no result line):
 1. Build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, in parallel), print ``ptxas``'s registers and spill
    stores of each tensor-core kernel (the attention kernels' mma instances,
-   K1q's among them, and K2's wgmma and stream instances), of K6's vector
+   K1q's among them, and K2's wgmma and stream instances), of every
+   attention instance at head dim 256 (the f32 FMA ones too), of K6's vector
    kernels, of K7's FFT kernels, of K4's fused Strassen kernels and of K5's
    scan kernels (any spill in these fails the run; K2's kernels carry its
    batched products too) and of K2's other kernels, and the tensor-core
    instructions (HMMA, HGMMA) in each
    library's SASS (``cuobjdump -sass``; the attention libraries must have
-   some, each of K1q's four tensor-core kernels HMMA, and K2's HGMMA), and
-   the card's name and power limit.
+   some, each of K1q's tensor-core kernels, one per head dim 16-256, HMMA,
+   and K2's HGMMA), and the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    serving path's shapes, within the tolerances printed beside each case.
 3. Serve the ``qwen3-1.7b`` smoke config at f32 with one set of parameters
    on the card and on the CPU (plain versions): identical greedy tokens;
    likewise the smoke configs of ``qwen3-moe-30b-a3b``, ``olmoe-1b-7b``,
    ``qwen2.5-14b`` and ``qwen3-32b`` through the ``Engine`` (and
-   ``qwen2.5-14b`` through the ``Server``).
+   ``qwen2.5-14b`` through the ``Server``), and ``gemma3-1b``'s (windows
+   of 8, prompts past them) through the ``Engine`` with both caches and
+   through the ``Server``.
 4. Serve ``qwen3-1.7b`` at full width in bf16 from a seeded init: 4
    requests, prompts of 16-64 tokens, 16 new tokens each, a 256-slot cache.
    Every kernel's launch count is set to 0 just before the run and read
@@ -50,9 +53,10 @@ Phases, each of which fails the run (exit code 1, no result line):
    ``Engine``: 8 slots, a 512-slot cache, chunk 64, 16 requests (prompts of
    16-192 tokens, 8-48 new tokens, seed 0), once with the bf16 cache and
    once with the int8 cache (``attention=pallas:kv_dtype=int8``).  Every
-   request must complete with finite logits, and every decode step must
-   launch K1q (``flash_attention_int8``) once per layer and K1 never with
-   the int8 cache (the reverse with bf16).  Prints decode ms per step, ms
+   request must complete with finite logits and no launch may be flagged
+   a straggler or shed a slot, and every decode step must launch K1q
+   (``flash_attention_int8``) once per layer and K1 never with the int8
+   cache (the reverse with bf16).  Prints decode ms per step, ms
    per prefill chunk, tok/s, the telemetry, and the share of requests whose
    tokens agree between the two caches (not a gate).
 9. Time K1q per call as in phase 5 at phase 8's decode shape and mid-run
@@ -86,16 +90,32 @@ Phases, each of which fails the run (exit code 1, no result line):
    once on the card from a CUDA generator, after the earlier phases freed
    theirs) through the ``Engine`` with phase 8's traffic, bf16 and then
    int8 cache, and through the lockstep ``Server.run_batch`` with phase 4's
-   traffic.  Every request completes with finite logits, and every decode
-   step launches the batched K2 144 times (3 x 48: one launch per expert
-   product), the 2-D K2 193 times and the layer's attention kernel 48
-   times.  Prints decode ms per step (wall) and on the device (CUDA graph
-   replay) beside the weights' floor, and the batched K2 timed alone per
+   traffic.  Every request completes with finite logits, no straggler and
+   no shed slot, and every decode step launches the batched K2 144 times
+   (3 x 48: one launch per expert product), the 2-D K2 193 times and the
+   layer's attention kernel 48 times.  Prints decode ms per step (wall)
+   and on the device (CUDA graph replay) beside the weights' floor, and
+   the batched K2 timed alone per
    decode step beside its bound, its plain version and ``torch.bmm``.
    Then ``olmoe-1b-7b`` at full width and depth through the ``Engine`` (bf16
    cache, the same gates), and ``qwen2.5-14b`` and ``qwen3-32b`` at full
    width with 2 layers through the ``Server`` (finite logits, their launch
    counts).
+12. ``gemma3-1b`` at full width and depth (26 layers, d 1152, 4 query heads
+   over 1 KV head at hd 256, windows of 512 on 22 layers, a 262,144-token
+   tied vocab; 1.0e9 parameters, 2.0 GB, drawn on the card after phase 11
+   freed its memory) through the ``Engine`` with the bf16 and the int8
+   cache (8 slots, 2048 positions, chunk 64, 16 requests of 64-1536 prompt
+   and 8-48 new tokens: the windows bind), through ``Server.run_batch``
+   with phase 4's traffic, and trained for 3 AdamW steps at 2 x 1024
+   tokens.  Gates as in phase 11: completion, finite logits, no straggler
+   or shed slot, exactly 183 K2 and 26 K1 or K1q launches a decode step;
+   finite loss and grad norm, the training launches by construction.
+   Times K1 and K1q per decode step (26 calls at the runs' halfway lanes,
+   each layer its own cache and window) and K3 per training step beside
+   their bounds, plain versions and ``scaled_dot_product_attention`` with
+   a boolean mask for the windowed layers (naming the backend it ran), and
+   both steps on the device (CUDA graph replay).
 
 Phase 2 also holds K1 and K2 at phase 6's shapes (512 token rows: every
 forward product, the logits, every ``g Wᵀ``), K3 and K2's transposed-A
@@ -110,7 +130,10 @@ tensor cores, f32 ``q`` on the FMA template; an int8 cache whose head
 stride is no whole 16-byte step must raise), the batched K2 at phase 11's
 expert products (one launch each) in bf16 and f32, and K1 and K1q at the
 GQA ratios of the other dense-family configs (32/4, 64/8, 40/8, 16/16
-heads); phase 3 also takes
+heads), and K1, K1q and K3 at ``gemma3-1b``'s hd 256 in bf16 and f32
+(4 over 1 heads, its window and global: decode lanes and a 64-row chunk
+over phase 12's 2048-slot cache, the 2 x 1024 training shape, sequences of
+57, 65 and 129; K3 twice, bit-identical); phase 3 also takes
 one f32 training step of the smoke config on the card and on the CPU from
 the same parameters and compares the loss, every gradient and the updated
 parameters, and serves
@@ -148,6 +171,12 @@ INT8 = dict(impl={"attention": "pallas"}, variants={"attention": {"kv_dtype": "i
 MOE_ARCH, OLMOE_ARCH = "qwen3-moe-30b-a3b", "olmoe-1b-7b"
 FAMILY_ARCHS = (MOE_ARCH, OLMOE_ARCH, "qwen2.5-14b", "qwen3-32b")
 WIDE_LAYERS, WIDE_NEW = 2, 4  # qwen2.5-14b and qwen3-32b at full width, 2 layers
+# gemma3-1b (phases 2, 3 and 12): head dim 256, 4 query heads over 1 KV
+# head, 512-key windows on 5 of every 6 layers; the engine's 2048-position
+# cache (prompts of 64-1536 tokens) and training at 2 x 1024 tokens, where
+# the windows bind
+GEMMA_ARCH = "gemma3-1b"
+GEMMA_LEN, GEMMA_TRAIN_BATCH, GEMMA_TRAIN_SEQ = 2048, 2, 1024
 FAULT_PLAN = "decode@3=raise,slot@1=nan_logits"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 128, 3  # the JAX trainer's CLI defaults
 # card vs CPU at f32: loss, gradients (as the CPU tests hold the port to
@@ -222,15 +251,30 @@ def copies_past_l2(nbytes):
     return max(1, math.ceil(2 * L2_BYTES / max(nbytes, 1)))
 
 
+def int8_cache_hd(b, kv_heads, hd, positions, dev, g):
+    """An int8 K and V cache of ``positions`` slots quantized as the model
+    quantizes it (per-(row, KV head) absmax scales of N(0, 1) keys and
+    values), and the two scales."""
+    import torch
+
+    from repro_torch.models.common import kv_scale, quantize_kv
+
+    fp = [torch.randn(b, positions, kv_heads, hd, device=dev, generator=g) for _ in "kv"]
+    scales = [kv_scale(x) for x in fp]
+    return [quantize_kv(x, sc) for x, sc in zip(fp, scales)] + scales
+
+
 def kernel_name(mangled):
     """An attention, K2, K4, K5, K6 or K7 kernel's mangled name as ``name<args>``, from
-    the template ints and bools it carries (K1q's tensor-core kernel is
-    ``flash_fwd_mma_kernel<hd,1>``); any other name unchanged."""
+    the template ints and bools it carries and its float or int8 types (K1q's
+    tensor-core kernel is ``flash_fwd_mma_kernel<hd,1>``, the f32 K1 decode
+    instance ``flash_fwd_kernel<float,float,hd,1>``); any other name unchanged."""
     m = re.search(r"\d+((?:flash|mm|transpose|fft|scan|add)_\w+?_kernel|strassen_kernel)"
-                  r"I((?:L[ib]\d+E)+)E", mangled)
+                  r"I((?:[fa]|L[ib]\d+E)+)E", mangled)
     if not m:
         return mangled
-    args = re.findall(r"L[ib](\d+)E", m.group(2))
+    args = [{"f": "float", "a": "int8"}.get(t, n)
+            for n, t in re.findall(r"L[ib](\d+)E|([fa])", m.group(2))]
     return f"{m.group(1)}<{','.join(args)}>"
 
 
@@ -288,13 +332,14 @@ def device_breakdown(torch, fn, top=8):
                 rest_ms=sum(us for _, us in by_name.values()) / 1e3, top=rest[:top])
 
 
-def engine_moe_run(torch, engine, workload, label, cache_kind, counts, reset_counts, trace,
-                   per_step_want, smi, profile=False):
-    """Serve ``workload`` through ``engine`` (phase 11) with the ``cache_kind``
-    cache: every request complete with finite logits and each decode step
-    launching ``per_step_want``; prints the walls and one decode step's
-    device time (and with ``profile`` its device operations by kind).
-    Returns the run's launches, the device and the wall ms per step."""
+def engine_run(torch, engine, workload, label, cache_kind, counts, reset_counts, trace,
+               per_step_want, smi, profile=False):
+    """Serve ``workload`` through ``engine`` (phases 11 and 12) with the
+    ``cache_kind`` cache: every request complete with finite logits, no
+    straggler flagged and no slot shed, and each decode step launching
+    ``per_step_want``; prints the walls and one decode step's device time
+    (and with ``profile`` its device operations by kind).  Returns the run's
+    launches, the device and the wall ms per step."""
     from repro_torch.kernels import policy
     from repro_torch.launch.serve import Request
 
@@ -323,6 +368,10 @@ def engine_moe_run(torch, engine, workload, label, cache_kind, counts, reset_cou
     tel = out["telemetry"]
     check(bool(trace["finite"]) and tel["slots_poisoned"] == 0 and tel["retries"] == 0,
           f"{label} {cache_kind}: non-finite logits or a failed launch ({tel})")
+    print(f"    telemetry: stragglers {tel['stragglers']}, degradations {tel['degradations']}; "
+          f"watchdog {out['stats']['watchdog']}")
+    check(tel["stragglers"] == 0 and tel["degradations"] == 0,
+          f"{label} {cache_kind}: the unfaulted run flagged stragglers or shed slots ({tel})")
     check(steps == len(per_step) > 0, f"{label}: {steps} decode steps, {len(per_step)} traced")
     for c in per_step:
         check(all(c[k] == n for k, n in per_step_want.items()),
@@ -403,7 +452,7 @@ def phase_11(torch, np, dev, g, smi, workload, prompts, counts, reset_counts, tr
                                     ("int8", "flash_attention_int8", "flash_attention")):
         want = {"hbp_matmul_batched": 3 * L, "hbp_matmul": 4 * L + 1, attn: L, other: 0,
                 "flash_attention_bwd": 0, **zero}
-        launches, dev_ms, wall_ms = engine_moe_run(
+        launches, dev_ms, wall_ms = engine_run(
             torch, engine, workload, MOE_ARCH, cache_kind, counts, reset_counts, trace, want, smi,
             profile=cache_kind == "bf16")
         walls[cache_kind] = (dev_ms, wall_ms)
@@ -491,7 +540,7 @@ def phase_11(torch, np, dev, g, smi, workload, prompts, counts, reset_counts, tr
     engine.model.prefill_chunk = finite_logits(engine.model.prefill_chunk)
     want = {"hbp_matmul_batched": 3 * OL, "hbp_matmul": 4 * OL + 1, "flash_attention": OL,
             "flash_attention_int8": 0, "flash_attention_bwd": 0, **zero}
-    engine_moe_run(torch, engine, oload, OLMOE_ARCH, "bf16", counts, reset_counts, trace,
+    engine_run(torch, engine, oload, OLMOE_ARCH, "bf16", counts, reset_counts, trace,
                    want, smi, profile=True)
     del engine
     gc.collect()
@@ -527,6 +576,284 @@ def phase_11(torch, np, dev, g, smi, workload, prompts, counts, reset_counts, tr
     return dict(launches=moe_launches, **tot)
 
 
+def sdpa_backend(torch, sdpa_args):
+    """The backend PyTorch's dispatcher picks for one
+    ``scaled_dot_product_attention`` call on ``sdpa_args`` (q, k, v in the
+    model's layout, the boolean mask or None, is_causal), by name."""
+    q, k, v, mask, causal = sdpa_args
+    try:
+        from torch.nn.attention import SDPBackend
+
+        names = {int(m.value): n for n, m in SDPBackend.__members__.items()}
+        idx = torch._fused_sdp_choice(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                      attn_mask=mask, is_causal=causal, enable_gqa=True)
+        return names.get(int(idx), str(idx))
+    except Exception as e:  # noqa: BLE001 — an internal call; report what failed
+        return f"not determined ({type(e).__name__})"
+
+
+def phase_12(torch, np, dev, g, smi, prompts, counts, reset_counts, trace, counted,
+             finite_logits, registry_kernels, sdpa, lane):
+    """``gemma3-1b`` at full width and depth (phase 12): 26 layers, d 1152, 4
+    query heads over 1 KV head at hd 256, windows of 512 on 22 layers, a
+    262,144-token tied vocab, bf16, drawn on the card from a CUDA generator
+    after phase 11 freed its memory.  Served through the Engine (bf16, then
+    int8 cache: 8 slots, 2048 positions, chunk 64, 16 requests of 64-1536
+    prompt and 8-48 new tokens) and the lockstep Server (phase 4's traffic),
+    then trained for 3 AdamW steps at 2 x 1024 tokens.  Times K1 and K1q per
+    decode step and K3 per training step beside their bounds, plain
+    versions and ``scaled_dot_product_attention``, and both steps on the
+    device.  Returns the hd-256 entries' sums for the kernels line."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.kernels.flash_attention import (bwd_path, flash_attention,
+                                                     flash_attention_bwd,
+                                                     flash_attention_bwd_ref,
+                                                     flash_attention_ref, fwd_path, kv_splits,
+                                                     mma_kv_tile)
+    from repro_torch.launch.engine import Engine
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import train
+    from repro_torch.models.dense import layer_windows
+
+    cfg = get_config(GEMMA_ARCH)
+    L, d, h, kvh, hd, V = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                           cfg.head_dim_, cfg.vocab_size)
+    windows = [w or 0 for w in layer_windows(cfg)]
+    bf, es = torch.bfloat16, 2
+    print(f"[12] {GEMMA_ARCH} at full width and depth, bf16 ({L} layers, d={d}, {h}/{kvh} heads, "
+          f"hd={hd}, d_ff={cfg.d_ff}, vocab={V}, tied, windows of {cfg.sliding_window} on "
+          f"{sum(map(bool, windows))} layers; {cfg.param_count() / 1e9:.3f}e9 parameters) ({smi})")
+    print(f"    memory held before the build: {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = Engine(cfg, device="cuda", max_batch=SLOTS, max_len=GEMMA_LEN, chunk=CHUNK)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in engine.model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in engine.model.parameters())
+    print(f"    weights built on the card from a CUDA generator in "
+          f"{time.perf_counter() - t0:.2f} s: {n_params / 1e9:.3f}e9 values, "
+          f"{w_bytes / 1e9:.2f} GB")
+    check(n_params == cfg.param_count(), f"{n_params} parameters, param_count {cfg.param_count()}")
+    engine._decode_rows = counted("decode", engine._decode_rows)
+    engine._chunk_first = counted("prefill", engine._chunk_first)
+    engine._chunk_cont = counted("prefill", engine._chunk_cont)
+    engine.model.decode_step = finite_logits(engine.model.decode_step)
+    engine.model.prefill_chunk = finite_logits(engine.model.prefill_chunk)
+    rng = np.random.default_rng(0)
+    workload = [(rng.integers(3, V, int(rng.integers(64, 1537))).astype(np.int32),
+                 int(rng.integers(8, 49))) for _ in range(ENGINE_REQUESTS)]
+    lens = [len(p) for p, _ in workload]
+    print(f"    {ENGINE_REQUESTS} requests, {SLOTS} slots, {GEMMA_LEN} positions, chunk {CHUNK}; "
+          f"prompts {lens} ({sum(n > cfg.sliding_window for n in lens)} past the window), "
+          f"max_new {[m for _, m in workload]}")
+    zero = {k: 0 for k in registry_kernels}
+    runs = {}
+    for cache_kind, attn, other in (("bf16", "flash_attention", "flash_attention_int8"),
+                                    ("int8", "flash_attention_int8", "flash_attention")):
+        want = {"hbp_matmul": 7 * L + 1, "hbp_matmul_batched": 0, attn: L, other: 0,
+                "flash_attention_bwd": 0, **zero}
+        launches, dev_ms, wall_ms = engine_run(
+            torch, engine, workload, GEMMA_ARCH, cache_kind, counts, reset_counts, trace, want,
+            smi, profile=cache_kind == "bf16")
+        mid = trace["pos"][len(trace["pos"]) // 2].tolist()
+        runs[cache_kind] = dict(launches=launches, dev_ms=dev_ms, wall_ms=wall_ms, mid=mid)
+        print(f"    {cache_kind}: {7 * L + 1} K2 and {L} {attn} launches a decode step; device "
+              f"{dev_ms:.4f} ms a step, {wall_ms:.3f} ms of host wall")
+
+    # the lockstep Server's path over the same model: phase 4's traffic
+    reqs = [Request(i, p, max_new=MAX_NEW) for i, p in enumerate(prompts)]
+    reset_counts()
+    out = Server.run_batch(engine, reqs)
+    launches = counts()
+    steps = out["decode_steps"]
+    print(f"    lockstep Server (phase 4's traffic: {BATCH} prompts of {[len(p) for p in prompts]} "
+          f"tokens, {MAX_NEW} new): completed {out['completed']}; logits finite "
+          f"{out['logits_finite']}; decode {1e3 * out['decode_s'] / max(steps, 1):.3f} ms/step "
+          f"over {steps} steps; launches {launches}")
+    check(all(len(r.out) == MAX_NEW for r in reqs) and out["logits_finite"],
+          f"{GEMMA_ARCH} lockstep: {out['completed']}, finite {out['logits_finite']}")
+    check(launches["hbp_matmul"] == (7 * L + 1) * (1 + steps)
+          and launches["flash_attention"] == L * (1 + steps),
+          f"{GEMMA_ARCH} lockstep launches {launches} over a prefill and {steps} steps")
+    del engine, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # K1 and K1q per decode step: every layer's own cache (2048 positions)
+    # and window, at the engine runs' halfway lanes
+    kpos = torch.arange(GEMMA_LEN, device=dev)
+    tot = {}
+    print(f"    attention per decode step at hd {hd} ({L} calls: {sum(map(bool, windows))} "
+          f"windowed, {windows.count(0)} global), times in ms ({smi})")
+    for cache_kind, name in (("bf16", "flash_attention_hd256"),
+                             ("int8", "flash_attention_int8_hd256")):
+        qo = runs[cache_kind]["mid"]
+        kl = [min(p + 1, GEMMA_LEN) for p in qo]
+        qo_t, kl_t = lane(qo), lane(kl)
+        sets, lib_sets = [], []
+        nbytes = ops = 0
+        for w in windows:
+            qd = torch.randn(SLOTS, 1, h, hd, device=dev, generator=g).to(bf)
+            ok = (kpos[None, :] < kl_t[:, None]) & (kpos[None, :] <= qo_t[:, None])
+            if w:
+                ok &= kpos[None, :] > qo_t[:, None] - w
+            mask = ok[:, None, None, :]
+            if cache_kind == "bf16":
+                k, v = (torch.randn(SLOTS, GEMMA_LEN, kvh, hd, device=dev, generator=g).to(bf)
+                        for _ in "kv")
+                sets.append((qd, k, v, None, None, qo_t, kl_t, w))
+                lib_sets.append((qd, k, v, mask, False))
+                kv_es = es
+            else:
+                k8, v8, ks, vs = int8_cache_hd(SLOTS, kvh, hd, GEMMA_LEN, dev, g)
+                sets.append((qd, k8, v8, ks, vs, qo_t, kl_t, w))
+                lib_sets.append((qd, k8, v8, ks, vs, mask))
+                kv_es = 1
+            seen = sum(min(n, w) if w else n for n in kl)  # keys each row's window holds
+            nbytes += (2 * kvh * hd * kv_es * seen + 2 * SLOTS * h * hd * es + SLOTS * h * 4
+                       + 2 * SLOTS * 4 + (2 * SLOTS * kvh * 4 if kv_es == 1 else 0))
+            ops += 4 * hd * h * seen
+        kern = lambda qd, k, v, ks, vs, qo, kl, w: flash_attention(  # noqa: E731
+            qd, k, v, causal=True, window=w, q_offset=qo, kv_len=kl, k_scale=ks, v_scale=vs)
+        plain = lambda qd, k, v, ks, vs, qo, kl, w: flash_attention_ref(  # noqa: E731
+            qd, k, v, causal=True, window=w, q_offset=qo, kv_len=kl, k_scale=ks, v_scale=vs)
+        t_k = L * time_ms(torch, kern, sets)
+        t_p = L * time_ms(torch, plain, sets)
+        if cache_kind == "bf16":
+            lib_name = "scaled_dot_product_attention"
+            t_l = L * time_ms(torch, sdpa, lib_sets)
+            backend = sdpa_backend(torch, lib_sets[0])
+        else:
+            lib_name = "dequantize to bf16, then scaled_dot_product_attention"
+
+            def lib(qd, k8, v8, ks, vs, mask):
+                kb, vb = ((x.float() * sc[:, None, :, None]).to(bf)
+                          for x, sc in ((k8, ks), (v8, vs)))
+                return sdpa(qd, kb, vb, mask, False)
+
+            t_l = L * time_ms(torch, lib, lib_sets)
+            kb, vb = ((x.float() * sc[:, None, :, None]).to(bf)
+                      for x, sc in ((sets[0][1], sets[0][3]), (sets[0][2], sets[0][4])))
+            backend = sdpa_backend(torch, (sets[0][0], kb, vb, lib_sets[0][5], False))
+        b_ms, b_by = bound_ms(nbytes, ops, "bfloat16")
+        splits = kv_splits(SLOTS, 1, h, kvh, GEMMA_LEN,
+                           torch.cuda.get_device_properties(dev).multi_processor_count,
+                           mma_kv_tile(hd))
+        inst = fwd_path(sets[0][0]) + (f", {splits} splits" if cache_kind == "int8" else "")
+        tot[name] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms, bytes=nbytes,
+                         ops=ops, launches=runs[cache_kind]["launches"][
+                             "flash_attention" if cache_kind == "bf16" else "flash_attention_int8"])
+        print(f"    {name} ({inst}) over the {cache_kind} cache, lanes kv_len {kl}: {t_k:.4f} ms "
+              f"a step (bound {b_ms:.4f} by {b_by}, {100 * b_ms / t_k:.1f}% of it; "
+              f"{nbytes / 1e6:.3f} MB); plain {t_p:.4f}; {lib_name} {t_l:.4f} (backend "
+              f"{backend} with the boolean mask); {t_k / runs[cache_kind]['dev_ms'] * 100:.1f}% "
+              f"of the device step")
+        del sets, lib_sets
+
+    # training at 2 x 1024, where the windows bind
+    n_chunks = GEMMA_TRAIN_SEQ // min(512, GEMMA_TRAIN_SEQ)  # RunOptions.ce_chunk 512
+    per_train_step = {"hbp_matmul": L * 7 * 4 + n_chunks * 4,
+                      "flash_attention": 2 * L, "flash_attention_bwd": L}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    run = train(cfg, steps=TRAIN_STEPS,
+                data_cfg=DataConfig(global_batch=GEMMA_TRAIN_BATCH, seq_len=GEMMA_TRAIN_SEQ),
+                device="cuda", log_every=0)
+    train_launches = counts()
+    print(f"    training, batch {GEMMA_TRAIN_BATCH} x {GEMMA_TRAIN_SEQ}, {TRAIN_STEPS} AdamW steps "
+          f"from a seeded init (remat full); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    for i, (loss, gn, sec) in enumerate(zip(run["losses"], run["grad_norms"], run["step_s"])):
+        print(f"    step {i}: loss {loss:.4f}, grad norm {gn:.4f}, {1e3 * sec:.3f} ms (host wall)")
+    print(f"    launches in the run {train_launches}; expected per step {per_train_step}")
+    check(all(math.isfinite(x) for x in run["losses"] + run["grad_norms"]),
+          f"{GEMMA_ARCH}: non-finite loss or grad norm in training")
+    for name, n in per_train_step.items():
+        check(train_launches[name] == TRAIN_STEPS * n,
+              f"{GEMMA_ARCH} training: {name} launched {train_launches[name]}, expected "
+              f"{TRAIN_STEPS} x {n}")
+    model, opt_state = run["model"], run["opt_state"]
+    train_step = make_train_step(model)
+    data_cfg = DataConfig(global_batch=GEMMA_TRAIN_BATCH, seq_len=GEMMA_TRAIN_SEQ)
+    batch = {key: torch.from_numpy(x).to(dev)
+             for key, x in SyntheticLMDataset(data_cfg, cfg).batch_at(0).items()}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        train_step(opt_state, batch)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        train_step(opt_state, batch)
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    train_ms = start.elapsed_time(end) / 3
+    wall_ms = 1e3 * sum(run["step_s"][1:]) / max(len(run["step_s"]) - 1, 1)
+    print(f"    training step: {train_ms:.4f} ms on the device (CUDA graph replay), "
+          f"{wall_ms:.3f} ms of host wall (steps 1-{TRAIN_STEPS - 1}): device busy "
+          f"{100 * train_ms / wall_ms:.1f}%")
+    del graph, model, opt_state, run, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # K3 per training step: the windowed and the global layers' calls
+    B, S = GEMMA_TRAIN_BATCH, GEMMA_TRAIN_SEQ
+    q_bytes, kv_bytes = B * S * h * hd * es, B * S * kvh * hd * es
+    pos = torch.arange(S, device=dev)
+    bwd = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes=0, ops=0,
+               launches=train_launches["flash_attention_bwd"])
+    for w in sorted(set(windows)):
+        calls = windows.count(w)
+        band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - w) if w else None
+        sets, lib_sets = [], []
+        lib_stream = torch.cuda.Stream()
+        lib_stream.wait_stream(torch.cuda.current_stream())
+        for _ in range(copies_past_l2(8 * q_bytes)):
+            q, go = (torch.randn(B, S, h, hd, device=dev, generator=g).to(bf) for _ in "qg")
+            k, v = (torch.randn(B, S, kvh, hd, device=dev, generator=g).to(bf) for _ in "kv")
+            out, lse = flash_attention(q, k, v, causal=True, window=w)
+            sets.append((q, k, v, out, lse, go))
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            with torch.cuda.stream(lib_stream):
+                lib_out = sdpa(*leaves, band, not w)
+            lib_sets.append((lib_out, leaves, go.transpose(1, 2)))
+        t_k = time_ms(torch, lambda *a, w=w: flash_attention_bwd(*a, causal=True, window=w), sets)
+        t_p = time_ms(torch, lambda *a, w=w: flash_attention_bwd_ref(*a, causal=True, window=w),
+                      sets)
+        torch.cuda.current_stream().wait_stream(lib_stream)
+        t_l = time_ms(torch, lambda o, leaves, go: torch.autograd.grad(o, leaves, go,
+                                                                      retain_graph=True),
+                      lib_sets, stream=lib_stream)
+        pairs = B * h * sum(min(i + 1, w) if w else i + 1 for i in range(S))
+        nbytes = 3 * q_bytes + 2 * kv_bytes + B * h * S * 4 + q_bytes + 2 * kv_bytes
+        ops = 10 * hd * pairs
+        b_ms, b_by = bound_ms(nbytes, ops, "bfloat16")
+        backend = sdpa_backend(torch, (sets[0][0], sets[0][1], sets[0][2], band, not w))
+        for key, val in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l),
+                         ("bound_ms", b_ms), ("bytes", nbytes), ("ops", ops)):
+            bwd[key] += calls * val
+        print(f"    flash_attention_bwd_hd256 ({bwd_path(sets[0][0])}) {B}x{S}x{h}x{hd}, "
+              f"{'window ' + str(w) if w else 'global'}: {t_k:.4f} ms a call (bound {b_ms:.4f} by "
+              f"{b_by}, {100 * b_ms / t_k:.1f}% of it); plain {t_p:.4f}; autograd backward of "
+              f"scaled_dot_product_attention {t_l:.4f} (backend {backend}"
+              f"{' with the boolean band mask' if w else ', is_causal'}); {calls} calls a step")
+        del sets, lib_sets
+    print(f"    K3 per training step ({L} calls): {bwd['ms']:.4f} ms (bound {bwd['bound_ms']:.4f}, "
+          f"plain {bwd['plain_ms']:.4f}, library {bwd['library_ms']:.4f}); "
+          f"{100 * bwd['ms'] / train_ms:.1f}% of the {train_ms:.4f} ms device step ({smi})")
+    tot["flash_attention_bwd_hd256"] = bwd
+    torch.cuda.empty_cache()
+    return tot
+
+
 def main():
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch is not beside this script", file=sys.stderr)
@@ -551,7 +878,7 @@ def main():
     from repro_torch.kernels.bp_scan import path as k5_path
     from repro_torch.kernels.bp_scan import tile as k5_tile
     from repro_torch.kernels.morton import supports_morton as morton_order
-    from repro_torch.kernels.flash_attention import (bwd_path, flash_attention,
+    from repro_torch.kernels.flash_attention import (HEAD_DIMS, bwd_path, flash_attention,
                                                      flash_attention_bwd,
                                                      flash_attention_bwd_ref,
                                                      flash_attention_int8,
@@ -567,7 +894,7 @@ def main():
     from repro_torch.kernels.strassen_matmul import matmul as matmul_entry
     from repro_torch.kernels.strassen_matmul import path as k4_path
     from repro_torch.kernels.strassen_matmul import strassen_matmul, strassen_matmul_plain
-    from repro_torch.models.common import kv_scale, project, quantize_kv
+    from repro_torch.models.common import project
     from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
     from repro_torch.runtime.fault_tolerance import FaultInjector
 
@@ -581,6 +908,8 @@ def main():
                "bp_scan": bp_scan, "bi_transpose": bi_transpose, "bi_fft": bi_fft,
                "strassen_matmul": strassen_matmul}
     serving_kernels = ("hbp_matmul", "flash_attention")
+    # phase 12's entries of the kernels line: the attention kernels at hd 256
+    HD256 = ("flash_attention_hd256", "flash_attention_int8_hd256", "flash_attention_bwd_hd256")
     # the registry's kernels (phase 10); no model path runs them
     registry_kernels = ("bp_scan", "bi_transpose", "bi_fft", "strassen_matmul")
 
@@ -614,14 +943,16 @@ def main():
         print(f"    {name}: {len(entries)} kernels, at most "
               f"{max((r for _, r, _ in entries), default=0)} registers, "
               f"{sum(sp for _, _, sp in entries)} bytes of spill stores in all")
-        # the tensor-core instances (K1, K1q, K3), K2's kernels, K6's vector
-        # one, K7's, K4's and K5's
+        # the tensor-core instances (K1, K1q, K3), every attention instance at
+        # hd 256 (the f32 FMA ones too), K2's kernels, K6's vector one, K7's,
+        # K4's and K5's
         gated = ("mm_wgmma", "mm_stream", "transpose_vec", "fft_", "strassen_", "scan_",
                  "add_offsets")
         for kern, regs, spill in entries:
-            if "_mma_kernel" in kern or kern.startswith(("mm_", "transpose_vec") + gated):
+            hd256 = re.match(r"flash_\w+<(?:\w+,)*256[,>]", kern)
+            if hd256 or "_mma_kernel" in kern or kern.startswith(("mm_", "transpose_vec") + gated):
                 print(f"      {kern}: {regs} registers, {spill} bytes of spill stores")
-            if spill and ("_mma_kernel" in kern or kern.startswith(gated)):
+            if spill and (hd256 or "_mma_kernel" in kern or kern.startswith(gated)):
                 mma_spills.append(kern)
     for name in _build.sources():  # tensor-core instructions in each library
         counts_, per_kernel = sass_counts(_build.library_path(name))
@@ -633,7 +964,7 @@ def main():
             k1q = {k: c["HMMA"] for k, c in per_kernel.items()
                    if re.fullmatch(r"flash_fwd_mma_kernel<\d+,1>", k)}
             print(f"      K1q's kernels' HMMA: {k1q}")
-            check(len(k1q) == 4 and all(k1q.values()),
+            check(len(k1q) == len(HEAD_DIMS) and all(k1q.values()),
                   f"flash_attention: K1q's tensor-core kernels' HMMA counts {k1q}")
         if name == "hbp_matmul":
             check(counts_["HGMMA"] > 0, "hbp_matmul: no HGMMA (wgmma) in its SASS")
@@ -648,7 +979,7 @@ def main():
                "wo": (cfg.q_dim, d), "w_gate": (d, ff), "w_up": (d, ff), "w_down": (ff, d)}
     tol = {"bfloat16": (1e-2, 2 ** -7), "float32": (1e-4, 1e-4)}  # (atol, rtol)
     g = torch.Generator(device=dev).manual_seed(0)
-    max_err = {name: 0.0 for name in (*kernels, "hbp_matmul_batched")}
+    max_err = {name: 0.0 for name in (*kernels, "hbp_matmul_batched", *HD256)}
     failures = []
 
     def compare(kernel, label, got, want, dtype, atol=None, rtol=None):
@@ -854,9 +1185,7 @@ def main():
           f"{ENGINE_LEN} positions, phase 8's decode and {CHUNK}-token chunks)")
 
     def int8_cache(b, kv_heads=kvh):
-        fp = [torch.randn(b, ENGINE_LEN, kv_heads, hd, device=dev, generator=g) for _ in "kv"]
-        scales = [kv_scale(x) for x in fp]
-        return [quantize_kv(x, sc) for x, sc in zip(fp, scales)] + scales
+        return int8_cache_hd(b, kv_heads, hd, ENGINE_LEN, dev, g)
 
     k8, v8, ks, vs = int8_cache(SLOTS)
     decode_kl = [1, 77, 128, 255, 256, 400, ENGINE_LEN, 0]
@@ -949,6 +1278,80 @@ def main():
                 compare("flash_attention_int8", f"{tag} out", out, r_out, dtype)
                 compare("flash_attention_int8", f"{tag} lse", lse, r_lse, dtype, 1e-4, 1e-5)
         del k8, v8, kf, kb, vb
+
+    # K1, K1q and K3 at gemma3-1b's head dim 256 (32-key K/V tiles, Q read
+    # from shared memory at each k-step, K3's dq and dk/dv in column halves),
+    # 4 query heads over 1 KV head, its 512-key window and its global layers:
+    # decode lanes over phase 12's 2048-position cache with kv_len past the
+    # window (and a kv_len 0 lane), a 64-row continuation chunk, the training
+    # shape and sequences that end inside a tile
+    gcfg = get_config(GEMMA_ARCH)
+    gh, gkvh, ghd, gwin = gcfg.n_heads, gcfg.n_kv_heads, gcfg.head_dim_, gcfg.sliding_window
+    print(f"[2] K1, K1q and K3 at hd {ghd} ({GEMMA_ARCH}: {gh}/{gkvh} heads, window {gwin} "
+          f"and global; {SLOTS} slots over {GEMMA_LEN} positions, training "
+          f"{GEMMA_TRAIN_BATCH} x {GEMMA_TRAIN_SEQ})")
+    g_qo = [0, 511, 700, 1500, GEMMA_LEN - 1, 100, 1023, 0]
+    g_kl = [p + 1 for p in g_qo[:-1]] + [0]
+    g_cq = [0, 448, 900, GEMMA_LEN - CHUNK, 64, 1200, 1600, 0]
+    g_fwd = [  # (label, sq, q_offset lanes, kv_len lanes, dead lanes)
+        (f"decode {SLOTS}x1 vs {GEMMA_LEN}, kv_len 0 lane", 1, g_qo, g_kl, [7]),
+        (f"chunk {SLOTS}x{CHUNK} vs {GEMMA_LEN}, kv_len 0 lane", CHUNK, g_cq,
+         [p + CHUNK for p in g_cq[:-1]] + [0], [7]),
+    ]
+    g_bwd = [  # (label, b, sq, window)
+        *[(f"training {GEMMA_TRAIN_BATCH}x{GEMMA_TRAIN_SEQ} window {w}", GEMMA_TRAIN_BATCH,
+           GEMMA_TRAIN_SEQ, w) for w in (gwin, 0)],
+        *[(f"ragged 2x{sq}", 2, sq, 0) for sq in (57, 65, 129)],
+        ("ragged 2x129 window 40 across a K/V tile", 2, 129, 40),
+    ]
+    gk8, gv8, gks, gvs = int8_cache_hd(SLOTS, gkvh, ghd, GEMMA_LEN, dev, g)
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        f32 = dtype == "float32"
+        kf = [torch.randn(SLOTS, GEMMA_LEN, gkvh, ghd, device=dev, generator=g).to(dt)
+              for _ in "kv"]
+        for label, sq, qo, kl, dead in g_fwd:
+            q = torch.randn(SLOTS, sq, gh, ghd, device=dev, generator=g).to(dt)
+            for window in (gwin, 0):
+                kw = dict(causal=True, window=window, q_offset=lane(qo), kv_len=lane(kl))
+                tag = f"{dtype} {fwd_path(q)} {label}, window {window}"
+                out, lse = flash_attention(q, *kf, **kw)
+                r_out, r_lse = flash_attention_ref(q, *kf, **kw)
+                compare("flash_attention_hd256", f"{tag} out", out, r_out, dtype,
+                        *((1e-5, 0.0) if f32 else (None, None)))
+                compare("flash_attention_hd256", f"{tag} lse", lse, r_lse, dtype, 1e-4, 1e-5)
+                q8_out, q8_lse = flash_attention_int8(q, gk8, gv8, gks, gvs, **kw)
+                r_out8, r_lse8 = flash_attention_ref(q, gk8, gv8, k_scale=gks, v_scale=gvs, **kw)
+                compare("flash_attention_int8_hd256", f"{tag} out", q8_out, r_out8, dtype)
+                compare("flash_attention_int8_hd256", f"{tag} lse", q8_lse, r_lse8, dtype,
+                        1e-4, 1e-5)
+                for x in (out, q8_out):
+                    if any(torch.count_nonzero(x[r]).item() for r in dead):
+                        failures.append(f"hd {ghd} {tag}: lanes {dead} not exact zeros")
+        del kf
+        for label, b, sq, window in g_bwd:
+            q, go = (torch.randn(b, sq, gh, ghd, device=dev, generator=g).to(dt) for _ in "qg")
+            k, v = (torch.randn(b, sq, gkvh, ghd, device=dev, generator=g).to(dt) for _ in "kv")
+            kw = dict(causal=True, window=window)
+            out, lse = flash_attention(q, k, v, **kw)
+            r_out, r_lse = flash_attention_ref(q, k, v, **kw)
+            tag = f"{dtype} {label}"
+            compare("flash_attention_hd256", f"{tag} out", out, r_out, dtype,
+                    *((1e-5, 0.0) if f32 else (None, None)))
+            compare("flash_attention_hd256", f"{tag} lse", lse, r_lse, dtype, 1e-4, 1e-5)
+            got = flash_attention_bwd(q, k, v, out, lse, go, **kw)
+            want = flash_attention_bwd_ref(q, k, v, out, lse, go, **kw)
+            for name, x, w in zip(("dq", "dk", "dv"), got, want):
+                compare("flash_attention_bwd_hd256", f"{tag} {bwd_path(q)} {name}", x, w, dtype)
+            if dtype == "bfloat16" and sq == GEMMA_TRAIN_SEQ and window:
+                again = flash_attention_bwd(q, k, v, out, lse, go, **kw)
+                same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+                print(f"    {'flash_attention_bwd_hd256':26s} {tag} twice: dq, dk, dv "
+                      f"bit-identical: {same}")
+                if not same:
+                    failures.append(f"flash_attention_bwd hd {ghd}: two calls differ")
+            del q, go, k, v, out, lse, got, want
+    del gk8, gv8, gks, gvs
     torch.cuda.synchronize()
     check(not failures, f"kernels disagree with their plain versions: {failures}")
 
@@ -1085,6 +1488,40 @@ def main():
               + f" ({sum(map(len, got['cuda']))} tokens) {'ok' if ok else 'FAIL'}")
         check(ok, f"smoke {arch}: card and CPU tokens differ: {got}")
     del fam_model, fam_params, eng
+
+    # gemma3-1b's smoke config at f32 (windows of 8 on 2 of every 3 layers, a
+    # local RoPE theta, scaled embeddings): card == CPU tokens through the
+    # Engine with the fp and the int8 cache (chunk 5, which does not divide
+    # the window) and through the Server, prompts past the window
+    gsmall = reduced(get_smoke_config(GEMMA_ARCH), dtype="float32")
+    gmodel = build_model(gsmall, device="cpu")
+    gmodel.init(torch.Generator().manual_seed(0))
+    gparams = gmodel.state_dict()
+    g_prompts = [small_rng.integers(3, gsmall.vocab_size, n).astype(np.int32)
+                 for n in (12, 9, 17, 10)]
+    got = {}
+    for where in ("cuda", "cpu"):
+        for cache_kind in ("fp", "int8"):
+            with policy.apply(**(INT8 if cache_kind == "int8" else {})):
+                eng = Engine(gsmall, device=where, params=gparams, max_batch=3, max_len=64,
+                             chunk=5)
+                reqs = smoke_requests(6)
+                eng.run(reqs)
+            got[f"{where} {cache_kind}"] = [r.out for r in reqs]
+        srv = Server(gsmall, device=where, params=gparams, max_batch=BATCH, max_len=64)
+        reqs = [Request(i, p, max_new=12) for i, p in enumerate(g_prompts)]
+        srv.run_batch(reqs)
+        got[f"{where} lockstep"] = [r.out for r in reqs]
+    same = {key: got[f"cuda {key}"] == got[f"cpu {key}"] for key in ("fp", "int8", "lockstep")}
+    past = sum(len(r.prompt) > gsmall.sliding_window for r in smoke_requests(6))
+    print(f"[3] smoke f32 {GEMMA_ARCH} (hd {gsmall.head_dim_}, window {gsmall.sliding_window}, "
+          f"global every {gsmall.global_every}; {past}/6 engine prompts and prompts "
+          f"{[len(p) for p in g_prompts]} past the window): cuda == cpu through the Engine, "
+          f"fp cache {same['fp']}, int8 cache {same['int8']}; through the Server "
+          f"{same['lockstep']} ({sum(map(len, got['cuda fp']))} + "
+          f"{sum(map(len, got['cuda lockstep']))} tokens) {'ok' if all(same.values()) else 'FAIL'}")
+    check(all(same.values()), f"smoke {GEMMA_ARCH}: card and CPU tokens differ: {got}")
+    del gmodel, gparams, eng, srv
 
     # -- 4. full width ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -1464,6 +1901,9 @@ def main():
               f"{cache_kind} engine: requests not completed: {out['completed']}")
         check(bool(trace["finite"]) and tel["slots_poisoned"] == 0 and tel["retries"] == 0,
               f"{cache_kind} engine: non-finite logits or a failed launch ({tel})")
+        print(f"    watchdog {out['stats']['watchdog']}")
+        check(tel["stragglers"] == 0 and tel["degradations"] == 0,
+              f"{cache_kind} engine: the unfaulted run flagged stragglers or shed slots ({tel})")
         attn, other = (("flash_attention_int8", "flash_attention") if cache_kind == "int8"
                        else ("flash_attention", "flash_attention_int8"))
         for c in per_step:
@@ -1538,7 +1978,7 @@ def main():
         # K1's library call over the same bf16 cache: one masked
         # scaled_dot_product_attention
         t_k1_lib = time_ms(torch, lambda qd, kb, vb, m: sdpa(qd, kb, vb, m, False), k1_lib_sets)
-        splits = fa_mod.kv_splits(SLOTS, sq, h, kvh, ENGINE_LEN, sms)
+        splits = fa_mod.kv_splits(SLOTS, sq, h, kvh, ENGINE_LEN, sms, fa_mod.mma_kv_tile(hd))
         instance = f"{fwd_path(q8_sets[0][0])}, {splits} split{'s' * (splits > 1)}"
         # read the valid int8 k and v once, q, the scales and the lanes; write
         # out and lse.  Work: q.kᵀ and p.v over every (row, key) pair a row
@@ -1847,6 +2287,12 @@ def main():
     moe = phase_11(torch, np, dev, g, smi, workload, prompts, counts, reset_counts, trace,
                    counted, finite_logits, registry_kernels)
 
+    # -- 12. gemma3-1b at full width and depth --------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    hd256 = phase_12(torch, np, dev, g, smi, prompts, counts, reset_counts, trace, counted,
+                     finite_logits, registry_kernels, sdpa, lane)
+
     # one entry per kernel: K1 and K2 summed over one decode step's calls
     # (their launches from phase 4's run), K3 over one training step's calls
     # (its launches from phase 6's run), K1q over one int8 engine decode
@@ -1908,6 +2354,24 @@ def main():
                      >= moe["ops"] / PEAK_OPS["bfloat16"] else "operations"),
         "library_ms": moe["library_ms"],
     })
+    # the attention kernels at hd 256 (phase 12): K1 and K1q over one
+    # gemma3-1b decode step's 26 calls (their launches from the bf16 and the
+    # int8 engine run), K3 over one training step's (its launches from the
+    # training run)
+    hd256_source = {"flash_attention_hd256": ("flash_attention", "flash_attention"),
+                    "flash_attention_int8_hd256": ("flash_attention", "flash_attention_int8"),
+                    "flash_attention_bwd_hd256": ("flash_attention_bwd", "flash_attention_bwd")}
+    for name in HD256:
+        t, (src, kernel) = hd256[name], hd256_source[name]
+        entries.append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}.cu",
+            "replaces": replaces[kernel], "launches": t["launches"],
+            "max_abs_err": max_err[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": ("bytes" if t["bytes"] / HBM_BYTES_PER_S
+                         >= t["ops"] / PEAK_OPS["bfloat16"] else "operations"),
+            "library_ms": t["library_ms"],
+        })
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,7 @@ sides (a test holds the two field lists equal).  ``activation_dtype`` is a
 ``torch.dtype``.  ``param_count`` and ``active_param_count`` are the JAX
 package's analytic counts.  Only the architectures the port serves are
 registered: the dense family (``qwen3-1.7b``, ``qwen3-32b``,
-``qwen2.5-14b``) and its MoE configs (``olmoe-1b-7b``,
+``qwen2.5-14b``, ``gemma3-1b``) and its MoE configs (``olmoe-1b-7b``,
 ``qwen3-moe-30b-a3b``); ``list_archs`` names them.
 """
 from __future__ import annotations
@@ -215,6 +215,7 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
 
 def _ensure_loaded() -> None:
     from repro_torch.configs import (  # noqa: F401  (each registers itself)
+        gemma3_1b,
         olmoe_1b_7b,
         qwen2_5_14b,
         qwen3_1_7b,

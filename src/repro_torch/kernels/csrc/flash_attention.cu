@@ -34,6 +34,14 @@
 //         A operand of P V (no shared-memory round trip);
 //       - K1's bf16 rounding: P before P V (l is summed from the f32 P), and
 //         the output; S, m, l, the LSE and O's sums are f32.
+//     At hd 256 (gemma3-1b) a warp's f32 O alone is 128 registers, and Q as
+//     A fragments would be 64 more: there the warp reads Q's fragments from
+//     its staged rows at each k-step (q_in_registers) and the K/V tiles hold
+//     32 keys (mma_bk: S is 16 registers), which keeps both instances
+//     spill-free (242 and 255 registers; 101,376 bytes of shared memory for
+//     K1, 168,960 for K1q, whose ring of 16 KB int8 tiles is then smaller
+//     than the warps' partial (m, l, O) it holds after the loop).  Every
+//     hd <= 128 instance keeps its 64-key tiles and Q in registers.
 //     In decode (sq == 1) a block is a KV head's query heads, one row each,
 //     so the cache is read once per KV head (and not once per query head as
 //     the FMA template read it).
@@ -67,7 +75,9 @@
 //     int8 one (K1q), where the f32 gates leave no room for bf16 or TF32
 //     rounding.  One block per (query batch-head, tile of BQ query rows),
 //     f32 dot products in shared memory, BK = 32 keys per tile; int8 K/V
-//     are dequantized while they are staged, in the TPU kernel's order.
+//     are dequantized while they are staged, in the TPU kernel's order.  At
+//     hd 256 a block has one thread a column (256) and the tiles (84 KB)
+//     move to dynamic shared memory.
 // Both read q, k, v in the model's (b, s, heads, hd) layout through their
 // strides, so neither the head fold nor a GQA repeat is ever copied: query
 // head b_ = bi * h + hi reads KV head bi * kvh + hi / n_rep (the repro
@@ -123,8 +133,31 @@ __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 
+// The FMA template's threads: 128, and one a column past hd 128.
+template <int HD>
+__host__ __device__ constexpr int fma_threads() { return HD > THREADS ? HD : THREADS; }
+
+// The FMA template's f32 tiles.  Up to hd 128 they are static shared
+// memory; at hd 256 (84 KB at BQ 16) they pass the 48 KB static limit and
+// live in dynamic shared memory, with the opt-in raised at the launch.
+template <int HD, int BQ>
+struct FmaTiles {
+  float Qs[BQ][HD];
+  float Ks[BK][HD + 1];
+  float Vs[BK][HD];
+  float Ps[BQ][BK];
+  float m_s[BQ], l_s[BQ], corr_s[BQ];
+};
+
+template <int HD, int BQ>
+__host__ __device__ constexpr int fma_smem_bytes() {
+  return HD > THREADS ? (int)sizeof(FmaTiles<HD, BQ>) : 0;
+}
+
+// The launch bounds promise one block a SM, no more: given the thread count
+// alone, ptxas aimed at more and spilled 4-12 bytes in 7 of the 20 instances.
 template <typename T, typename KT, int HD, int BQ>
-__global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
+__global__ void __launch_bounds__(HD > THREADS ? HD : THREADS, 1) flash_fwd_kernel(
     const T* __restrict__ q, const KT* __restrict__ k, const KT* __restrict__ v,
     T* __restrict__ out, float* __restrict__ lse, const int* __restrict__ qoff,
     const int* __restrict__ kvlen, const float* __restrict__ kscale,
@@ -132,19 +165,30 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     int kvh, long long qsb, long long qss, long long qsh, long long ksb,
     long long kss, long long ksh, long long vsb, long long vss, long long vsh,
     int causal, int window, float scale) {
-  static_assert(HD <= THREADS && THREADS % HD == 0, "head_dim must divide 128");
-  constexpr int E = BQ * BK;                        // scores per tile
-  constexpr int G = E >= THREADS ? 1 : THREADS / E;  // threads per score
-  constexpr int EPT = E >= THREADS ? E / THREADS : 1;
-  constexpr int RSTEP = THREADS / HD;               // acc rows per pass
-  constexpr int ACC = (BQ + RSTEP - 1) / RSTEP;     // acc entries per thread
+  constexpr int NT = fma_threads<HD>();
+  static_assert(HD <= NT && NT % HD == 0, "head_dim must divide the block");
+  constexpr int E = BQ * BK;               // scores per tile
+  constexpr int G = E >= NT ? 1 : NT / E;  // threads per score
+  constexpr int EPT = E >= NT ? E / NT : 1;
+  constexpr int RSTEP = NT / HD;                 // acc rows per pass
+  constexpr int ACC = (BQ + RSTEP - 1) / RSTEP;  // acc entries per thread
   static_assert(G <= 32 && (32 % G) == 0, "score groups must sit in a warp");
 
-  __shared__ float Qs[BQ][HD];
-  __shared__ float Ks[BK][HD + 1];
-  __shared__ float Vs[BK][HD];
-  __shared__ float Ps[BQ][BK];
-  __shared__ float m_s[BQ], l_s[BQ], corr_s[BQ];
+  FmaTiles<HD, BQ>* tiles;
+  if constexpr (fma_smem_bytes<HD, BQ>() > 0) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    tiles = reinterpret_cast<FmaTiles<HD, BQ>*>(smem_raw);
+  } else {
+    __shared__ FmaTiles<HD, BQ> static_tiles;
+    tiles = &static_tiles;
+  }
+  auto& Qs = tiles->Qs;
+  auto& Ks = tiles->Ks;
+  auto& Vs = tiles->Vs;
+  auto& Ps = tiles->Ps;
+  auto& m_s = tiles->m_s;
+  auto& l_s = tiles->l_s;
+  auto& corr_s = tiles->corr_s;
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.x;
@@ -162,7 +206,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
   const float ks = kscale ? kscale[bi * kvh + kvhi] : 1.f;
   const float vs = vscale ? vscale[bi * kvh + kvhi] : 1.f;
 
-  for (int i = tid; i < BQ * HD; i += THREADS) {
+  for (int i = tid; i < BQ * HD; i += NT) {
     const int r = i / HD, d = i % HD;
     Qs[r][d] = q0 + r < sq ? to_f32(qb[(q0 + r) * qss + d]) : 0.f;
   }
@@ -189,7 +233,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
 
   __syncthreads();
   for (int k0 = kv_begin; k0 < kv_end; k0 += BK) {
-    for (int i = tid; i < BK * HD; i += THREADS) {
+    for (int i = tid; i < BK * HD; i += NT) {
       const int j = i / HD, d = i % HD;
       const bool in = k0 + j < sk;
       Ks[j][d] = in ? stage(kb[(k0 + j) * kss + d], ks) : 0.f;
@@ -200,7 +244,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     // scores: each entry (r, j) is a dot over HD split across G lanes
 #pragma unroll
     for (int i = 0; i < EPT; ++i) {
-      const int e = tid / G + i * (THREADS / G);
+      const int e = tid / G + i * (NT / G);
       const int r = e / BK, j = e % BK;
       const int part = tid % G;
       float dot = 0.f;
@@ -218,7 +262,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
 
     // online softmax: one warp per row, one lane per key
     const int warp = tid / 32, lane = tid % 32;
-    for (int r = warp; r < BQ; r += THREADS / 32) {
+    for (int r = warp; r < BQ; r += NT / 32) {
       const float s = Ps[r][lane];
       const bool ok = visible(r, k0 + lane);
       float mx = s;
@@ -276,17 +320,32 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
 
 // ---- the tensor-core instance: bf16 q over a bf16 or an int8 K/V -------------
 
-constexpr int MMA_BK = 64;     // keys per K/V tile
 constexpr int Q8_STAGES = 4;   // K1q: int8 K/V tiles in its ring
 constexpr int Q8_KGROUPS = 2;  // K1q: at most two key groups (widened tiles) at once
+
+// Keys per K/V tile: 64, and 32 at hd 256, where a warp's f32 O alone
+// takes 128 registers and a 64-key S tile 32 more (flash_mma_kv_tile gives
+// it to flash_attention.kv_splits).
+template <int HD>
+__host__ __device__ constexpr int mma_bk() { return HD > 128 ? 32 : 64; }
+
+// Up to hd 128 each warp holds its Q tile as A fragments in registers for
+// the whole KV loop (HD / 4 registers); at hd 256 that would be 64 of them,
+// so it reads them from its staged Q rows at each k-step instead.
+template <int HD>
+__host__ __device__ constexpr bool q_in_registers() { return HD <= 128; }
 
 template <int HD, bool Q8>
 constexpr int fwd_mma_smem_bytes(int warps, int kgroups) {
   // Q, then K and V: bf16 double-buffered (K1), or K1q's widened tiles, one
-  // per key group (K bf16, V f16), and its ring of int8 tiles
-  return Q8 ? (warps * 16 + 2 * MMA_BK * kgroups) * mma_bf16::pad_ld<HD>() * 2 +
-                  Q8_STAGES * 2 * MMA_BK * HD
-            : (warps * 16 + 4 * MMA_BK) * mma_bf16::pad_ld<HD>() * 2;
+  // per key group (K bf16, V f16), and its ring of int8 tiles, which after
+  // the loop holds the warps' partial (m, l, O): 4 + HD / 2 floats a lane
+  // (more than the ring at hd 256)
+  const int ring = Q8_STAGES * 2 * mma_bk<HD>() * HD;
+  const int parts = warps * (4 + HD / 2) * 32 * 4;
+  return Q8 ? (warps * 16 + 2 * mma_bk<HD>() * kgroups) * mma_bf16::pad_ld<HD>() * 2 +
+                  (ring > parts ? ring : parts)
+            : (warps * 16 + 4 * mma_bk<HD>()) * mma_bf16::pad_ld<HD>() * 2;
 }
 
 // Rows r0 .. r0 + rows - 1 of HD int8 each (row i at base + i * stride;
@@ -310,7 +369,7 @@ template <int HD>
 __device__ __forceinline__ void widen_tile(mma_bf16::bf16* Kw, __half* Vw, const int8_t* K8,
                                            const int8_t* V8, int t, int nt) {
   constexpr int CH = HD / 16, LD = mma_bf16::pad_ld<HD>();
-  for (int i = t; i < MMA_BK * CH; i += nt) {
+  for (int i = t; i < mma_bk<HD>() * CH; i += nt) {
     const int r = i / CH, c = i % CH;
     const uint4 kw = *reinterpret_cast<const uint4*>(K8 + r * HD + c * 16);
     const uint4 vw = *reinterpret_cast<const uint4*>(V8 + r * HD + c * 16);
@@ -344,10 +403,12 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_mma_kernel(
   using namespace mma_bf16;
   using KT = typename std::conditional<Q8, int8_t, bf16>::type;
   constexpr int LD = pad_ld<HD>();
+  constexpr int MMA_BK = mma_bk<HD>();
   constexpr int KS = HD / 16;     // k-steps of Q K^T
   constexpr int NB = MMA_BK / 8;  // 8-key column blocks of S
   constexpr int DB = HD / 8;      // 8-column blocks of O
   constexpr int NSTAGE = Q8 ? Q8_STAGES : 2;
+  constexpr bool Q_REGS = q_in_registers<HD>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warps = rg * qg;
   const int kgr = Q8 ? kgroups : 1;  // K/V tiles in use at once, one per key group
@@ -420,13 +481,17 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_mma_kernel(
     cp_async_commit();
   }
 
-  // Q as A fragments, held in registers for the whole KV loop (each warp
-  // staged and reads only its own rows, so a warp barrier suffices)
-  uint32_t qf[KS][4];
+  // Q as A fragments, held in registers for the whole KV loop up to hd 128
+  // (each warp staged and reads only its own rows, so a warp barrier
+  // suffices); at hd 256 read from the staged rows at each k-step
+  const bf16* Qw = Qs + warp * 16 * LD;
+  uint32_t qf[Q_REGS ? KS : 1][4];
   cp_async_wait<AHEAD>();
   __syncwarp();
+  if constexpr (Q_REGS) {
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks) load_a(qf[ks], Qs + warp * 16 * LD, LD, ks * 16, lane);
+    for (int ks = 0; ks < KS; ++ks) load_a(qf[ks], Qw, LD, ks * 16, lane);
+  }
 
   const int r = lane / 4, c = 2 * (lane % 4);
   const int qpos0 = qo + wq0 + r;  // the positions of rows r and r + 8
@@ -461,12 +526,19 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_mma_kernel(
       for (int j = 0; j < NB; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
+        uint32_t qa[4];
+        if constexpr (Q_REGS) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) qa[i] = qf[ks][i];
+        } else {
+          load_a(qa, Qw, LD, ks * 16, lane);
+        }
 #pragma unroll
         for (int j = 0; j < NB; j += 2) {
           uint32_t bb[4];
           load_b_rows(bb, Kt, LD, j * 8, ks * 16, lane);
-          mma(s[j], qf[ks], bb[0], bb[1]);
-          mma(s[j + 1], qf[ks], bb[2], bb[3]);
+          mma(s[j], qa, bb[0], bb[1]);
+          mma(s[j + 1], qa, bb[2], bb[3]);
         }
       }
       // scale and mask; the tile's row maxima over the quad
@@ -623,35 +695,45 @@ struct Args {
 };
 
 template <typename T, typename KT, int HD, int BQ>
-void launch(const Args& a, cudaStream_t stream) {
+int launch(const Args& a, cudaStream_t stream) {
+  constexpr int smem = fma_smem_bytes<HD, BQ>();
+  if constexpr (smem > 0) {
+    // once per instantiation, so that a launch captured in a CUDA graph
+    // makes no attribute call
+    static bool limit_set = false;
+    if (!limit_set) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          flash_fwd_kernel<T, KT, HD, BQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      limit_set = true;
+    }
+  }
   const dim3 grid(a.b * a.h, (a.sq + BQ - 1) / BQ);
   const long long* st = a.st;
-  flash_fwd_kernel<T, KT, HD, BQ><<<grid, THREADS, 0, stream>>>(
+  flash_fwd_kernel<T, KT, HD, BQ><<<grid, fma_threads<HD>(), smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const KT*>(a.k),
       static_cast<const KT*>(a.v), static_cast<T*>(a.out),
       static_cast<float*>(a.lse), a.qoff, a.kvlen, a.kscale, a.vscale, a.rows,
       a.b, a.sq, a.sk, a.h, a.kvh, st[0], st[1], st[2], st[3], st[4], st[5],
       st[6], st[7], st[8], a.causal, a.window, 1.0f / sqrtf((float)HD));
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, typename KT, int HD>
-void launch_bq(const Args& a, cudaStream_t stream) {
-  if (a.sq == 1)
-    launch<T, KT, HD, 1>(a, stream);
-  else
-    launch<T, KT, HD, 16>(a, stream);
+int launch_bq(const Args& a, cudaStream_t stream) {
+  return a.sq == 1 ? launch<T, KT, HD, 1>(a, stream) : launch<T, KT, HD, 16>(a, stream);
 }
 
 template <typename T, typename KT>
 int launch_hd(int hd, const Args& a, cudaStream_t stream) {
   switch (hd) {
-    case 16: launch_bq<T, KT, 16>(a, stream); break;
-    case 32: launch_bq<T, KT, 32>(a, stream); break;
-    case 64: launch_bq<T, KT, 64>(a, stream); break;
-    case 128: launch_bq<T, KT, 128>(a, stream); break;
+    case 16: return launch_bq<T, KT, 16>(a, stream);
+    case 32: return launch_bq<T, KT, 32>(a, stream);
+    case 64: return launch_bq<T, KT, 64>(a, stream);
+    case 128: return launch_bq<T, KT, 128>(a, stream);
+    case 256: return launch_bq<T, KT, 256>(a, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD, bool Q8>
@@ -709,11 +791,25 @@ int launch_mma_hd(int hd, const Args& a, cudaStream_t stream) {
     case 32: return launch_mma<32, Q8>(a, stream);
     case 64: return launch_mma<64, Q8>(a, stream);
     case 128: return launch_mma<128, Q8>(a, stream);
+    case 256: return launch_mma<256, Q8>(a, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
+
+// Keys per K/V tile of the tensor-core instance at head dim hd (mma_bk),
+// or 0 for an unsupported hd.
+extern "C" int flash_mma_kv_tile(int hd) {
+  switch (hd) {
+    case 16: return mma_bk<16>();
+    case 32: return mma_bk<32>();
+    case 64: return mma_bk<64>();
+    case 128: return mma_bk<128>();
+    case 256: return mma_bk<256>();
+    default: return 0;
+  }
+}
 
 // q: (b, sq, h, hd); k, v: (b, sk, kvh, hd), each with unit stride on hd and
 // the given (batch, seq, head) strides.  out: contiguous (b, sq, h, hd);

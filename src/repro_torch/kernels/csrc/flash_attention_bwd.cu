@@ -48,12 +48,20 @@
 //         bf16 write.  Training shape: 32 x 8 = 256 blocks of 4 warps, two
 //         per SM of the 132.  A tile past kv_len, or one no query sees,
 //         writes zeros: every slot of dk/dv is written.
+//       - hd 256 (gemma3-1b): dk and dv of 16 keys x 256 columns in f32 are
+//         256 registers a warp, dq 128.  Both passes then split the columns
+//         in halves over the grid's z (col_slice): each block recomputes S
+//         and dP over the full hd and accumulates its 128 columns, so its
+//         accumulators are hd 128's (dq pass 194 registers, dk/dv 252, no
+//         spill); the dq pass's z = 0 block writes delta.  One writer per
+//         element still.
 //   * f32 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel): f32 FMA out of
 //     shared memory, kept where the f32 gates leave no room for TF32 or
 //     bf16 rounding.  dq: one block per (batch row, query head, BQ queries)
 //     walking the KV tiles; dk/dv: one block per (batch row, KV head, BK
 //     keys) walking the group's query heads and tiles.  Tiles live in
-//     dynamic shared memory as f32 (52.4 KB at hd 128).
+//     dynamic shared memory as f32 (52.4 KB at hd 128, 102.8 KB at hd 256,
+//     where each thread owns two columns of every row).
 // Both read q, k, v and dO in the model's (b, s, heads, hd) layout through
 // their strides (unit stride on hd); query head hi of batch row bi uses KV
 // head hi / n_rep; lanes as in K1 (lane = bi / (b / rows)).  Masked
@@ -182,11 +190,16 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
     delta_s[tid] = in ? delta[row + q0 + tid] : 0.f;
   }
 
-  constexpr int RSTEP = THREADS / HD;           // dq rows per pass
-  constexpr int ACC = (BQ + RSTEP - 1) / RSTEP;  // dq entries per thread
-  float acc[ACC];
+  // a thread owns column tid % HD of dq rows tid / HD + j * RSTEP, and past
+  // hd 128 columns tid + c * THREADS of every row
+  constexpr int RSTEP = HD > THREADS ? 1 : THREADS / HD;  // dq rows per pass
+  constexpr int CPT = HD > THREADS ? HD / THREADS : 1;    // dq columns per thread
+  constexpr int ACC = (BQ + RSTEP - 1) / RSTEP;           // dq rows per thread
+  float acc[ACC][CPT];
 #pragma unroll
-  for (int j = 0; j < ACC; ++j) acc[j] = 0.f;
+  for (int j = 0; j < ACC; ++j)
+#pragma unroll
+    for (int cc = 0; cc < CPT; ++cc) acc[j][cc] = 0.f;
 
   // the KV range this query tile can see
   const int q_first = qo + q0;
@@ -214,11 +227,14 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
     for (int j = 0; j < ACC; ++j) {
       const int r = tid / HD + j * RSTEP;
       if (r < BQ) {
-        float a = acc[j];
+#pragma unroll
+        for (int cc = 0; cc < CPT; ++cc) {
+          float a = acc[j][cc];
 #pragma unroll 8
-        for (int kk = 0; kk < BK; ++kk)
-          a = fmaf(Ss[r * BK + kk], Ks[kk * (HD + 1) + d], a);
-        acc[j] = a;
+          for (int kk = 0; kk < BK; ++kk)
+            a = fmaf(Ss[r * BK + kk], Ks[kk * (HD + 1) + d + cc * THREADS], a);
+          acc[j][cc] = a;
+        }
       }
     }
     __syncthreads();
@@ -229,8 +245,10 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
   for (int j = 0; j < ACC; ++j) {
     const int r = tid / HD + j * RSTEP;
     if (r < BQ && q0 + r < geo.sq)
-      dq[(((long long)bi * geo.sq + q0 + r) * geo.h + hi) * HD + d] =
-          from_f32<T>(acc[j]);
+#pragma unroll
+      for (int cc = 0; cc < CPT; ++cc)
+        dq[(((long long)bi * geo.sq + q0 + r) * geo.h + hi) * HD + d + cc * THREADS] =
+            from_f32<T>(acc[j][cc]);
   }
 }
 
@@ -263,11 +281,15 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
   const T* vb = v + bi * st.v[0] + kvhi * st.v[2];
 
   // dk/dv rows j = tid / HD + t * RSTEP of the tile, column d = tid % HD
-  constexpr int RSTEP = THREADS / HD;
+  // (past hd 128 columns tid + c * THREADS of every row)
+  constexpr int RSTEP = HD > THREADS ? 1 : THREADS / HD;
+  constexpr int CPT = HD > THREADS ? HD / THREADS : 1;
   constexpr int ACC = (BK + RSTEP - 1) / RSTEP;
-  float dk_acc[ACC], dv_acc[ACC];
+  float dk_acc[ACC][CPT], dv_acc[ACC][CPT];
 #pragma unroll
-  for (int t = 0; t < ACC; ++t) dk_acc[t] = dv_acc[t] = 0.f;
+  for (int t = 0; t < ACC; ++t)
+#pragma unroll
+    for (int cc = 0; cc < CPT; ++cc) dk_acc[t][cc] = dv_acc[t][cc] = 0.f;
 
   // the query rows that can see this tile: [q_begin, q_end)
   int q_begin = 0, q_end = 0;
@@ -314,14 +336,17 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
       for (int t = 0; t < ACC; ++t) {
         const int j = tid / HD + t * RSTEP;
         if (j < BK) {
-          float a = dv_acc[t], c = dk_acc[t];
+#pragma unroll
+          for (int cc = 0; cc < CPT; ++cc) {
+            float a = dv_acc[t][cc], c = dk_acc[t][cc];
 #pragma unroll 8
-          for (int r = 0; r < BQ; ++r) {
-            a = fmaf(Ss[r * BK + j], Gs[r * HD + d], a);
-            c = fmaf(Ds[r * BK + j], Qs[r * HD + d], c);
+            for (int r = 0; r < BQ; ++r) {
+              a = fmaf(Ss[r * BK + j], Gs[r * HD + d + cc * THREADS], a);
+              c = fmaf(Ds[r * BK + j], Qs[r * HD + d + cc * THREADS], c);
+            }
+            dv_acc[t][cc] = a;
+            dk_acc[t][cc] = c;
           }
-          dv_acc[t] = a;
-          dk_acc[t] = c;
         }
       }
     }
@@ -332,10 +357,13 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
   for (int t = 0; t < ACC; ++t) {
     const int j = tid / HD + t * RSTEP;
     if (j < BK && k0 + j < geo.sk) {
-      const long long o =
-          (((long long)bi * geo.sk + k0 + j) * geo.kvh + kvhi) * HD + d;
-      dk[o] = from_f32<T>(dk_acc[t]);
-      dv[o] = from_f32<T>(dv_acc[t]);
+#pragma unroll
+      for (int cc = 0; cc < CPT; ++cc) {
+        const long long o =
+            (((long long)bi * geo.sk + k0 + j) * geo.kvh + kvhi) * HD + d + cc * THREADS;
+        dk[o] = from_f32<T>(dk_acc[t][cc]);
+        dv[o] = from_f32<T>(dv_acc[t][cc]);
+      }
     }
   }
 }
@@ -349,6 +377,14 @@ constexpr int DQ_BK = 32;
 constexpr int DKV_KEYS = 16;   // keys per block of the dk/dv pass
 constexpr int DKV_WARPS = 4;   // warps splitting its query loop
 
+// Columns of dq (dq pass) and of dk and dv (dk/dv pass) that one block
+// accumulates in registers: all of them up to hd 128; at hd 256 half, so
+// that a warp's f32 accumulators stay at hd 128's (dq 64 registers, dk and
+// dv 128).  The grid's z then takes the column slice, and each slice's
+// block recomputes S and dP over the full hd.
+template <int HD>
+__host__ __device__ constexpr int col_slice() { return HD > 128 ? 128 : HD; }
+
 template <int HD>
 constexpr int dq_mma_smem_bytes(int warps) {
   return (2 * warps * 16 + 4 * DQ_BK) * mma_bf16::pad_ld<HD>() * 2;
@@ -357,7 +393,7 @@ constexpr int dq_mma_smem_bytes(int warps) {
 // K and V tiles; per warp two stages of Q and dO tiles and of lse and delta.
 // After the loop the Q / dO region holds the warps' f32 partial dk and dv.
 template <int HD>
-constexpr int dkv_mma_smem_bytes() {
+constexpr int dkv_mma_smem_bytes() {  // the partials are [2][DKV_WARPS][DKV_KEYS][col_slice]
   return (2 * DKV_KEYS + DKV_WARPS * 4 * 16) * mma_bf16::pad_ld<HD>() * 2 +
          DKV_WARPS * 4 * 16 * 4;
 }
@@ -379,9 +415,11 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_mma_kernel(
   constexpr int LD = pad_ld<HD>();
   constexpr int KS = HD / 16;    // k-steps of Q K^T and dO V^T
   constexpr int NB = DQ_BK / 8;  // 8-key column blocks of S and dP
-  constexpr int DB = HD / 8;     // 8-column blocks of dq
+  constexpr int DB = col_slice<HD>() / 8;  // 8-column blocks of this block's dq slice
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warps = rg * qg;
+  // the dq columns this block accumulates (all of them up to hd 128)
+  const int col0 = HD > col_slice<HD>() ? (int)blockIdx.z * col_slice<HD>() : 0;
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [warps * 16][LD]
   bf16* Gs = Qs + warps * 16 * LD;                // [warps * 16][LD]
   bf16* Ks = Gs + warps * 16 * LD;                // [2][DQ_BK][LD]
@@ -450,7 +488,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_mma_kernel(
       }
     }
     dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
-    if (lane % 2 == 0 && wq0 + rr < sq) delta[row + wq0 + rr] = dsum;
+    if (lane % 2 == 0 && wq0 + rr < sq && col0 == 0) delta[row + wq0 + rr] = dsum;
   }
 
   // rows r and r + 8 of the warp: their lse and delta (row i's sum is in
@@ -520,7 +558,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_mma_kernel(
 #pragma unroll
         for (int j = 0; j < DB; j += 2) {
           uint32_t bb[4];
-          load_b_cols(bb, Kt, LD, kk * 16, j * 8, lane);
+          load_b_cols(bb, Kt, LD, kk * 16, col0 + j * 8, lane);
           mma(acc[j], a_hi, bb[0], bb[1]);
           mma(acc[j + 1], a_hi, bb[2], bb[3]);
           mma(acc[j], a_lo, bb[0], bb[1]);
@@ -536,7 +574,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_mma_kernel(
   for (int i = 0; i < 2; ++i) {
     const int qrow = wq0 + r + 8 * i;
     if (!w_rows || qrow >= sq) continue;
-    bf16* drow = dq + (((long long)bi * sq + qrow) * geo.h + hi) * HD;
+    bf16* drow = dq + (((long long)bi * sq + qrow) * geo.h + hi) * HD + col0;
 #pragma unroll
     for (int j = 0; j < DB; ++j)
       *reinterpret_cast<__nv_bfloat162*>(drow + j * 8 + c) =
@@ -554,20 +592,22 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_mma_kernel(
   using namespace mma_bf16;
   constexpr int LD = pad_ld<HD>();
   constexpr int KS = HD / 16;  // k-steps of K Q^T and V dO^T
-  constexpr int DB = HD / 8;   // 8-column blocks of dk and dv
-  static_assert(2 * DKV_WARPS * DKV_KEYS * HD * 4 <= DKV_WARPS * 4 * 16 * LD * 2,
+  constexpr int DW = col_slice<HD>();  // dk and dv columns of this block
+  constexpr int DB = DW / 8;   // 8-column blocks of dk and dv
+  static_assert(2 * DKV_WARPS * DKV_KEYS * DW * 4 <= DKV_WARPS * 4 * 16 * LD * 2,
                 "the partial sums must fit in the Q / dO region");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [DKV_KEYS][LD]
   bf16* Vs = Ks + DKV_KEYS * LD;                  // [DKV_KEYS][LD]
   bf16* Ws = Vs + DKV_KEYS * LD;                  // per warp: Q [2][16][LD], dO [2][16][LD]
   float* Ls = reinterpret_cast<float*>(Ws + DKV_WARPS * 4 * 16 * LD);  // per warp: lse, delta [2][16]
-  float* part = reinterpret_cast<float*>(Ws);     // after the loop: [2][DKV_WARPS][DKV_KEYS][HD]
+  float* part = reinterpret_cast<float*>(Ws);     // after the loop: [2][DKV_WARPS][DKV_KEYS][DW]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int bi = blockIdx.x / geo.kvh, kvhi = blockIdx.x % geo.kvh;
   const int n_rep = geo.h / geo.kvh, sq = geo.sq;
   const int k0 = blockIdx.y * DKV_KEYS;
+  const int col0 = HD > DW ? (int)blockIdx.z * DW : 0;  // this block's dk/dv columns
   const int lane_row = bi / (geo.b / geo.rows);
   const int qo = qoff ? qoff[lane_row] : 0;
   const int kl = kvlen ? min(max(kvlen[lane_row], 0), geo.sk) : geo.sk;
@@ -672,12 +712,12 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_mma_kernel(
 #pragma unroll
     for (int j = 0; j < DB; j += 2) {
       uint32_t bb[4];
-      load_b_cols(bb, Gt, LD, 0, j * 8, lane);
+      load_b_cols(bb, Gt, LD, 0, col0 + j * 8, lane);
       mma(dva[j], p_hi, bb[0], bb[1]);
       mma(dva[j + 1], p_hi, bb[2], bb[3]);
       mma(dva[j], p_lo, bb[0], bb[1]);
       mma(dva[j + 1], p_lo, bb[2], bb[3]);
-      load_b_cols(bb, Qt, LD, 0, j * 8, lane);
+      load_b_cols(bb, Qt, LD, 0, col0 + j * 8, lane);
       mma(dka[j], d_hi, bb[0], bb[1]);
       mma(dka[j + 1], d_hi, bb[2], bb[3]);
       mma(dka[j], d_lo, bb[0], bb[1]);
@@ -692,30 +732,30 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_mma_kernel(
   for (int j = 0; j < DB; ++j) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const int o = (warp * DKV_KEYS + r + 8 * i) * HD + j * 8 + c;
+      const int o = (warp * DKV_KEYS + r + 8 * i) * DW + j * 8 + c;
       *reinterpret_cast<float2*>(part + o) = make_float2(dka[j][2 * i], dka[j][2 * i + 1]);
-      *reinterpret_cast<float2*>(part + DKV_WARPS * DKV_KEYS * HD + o) =
+      *reinterpret_cast<float2*>(part + DKV_WARPS * DKV_KEYS * DW + o) =
           make_float2(dva[j][2 * i], dva[j][2 * i + 1]);
     }
   }
   __syncthreads();
   // the warps' partial sums added in warp order (fixed), written as bf16
-  for (int e = 2 * tid; e < DKV_KEYS * HD; e += 2 * blockDim.x) {
-    const int key = e / HD;
+  for (int e = 2 * tid; e < DKV_KEYS * DW; e += 2 * blockDim.x) {
+    const int key = e / DW;
     if (k0 + key >= geo.sk) continue;
     float2 sk_ = make_float2(0.f, 0.f), sv = make_float2(0.f, 0.f);
 #pragma unroll
     for (int w = 0; w < DKV_WARPS; ++w) {
-      const float2 a = *reinterpret_cast<const float2*>(part + w * DKV_KEYS * HD + e);
+      const float2 a = *reinterpret_cast<const float2*>(part + w * DKV_KEYS * DW + e);
       const float2 b = *reinterpret_cast<const float2*>(
-          part + (DKV_WARPS + w) * DKV_KEYS * HD + e);
+          part + (DKV_WARPS + w) * DKV_KEYS * DW + e);
       sk_.x += a.x;
       sk_.y += a.y;
       sv.x += b.x;
       sv.y += b.y;
     }
     const long long o =
-        (((long long)bi * geo.sk + k0 + key) * geo.kvh + kvhi) * HD + e % HD;
+        (((long long)bi * geo.sk + k0 + key) * geo.kvh + kvhi) * HD + col0 + e % DW;
     *reinterpret_cast<__nv_bfloat162*>(dk + o) = __floats2bfloat162_rn(sk_.x, sk_.y);
     *reinterpret_cast<__nv_bfloat162*>(dv + o) = __floats2bfloat162_rn(sv.x, sv.y);
   }
@@ -727,8 +767,9 @@ int launch_mma(const void* q, const void* k, const void* v, const void* g, const
                const int* qoff, const int* kvlen, const Strides& st, const Geometry& geo,
                cudaStream_t stream) {
   typedef __nv_bfloat16 bf16;
-  const mma_bf16::QueryGrid qgrid =
-      mma_bf16::query_grid(geo.b, geo.sq, geo.h, geo.kvh, true);
+  mma_bf16::QueryGrid qgrid = mma_bf16::query_grid(geo.b, geo.sq, geo.h, geo.kvh, true);
+  constexpr unsigned slices = HD / col_slice<HD>();  // the grids' z: column slices
+  qgrid.grid.z = slices;
   // raise the blocks' shared-memory limits once per instantiation (to the
   // largest dq block), so that a launch captured in a CUDA graph makes no
   // attribute call
@@ -752,7 +793,7 @@ int launch_mma(const void* q, const void* k, const void* v, const void* g, const
       static_cast<bf16*>(dq), qoff, kvlen, st, geo, qgrid.rg, qgrid.qg);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 dkv_grid(geo.b * geo.kvh, (geo.sk + DKV_KEYS - 1) / DKV_KEYS);
+  const dim3 dkv_grid(geo.b * geo.kvh, (geo.sk + DKV_KEYS - 1) / DKV_KEYS, slices);
   flash_bwd_dkv_mma_kernel<HD><<<dkv_grid, 32 * DKV_WARPS, dkv_mma_smem_bytes<HD>(), stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(g), lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
@@ -776,6 +817,9 @@ int launch_mma_hd(int hd, const void* q, const void* k, const void* v, const voi
                             stream);
     case 128:
       return launch_mma<128>(q, k, v, g, o, lse, delta, dq, dk, dv, qoff, kvlen, st, geo,
+                             stream);
+    case 256:
+      return launch_mma<256>(q, k, v, g, o, lse, delta, dq, dk, dv, qoff, kvlen, st, geo,
                              stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -837,6 +881,9 @@ int launch_hd(int hd, const void* q, const void* k, const void* v,
                            geo, stream);
     case 128:
       return launch<T, 128>(q, k, v, g, lse, delta, dq, dk, dv, qoff, kvlen,
+                            st, geo, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, g, lse, delta, dq, dk, dv, qoff, kvlen,
                             st, geo, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -18,7 +18,7 @@
 // Shared tiles are bf16 rows of HD values padded to HD + 8 (pad_ld): the
 // row pitch is then 16 bytes past a multiple of 128, so the eight 16-byte
 // row segments that one ldmatrix 8x8 matrix reads fall in eight different
-// bank groups, for every HD in {16, 32, 64, 128}.
+// bank groups, for every HD in {16, 32, 64, 128, 256}.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -48,7 +48,7 @@ kernel entry and oracle.
 
 A tensor on the CPU takes the plain version (:func:`flash_attention_ref`,
 :func:`flash_attention_bwd_ref`); a CUDA tensor launches the kernel (``hd``
-in 16, 32, 64, 128) or raises.  Each kernel has two instances, picked by
+in 16, 32, 64, 128, 256) or raises.  Each kernel has two instances, picked by
 the dtype of ``q`` (:func:`fwd_path`, :func:`bwd_path`).  bf16 ``q`` runs
 on the tensor cores ("mma": ``mma.sync`` with f32 accumulation): K1 rounds
 P to bf16 where it feeds P V; K1q widens its int8 tiles exactly in shared
@@ -82,7 +82,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -215,20 +215,31 @@ def bwd_path(q) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def kv_splits(b: int, sq: int, h: int, kvh: int, sk: int, sms: int) -> int:
+def mma_kv_tile(hd: int) -> int:
+    """Keys per K/V tile of the tensor-core forward instance at ``hd``, as
+    the built kernel gives it (``mma_bk`` in ``csrc/flash_attention.cu``:
+    64, and 32 at hd 256)."""
+    return _build.load("flash_attention").flash_mma_kv_tile(hd)
+
+
+@functools.lru_cache(maxsize=None)
+def kv_splits(b: int, sq: int, h: int, kvh: int, sk: int, sms: int, kv_tile: int) -> int:
     """The cluster over which K1q's tensor-core instance splits each block's
-    K/V tiles: doubled, up to 8 and to the cache's 64-key tiles, while the
-    split grid still fits the ``sms`` SMs once (one block per SM: a decode
-    block holds ~150 KB of shared memory at hd 128).  Its blocks are csrc's: four warps,
-    one KV head's ``rg`` query heads (4, 2 or 1, whichever divides the group
+    K/V tiles: doubled, up to 8 and to the cache's tiles of ``kv_tile`` keys
+    (:func:`mma_kv_tile`), while the split grid still fits the ``sms`` SMs
+    once (one block per SM: a decode block holds ~150 KB of shared memory at
+    hd 128 and ~165 KB at hd 256).  Its blocks are csrc's: four warps, one
+    KV head's ``rg`` query heads (4, 2 or 1, whichever divides the group
     first) times 16-row groups.  The engine's decode (8 rows x 8 KV heads: 64
-    blocks on 132 SMs) splits in two; its 64-row chunks do not split."""
+    blocks on 132 SMs) splits in two; its 64-row chunks do not split;
+    ``gemma3-1b``'s decode (8 rows x 1 KV head: 8 blocks) splits in eight."""
     n_rep = h // kvh
     rg = 4 if n_rep % 4 == 0 else 2 if n_rep % 2 == 0 else 1
     rows = 16 * (4 // rg)
     blocks = b * kvh * (n_rep // rg) * (-(-sq // rows))
     splits = 1
-    while splits < 8 and 2 * splits * blocks <= sms and 2 * splits <= -(-sk // 64):
+    while (splits < 8 and 2 * splits * blocks <= sms
+           and 2 * splits <= -(-sk // kv_tile)):
         splits *= 2
     return splits
 
@@ -293,7 +304,7 @@ def _launch_fwd(q, k, v, causal, window, q_offset, kv_len, k_scale, v_scale, wha
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    splits = (kv_splits(b, sq, h, kvh, sk, _sm_count(q.device.index or 0))
+    splits = (kv_splits(b, sq, h, kvh, sk, _sm_count(q.device.index or 0), mma_kv_tile(hd))
               if k_scale is not None and fwd_path(q) == "mma" else 1)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -49,13 +49,18 @@ old one drains.  This engine removes both stalls:
     suppressed, so greedy replay (from its last row snapshot, else the full
     effective prompt) keeps its tokens identical to a clean run.
 (c) *Stragglers + graceful degradation.*  Each launch's host wall time
-    feeds a ``StragglerMonitor`` watchdog; flagged launches and failed
-    attempts count as fault events.  ``degrade_after`` events within
+    feeds a ``LaunchWatchdog``: one straggler series per kind of launch
+    (decode steps, first chunks, continuation chunks), cleared per run, a
+    flag needing both ``WATCHDOG_K_SIGMA`` deviations and
+    ``WATCHDOG_FLOOR`` times the series' median; flagged launches and
+    failed attempts count as fault events.  ``degrade_after`` events within
     ``degrade_window`` iterations shrink the active-slot limit by one;
     ``heal_after`` healthy iterations probe back up.  Scheduling only:
     tokens are unaffected.  On the card the watchdog times the launch's
     enqueue, not its kernels (the host read of the tokens comes after it);
-    it adds no synchronisation to find out.
+    it adds no synchronisation to find out.  ``stats()["watchdog"]`` gives
+    each series' median and the largest time over it that an unfaulted run
+    reached.
 
 Row snapshots (``models.cache.snapshot_row``/``restore_row``) are host
 copies taken every ``snapshot_every`` generated tokens.
@@ -71,6 +76,7 @@ no expert overflows.
 
     python -m repro_torch.launch.engine --arch qwen3-moe-30b-a3b
     python -m repro_torch.launch.engine --arch olmoe-1b-7b --reduced --device cpu
+    python -m repro_torch.launch.engine --arch gemma3-1b --reduced --device cpu --chunk 5
     python -m repro_torch.launch.engine --reduced --device cpu
     python -m repro_torch.launch.engine --reduced --device cpu \\
         --impl 'attention=pallas:kv_dtype=int8' --chunk 24 --check-lockstep
@@ -97,7 +103,7 @@ from repro_torch.runtime.fault_tolerance import (
     FaultInjector,
     FaultPolicy,
     LaunchFailedError,
-    StragglerMonitor,
+    LaunchWatchdog,
     export_fault_counters,
 )
 
@@ -229,8 +235,7 @@ class Engine(Server):
         self.degrade_after = int(degrade_after)
         self.degrade_window = int(degrade_window)
         self.heal_after = int(heal_after)
-        self.watchdog = StragglerMonitor(window=32, k_sigma=4.0,
-                                         min_samples=5)
+        self.watchdog = LaunchWatchdog()
         self.scheduler = SlotScheduler(max_batch)
         log.info("engine policy %s | faults %s | retry max=%d snapshot_every=%d",
                  policy.current().describe(), self.injector.describe(),
@@ -280,13 +285,14 @@ class Engine(Server):
         self.scheduler.counters["evictions"] += 1
 
     # -- fault handling ------------------------------------------------------
-    def _launch(self, kind: str, fn, *args):
+    def _launch(self, kind: str, fn, *args, series: Optional[str] = None):
         """Run one launch under the failure model: the injector may raise or
         delay it, failures retry up to ``FaultPolicy.max_retries`` with
         seeded exponential backoff, and the watchdog z-scores its host wall
-        time.  Retrying the same arguments is sound because injected faults
-        fire before the launch and a partial launch rewrites identical
-        values (see the module docstring).  Exhausted retries escalate as
+        time within its ``series`` (default ``kind``).  Retrying the same
+        arguments is sound because injected faults fire before the launch
+        and a partial launch rewrites identical values (see the module
+        docstring).  Exhausted retries escalate as
         :class:`LaunchFailedError` (failure model (a))."""
         ordinal = self._launch_seq[kind]
         self._launch_seq[kind] = ordinal + 1
@@ -307,7 +313,7 @@ class Engine(Server):
                 log.warning("%s launch %d attempt %d failed: %r",
                             kind, ordinal, attempt, e)
                 continue
-            if self.watchdog.observe(time.perf_counter() - t0):
+            if self.watchdog.observe(series or kind, time.perf_counter() - t0):
                 counters["stragglers"] += 1
                 self._note_fault()
                 log.warning("straggler %s launch %d", kind, ordinal)
@@ -420,7 +426,8 @@ class Engine(Server):
                  if s.state == "prefill" and s.filled == 0]
         cont = [i for i, s in enumerate(self.slots)
                 if s.state == "prefill" and s.filled > 0]
-        for group, fn in ((first, self._chunk_first), (cont, self._chunk_cont)):
+        for group, fn, series in ((first, self._chunk_first, "prefill_first"),
+                                  (cont, self._chunk_cont, "prefill_cont")):
             if not group:
                 continue
             t0 = time.perf_counter()
@@ -437,7 +444,7 @@ class Engine(Server):
                     offset[i] = s.context
             nxt, self.cache = self._launch(
                 "prefill", fn, self._to_device(toks), self._to_device(offset),
-                self._to_device(lens), self.cache)
+                self._to_device(lens), self.cache, series=series)
             nxt = nxt.cpu().numpy()
             self._prefill_s += time.perf_counter() - t0
             self._n_chunks += 1
@@ -538,6 +545,7 @@ class Engine(Server):
         self._fault_rng = self.fault_policy.make_rng()
         self._snaps: dict[int, dict] = {}
         self._recent_faults: list[int] = []
+        self.watchdog.reset()  # this run's shapes and cache kind, not the last run's
         self._iter = 0
         self._last_fault_iter = -(10 ** 9)
         self._active_limit = self.max_batch
@@ -594,6 +602,7 @@ class Engine(Server):
             },
             "work_remaining": self.work_remaining_total(),
             "launches": dict(self._launch_seq),
+            "watchdog": self.watchdog.describe(),
             "busy_s": self.busy_s,
         }
 

@@ -16,6 +16,7 @@ mesh in the port yet.  ``--impl`` installs the execution policy
 
     python -m repro_torch.launch.serve --arch qwen3-1.7b --device cuda
     python -m repro_torch.launch.serve --arch qwen2.5-14b --reduced --device cpu
+    python -m repro_torch.launch.serve --arch gemma3-1b --reduced --device cpu
     python -m repro_torch.launch.serve --reduced --device cpu \
         --impl 'attention=pallas:kv_dtype=int8'
 

@@ -9,6 +9,7 @@ products have no backward yet, and a full-width MoE needs sharding to
 train.
 
     python -m repro_torch.launch.train --arch qwen3-1.7b --steps 3
+    python -m repro_torch.launch.train --arch gemma3-1b --reduced --device cpu --steps 2
     python -m repro_torch.launch.train --reduced --device cpu --steps 2
 """
 from __future__ import annotations

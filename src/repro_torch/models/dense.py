@@ -1,7 +1,9 @@
 """Dense decoder-only LM, also hosting MoE layers: the counterpart of
 ``repro/models/dense.py``.  It serves ``qwen3-1.7b``, ``qwen3-32b``,
-``qwen2.5-14b`` (QKV bias) and the MoE configs ``olmoe-1b-7b`` and
-``qwen3-moe-30b-a3b``; an untied config reads its logits from ``lm_head``.
+``qwen2.5-14b`` (QKV bias), ``gemma3-1b`` (head dim 256, sliding windows
+with a local RoPE theta, scaled embeddings) and the MoE configs
+``olmoe-1b-7b`` and ``qwen3-moe-30b-a3b``; an untied config reads its
+logits from ``lm_head``.
 
 The JAX model scans one program over layer-stacked parameters; here an
 ``nn.ModuleList`` of layers and a Python loop take its place, and the

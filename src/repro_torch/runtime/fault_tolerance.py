@@ -6,8 +6,9 @@ The engine (``repro_torch.launch.engine``) maps the failure taxonomy onto
 launches: (a) a launch that exhausts its retries raises
 :class:`LaunchFailedError` for a job-level restart, (b) a transient launch
 fault retries under :class:`FaultPolicy`'s bounded backoff, and (c)
-straggler launches are flagged by :class:`StragglerMonitor` z-scores and
-feed the engine's graceful-degradation window.
+straggler launches are flagged by :class:`StragglerMonitor` z-scores, one
+series per kind of launch (:class:`LaunchWatchdog`), and feed the engine's
+graceful-degradation window.
 
 Faults fire deterministically from a declarative plan
 (:class:`FaultInjector`, ``REPRO_FAULTS``); the one sanctioned source of
@@ -19,6 +20,7 @@ with the trainer's checkpointing and the router (ROADMAP queues 4 and 6).
 from __future__ import annotations
 
 import os
+import statistics
 import time
 from dataclasses import dataclass, field
 
@@ -229,3 +231,63 @@ class StragglerMonitor:
         if len(ts) > self.window:
             ts.pop(0)
         return False
+
+
+# The engine's watchdog (:class:`LaunchWatchdog`): each series' rolling
+# window, the deviations a straggler must pass, the samples a series needs
+# before it judges, and the multiple of the series' median that a straggler
+# must also pass.
+WATCHDOG_WINDOW = 32
+WATCHDOG_K_SIGMA = 4.0
+WATCHDOG_MIN_SAMPLES = 5
+WATCHDOG_FLOOR = 4.0
+
+
+@dataclass
+class LaunchWatchdog:
+    """The engine's straggler watchdog: one :class:`StragglerMonitor` per
+    series of like launches (decode steps, first prefill chunks,
+    continuation chunks), cleared per serving run (:meth:`reset`).
+
+    A launch's time is its host wall time, so on the card it is the host's
+    enqueue of the step's kernels, and of its device time where the launch
+    queue fills.  One series over every kind mixed chunks that take several
+    decode steps' time into the decode steps' statistics, and a run's
+    samples into the next run's (another cache, other shapes): unfaulted
+    runs on the card flagged both.  Within one series the host's own noise
+    still passes ``WATCHDOG_K_SIGMA`` deviations of a tight window now and
+    then (up to 2.02 times the median in unfaulted runs on an H100 host), so
+    a time at or below ``WATCHDOG_FLOOR`` times the series' median joins the
+    window unflagged, and only a longer one is z-scored."""
+
+    series: dict = field(default_factory=dict)
+    peak_ratio: dict = field(default_factory=dict)
+
+    def observe(self, series: str, dt: float) -> bool:
+        """Returns True if this sample is a straggler of its series."""
+        mon = self.series.get(series)
+        if mon is None:
+            mon = self.series[series] = StragglerMonitor(
+                WATCHDOG_WINDOW, WATCHDOG_K_SIGMA, WATCHDOG_MIN_SAMPLES)
+        ts = mon.times
+        if len(ts) >= mon.min_samples:
+            ratio = dt / max(statistics.median(ts), 1e-12)
+            self.peak_ratio[series] = max(self.peak_ratio.get(series, 0.0), ratio)
+            if ratio <= WATCHDOG_FLOOR:
+                ts.append(dt)
+                if len(ts) > mon.window:
+                    ts.pop(0)
+                return False
+        return mon.observe(dt)
+
+    def reset(self) -> None:
+        self.series.clear()
+        self.peak_ratio.clear()
+
+    def describe(self) -> dict:
+        """Per series: samples kept, launches flagged, the window's median
+        (ms) and the largest time over the median seen when judged."""
+        return {name: {"kept": len(m.times), "flagged": m.flagged,
+                       "median_ms": 1e3 * statistics.median(m.times) if m.times else None,
+                       "peak_over_median": self.peak_ratio.get(name)}
+                for name, m in self.series.items()}

@@ -123,8 +123,9 @@ def test_configs_and_counts_match_jax():
     analytic parameter counts, and the registry's names (the port's
     ``list_archs`` is the JAX list without the families it lacks)."""
     assert set(ARCHS) <= set(list_archs())
-    assert set(list_archs()) <= set(jax_list_archs())
-    assert "gemma3-1b" not in list_archs()  # needs K1/K3 at head dim 256
+    assert "gemma3-1b" in list_archs()  # K1, K1q and K3 take head dim 256
+    unported = ("hybrid", "ssm", "audio", "vlm")
+    assert list_archs() == [a for a in jax_list_archs() if jax_config(a).family not in unported]
     for arch in list_archs():
         for get_p, get_j in ((get_config, jax_config), (get_smoke_config, jax_smoke)):
             assert dataclasses.asdict(get_p(arch)) == dataclasses.asdict(get_j(arch)), arch

@@ -17,6 +17,8 @@ The pure-Python pieces copied from the JAX package (``SlotScheduler`` over
 originals on seeded and hand-written inputs, errors included.
 """
 import dataclasses
+import logging
+import time
 
 import jax
 import numpy as np
@@ -166,7 +168,7 @@ def test_engine_injected_faults_token_identical(jax_runs, plan, snapshot_every):
     assert (faults["snapshot_restores"] >= 1) == (snapshot_every == 1)
 
 
-def test_engine_degradation_shrinks_and_heals(jax_runs):
+def test_engine_degradation_shrinks_and_heals(jax_runs, monkeypatch):
     """Failure model (c): two failed launches inside the window shrink the
     active-slot limit; healthy iterations probe it back up; tokens stay the
     lockstep tokens.  The watchdog is kept from flagging wall-time outliers
@@ -174,7 +176,7 @@ def test_engine_degradation_shrinks_and_heals(jax_runs):
     params, _ = jax_runs
     engine = _engine(params, chunk=8, injector=ft.FaultInjector("decode@2=raise,decode@3=raise"),
                      degrade_after=2, degrade_window=8, heal_after=4)
-    engine.watchdog.min_samples = NEVER
+    monkeypatch.setattr(ft, "WATCHDOG_MIN_SAMPLES", NEVER)
     rng = np.random.default_rng(1)
     reqs = [Request(i, rng.integers(3, 256, 8).astype(np.int32), max_new=14)
             for i in range(3)]
@@ -183,6 +185,84 @@ def test_engine_degradation_shrinks_and_heals(jax_runs):
     deg = engine.stats()["degradation"]
     assert deg["active_limit"] == deg["max_batch"] and not deg["degraded"]
     assert check_lockstep_parity(engine, reqs)
+
+
+class _Clock:
+    """A host clock that only the code under test moves: each reading
+    advances it 1 ms and ``sleep`` advances it by the time asked, so every
+    launch takes the same time but an injected delay."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def perf_counter(self):
+        self.now += 1e-3
+        return self.now
+
+    def sleep(self, seconds):
+        self.now += seconds
+
+
+def test_engine_flags_injected_stragglers_per_series(jax_runs, caplog, monkeypatch):
+    """Failure model (c)'s watchdog keeps one series per kind of launch: a
+    delay injected late into the decode steps and one into the continuation
+    chunks are each flagged against their own series, and nothing else is;
+    they count as fault events and leave the tokens the clean run's.  The
+    launch ordinals come from a clean run of the same engine and requests;
+    the host clock is a fake one, so CPU load cannot blur the times."""
+    params, _ = jax_runs
+    clean = _engine(params, chunk=3)
+    seen, launch = [], clean._launch
+
+    def record(kind, fn, *args, series=None):
+        seen.append((kind, clean._launch_seq[kind], series or kind))
+        return launch(kind, fn, *args, series=series)
+
+    clean._launch = record
+    reqs, _ = _serve(clean, 6)
+    want = [r.out for r in reqs]
+    decode = [o for k, o, _ in seen if k == "decode"]
+    cont = [o for _, o, series in seen if series == "prefill_cont"]
+    assert len(decode) > 8 and len(cont) > 8  # past min_samples in each series
+    plan = f"decode@{decode[-2]}=delay:0.25,prefill@{cont[-1]}=delay:0.25"
+    engine = _engine(params, chunk=3, injector=ft.FaultInjector(plan))
+    clock = _Clock()
+    monkeypatch.setattr(time, "perf_counter", clock.perf_counter)
+    monkeypatch.setattr(time, "sleep", clock.sleep)
+    with caplog.at_level(logging.WARNING, logger="repro_torch.engine"):
+        reqs, out = _serve(engine, 6)
+    monkeypatch.undo()
+    assert [r.out for r in reqs] == want
+    flagged = {r.getMessage() for r in caplog.records if r.getMessage().startswith("straggler")}
+    assert flagged == {f"straggler decode launch {decode[-2]}",
+                       f"straggler prefill launch {cont[-1]}"}
+    assert out["telemetry"]["stragglers"] == 2 and out["telemetry"]["faults_injected"] == 2
+    assert set(out["stats"]["watchdog"]) == {"decode", "prefill_first", "prefill_cont"}
+
+
+def test_launch_watchdog_series_and_floor():
+    """Each series is judged on its own samples, a time at or below
+    ``WATCHDOG_FLOOR`` (4x) the series' median joins its window unflagged
+    however many deviations it passes, a longer one is z-scored, and a reset
+    forgets the last run; the monitor under it keeps the JAX rule."""
+    assert ft.WATCHDOG_FLOOR == 4.0 and ft.WATCHDOG_MIN_SAMPLES == 5
+    wd = ft.LaunchWatchdog()
+    for i in range(10):
+        assert not wd.observe("decode", 0.010 + 1e-5 * i)
+    assert not wd.observe("prefill_first", 0.200)  # a new series: nothing to judge by
+    assert not wd.observe("decode", 0.035)  # ~2000 sigma, but 3.5x the median
+    assert wd.series["decode"].times[-1] == 0.035  # kept in the window
+    assert wd.observe("decode", 0.045)  # 4.5x the median
+    desc = wd.describe()
+    assert desc["decode"]["flagged"] == 1 and desc["decode"]["kept"] == 11
+    assert desc["prefill_first"]["kept"] == 1
+    assert 4.4 < desc["decode"]["peak_over_median"] < 4.5
+    wd.reset()
+    assert wd.describe() == {} and not wd.observe("decode", 1.0)
+    plain = ft.StragglerMonitor(min_samples=5)
+    for i in range(10):
+        plain.observe(0.010 + 1e-5 * i)
+    assert plain.observe(0.025)
 
 
 def test_engine_launch_exhaustion_raises(jax_runs):

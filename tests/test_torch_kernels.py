@@ -50,6 +50,10 @@ FA_CASES = [
     ("decode_scalar", 2, 1, 16, 4, 2, 16, True, 0, [9], [10]),
     ("decode_rows_zero_lane", 2, 1, 16, 4, 2, 16, True, 0, [3, 0], [4, 0]),
     ("decode_rows_fully_masked", 2, 1, 16, 4, 1, 16, True, 2, [12, 3], [4, 4]),
+    # gemma3-1b's head dim and GQA 4:1, windowed, over 96 keys: a 24-row chunk
+    # and decode lanes, each with a kv_len 0 lane
+    ("chunk_gqa_4_1_window_hd256", 2, 24, 96, 4, 1, 256, True, 16, [72, 0], [96, 0]),
+    ("decode_gqa_4_1_window_hd256", 3, 1, 96, 4, 1, 256, True, 16, [95, 40, 7], [96, 41, 0]),
 ]
 
 
@@ -59,6 +63,8 @@ BWD_CASES = [
     ("causal_gqa_16_8", 1, 16, 16, 16, 8, 16, True, 0, None, None),
     ("offset_rows_zero_lane", 2, 8, 16, 4, 2, 16, True, 0, [8, 4], [16, 0]),
     ("window", 2, 16, 16, 4, 2, 16, True, 5, None, None),
+    ("causal_gqa_4_1_hd256", 2, 16, 16, 4, 1, 256, True, 0, None, None),
+    ("window_gqa_4_1_sk96_hd256", 1, 24, 96, 4, 1, 256, True, 16, [72], [96]),
 ]
 # (m, k, n, b passed as the transposed view of an (n, k) table)
 MM_BWD_CASES = [(8, 16, 24, False), (16, 32, 64, True)]
@@ -408,7 +414,21 @@ def test_kv_splits_plan(b, sq, h, kvh, sk, sms, want):
     """K1q's cluster split doubles while the split grid fits the SMs once,
     up to 8 and to the cache's 64-key tiles."""
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
-    assert fa.kv_splits(b, sq, h, kvh, sk, sms) == want
+    assert fa.kv_splits(b, sq, h, kvh, sk, sms, 64) == want
+
+
+@pytest.mark.parametrize("b,sq,h,kvh,sk,sms,want", [
+    (8, 1, 4, 1, 2048, 132, 8),    # gemma3-1b's engine decode: 8 blocks on 132 SMs
+    (8, 64, 4, 1, 2048, 132, 4),   # its 64-row chunks: 32 blocks
+    (1, 1, 4, 1, 64, 132, 2),      # two 32-key tiles (one 64-key tile at hd 128)
+    (8, 1, 4, 1, 2048, 60, 4),     # 8 x 8 blocks would not fit 60 SMs
+])
+def test_kv_splits_plan_hd256(b, sq, h, kvh, sk, sms, want):
+    """At hd 256 the plan counts the kernel's 32-key tiles
+    (``test_mma_kv_tile_from_the_kernel`` reads them from the kernel)."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    assert fa.kv_splits(b, sq, h, kvh, sk, sms, 32) == want
+    assert fa.kv_splits(1, 1, 4, 1, 64, 132, 64) == 1
 
 
 # (dtype, (m, n), bt, the instance): 16-byte pitches and tile edges take vec
@@ -478,6 +498,15 @@ EDGE_CASES = [
      [0, 100, 448, 0], [64, 164, 512, 0]),
     ("decode_vs_512_lanes_hd128", 4, 1, 512, 16, 8, 128, True, 0,
      [0, 100, 511, 7], [1, 101, 512, 0]),
+    # hd 256 (32-key K/V tiles, column-sliced backward), gemma3-1b's GQA
+    # 4:1 and 512-key window over a 2048-position cache
+    *[(f"gqa_4_1_hd256_sq{sq}", 2, sq, sq, 4, 1, 256, True, 0, None, None)
+      for sq in (57, 65, 129)],
+    ("window_40_across_tiles_hd256", 2, 129, 129, 4, 1, 256, True, 40, None, None),
+    ("chunk_64_vs_2048_lanes_window_hd256", 4, 64, 2048, 4, 1, 256, True, 512,
+     [0, 900, 1984, 0], [64, 964, 2048, 0]),
+    ("decode_vs_2048_lanes_window_hd256", 4, 1, 2048, 4, 1, 256, True, 512,
+     [0, 700, 2047, 7], [1, 701, 2048, 0]),
 ]
 
 
@@ -531,6 +560,19 @@ def test_flash_bwd_kernel_is_deterministic(cuda):
     out, lse = flash_attention(q, k, v, causal=causal)
     first = flash_attention_bwd(q, k, v, out, lse, g, causal=causal)
     second = flash_attention_bwd(q, k, v, out, lse, g, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernel_is_deterministic_hd256(cuda):
+    """The same at hd 256, where two blocks share each row's dq and each
+    key tile's dk/dv by column halves."""
+    case = next(c for c in EDGE_CASES if c[0] == "window_40_across_tiles_hd256")
+    _, *_, causal, window, qo, kl = case
+    q, k, v, g = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in _bwd_inputs(case))
+    out, lse = flash_attention(q, k, v, causal=causal, window=window)
+    first = flash_attention_bwd(q, k, v, out, lse, g, causal=causal, window=window)
+    second = flash_attention_bwd(q, k, v, out, lse, g, causal=causal, window=window)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
@@ -702,6 +744,8 @@ Q8_CASES = [
     ("decode_rows_zero_lane", 3, 1, 16, 4, 2, 16, True, 0, [9, 3, 0], [10, 4, 0]),
     ("chunk_rows", 2, 4, 16, 4, 2, 16, True, 0, [4, 8], [8, 12]),
     ("decode_window", 2, 1, 16, 4, 2, 16, True, 3, [12, 5], [13, 6]),
+    ("chunk_rows_window_hd256", 2, 24, 96, 4, 1, 256, True, 16, [72, 0], [96, 0]),
+    ("decode_window_hd256", 3, 1, 96, 4, 1, 256, True, 16, [95, 40, 7], [96, 41, 0]),
 ]
 
 
@@ -823,6 +867,16 @@ def test_flash_int8_kernel_matches_plain(cuda, dtype, case):
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-5)
     for row in (i for i, n in enumerate(kl) if n == 0):
         assert torch.count_nonzero(out[row]) == 0
+
+
+@pytest.mark.cuda
+def test_mma_kv_tile_from_the_kernel(cuda):
+    """K1q's cluster plan reads the K/V tile from the built kernel: 64 keys,
+    and 32 at hd 256 (the tiles ``test_kv_splits_plan*`` plan with)."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    assert {hd: fa.mma_kv_tile(hd) for hd in fa.HEAD_DIMS} == {16: 64, 32: 64, 64: 64,
+                                                                128: 64, 256: 32}
+    assert fa.mma_kv_tile(48) == 0
 
 
 # the engine's shapes (qwen3-1.7b: 8 slots, 16 query heads over 8 KV heads,
