@@ -116,6 +116,33 @@ Phases, each of which fails the run (exit code 1, no result line):
    their bounds, plain versions and ``scaled_dot_product_attention`` with
    a boolean mask for the windowed layers (naming the backend it ran), and
    both steps on the device (CUDA graph replay).
+13. ``olmoe-1b-7b`` trained at full width (d 2048, 64 experts top-8, hd 128,
+   untied 50,304-token head; bf16, seeded weights drawn on the card) at the
+   depth that leaves at least 8 GB of the card free at peak (16 bytes of
+   training state a parameter: the depth is cut, printed as such): 3 AdamW
+   steps at 4 x 128 tokens through ``launch.train.train`` under its
+   ``FaultTolerantRunner``, with step 1's first attempt failing by an
+   injected error raised after its backward and before its update, and
+   retried.  Gates: loss and grad norm finite; the losses those of an
+   unfaulted run of the same steps (step 0 the same bits; then within the
+   tolerance printed, since the backward of the dispatch's gathers sums by
+   atomics); the launches of every attempt by construction (12 batched K2
+   a layer: 3 forward, 3 recomputed, 6 backward, ``dA`` and ``dB`` of each
+   expert product; 16 2-D K2 a layer and 4 for the head); no 3-D product
+   outside K2 (no ``aten::bmm`` or ``aten::baddbmm`` in a ``torch.profiler``
+   trace of a step); peak memory.  Prints one step's device time (the
+   trace) beside its host wall time, and the batched backward timed alone
+   per step (each layer's weights, by CUDA graph replay past the L2)
+   beside its bound, its plain version and ``torch.bmm``.
+   13b. The checkpoint round trip at full width and 1 layer (8.8 GB of
+   parameters and AdamW state on disk, in a temporary directory whose free
+   bytes are printed first, too little room failing the phase, removed
+   afterwards): 2 steps saving every step, the restored state equal to the
+   saved one bit for bit, then a fresh ``train()`` on the same directory
+   that resumes at step 2 and takes step 3, whose loss must be the
+   uninterrupted run's within phase 13's tolerance.
+
+Each phase prints its seconds in a summary line before the kernels line.
 
 Phase 2 also holds K1 and K2 at phase 6's shapes (512 token rows: every
 forward product, the logits, every ``g Wᵀ``), K3 and K2's transposed-A
@@ -128,15 +155,19 @@ stride is not a whole number of 16-byte steps (K1 and K3 must raise), and
 K1q at phase 8's decode and continuation-chunk shapes (bf16 ``q`` on the
 tensor cores, f32 ``q`` on the FMA template; an int8 cache whose head
 stride is no whole 16-byte step must raise), the batched K2 at phase 11's
-expert products (one launch each) in bf16 and f32, and K1 and K1q at the
+expert products (one launch each) in bf16 and f32, its backward (``dA = g
+Bᵀ`` and ``dB = Aᵀ g``, one batched launch each) at ``olmoe-1b-7b``'s three
+expert products at capacities 80 (phase 13), 320 and 40 in bf16 and f32
+with nonzero data in every slab, and K1 and K1q at the
 GQA ratios of the other dense-family configs (32/4, 64/8, 40/8, 16/16
 heads), and K1, K1q and K3 at ``gemma3-1b``'s hd 256 in bf16 and f32
 (4 over 1 heads, its window and global: decode lanes and a 64-row chunk
 over phase 12's 2048-slot cache, the 2 x 1024 training shape, sequences of
 57, 65 and 129; K3 twice, bit-identical); phase 3 also takes
-one f32 training step of the smoke config on the card and on the CPU from
-the same parameters and compares the loss, every gradient and the updated
-parameters, and serves
+one f32 training step of the smoke config, and of ``olmoe-1b-7b``'s (its
+expert products' backward on the batched ``fma`` instance), on the card and
+on the CPU from the same parameters and compares the loss, every gradient
+and the updated parameters, and serves
 the smoke config through the ``Engine`` with the fp and the int8 cache:
 card == CPU == lockstep tokens, and a run under an injected fault plan
 gives the clean run's tokens.
@@ -179,6 +210,23 @@ GEMMA_ARCH = "gemma3-1b"
 GEMMA_LEN, GEMMA_TRAIN_BATCH, GEMMA_TRAIN_SEQ = 2048, 2, 1024
 FAULT_PLAN = "decode@3=raise,slot@1=nan_logits"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 128, 3  # the JAX trainer's CLI defaults
+# phase 13: olmoe-1b-7b trained at full width.  Training state is 16 bytes a
+# parameter (bf16 weight and gradient, f32 master, m and v); the depth is
+# the largest that leaves FREE_AT_PEAK of the card free with TRANSIENT more
+# for activations, the AdamW update's f32 temporaries of the largest leaf and
+# the allocator's slack (measured on an H100 80GB at 10 layers: 2.8 GB
+# allocated and 4.0 GB reserved past the state; phase 13 prints it).  Losses of two
+# runs of the same steps: step 0 the same bits (nothing random, no atomics in
+# the forward); later steps within MOE_STEP_RTOL, because the backward of the
+# dispatch's gathers is a scatter_add that sums each token's eight expert
+# contributions by bf16 atomics in no fixed order, so the two runs' gradients
+# and updates part by bf16 roundings (AdamW steps each weight by ~lr
+# whatever the gradient's size, so the losses move by far less)
+FREE_AT_PEAK, TRANSIENT = 8e9, 6e9
+MOE_STEP_RTOL = 1e-3
+CKPT_KEEP = 1  # phase 13b's checkpoints kept: at most two on disk during a save
+# the registry's kernels (phase 10); no model path runs them
+REGISTRY_KERNELS = ("bp_scan", "bi_transpose", "bi_fft", "strassen_matmul")
 # card vs CPU at f32: loss, gradients (as the CPU tests hold the port to
 # JAX), and parameters after one AdamW step.  The first step moves an
 # element by lr * (u(g) + wd * p) with u(g) = g / (|g| + eps), whose slope is
@@ -854,6 +902,301 @@ def phase_12(torch, np, dev, g, smi, prompts, counts, reset_counts, trace, count
     return tot
 
 
+def launch_counters():
+    """``(kernels, reset_counts, counts)``: every kernel wrapper by name, a
+    function that sets their launch counts to 0, and one that reads them.
+    ``counts()`` splits K2's in two, ``hbp_matmul`` its 2-D products and
+    ``hbp_matmul_batched`` its batched ones (one launch for all the experts
+    of a product), of which ``hbp_matmul_batched_bwd`` counts those of
+    batched backwards."""
+    from repro_torch.kernels.bi_fft import bi_fft
+    from repro_torch.kernels.bi_transpose import bi_transpose
+    from repro_torch.kernels.bp_scan import bp_scan
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
+                                                     flash_attention_int8)
+    from repro_torch.kernels.hbp_matmul import hbp_matmul
+    from repro_torch.kernels.strassen_matmul import matmul, strassen_matmul
+
+    kernels = {"hbp_matmul": hbp_matmul, "flash_attention": flash_attention,
+               "flash_attention_bwd": flash_attention_bwd,
+               "flash_attention_int8": flash_attention_int8,
+               "bp_scan": bp_scan, "bi_transpose": bi_transpose, "bi_fft": bi_fft,
+               "strassen_matmul": strassen_matmul}
+
+    def reset_counts():
+        for k in kernels.values():
+            k.launches = 0
+        hbp_matmul.batched_launches = 0
+        matmul.batched_backward_launches = 0
+
+    def counts():
+        c = {name: k.launches for name, k in kernels.items()}
+        c["hbp_matmul_batched"] = hbp_matmul.batched_launches
+        c["hbp_matmul"] -= c["hbp_matmul_batched"]
+        c["hbp_matmul_batched_bwd"] = matmul.batched_backward_launches
+        return c
+
+    return kernels, reset_counts, counts
+
+
+def moe_depth(torch, cfg):
+    """Phase 13's depth: the most layers of ``cfg`` whose training state
+    (16 bytes a parameter) leaves FREE_AT_PEAK of the card free, with
+    TRANSIENT more for the step's temporaries; the layer's and the rest's
+    parameters from the config's analytic count."""
+    from repro_torch.configs import reduced
+
+    one = reduced(cfg, n_layers=1).param_count()
+    per_layer = (cfg.param_count() - one) / (cfg.n_layers - 1)
+    rest = one - per_layer
+    free, total = torch.cuda.mem_get_info()
+    depth = int((free - FREE_AT_PEAK - TRANSIENT - 16 * rest) // (16 * per_layer))
+    return max(1, min(cfg.n_layers, depth)), per_layer, rest, free, total
+
+
+def phase_13(torch, np, dev, g, smi, counts, reset_counts, registry_kernels):
+    """``olmoe-1b-7b`` trained at full width under the fault-tolerant runner
+    (phase 13), then the checkpoint round trip at 1 layer (13b).  Returns
+    the batched backward's entry for the kernels line."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.kernels.hbp_matmul import hbp_matmul, matmul_ref
+    from repro_torch.kernels.hbp_matmul import path as mm_path
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import train
+    from repro_torch.models.moe_layer import gapped_capacity
+    from repro_torch.runtime.fault_tolerance import InjectedFault
+
+    cfg = get_config(OLMOE_ARCH)
+    L_full, d, E, f = cfg.n_layers, cfg.d_model, cfg.n_experts, cfg.expert_d_ff
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    depth, per_layer, rest, free, total = moe_depth(torch, cfg)
+    tcfg = reduced(cfg, n_layers=depth)
+    T = TRAIN_BATCH * TRAIN_SEQ
+    cap = gapped_capacity(T, E, cfg.experts_per_token, cfg.capacity_factor)
+    data_cfg = DataConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    print(f"[13] {OLMOE_ARCH} trained at full width, bf16 (d={d}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads, hd={cfg.head_dim_}, {E} experts top-"
+          f"{cfg.experts_per_token}, expert d_ff={f}, vocab={cfg.vocab_size}, untied head); "
+          f"depth cut to {depth} of {L_full} layers: {16 * per_layer / 1e9:.3f} GB of training "
+          f"state a layer and {16 * rest / 1e9:.3f} GB for the rest, {free / 1e9:.2f} GB free "
+          f"of {total / 1e9:.2f} GB ({held / 1e9:.2f} GB held by PyTorch's allocator, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB of it allocated), "
+          f"{FREE_AT_PEAK / 1e9:g} GB to stay free and {TRANSIENT / 1e9:g} GB for temporaries "
+          f"({smi})")
+    print(f"    {TRAIN_STEPS} AdamW steps at {TRAIN_BATCH} x {TRAIN_SEQ} tokens (expert capacity "
+          f"{cap}) through train() under its FaultTolerantRunner; step 1's first attempt "
+          "fails after its backward, before its update")
+    attempts = []
+
+    def inject(step):
+        attempts.append(step)
+        if step == 1 and attempts.count(1) == 1:
+            raise InjectedFault("injected: step 1, after its backward, before its update")
+
+    n_chunks = TRAIN_SEQ // min(512, TRAIN_SEQ)  # RunOptions.ce_chunk 512
+    # launches one attempt of a step makes by construction (remat full): each
+    # expert product forward, recomputed and twice backward (dA, dB), the
+    # attention's four 2-D products likewise, the head's per chunk; K1 twice
+    # and K3 once a layer
+    per_attempt = {"hbp_matmul_batched": 12 * depth, "hbp_matmul_batched_bwd": 6 * depth,
+                   "hbp_matmul": 16 * depth + 4 * n_chunks, "flash_attention": 2 * depth,
+                   "flash_attention_bwd": depth, "flash_attention_int8": 0,
+                   **{k: 0 for k in registry_kernels}}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    run = train(tcfg, steps=TRAIN_STEPS, data_cfg=data_cfg, device="cuda", log_every=0,
+                before_update=inject)
+    launches = counts()
+    peak_alloc, peak_reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+    free_at_peak = free - (peak_reserved - held)
+    n_params = sum(p.numel() for p in run["model"].parameters())
+    print(f"    {n_params / 1e9:.3f}e9 parameters; peak memory {peak_alloc / 1e9:.2f} GB "
+          f"allocated, {peak_reserved / 1e9:.2f} GB reserved: {free_at_peak / 1e9:.2f} GB of "
+          f"the card free at peak")
+    for i, (loss, gn, sec) in enumerate(zip(run["losses"], run["grad_norms"], run["step_s"])):
+        print(f"    step {i}: loss {loss:.6f}, grad norm {gn:.6f}, {1e3 * sec:.3f} ms (host wall"
+              f"{', both attempts' if i == 1 else ''})")
+    print(f"    attempts {attempts}, retries {run['retries']}, stragglers {run['stragglers']}; "
+          f"launches in the run {launches}; expected per attempt {per_attempt}")
+    check(n_params == tcfg.param_count(), f"{n_params} parameters, param_count "
+          f"{tcfg.param_count()}")
+    check(attempts == [0, 1, 1, 2] and run["retries"] == 1,
+          f"{OLMOE_ARCH}: attempts {attempts}, retries {run['retries']}")
+    check(all(math.isfinite(x) for x in run["losses"] + run["grad_norms"]),
+          f"{OLMOE_ARCH}: non-finite loss or grad norm in training")
+    for name, n in per_attempt.items():
+        check(launches[name] == len(attempts) * n,
+              f"{OLMOE_ARCH} training: {name} launched {launches[name]}, expected "
+              f"{len(attempts)} x {n}")
+    check(free_at_peak >= FREE_AT_PEAK,
+          f"{OLMOE_ARCH} at {depth} layers left {free_at_peak / 1e9:.2f} GB free")
+    faulted = dict(losses=run["losses"], grad_norms=run["grad_norms"])
+    bwd_launches = launches["hbp_matmul_batched_bwd"]
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same steps, unfaulted
+    clean = train(tcfg, steps=TRAIN_STEPS, data_cfg=data_cfg, device="cuda", log_every=0)
+    gaps = [abs(a - b) / abs(b) for a, b in zip(faulted["losses"], clean["losses"])]
+    print(f"    unfaulted run: losses {[round(x, 6) for x in clean['losses']]}, grad norms "
+          f"{[round(x, 6) for x in clean['grad_norms']]}; relative loss gaps to the faulted "
+          f"run {[f'{x:.2e}' for x in gaps]} (step 0 the same bits; then rtol "
+          f"{MOE_STEP_RTOL:g})")
+    check(faulted["losses"][0] == clean["losses"][0] and max(gaps) <= MOE_STEP_RTOL,
+          f"{OLMOE_ARCH}: the retried run's losses {faulted['losses']} differ from the "
+          f"unfaulted run's {clean['losses']}")
+    wall_ms = 1e3 * sum(clean["step_s"][1:]) / max(len(clean["step_s"]) - 1, 1)
+
+    # one step's device operations (torch.profiler), and the products it ran
+    model, opt_state = clean["model"], clean["opt_state"]
+    train_step = make_train_step(model)
+    batch = {key: torch.from_numpy(x).to(dev)
+             for key, x in SyntheticLMDataset(data_cfg, tcfg).batch_at(0).items()}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        train_step(opt_state, batch)
+        torch.cuda.synchronize()
+    events = prof.events()
+    on_device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    products = {}
+    for e in events:
+        if e.name in ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm", "aten::matmul"):
+            products[e.name] = products.get(e.name, 0) + 1
+    own = re.compile(r"\b(mm_\w+_kernel|splitk_reduce|flash_\w+_kernel)\b")
+    dev_ms = sum(e.time_range.elapsed_us() for e in on_device) / 1e3
+    ours_ms = sum(e.time_range.elapsed_us() for e in on_device if own.search(e.name)) / 1e3
+    if on_device:
+        print(f"    one step on the device (torch.profiler): {len(on_device)} operations in "
+              f"{dev_ms:.4f} ms, ours {ours_ms:.4f}; {wall_ms:.3f} ms of host wall (the "
+              f"unfaulted run's steps 1-{TRAIN_STEPS - 1}): device busy "
+              f"{100 * dev_ms / wall_ms:.1f}%")
+    else:
+        print("    one step on the device: the trace shows no device operation (not measured)")
+    print(f"    PyTorch matrix products in the step: {products} (2-D: the routers' f32 "
+          f"(N, d) @ (d, E), its recomputation and its two gradients, {4 * depth} in all)")
+    check(not products.get("aten::bmm") and not products.get("aten::baddbmm"),
+          f"{OLMOE_ARCH}: a 3-D product ran outside K2: {products}")
+    check(not on_device or products.get("aten::mm", 0) == 4 * depth,
+          f"{OLMOE_ARCH}: PyTorch products {products}; expected only the routers' {4 * depth}")
+
+    # the batched backward alone: each layer's own experts (268 MB a product,
+    # past the L2), dA = g Wᵀ and dB = Xᵀ g, beside its bound, its plain
+    # version and torch.bmm over the same slabs
+    bf = torch.bfloat16
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes=0, ops=0)
+    for name, k_in, n_out, weight in (("gate", d, f, "e_gate"), ("up", d, f, "e_up"),
+                                      ("down", f, d, "e_down")):
+        sets = [(torch.randn(E, cap, k_in, device=dev, generator=g).to(bf),
+                 getattr(lyr, weight).detach(),
+                 torch.randn(E, cap, n_out, device=dev, generator=g).to(bf))
+                for lyr in model.layers]
+        t_k = time_ms(torch, lambda x, w, gy: (hbp_matmul(gy, w.mT), hbp_matmul(x.mT, gy)),
+                      sets, reps=3)
+        t_p = time_ms(torch, lambda x, w, gy: (matmul_ref(gy, w.mT), matmul_ref(x.mT, gy)),
+                      sets, reps=1)
+        t_l = time_ms(torch, lambda x, w, gy: (torch.bmm(gy, w.mT), torch.bmm(x.mT, gy)),
+                      sets, reps=3)
+        x, w, gy = sets[0]
+        # dA reads g and W and writes dA; dB reads X and g and writes dB
+        nbytes = 2 * (E * cap * n_out + E * k_in * n_out + E * cap * k_in) * 2
+        ops = 2 * 2 * E * cap * k_in * n_out
+        b_ms, b_by = bound_ms(nbytes, ops, "bfloat16")
+        for key, v in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l), ("bound_ms", b_ms),
+                       ("bytes", nbytes), ("ops", ops)):
+            tot[key] += depth * v
+        print(f"    batched backward {name} (dA {mm_path(gy, w.mT)} {E}x{cap}x{n_out} @ "
+              f"{E}x{n_out}x{k_in}, dB {mm_path(x.mT, gy)} {E}x{k_in}x{cap} @ "
+              f"{E}x{cap}x{n_out}): {t_k:.4f} ms a layer (bound {b_ms:.4f} by {b_by}, "
+              f"{100 * b_ms / t_k:.1f}% of it); plain {t_p:.4f}; torch.bmm {t_l:.4f}")
+        del sets, x, w, gy
+    print(f"    batched backward per step ({6 * depth} launches): {tot['ms']:.4f} ms against "
+          f"its {tot['bound_ms']:.4f} ms bound ({100 * tot['bound_ms'] / tot['ms']:.1f}%); "
+          f"plain {tot['plain_ms']:.4f}; torch.bmm {tot['library_ms']:.4f}; "
+          f"{100 * tot['ms'] / dev_ms if on_device else float('nan'):.1f}% of the device "
+          f"step ({smi})")
+    tot["launches"] = bwd_launches
+    del clean, model, opt_state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_13b(torch, cfg, data_cfg, smi)
+    return tot
+
+
+def phase_13b(torch, cfg, data_cfg, smi):
+    """The checkpoint round trip at full width and 1 layer (phase 13b)."""
+    import tempfile
+
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.configs import reduced
+    from repro_torch.launch.train import train
+
+    one = reduced(cfg, n_layers=1)
+    # params bf16 (2 bytes), master, m and v f32 (12): one checkpoint
+    ckpt_bytes = 14 * one.param_count()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        room = shutil.disk_usage(tmp).free
+        need = (CKPT_KEEP + 1) * ckpt_bytes
+        print(f"[13b] {OLMOE_ARCH} checkpoint round trip at full width, 1 layer "
+              f"({one.param_count() / 1e9:.4f}e9 parameters, {ckpt_bytes / 1e9:.2f} GB a "
+              f"checkpoint); {tmp}: {room / 1e9:.2f} GB free, {need / 1e9:.2f} GB needed "
+              f"({CKPT_KEEP} kept and one being written)")
+        check(room >= need, f"phase 13b: {room / 1e9:.2f} GB free under {tmp}, "
+              f"{need / 1e9:.2f} GB needed for the checkpoints")
+        t0 = time.perf_counter()
+        first = train(one, steps=2, data_cfg=data_cfg, device="cuda", log_every=0,
+                      ckpt_dir=str(tmp), save_every=1, keep=CKPT_KEEP)
+        t_first = time.perf_counter() - t0
+        steps_on_disk = sorted(p.name for p in tmp.iterdir())
+        like = {"params": dict(first["model"].named_parameters()),
+                "opt_state": first["opt_state"]}
+        t0 = time.perf_counter()
+        step, restored = load_checkpoint(tmp, like)
+        t_load = time.perf_counter() - t0
+        same = {"params": all(torch.equal(restored["params"][n], p)
+                              for n, p in like["params"].items()),
+                "step": torch.equal(restored["opt_state"]["step"], first["opt_state"]["step"])}
+        for key in ("master", "m", "v"):
+            same[key] = all(torch.equal(restored["opt_state"][key][n], t)
+                            for n, t in first["opt_state"][key].items())
+        n_leaves = len(like["params"]) * 4 + 1
+        print(f"    2 steps saving every step: losses {[round(x, 6) for x in first['losses']]} "
+              f"in {t_first:.2f} s (three saves: steps 0, 1 and the final one); on disk "
+              f"{steps_on_disk}; step {step} restored in {t_load:.2f} s ({n_leaves} tensors "
+              f"from the JAX tree's leaves, checksums checked): equal bit for bit {same}")
+        check(step == 1 and steps_on_disk == ["step_1"] and all(same.values()),
+              f"phase 13b: restored step {step}, on disk {steps_on_disk}, equal {same}")
+        del first, like, restored
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        resumed = train(one, steps=3, data_cfg=data_cfg, device="cuda", log_every=0,
+                        ckpt_dir=str(tmp), keep=CKPT_KEEP)
+        t_resumed = time.perf_counter() - t0
+        resumed_losses, start = resumed["losses"], resumed["start"]
+        del resumed
+        gc.collect()
+        torch.cuda.empty_cache()
+        whole = train(one, steps=3, data_cfg=data_cfg, device="cuda", log_every=0)
+        gap = abs(resumed_losses[0] - whole["losses"][2]) / abs(whole["losses"][2])
+        print(f"    a fresh train() on the directory resumed at step {start} in "
+              f"{t_resumed:.2f} s (restore, one step, the final save): step 2 loss "
+              f"{resumed_losses[0]:.6f}; the uninterrupted run's {whole['losses'][2]:.6f} "
+              f"(losses {[round(x, 6) for x in whole['losses']]}): relative gap {gap:.2e} "
+              f"(rtol {MOE_STEP_RTOL:g}); on disk {sorted(p.name for p in tmp.iterdir())}")
+        check(start == 2 and len(resumed_losses) == 1 and gap <= MOE_STEP_RTOL,
+              f"phase 13b: resumed at {start}, losses {resumed_losses} against "
+              f"{whole['losses']}")
+        del whole
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main():
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch is not beside this script", file=sys.stderr)
@@ -892,6 +1235,7 @@ def main():
     from repro_torch.launch.train import train
     from repro_torch.models import build_model
     from repro_torch.kernels.strassen_matmul import matmul as matmul_entry
+    from repro_torch.models.moe_layer import gapped_capacity
     from repro_torch.kernels.strassen_matmul import path as k4_path
     from repro_torch.kernels.strassen_matmul import strassen_matmul, strassen_matmul_plain
     from repro_torch.models.common import project
@@ -902,32 +1246,25 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    kernels = {"hbp_matmul": hbp_matmul, "flash_attention": flash_attention,
-               "flash_attention_bwd": flash_attention_bwd,
-               "flash_attention_int8": flash_attention_int8,
-               "bp_scan": bp_scan, "bi_transpose": bi_transpose, "bi_fft": bi_fft,
-               "strassen_matmul": strassen_matmul}
+    kernels, reset_counts, counts = launch_counters()
     serving_kernels = ("hbp_matmul", "flash_attention")
     # phase 12's entries of the kernels line: the attention kernels at hd 256
     HD256 = ("flash_attention_hd256", "flash_attention_int8_hd256", "flash_attention_bwd_hd256")
-    # the registry's kernels (phase 10); no model path runs them
-    registry_kernels = ("bp_scan", "bi_transpose", "bi_fft", "strassen_matmul")
+    registry_kernels = REGISTRY_KERNELS
 
-    def reset_counts():
-        for k in kernels.values():
-            k.launches = 0
-        hbp_matmul.batched_launches = 0
+    t_start = time.perf_counter()
+    phase_s, running = {}, [None, t_start]
 
-    def counts():
-        """Launches per kernel since the last reset; K2's split in two:
-        ``hbp_matmul`` its 2-D products, ``hbp_matmul_batched`` its batched
-        ones (one launch for all the experts of a product)."""
-        c = {name: k.launches for name, k in kernels.items()}
-        c["hbp_matmul_batched"] = hbp_matmul.batched_launches
-        c["hbp_matmul"] -= c["hbp_matmul_batched"]
-        return c
+    def mark(n):
+        """Stop the running phase's clock and start phase ``n``'s (None: no
+        phase)."""
+        now = time.perf_counter()
+        if running[0] is not None:
+            phase_s[running[0]] = phase_s.get(running[0], 0.0) + now - running[1]
+        running[:] = [n, now]
 
     # -- 1. build ------------------------------------------------------------
+    mark(1)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -972,6 +1309,7 @@ def main():
     print(smi)
 
     # -- 2. kernels against their plain versions ------------------------------
+    mark(2)
     cfg = get_config(ARCH)
     d, ff, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
@@ -979,7 +1317,8 @@ def main():
                "wo": (cfg.q_dim, d), "w_gate": (d, ff), "w_up": (d, ff), "w_down": (ff, d)}
     tol = {"bfloat16": (1e-2, 2 ** -7), "float32": (1e-4, 1e-4)}  # (atol, rtol)
     g = torch.Generator(device=dev).manual_seed(0)
-    max_err = {name: 0.0 for name in (*kernels, "hbp_matmul_batched", *HD256)}
+    max_err = {name: 0.0 for name in (*kernels, "hbp_matmul_batched", "hbp_matmul_batched_bwd",
+                                      *HD256)}
     failures = []
 
     def compare(kernel, label, got, want, dtype, atol=None, rtol=None):
@@ -1252,6 +1591,42 @@ def main():
                     f"{mm_path(a, b)}", got, matmul_ref(a, b), dtype)
             del a, b, got
 
+    # the batched K2's backward: dA = g Bᵀ and dB = Aᵀ g per slab, one batched
+    # launch each on transposed slab views, at olmoe-1b-7b's three expert
+    # products and the capacities of phase 13's 4 x 128 tokens (80), of 2 x
+    # 1024 (320) and of the 40-row prefill slabs.  dB contracts over the
+    # capacity, which no K step of 64 divides but 320; every slab holds
+    # nonzero data, so a last K step that read the next slab's rows shows.
+    ocfg = get_config(OLMOE_ARCH)
+    o_e, o_d, o_f = ocfg.n_experts, ocfg.d_model, ocfg.expert_d_ff
+    caps = [gapped_capacity(TRAIN_BATCH * TRAIN_SEQ, o_e, ocfg.experts_per_token,
+                            ocfg.capacity_factor),
+            gapped_capacity(2 * 1024, o_e, ocfg.experts_per_token, ocfg.capacity_factor), 40]
+    print(f"[2] batched K2 backward vs its plain version ({OLMOE_ARCH}: {o_e} experts, "
+          f"d {o_d}, expert d_ff {o_f}; capacities {caps})")
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for c_ in caps:
+            for name, k, n in (("gate", o_d, o_f), ("up", o_d, o_f), ("down", o_f, o_d)):
+                a = torch.randn(o_e, c_, k, device=dev, generator=g).to(dt).requires_grad_()
+                b = (torch.randn(o_e, k, n, device=dev, generator=g) / math.sqrt(k)).to(dt)
+                b.requires_grad_()
+                gy = torch.randn(o_e, c_, n, device=dev, generator=g).to(dt)
+                y = matmul_entry(a, b)
+                before = (hbp_matmul.batched_launches, matmul_entry.batched_backward_launches)
+                y.backward(gy)
+                if (hbp_matmul.batched_launches - before[0],
+                        matmul_entry.batched_backward_launches - before[1]) != (2, 2):
+                    failures.append(f"hbp_matmul_batched_bwd {name} C{c_}: not two batched "
+                                    "launches")
+                with torch.no_grad():
+                    shape = f"{o_e}x{c_}x{k} @ {o_e}x{k}x{n}"
+                    compare("hbp_matmul_batched_bwd", f"{dtype} {name} C{c_} dA ({shape}) "
+                            f"{mm_path(gy, b.mT)}", a.grad, matmul_ref(gy, b.mT), dtype)
+                    compare("hbp_matmul_batched_bwd", f"{dtype} {name} C{c_} dB "
+                            f"{mm_path(a.mT, gy)}", b.grad, matmul_ref(a.mT, gy), dtype)
+                del a, b, gy, y
+
     # K1 and K1q at the dense family's other GQA ratios (query / KV heads:
     # 32/4, 64/8, 40/8, 16/16), at phase 8's decode lanes and continuation
     # chunks, hd 128
@@ -1356,6 +1731,7 @@ def main():
     check(not failures, f"kernels disagree with their plain versions: {failures}")
 
     # -- 3. small parity: cuda vs cpu, f32 smoke config ------------------------
+    mark(3)
     small = reduced(get_smoke_config(ARCH), dtype="float32")
     host_model = build_model(small, device="cpu")
     host_model.init(torch.Generator().manual_seed(0))
@@ -1374,54 +1750,67 @@ def main():
     check(tokens["cuda"] == tokens["cpu"],
           f"cuda tokens {tokens['cuda']} != cpu tokens {tokens['cpu']}")
 
-    # one f32 training step of the smoke config, card vs CPU, same params
-    smoke_batch = SyntheticLMDataset(DataConfig(global_batch=4, seq_len=32), small).batch_at(0)
-    runs = {}
-    for where in ("cuda", "cpu"):
-        m = build_model(small, device=where)
-        m.load_state_dict(params)
-        b = {key: torch.from_numpy(x).to(where) for key, x in smoke_batch.items()}
-        loss = m.loss(b)
-        loss.backward()
-        grads = {n: p.grad.detach().cpu() for n, p in m.named_parameters()}
-        m.zero_grad(set_to_none=True)
-        _, metrics = make_train_step(m)(adamw_init(dict(m.named_parameters())), b)
-        runs[where] = dict(loss=loss.item(), grads=grads, step_loss=metrics["loss"].item(),
-                           params={n: p.detach().cpu() for n, p in m.named_parameters()})
-    c, h_ = runs["cuda"], runs["cpu"]
-    g_atol, g_rtol = SMOKE_GRAD_TOL
-    grad_err = max((c["grads"][n] - x).abs().max().item() for n, x in h_["grads"].items())
-    grads_ok = all(torch.allclose(c["grads"][n], x, rtol=g_rtol, atol=g_atol)
-                   for n, x in h_["grads"].items())
-    opt = AdamWConfig()
-    clip = {key: min(1.0, opt.grad_clip / math.sqrt(sum(x.double().square().sum().item()
-                                                        for x in r["grads"].values())))
-            for key, r in (("cuda", c), ("cpu", h_))}
-    param_err, param_ok, n_elems, n_small, n_loose, n_vacuous = 0.0, True, 0, 0, 0, 0
-    for n, x in h_["params"].items():
-        ga, gb = c["grads"][n] * clip["cuda"], h_["grads"][n] * clip["cpu"]
-        m = torch.where(ga * gb > 0, torch.minimum(ga.abs(), gb.abs()), 0.0)
-        grad_term = opt.lr * (ga - gb).abs() / (m + opt.eps)
-        diff = (c["params"][n] - x).abs()
-        param_err = max(param_err, diff.max().item())
-        param_ok &= bool((diff <= SMOKE_PARAM_ATOL + grad_term).all())
-        n_elems += x.numel()
-        n_small += int((h_["grads"][n].abs() <= 100 * opt.eps).sum())
-        n_loose += int((grad_term > SMOKE_PARAM_ATOL).sum())
-        n_vacuous += int((grad_term >= 2 * opt.lr).sum())
-    loss_ok = all(abs(c[key] - h_[key]) <= SMOKE_LOSS_RTOL * abs(h_[key])
-                  for key in ("loss", "step_loss"))
-    print(f"[3] smoke f32 training step cuda vs cpu: loss {c['loss']:.7f} vs {h_['loss']:.7f} "
-          f"(rtol {SMOKE_LOSS_RTOL:g}) {'ok' if loss_ok else 'FAIL'}; {len(h_['grads'])} grads, "
-          f"max abs err {grad_err:.3e} (atol {g_atol:g} + rtol {g_rtol:g}) "
-          f"{'ok' if grads_ok else 'FAIL'}; params after one AdamW step max abs err "
-          f"{param_err:.3e} (each within {SMOKE_PARAM_ATOL:g} + lr |a - b| / (m + eps)) "
-          f"{'ok' if param_ok else 'FAIL'}")
-    print(f"    of {n_elems} parameters: {n_small} with |g| <= {100 * opt.eps:g} on the CPU; "
-          f"{n_loose} held to more than {SMOKE_PARAM_ATOL:g} by their gradient gap, "
-          f"{n_vacuous} of them to 2 lr or more (no bound)")
-    check(loss_ok and grads_ok and param_ok,
-          "the smoke training step disagrees between the card and the CPU")
+    # one f32 training step of the smoke config, card vs CPU, same params; then
+    # of olmoe-1b-7b's (routers, the sort dispatch's gathers, the expert
+    # products' backward on the batched fma instance)
+    osmall = reduced(get_smoke_config(OLMOE_ARCH), dtype="float32")
+    omodel = build_model(osmall, device="cpu")
+    omodel.init(torch.Generator().manual_seed(0))
+    for arch, tcfg, tparams in ((ARCH, small, params), (OLMOE_ARCH, osmall, omodel.state_dict())):
+        smoke_batch = SyntheticLMDataset(DataConfig(global_batch=4, seq_len=32),
+                                         tcfg).batch_at(0)
+        runs = {}
+        for where in ("cuda", "cpu"):
+            m = build_model(tcfg, device=where)
+            m.load_state_dict(tparams)
+            b = {key: torch.from_numpy(x).to(where) for key, x in smoke_batch.items()}
+            reset_counts()
+            loss = m.loss(b)
+            loss.backward()
+            bwd_launches = counts()["hbp_matmul_batched_bwd"]
+            grads = {n: p.grad.detach().cpu() for n, p in m.named_parameters()}
+            m.zero_grad(set_to_none=True)
+            _, metrics = make_train_step(m)(adamw_init(dict(m.named_parameters())), b)
+            runs[where] = dict(loss=loss.item(), grads=grads, step_loss=metrics["loss"].item(),
+                               params={n: p.detach().cpu() for n, p in m.named_parameters()},
+                               bwd_launches=bwd_launches)
+        c, h_ = runs["cuda"], runs["cpu"]
+        g_atol, g_rtol = SMOKE_GRAD_TOL
+        grad_err = max((c["grads"][n] - x).abs().max().item() for n, x in h_["grads"].items())
+        grads_ok = all(torch.allclose(c["grads"][n], x, rtol=g_rtol, atol=g_atol)
+                       for n, x in h_["grads"].items())
+        opt = AdamWConfig()
+        clip = {key: min(1.0, opt.grad_clip / math.sqrt(sum(x.double().square().sum().item()
+                                                            for x in r["grads"].values())))
+                for key, r in (("cuda", c), ("cpu", h_))}
+        param_err, param_ok, n_elems, n_small, n_loose, n_vacuous = 0.0, True, 0, 0, 0, 0
+        for n, x in h_["params"].items():
+            ga, gb = c["grads"][n] * clip["cuda"], h_["grads"][n] * clip["cpu"]
+            m = torch.where(ga * gb > 0, torch.minimum(ga.abs(), gb.abs()), 0.0)
+            grad_term = opt.lr * (ga - gb).abs() / (m + opt.eps)
+            diff = (c["params"][n] - x).abs()
+            param_err = max(param_err, diff.max().item())
+            param_ok &= bool((diff <= SMOKE_PARAM_ATOL + grad_term).all())
+            n_elems += x.numel()
+            n_small += int((h_["grads"][n].abs() <= 100 * opt.eps).sum())
+            n_loose += int((grad_term > SMOKE_PARAM_ATOL).sum())
+            n_vacuous += int((grad_term >= 2 * opt.lr).sum())
+        loss_ok = all(abs(c[key] - h_[key]) <= SMOKE_LOSS_RTOL * abs(h_[key])
+                      for key in ("loss", "step_loss"))
+        want_bwd = 6 * tcfg.n_layers if tcfg.n_experts else 0  # 3 products, dA and dB
+        print(f"[3] smoke f32 {arch} training step cuda vs cpu: loss {c['loss']:.7f} vs "
+              f"{h_['loss']:.7f} (rtol {SMOKE_LOSS_RTOL:g}) {'ok' if loss_ok else 'FAIL'}; "
+              f"{len(h_['grads'])} grads, max abs err {grad_err:.3e} (atol {g_atol:g} + rtol "
+              f"{g_rtol:g}) {'ok' if grads_ok else 'FAIL'}; params after one AdamW step max "
+              f"abs err {param_err:.3e} (each within {SMOKE_PARAM_ATOL:g} + lr |a - b| / "
+              f"(m + eps)) {'ok' if param_ok else 'FAIL'}; batched backward launches "
+              f"{c['bwd_launches']} (expected {want_bwd})")
+        print(f"    of {n_elems} parameters: {n_small} with |g| <= {100 * opt.eps:g} on the CPU; "
+              f"{n_loose} held to more than {SMOKE_PARAM_ATOL:g} by their gradient gap, "
+              f"{n_vacuous} of them to 2 lr or more (no bound)")
+        check(loss_ok and grads_ok and param_ok and c["bwd_launches"] == want_bwd,
+              f"the {arch} smoke training step disagrees between the card and the CPU")
+    del omodel
 
     # the continuous-batching engine on the smoke config, fp and int8 caches:
     # card == CPU == each request alone through the lockstep path, and a run
@@ -1524,6 +1913,7 @@ def main():
     del gmodel, gparams, eng, srv
 
     # -- 4. full width ----------------------------------------------------------
+    mark(4)
     t0 = time.perf_counter()
     server = Server(cfg, device="cuda", max_batch=BATCH, max_len=MAX_LEN)
     torch.cuda.synchronize()
@@ -1578,6 +1968,7 @@ def main():
     wall_step_ms = 1e3 * out["decode_s"] / max(steps, 1)
 
     # -- 5. times at phase 4's shapes -------------------------------------------
+    mark(5)
     print(f"[5] times in ms at phase 4's shapes, bf16, ({smi})")
     bf = torch.bfloat16
     es = 2
@@ -1682,6 +2073,7 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 6. full-width training -------------------------------------------------
+    mark(6)
     T_train = TRAIN_BATCH * TRAIN_SEQ
     n_chunks = TRAIN_SEQ // min(512, TRAIN_SEQ)  # RunOptions.ce_chunk 512
     # launches one step makes by construction: each layer's 7 products run
@@ -1714,6 +2106,7 @@ def main():
           f"training launched a registry-only kernel: {train_launches}")
 
     # -- 7. times at phase 6's shapes -------------------------------------------
+    mark(7)
     print(f"[7] times in ms at phase 6's shapes, bf16, ({smi})")
     shapes = {}  # weight shape -> how many of the 7 weights have it
     for kk, n in weights.values():
@@ -1834,6 +2227,7 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 8. the continuous-batching engine at full width --------------------------
+    mark(8)
     engine = Engine(cfg, device="cuda", max_batch=SLOTS, max_len=ENGINE_LEN, chunk=CHUNK)
     erng = np.random.default_rng(0)
     workload = [(erng.integers(3, V, int(erng.integers(16, 193))).astype(np.int32),
@@ -1937,6 +2331,7 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 9. K1q's time at phase 8's decode and chunk shapes ----------------------
+    mark(9)
     # decode at the int8 run's halfway lanes; a continuation chunk of CHUNK
     # rows at those lanes' offsets (clamped to fit the cache)
     chunk_at = [min(p, ENGINE_LEN - CHUNK) for p in mid_qo]
@@ -2008,6 +2403,7 @@ def main():
         del q8_sets, k1_sets, lib_sets, k1_lib_sets
 
     # -- 10. the kernel registry at sizes past the L2 --------------------------------
+    mark(10)
     # Everything through registry.dispatch under the default policy, seeded
     # inputs.  Gates against the plain versions: the scan in f32 within
     # SCAN_SLACK times the running sum of |x| (the kernel and torch.cumsum sum
@@ -2281,6 +2677,7 @@ def main():
           f"(one dispatch) {us['project']:.2f}")
 
     # -- 11. the MoE path at full width ----------------------------------------------
+    mark(11)
     del a_h, w_h, a_w, args, x, got
     gc.collect()
     torch.cuda.empty_cache()
@@ -2288,10 +2685,20 @@ def main():
                    counted, finite_logits, registry_kernels)
 
     # -- 12. gemma3-1b at full width and depth --------------------------------------
+    mark(12)
     gc.collect()
     torch.cuda.empty_cache()
     hd256 = phase_12(torch, np, dev, g, smi, prompts, counts, reset_counts, trace, counted,
                      finite_logits, registry_kernels, sdpa, lane)
+
+    # -- 13. olmoe-1b-7b trained at full width; 13b the checkpoint round trip ------------
+    mark(13)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_bwd = phase_13(torch, np, dev, g, smi, counts, reset_counts, registry_kernels)
+    mark(None)
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
+          + f"; {time.perf_counter() - t_start:.1f} in all")
 
     # one entry per kernel: K1 and K2 summed over one decode step's calls
     # (their launches from phase 4's run), K3 over one training step's calls
@@ -2372,6 +2779,18 @@ def main():
                          >= t["ops"] / PEAK_OPS["bfloat16"] else "operations"),
             "library_ms": t["library_ms"],
         })
+    # the batched K2's backward over one phase-13 step's 6 x depth calls, its
+    # launches from phase 13's run (every attempt of every step)
+    entries.append({
+        "name": "hbp_matmul_batched_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/hbp_matmul.cu",
+        "replaces": "src/repro/kernels/hbp_matmul.py:33", "launches": moe_bwd["launches"],
+        "max_abs_err": max_err["hbp_matmul_batched_bwd"], "ms": moe_bwd["ms"],
+        "plain_ms": moe_bwd["plain_ms"], "bound_ms": moe_bwd["bound_ms"],
+        "bound_by": ("bytes" if moe_bwd["bytes"] / HBM_BYTES_PER_S
+                     >= moe_bwd["ops"] / PEAK_OPS["bfloat16"] else "operations"),
+        "library_ms": moe_bwd["library_ms"],
+    })
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,21 +1,44 @@
-"""Carry ``repro``'s parameters into the port, without JAX.
+"""Checkpoints in ``repro``'s on-disk format, without JAX: the counterpart
+of ``repro/checkpoint/checkpoint.py``, read and write side.
 
 ``repro`` keeps a dense model's parameters as a pytree whose per-layer
 leaves are stacked along a leading layer axis (``layers/wq`` is
 ``(L, d, q_dim)``).  The port's ``DenseLM`` holds one module per layer
 (``layers.<i>.wq``).  :func:`params_from_numpy` converts the pytree, as
 numpy arrays, into the port's state dict by unstacking the layer axis;
-:func:`load_repro_checkpoint` does the same from a checkpoint directory
-written by ``repro.checkpoint.save_checkpoint``: one ``.npy`` per
-``/``-joined leaf name, bf16 stored as uint16 with the logical dtype and a
-SHA-256 per leaf in ``manifest.json``.
+:func:`load_repro_checkpoint` does the same from a checkpoint directory of
+a parameter pytree.
+
+The format (``repro.checkpoint.save_checkpoint``): ``<dir>/step_<N>/``
+holds one ``.npy`` per leaf, ``leaf_<i>.npy`` in the order of the tree's
+``/``-joined leaf names with each dict's keys sorted (``jax.tree_util``'s
+order), bf16 stored as its uint16 bits, and ``manifest.json`` with the
+step, the mesh shape and, per leaf, its name, file, logical dtype, shape
+and the SHA-256 of its file.  A save writes ``step_<N>.tmp/`` and renames
+it, so a crash mid-save leaves the last complete checkpoint as it was, and
+keeps the last ``keep`` steps.
+
+The write side takes a state in the port's form, nested dicts whose leaves
+are tensors (or numpy arrays) and whose innermost keys may be the port's
+parameter names: the trainer's ``{"params": {name: tensor}, "opt_state":
+{"step", "master", "m", "v"}}``.  Every ``layers.<i>.<x>`` of one dict is
+stacked into the leaf ``.../layers/<x>`` of shape ``(L, ...)``, and any
+other ``.`` in a name becomes a ``/``, so the files carry the JAX tree's
+names and shapes: ``repro.checkpoint.load_checkpoint`` reads them into the
+JAX ``{"params", "opt_state"}`` tree, and :func:`load_checkpoint` reads
+what JAX's ``save_checkpoint`` wrote for that tree.  One device has no mesh:
+``mesh_shape`` is ``{}``.
 """
 from __future__ import annotations
 
 import hashlib
 import json
+import os
+import shutil
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -28,6 +51,23 @@ def _to_tensor(arr: np.ndarray, dtype_name: Optional[str] = None) -> torch.Tenso
         bits = np.ascontiguousarray(arr).view(np.uint16)
         return torch.from_numpy(bits.copy()).view(torch.bfloat16)
     return torch.from_numpy(np.array(arr))
+
+
+def _to_numpy(x) -> np.ndarray:
+    """A leaf on the host as numpy, always a copy (the trainer updates its
+    tensors in place after a snapshot); bf16 as its uint16 bits."""
+    if isinstance(x, torch.Tensor):
+        t = x.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16)
+        return t.numpy()
+    return np.array(x)
+
+
+def _logical_dtype(x) -> str:
+    if isinstance(x, torch.Tensor):
+        return str(x.dtype).removeprefix("torch.")
+    return str(np.asarray(x).dtype)
 
 
 def _unstack(flat: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
@@ -47,12 +87,225 @@ def _unstack(flat: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
 
 
 def _flatten(tree, prefix: str = "") -> dict:
+    """Nested dicts -> ``{"/"-joined path: leaf}``, each dict's keys in
+    sorted order (the order ``jax.tree_util`` flattens a dict in)."""
     if isinstance(tree, dict):
         flat = {}
-        for key, sub in tree.items():
-            flat.update(_flatten(sub, f"{prefix}{key}/"))
+        for key in sorted(tree):
+            flat.update(_flatten(tree[key], f"{prefix}{key}/"))
         return flat
     return {prefix[:-1]: tree}
+
+
+def _repro_name(path: str) -> tuple[str, Optional[int]]:
+    """A flattened path of the port's state -> (the JAX tree's leaf name,
+    the layer index or None): ``opt_state/m/layers.3.wq`` ->
+    (``opt_state/m/layers/wq``, 3), ``params/final_norm`` -> itself."""
+    head, _, last = path.rpartition("/")
+    parts = last.split(".")
+    layer = None
+    if len(parts) == 3 and parts[0] == "layers" and parts[1].isdigit():
+        layer = int(parts[1])
+        parts = [parts[0], parts[2]]
+    return "/".join(([head] if head else []) + parts), layer
+
+
+def _repro_leaves(state) -> dict[str, list]:
+    """The JAX tree's leaf names, in its flattening order, each with its
+    sources: ``[(layer, leaf), ...]`` for a stacked leaf, ``[(None, leaf)]``
+    for any other."""
+    groups: dict[str, list] = {}
+    for path, leaf in _flatten(state).items():
+        name, layer = _repro_name(path)
+        groups.setdefault(name, []).append((layer, leaf))
+    for name, srcs in groups.items():
+        layers = sorted(i for i, _ in srcs if i is not None)
+        if len(srcs) > 1 and layers != list(range(len(srcs))):
+            raise ValueError(f"{name}: layers {layers} are not 0..{len(srcs) - 1}")
+    return {name: sorted(groups[name], key=lambda s: s[0] or 0)
+            for name in sorted(groups, key=lambda n: n.split("/"))}
+
+
+def _host_tree(state) -> dict[str, tuple[np.ndarray, str]]:
+    """The state on the host in the JAX tree's names and shapes (layer
+    leaves stacked), each leaf ``(array, logical dtype)``: the snapshot a
+    save writes."""
+    out = {}
+    for name, srcs in _repro_leaves(state).items():
+        first = srcs[0][1]
+        if srcs[0][0] is None:
+            out[name] = (_to_numpy(first), _logical_dtype(first))
+            continue
+        one = _to_numpy(first)
+        arr = np.empty((len(srcs), *one.shape), dtype=one.dtype)
+        arr[0] = one
+        for i, (_, leaf) in enumerate(srcs[1:], 1):
+            arr[i] = _to_numpy(leaf)
+        out[name] = (arr, _logical_dtype(first))
+    return out
+
+
+def _sha256(path: Path) -> str:
+    with open(path, "rb") as f:
+        return hashlib.file_digest(f, "sha256").hexdigest()
+
+
+def _each(fn, items) -> list:
+    """``fn`` over ``items`` on a few threads, results in order: writing and
+    hashing a leaf release the GIL, and a full-width state's leaves take
+    seconds each to hash one at a time."""
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        return list(pool.map(fn, items))
+
+
+def _step_dirs(directory: Path) -> list[int]:
+    return sorted(int(p.name.split("_")[1]) for p in directory.glob("step_*")
+                  if not p.name.endswith(".tmp"))
+
+
+def _write(directory: Path, step: int, host: dict, mesh_shape: Optional[dict],
+           keep: int) -> Path:
+    directory.mkdir(parents=True, exist_ok=True)
+    tmp = directory / f"step_{step}.tmp"
+    final = directory / f"step_{step}"
+    if tmp.exists():
+        shutil.rmtree(tmp)
+    tmp.mkdir()
+
+    def one(item):
+        i, (name, (arr, dtype)) = item
+        fn = f"leaf_{i:05d}.npy"
+        np.save(tmp / fn, arr)
+        return {"name": name, "file": fn, "dtype": dtype, "shape": list(arr.shape),
+                "sha256": _sha256(tmp / fn)}
+
+    manifest = {"step": step, "mesh_shape": mesh_shape or {},
+                "leaves": _each(one, enumerate(host.items()))}
+    (tmp / "manifest.json").write_text(json.dumps(manifest, indent=1))
+    if final.exists():
+        shutil.rmtree(final)
+    tmp.rename(final)  # atomic publish
+    for old in _step_dirs(directory)[:-keep]:
+        shutil.rmtree(directory / f"step_{old}", ignore_errors=True)
+    return final
+
+
+def save_checkpoint(directory, step: int, state: Any, mesh_shape: Optional[dict] = None,
+                    keep: int = 3) -> Path:
+    """Write ``state`` (see the module docstring) as ``<directory>/step_<step>``
+    in ``repro``'s format, then keep the last ``keep`` steps.  Returns the
+    step's directory."""
+    return _write(Path(directory), step, _host_tree(state), mesh_shape, keep)
+
+
+def latest_step(directory) -> Optional[int]:
+    """The newest complete step under ``directory``, or None."""
+    steps = _step_dirs(Path(directory))
+    return steps[-1] if steps else None
+
+
+def _step_dir(directory, step: Optional[int]) -> Path:
+    directory = Path(directory)
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {directory}")
+    return directory / f"step_{step}"
+
+
+def _read_leaf(d: Path, entry: dict, verified: bool = False) -> torch.Tensor:
+    """One leaf as a CPU tensor of its logical dtype, its checksum checked
+    (unless already ``verified``) and its shape held to the manifest's."""
+    path = d / entry["file"]
+    if not verified and _sha256(path) != entry["sha256"]:
+        raise IOError(f"checksum mismatch for {entry['name']}")
+    arr = np.load(path)
+    if list(arr.shape) != list(entry["shape"]):
+        raise ValueError(f"shape mismatch {entry['name']}: {arr.shape} vs {entry['shape']}")
+    return _to_tensor(arr, entry["dtype"])
+
+
+def load_checkpoint(directory, state_like: Any, step: Optional[int] = None, *,
+                    in_place: bool = False) -> tuple[int, Any]:
+    """Restore ``<directory>/step_<step>`` (default: the latest) into the
+    structure of ``state_like`` (the port's form, as :func:`save_checkpoint`
+    takes it).  Each leaf is read by its JAX tree name (a layer's slice of a
+    stacked leaf), its checksum checked, its shape held to its like's, and
+    cast to its like's dtype on its like's device.  Returns ``(step,
+    state)``.  ``in_place`` copies into ``state_like``'s own tensors and
+    returns ``state_like`` (the trainer's parameters and AdamW state, so the
+    card holds one copy).  Every checksum is checked before the first leaf
+    is read, so a corrupt file leaves the state as it was."""
+    d = _step_dir(directory, step)
+    manifest = json.loads((d / "manifest.json").read_text())
+    by_name = {m["name"]: m for m in manifest["leaves"]}
+    wanted = _repro_leaves(state_like)
+    missing = [name for name in wanted if name not in by_name]
+    if missing:
+        raise KeyError(f"{d}: no leaves {missing}")
+    digests = _each(lambda name: _sha256(d / by_name[name]["file"]), wanted)
+    for name, digest in zip(wanted, digests):
+        if digest != by_name[name]["sha256"]:
+            raise IOError(f"checksum mismatch for {name}")
+    restored = {}
+    for name, srcs in wanted.items():
+        arr = _read_leaf(d, by_name[name], verified=True)
+        for layer, like in srcs:
+            t = arr if layer is None else arr[layer]
+            like_shape = tuple(like.shape)
+            if tuple(t.shape) != like_shape:
+                raise ValueError(f"shape mismatch {name}: {tuple(t.shape)} vs {like_shape}")
+            if in_place:
+                with torch.no_grad():
+                    like.copy_(t)
+            else:
+                restored[(name, layer)] = t.to(device=like.device, dtype=like.dtype, copy=True)
+    if in_place:
+        return manifest["step"], state_like
+
+    def rebuild(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {key: rebuild(sub, f"{prefix}{key}/") for key, sub in tree.items()}
+        return restored[_repro_name(prefix[:-1])]
+
+    return manifest["step"], rebuild(state_like)
+
+
+class CheckpointManager:
+    """Async save and restore-latest (JAX ``checkpoint.py:130-163``).
+    :meth:`save_async` snapshots the state to the host before it returns,
+    so the trainer may update its tensors in place at once, and writes in a
+    background thread; an error there surfaces at the next :meth:`wait`."""
+
+    def __init__(self, directory, keep: int = 3):
+        self.directory = Path(directory)
+        self.keep = keep
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def save_async(self, step: int, state: Any, mesh_shape: Optional[dict] = None) -> None:
+        self.wait()
+        host = _host_tree(state)
+
+        def work():
+            try:
+                _write(self.directory, step, host, mesh_shape, self.keep)
+            except BaseException as e:  # surfaced on the next wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def restore_latest(self, state_like: Any, *, in_place: bool = False):
+        return load_checkpoint(self.directory, state_like, in_place=in_place)
 
 
 def params_from_numpy(tree: dict) -> dict[str, torch.Tensor]:
@@ -66,22 +319,6 @@ def load_repro_checkpoint(directory, step: Optional[int] = None) -> dict[str, to
     """Read ``<directory>/step_<step>`` (default: the latest step) as written
     by ``repro.checkpoint.save_checkpoint`` for a parameter pytree, verify
     every leaf's checksum, and return the port's state dict (CPU tensors)."""
-    directory = Path(directory)
-    if step is None:
-        steps = [int(p.name.split("_")[1]) for p in directory.glob("step_*")
-                 if not p.name.endswith(".tmp")]
-        if not steps:
-            raise FileNotFoundError(f"no checkpoints in {directory}")
-        step = max(steps)
-    d = directory / f"step_{step}"
+    d = _step_dir(directory, step)
     manifest = json.loads((d / "manifest.json").read_text())
-    flat = {}
-    for leaf in manifest["leaves"]:
-        raw = (d / leaf["file"]).read_bytes()
-        if hashlib.sha256(raw).hexdigest() != leaf["sha256"]:
-            raise IOError(f"checksum mismatch for {leaf['name']}")
-        arr = np.load(d / leaf["file"])
-        if list(arr.shape) != list(leaf["shape"]):
-            raise ValueError(f"shape mismatch {leaf['name']}: {arr.shape} vs {leaf['shape']}")
-        flat[leaf["name"]] = _to_tensor(arr, leaf["dtype"])
-    return _unstack(flat)
+    return _unstack({leaf["name"]: _read_leaf(d, leaf) for leaf in manifest["leaves"]})

@@ -20,7 +20,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -28,6 +31,7 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_THREAD = threading.local()
 
 
 def sources() -> list[str]:
@@ -87,12 +91,26 @@ def build(names=None) -> dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library for ``csrc/<name>.cu``, built first if needed, for
+    a launch from the calling thread.
+
+    Each library links its own CUDA runtime, which launches into the
+    calling thread's current context.  A thread that has not yet run a CUDA
+    call through PyTorch may have none: autograd's backward thread, whose
+    first call in a backward can be a kernel of ours (the batched K2's
+    ``dA``), or any new Python thread.  Every launch there fails with
+    ``cudaErrorInvalidValue``.  So the first load on each thread makes
+    PyTorch's current device's context current on it
+    (``torch.cuda.set_device``, which the thread's device does not
+    change)."""
     lib = _LIBS.get(name)
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(library_path(name)))
         _LIBS[name] = lib
+    if not getattr(_THREAD, "bound", False):
+        torch.cuda.set_device(torch.cuda.current_device())
+        _THREAD.bound = True
     return lib
 
 

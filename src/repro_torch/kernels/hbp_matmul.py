@@ -37,8 +37,13 @@ workspace is off for a batched call.
 
 The differentiable entry is ``strassen_matmul.matmul``, the registry's
 ``matmul`` op: its classical backend is one call of this kernel, forward
-and both backward products (2-D only: the batched products have no
-backward yet).
+and both backward products, batched ones too: ``dA = g Bᵀ`` and ``dB = Aᵀ
+g`` per slab, each one batched launch on transposed slab views.  ``Aᵀ g``
+contracts over the slab's rows (an MoE expert's capacity, 80 for
+``olmoe-1b-7b`` at 512 tokens), so its K need not be a whole number of K
+steps: every instance masks the last K step of each slab (zero fill by the
+3-D tensor maps for ``wgmma``, per-slab bounds for the others), and never
+reads the next slab's rows.
 
 A tensor on the CPU takes :func:`matmul_ref`, the plain version; a CUDA
 tensor launches the kernel or raises.  ``hbp_matmul.launches`` counts the

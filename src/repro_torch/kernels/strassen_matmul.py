@@ -30,7 +30,7 @@ the planner for the backend (``classical``: one K2 call; ``strassen``: the
 recursion) and its backward re-plans each of ``dA = g Bᵀ`` and
 ``dB = Aᵀ g`` on its own shape, as the JAX custom VJP does.  A batched
 ``(E, m, k) @ (E, k, n)`` call is one batched K2 launch (Strassen is 2-D
-only), forward only: it raises where a gradient would be recorded.
+only), and so is each of its two backward products.
 
 On the CPU :func:`strassen_matmul` runs :func:`strassen_matmul_plain`, the
 recursion with ``matmul_ref`` leaves (also the card's comparisons);
@@ -335,7 +335,13 @@ class _Matmul(torch.autograd.Function):
     """``a @ b`` on the chosen backend, with the JAX custom VJP's backward
     (``strassen_matmul.py:119-139``): ``dA = g Bᵀ`` and ``dB = Aᵀ g``, each
     re-planned for its own shape (the transposes are views K2 reads in
-    place), each cast to its operand's dtype."""
+    place), each cast to its operand's dtype.  A batched product, ``a (E, m,
+    k) @ b (E, k, n)``, transposes each slab (``mT``): each gradient is one
+    batched K2 launch over every slab, as the JAX VJP under ``jax.vmap``
+    gives one batched Pallas call, accumulated in f32.  ``dB = Aᵀ g``
+    contracts over the slab's ``m`` rows (an expert's capacity), which K2
+    masks per slab like any ragged K.  ``matmul.batched_backward_launches``
+    counts those launches on the card (K2's own counters count them too)."""
 
     @staticmethod
     def forward(ctx, a, b, backend, cutoff):
@@ -348,26 +354,28 @@ class _Matmul(torch.autograd.Function):
         g = g.contiguous()
         da = db = None
         if ctx.needs_input_grad[0]:
-            da = _run(g, b.T, None, None).to(a.dtype)
+            da = _run(g, b.mT, None, None).to(a.dtype)
         if ctx.needs_input_grad[1]:
-            db = _run(a.T, g, None, None).to(b.dtype)
+            db = _run(a.mT, g, None, None).to(b.dtype)
+        if a.dim() == 3 and a.device.type == "cuda":
+            matmul.batched_backward_launches += (da is not None) + (db is not None)
         return da, db, None, None
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *, backend: Optional[str] = None,
            cutoff: Optional[int] = None) -> torch.Tensor:
-    """Differentiable ``a (m, k) @ b (k, n)``, output in ``a``'s dtype:
-    ``backend`` None asks the planner, ``"classical"`` runs one K2 call,
-    ``"strassen"`` the recursion.  Without a gradient to record (serving
-    runs under ``no_grad``) it calls the backend directly, past the
-    autograd Function."""
+    """Differentiable ``a (m, k) @ b (k, n)``, or ``a (E, m, k) @ b (E, k,
+    n)`` as one batched K2 call, output in ``a``'s dtype: ``backend`` None
+    asks the planner, ``"classical"`` runs one K2 call, ``"strassen"`` the
+    recursion (2-D only).  Without a gradient to record (serving runs under
+    ``no_grad``) it calls the backend directly, past the autograd
+    Function."""
     if backend not in (None, "classical", "strassen"):
         raise ValueError(f"unknown matmul backend {backend!r}; expected "
                          "'classical' or 'strassen'")
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
-        if a.dim() == 3:
-            raise NotImplementedError(
-                "matmul: the batched (E, m, k) @ (E, k, n) product has no backward "
-                "yet (MoE training); call it under torch.no_grad()")
         return _Matmul.apply(a, b, backend, cutoff)
     return _run(a, b, backend, cutoff)
+
+
+matmul.batched_backward_launches = 0  # the batched K2 launches of batched backwards

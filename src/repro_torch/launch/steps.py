@@ -3,20 +3,29 @@
 
 The model owns its parameters, so the step takes and returns the optimizer
 state alone and updates the parameters in place (``optim.adamw_update``).
+In place, a step cannot be undone once its update has begun, so the step
+marks that boundary for ``runtime.FaultTolerantRunner``: the update comes
+last, and a failure inside it is raised as ``UpdateStartedError``, which
+the runner does not retry; a failure before it (the forward, the backward,
+the ``before_update`` hook) leaves the parameters and the AdamW state as
+they were, and the runner may run the step again.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.models import Model
 from repro_torch.optim import AdamWConfig, adamw_update
+from repro_torch.runtime.fault_tolerance import UpdateStartedError
 
 
 def make_train_step(model: Model, opt_cfg: Optional[AdamWConfig] = None):
-    """``train_step(opt_state, batch) -> (opt_state, metrics)``: loss and
-    gradients by autograd, then one AdamW update.  With
+    """``train_step(opt_state, batch, before_update=None) -> (opt_state,
+    metrics)``: loss and gradients by autograd, ``before_update()`` if given
+    (fault injection, before anything is written), then one AdamW update,
+    which a failure inside raises as ``UpdateStartedError``.  With
     ``model.opts.microbatches = k > 1`` the batch is cut into k equal parts
     along its first axis, each part's gradients are accumulated in f32, and
     the loss and the gradients are divided by k, as the JAX step does.
@@ -32,7 +41,7 @@ def make_train_step(model: Model, opt_cfg: Optional[AdamWConfig] = None):
         loss.backward()
         return loss.detach(), {n: p.grad for n, p in params.items()}
 
-    def train_step(opt_state, batch):
+    def train_step(opt_state, batch, before_update: Optional[Callable[[], None]] = None):
         if n_micro == 1:
             loss, grads = grads_of(batch)
         else:
@@ -50,7 +59,12 @@ def make_train_step(model: Model, opt_cfg: Optional[AdamWConfig] = None):
                     acc += g[n].float()
             loss = loss / n_micro
             grads = {n: g / n_micro for n, g in grads.items()}
-        _, opt_state, metrics = adamw_update(params, grads, opt_state, opt_cfg)
+        if before_update is not None:
+            before_update()
+        try:
+            _, opt_state, metrics = adamw_update(params, grads, opt_state, opt_cfg)
+        except Exception as e:
+            raise UpdateStartedError("the AdamW update failed after it began") from e
         for p in params.values():
             p.grad = None
         metrics["loss"] = loss

@@ -1,67 +1,107 @@
 """The trainer: the counterpart of ``repro/launch/train.py``.
 
-config -> model (seeded init) -> synthetic data -> AdamW steps, every
-matrix product on K2 (forward and backward), every attention forward on K1
-and every attention backward on K3.  One device; the JAX trainer's mesh,
-sharding planner, autotune and fault-tolerant checkpointing have no
-counterpart yet (``ROADMAP.md``).  An MoE config raises: the batched expert
-products have no backward yet, and a full-width MoE needs sharding to
-train.
+config -> model (seeded init) -> synthetic data -> AdamW steps under a
+fault-tolerant runner, every matrix product on K2 (forward and backward;
+an MoE layer's expert products on its batched launches, both ways), every
+attention forward on K1 and every attention backward on K3.  With
+``ckpt_dir`` the run resumes from the latest checkpoint there, saves every
+``save_every`` steps in the background and once after the last step, in
+the JAX package's format (``repro_torch.checkpoint``): a JAX run can resume
+from the port's checkpoints and the port from JAX's.  One device; the JAX
+trainer's mesh, sharding planner and autotune have no counterpart yet
+(``ROADMAP.md``), so a config trains at the depth that fits one card.
 
     python -m repro_torch.launch.train --arch qwen3-1.7b --steps 3
-    python -m repro_torch.launch.train --arch gemma3-1b --reduced --device cpu --steps 2
-    python -m repro_torch.launch.train --reduced --device cpu --steps 2
+    python -m repro_torch.launch.train --arch olmoe-1b-7b --reduced --device cpu --steps 2
+    python -m repro_torch.launch.train --reduced --device cpu --steps 4 \\
+        --ckpt-dir /tmp/run --save-every 2
+
+Run the last one again with ``--steps 6`` and it resumes at step 4.
+``--impl`` installs an execution policy (the JAX grammar,
+``op=backend[:knob=value][,...]``).
 """
 from __future__ import annotations
 
 import argparse
 import logging
 import time
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.data import DataConfig, SyntheticLMDataset
+from repro_torch.launch.serve import install_impl
 from repro_torch.launch.steps import make_train_step
-from repro_torch.models import RunOptions, UnsupportedFamilyError, build_model
+from repro_torch.models import RunOptions, build_model
 from repro_torch.optim import AdamWConfig, adamw_init
+from repro_torch.runtime.fault_tolerance import FaultTolerantRunner
 
 log = logging.getLogger("repro_torch.train")
 
 
 def train(cfg, *, steps: int, data_cfg: DataConfig,
           opts: RunOptions = RunOptions(), opt_cfg: AdamWConfig = AdamWConfig(),
-          device=None, log_every: int = 10) -> dict:
-    """Train ``cfg`` from a seeded init (``data_cfg.seed``) for ``steps``
-    steps on ``device`` (CUDA unless told otherwise; raises without it).
-    Returns the model, the optimizer state, per-step ``losses``,
-    ``grad_norms`` and ``step_s`` (host wall time of each step, ended by
-    reading its loss on the host), and ``wall_s``.  Raises
-    ``UnsupportedFamilyError`` on an MoE config, on every device."""
-    if cfg.n_experts:
-        raise UnsupportedFamilyError(cfg.family, "MoE training")
+          device=None, log_every: int = 10, ckpt_dir: Optional[str] = None,
+          save_every: int = 0, keep: int = 3,
+          before_update: Optional[Callable[[int], None]] = None) -> dict:
+    """Train ``cfg`` from a seeded init (``data_cfg.seed``) up to step
+    ``steps`` on ``device`` (CUDA unless told otherwise; raises without it).
+
+    Each step runs under ``runtime.FaultTolerantRunner``: a failure before
+    the step's update is retried up to twice, one after it raises (the JAX
+    trainer retries only when it checkpoints; here a retry needs no
+    checkpoint, since it reruns the step from the state in memory).  With
+    ``ckpt_dir`` (JAX ``train.py:90-126``) the run starts
+    from the latest checkpoint there, if any, saves every ``save_every``
+    steps (default: at the last) keeping ``keep`` of them, and saves the
+    final state.  ``before_update(step)``, if given, is called in each
+    attempt after the gradients and before the update (fault injection).
+
+    Returns the model, the optimizer state, ``start`` (the first step run:
+    0, or the step after the restored checkpoint), per-step ``losses``,
+    ``grad_norms`` and ``step_s`` (host wall time of each step run, ended
+    by reading its loss on the host), ``retries``, ``stragglers`` and
+    ``wall_s``."""
     dev = resolve_device(device)
     ds = SyntheticLMDataset(data_cfg, cfg)
     model = build_model(cfg, opts, device=dev)
     model.init(torch.Generator(device=dev).manual_seed(data_cfg.seed))
-    opt_state = adamw_init(dict(model.named_parameters()))
+    params = dict(model.named_parameters())
+    opt_state = adamw_init(params)
     train_step = make_train_step(model, opt_cfg)
+
+    mgr = CheckpointManager(ckpt_dir, keep=keep) if ckpt_dir else None
+    runner = FaultTolerantRunner(mgr, save_every=save_every or steps)
+    _, start = runner.restore_or({"params": params, "opt_state": opt_state})
 
     losses, grad_norms, step_s = [], [], []
     t0 = time.perf_counter()
-    for step in range(steps):
+    for step in range(start, steps):
         t = time.perf_counter()
         batch = {k: torch.from_numpy(v).to(dev) for k, v in ds.batch_at(step).items()}
-        opt_state, metrics = train_step(opt_state, batch)
+        hook = None if before_update is None else (lambda step=step: before_update(step))
+        out = {}
+
+        def do_step():
+            out["opt_state"], out["metrics"] = train_step(opt_state, batch, hook)
+            return {"params": params, "opt_state": out["opt_state"]}
+
+        runner.run_step(step, do_step)
+        opt_state, metrics = out["opt_state"], out["metrics"]
         losses.append(float(metrics["loss"]))  # waits for the step
         step_s.append(time.perf_counter() - t)
         grad_norms.append(float(metrics["grad_norm"]))
         if log_every and step % log_every == 0:
             log.info("step %d loss %.4f (%.2fs)", step, losses[-1], time.perf_counter() - t0)
-    return {"model": model, "opt_state": opt_state, "losses": losses,
-            "grad_norms": grad_norms, "step_s": step_s,
-            "wall_s": time.perf_counter() - t0}
+    if mgr is not None:
+        mgr.save_async(steps - 1, {"params": params, "opt_state": opt_state})
+        mgr.wait()
+    return {"model": model, "opt_state": opt_state, "start": start, "losses": losses,
+            "grad_norms": grad_norms, "step_s": step_s, "retries": runner.retries,
+            "stragglers": runner.monitor.flagged, "wall_s": time.perf_counter() - t0}
 
 
 def main(argv=None):
@@ -73,14 +113,25 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--reduced", action="store_true", help="smoke-size config")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="resume from the latest checkpoint here and save into it")
+    ap.add_argument("--save-every", type=int, default=0,
+                    help="steps between checkpoints (default: the last step only)")
+    ap.add_argument("--impl", default="",
+                    help="execution-policy impl map, op=backend[:knob=value][,...] "
+                         "('*' wildcard; a bare backend means '*=backend')")
     args = ap.parse_args(argv)
+    install_impl(args.impl)
 
     cfg = get_smoke_config(args.arch) if args.reduced else get_config(args.arch)
     out = train(cfg, steps=args.steps,
                 data_cfg=DataConfig(global_batch=args.batch, seq_len=args.seq),
-                device=args.device)
-    print(f"final loss {out['losses'][-1]:.4f} (first {out['losses'][0]:.4f}) "
-          f"in {out['wall_s']:.1f}s on {out['model'].device}")
+                device=args.device, ckpt_dir=args.ckpt_dir, save_every=args.save_every)
+    if not out["losses"]:
+        print(f"nothing to run: the checkpoint is at step {out['start'] - 1} of {args.steps}")
+        return
+    print(f"steps {out['start']}-{args.steps - 1}: final loss {out['losses'][-1]:.4f} "
+          f"(first {out['losses'][0]:.4f}) in {out['wall_s']:.1f}s on {out['model'].device}")
 
 
 if __name__ == "__main__":

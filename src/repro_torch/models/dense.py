@@ -13,8 +13,8 @@ so ``repro_torch.checkpoint`` carries JAX parameters across by unstacking
 the layer axis.  Every matrix product runs on ``hbp_matmul`` (an MoE
 layer's expert products on its batched launches, ``models/moe_layer.py``)
 and every attention call on ``flash_attention``; in training their
-backward runs on ``hbp_matmul`` and ``flash_attention_bwd`` (dense configs
-only: the batched products have no backward yet).  Over an int8 KV cache (the
+backward runs on ``hbp_matmul`` (the expert products' on its batched
+launches) and ``flash_attention_bwd``.  Over an int8 KV cache (the
 policy's attention ``kv_dtype=int8`` variant) decode and continuation
 chunks attend through ``flash_attention_int8`` (K1q).  The parameters are
 trainable; ``prefill``, ``prefill_chunk`` and ``decode_step`` run under
@@ -236,9 +236,7 @@ class DenseLM(Model):
     def loss(self, batch: dict) -> torch.Tensor:
         """JAX ``dense.py:250-260``: teacher forcing on ``right_shift``ed
         tokens, the chunked cross-entropy over the output table, plus the
-        router's aux term summed over the layers (none for a dense model).
-        An MoE config computes its loss under ``torch.no_grad`` only: the
-        batched expert products have no backward yet."""
+        router's aux term summed over the layers (none for a dense model)."""
         cfg = self.cfg
         tokens, labels = batch["tokens"], batch["labels"]
         s = tokens.shape[1]

@@ -25,6 +25,12 @@ puts the lower expert first, so the top k come from a stable descending
 sort.  The sharding hints (``constrain``) have no counterpart on one
 device.  ``aux=False`` skips the load-balance term where the caller drops
 it (serving), as XLA drops the unused value from the JAX step.
+
+In training the expert products' backward is the batched K2's (two
+launches a product, ``strassen_matmul._Matmul``), and the gathers' backward
+is a float ``scatter_add`` that sums each token's expert contributions by
+atomics on the card, in no fixed order: the card's MoE gradients repeat
+only to a tolerance.
 """
 from __future__ import annotations
 

@@ -1,3 +1,14 @@
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update, global_norm
+from repro_torch.optim.compression import compress_int8, decompress_int8
+from repro_torch.optim.schedule import cosine_schedule, linear_warmup_cosine
 
-__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm"]
+__all__ = [
+    "AdamWConfig",
+    "adamw_init",
+    "adamw_update",
+    "global_norm",
+    "cosine_schedule",
+    "linear_warmup_cosine",
+    "compress_int8",
+    "decompress_int8",
+]

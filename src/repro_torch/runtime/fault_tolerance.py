@@ -1,6 +1,7 @@
-"""Fault tolerance for the serving engine: fault injection, bounded retry,
-straggler detection.  The port's copy of the serving half of
-``repro/runtime/fault_tolerance.py``.
+"""Fault tolerance: fault injection, bounded retry, straggler detection.
+The port's copy of ``repro/runtime/fault_tolerance.py``, but for the fleet
+grammar ``parse_fleet_plan``, which comes with the router (ROADMAP queue
+5).
 
 The engine (``repro_torch.launch.engine``) maps the failure taxonomy onto
 launches: (a) a launch that exhausts its retries raises
@@ -13,18 +14,25 @@ graceful-degradation window.
 Faults fire deterministically from a declarative plan
 (:class:`FaultInjector`, ``REPRO_FAULTS``); the one sanctioned source of
 nondeterminism is the seeded retry-backoff jitter, which perturbs wall time
-only, never the recovered output.  The training-side
-``FaultTolerantRunner`` and the fleet grammar ``parse_fleet_plan`` come
-with the trainer's checkpointing and the router (ROADMAP queues 4 and 6).
+only, never the recovered output.
+
+The trainer (``repro_torch.launch.train``) wraps each step in
+:class:`FaultTolerantRunner`: bounded retry of a failed step, periodic
+async checkpoints, and :class:`StragglerMonitor` over the step times.
 """
 from __future__ import annotations
 
+import logging
 import os
 import statistics
 import time
+import traceback
 from dataclasses import dataclass, field
+from typing import Any, Callable, Optional
 
 import numpy as np
+
+log = logging.getLogger(__name__)
 
 FAULT_PLAN_ENV = "REPRO_FAULTS"
 
@@ -291,3 +299,91 @@ class LaunchWatchdog:
                        "median_ms": 1e3 * statistics.median(m.times) if m.times else None,
                        "peak_over_median": self.peak_ratio.get(name)}
                 for name, m in self.series.items()}
+
+
+class UpdateStartedError(RuntimeError):
+    """A training step failed after it began to update its state in place
+    (``launch/steps.py``): the state may hold part of the update, so
+    :class:`FaultTolerantRunner` does not retry it."""
+
+
+class FaultTolerantRunner:
+    """Wraps a training loop's step with bounded retry and periodic
+    checkpoints (JAX ``fault_tolerance.py:274-321``)::
+
+        runner = FaultTolerantRunner(ckpt_manager, save_every=100)
+        state, start = runner.restore_or(state)
+        for step in range(start, total):
+            state = runner.run_step(step, lambda: train_step(state, batch))
+
+    ``ckpt_manager`` is a ``repro_torch.checkpoint.CheckpointManager``, or
+    None for retry and straggler detection without checkpoints.
+
+    One point differs from JAX, whose step returns new arrays and leaves its
+    inputs untouched, so that any failed step can run again.  The port's
+    step updates the parameters and the AdamW state in place
+    (``optim/adamw.py``), and a retry of a step whose update had begun would
+    apply part of it twice.  So a step marks that boundary: a failure it
+    raises before the update (the forward, the backward, the gradient norm)
+    is retried, up to ``max_retries`` times; one after the update began
+    comes as :class:`UpdateStartedError`, which the runner passes on after
+    waiting for any pending save, leaving the restart from the last
+    checkpoint to the job, as JAX does when a step is out of retries.  The
+    periodic save runs after the step has succeeded and outside the retry,
+    so an error from it (a failed earlier async write) is raised, never
+    taken for a step failure."""
+
+    def __init__(self, ckpt_manager=None, *, save_every: int = 100, max_retries: int = 2,
+                 mesh_shape: Optional[dict] = None):
+        self.ckpt = ckpt_manager
+        self.save_every = save_every
+        self.max_retries = max_retries
+        self.mesh_shape = mesh_shape or {}
+        self.monitor = StragglerMonitor()
+        self.retries = 0
+
+    def restore_or(self, state_init: Any) -> tuple[Any, int]:
+        """The latest checkpoint restored into ``state_init``'s own tensors
+        and the step after it, or ``(state_init, 0)`` when there is none."""
+        if self.ckpt is None:
+            return state_init, 0
+        try:
+            step, state = self.ckpt.restore_latest(state_init, in_place=True)
+        except FileNotFoundError:
+            return state_init, 0
+        log.info("restored checkpoint at step %d", step)
+        return state, step + 1
+
+    def wait(self) -> None:
+        if self.ckpt is not None:
+            self.ckpt.wait()
+
+    def run_step(self, step: int, step_fn: Callable[[], Any]) -> Any:
+        """Run one step with bounded retry; checkpoint on schedule.
+        ``step_fn`` closes over whatever state it needs and returns the
+        state to checkpoint."""
+        last_exc: Optional[BaseException] = None
+        for attempt in range(self.max_retries + 1):
+            t0 = time.perf_counter()
+            try:
+                new_state = step_fn()
+            except UpdateStartedError:
+                self.wait()
+                raise
+            except Exception as e:  # noqa: BLE001 -- deliberate: retry any step fault
+                # the failed attempt's frames would hold its tensors (a whole
+                # set of gradients) through the retry: keep the error, not them
+                traceback.clear_frames(e.__traceback__)
+                last_exc = e
+                self.retries += 1
+                log.warning("step %d attempt %d failed: %r", step, attempt, e)
+                continue
+            dt = time.perf_counter() - t0
+            if self.monitor.observe(dt):
+                log.warning("straggler step %d: %.3fs", step, dt)
+            if self.ckpt is not None and self.save_every and (step + 1) % self.save_every == 0:
+                self.ckpt.save_async(step, new_state, self.mesh_shape)
+            return new_state
+        # out of retries: persist what we have and re-raise for a job restart
+        self.wait()
+        raise RuntimeError(f"step {step} failed after {self.max_retries} retries") from last_exc

@@ -78,8 +78,8 @@ def _jax_tokens(engine, n, vocab):
 def family():
     """Per arch: the JAX engine's parameters (as the port's state dict), its
     tokens (fp cache; int8 too for one MoE arch), and the JAX prefill logits
-    on seeded tokens.  Also the MoE loss of ``olmoe-1b-7b`` and the loss and
-    gradients of ``qwen2.5-14b``, from the same parameters."""
+    on seeded tokens.  Also the loss and gradients of ``olmoe-1b-7b`` (MoE)
+    and of ``qwen2.5-14b``, from the same parameters."""
     from repro.kernels import autotune
 
     out = {}
@@ -105,9 +105,8 @@ def family():
                                    jcfg).batch_at(0)
                 jb = {k: jnp.asarray(v) for k, v in batch.items()}
                 loss, grads = jax.jit(jax.value_and_grad(jm.loss))(params, jb)
-                ref.update(batch=batch, loss=float(loss))
-                if arch == "qwen2.5-14b":
-                    ref["grads"] = params_from_numpy(_np_tree(grads))
+                ref.update(batch=batch, loss=float(loss),
+                           grads=params_from_numpy(_np_tree(grads)))
             out[arch] = ref
     finally:
         autotune.set_mode(None)  # Server.__init__ pins the autotune mode process-wide
@@ -202,21 +201,29 @@ def test_engine_int8_cache_identical_to_jax(family):
 
 def test_moe_loss_matches_jax(family):
     """``olmoe-1b-7b``'s loss, the routers' aux term included (it moves the
-    loss by more than the tolerance), under ``no_grad``: the batched expert
-    products have no backward yet, and a recorded call raises."""
+    loss by more than the tolerance), and every gradient: the routers'
+    (through the softmax, the top-k weights and the aux term), the experts'
+    (the batched backward through the gathers of the sort dispatch) and the
+    rest."""
     ref = family["olmoe-1b-7b"]
     cfg = _port_cfg("olmoe-1b-7b")
     model = build_model(cfg, device="cpu")
     model.load_state_dict(ref["params"])
     batch = {k: torch.from_numpy(v) for k, v in ref["batch"].items()}
     with torch.no_grad():
-        loss = model.loss(batch)
         x, aux = model._backbone(torch.zeros_like(batch["tokens"]),
                                  torch.arange(SEQ, dtype=torch.int32))
+    loss = model.loss(batch)
+    loss.backward()
     np.testing.assert_allclose(loss.item(), ref["loss"], rtol=LOSS_RTOL)
     assert cfg.router_aux_weight * aux.item() / cfg.n_layers > LOSS_RTOL * ref["loss"]
-    with pytest.raises(NotImplementedError, match="no backward"):
-        model.loss(batch)
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    assert grads.keys() == ref["grads"].keys()
+    assert {"layers.0.router", "layers.1.e_gate", "layers.1.e_down"} <= set(grads)
+    for name, want in ref["grads"].items():
+        torch.testing.assert_close(grads[name], want, **GRAD_TOL, msg=name)
+    assert all(grads[f"layers.{i}.{n}"].abs().max() > 0 for i in range(cfg.n_layers)
+               for n in ("router", "e_gate", "e_up", "e_down"))
 
 
 def test_bias_and_head_loss_and_grads_match_jax(family):

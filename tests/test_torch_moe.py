@@ -6,8 +6,11 @@ Inputs are made from a seed with numpy; each JAX function runs jitted, once
 per module (the ``jax_moe`` fixture).  Tolerances, all at f32: atol 1e-5 on
 the router's weights, the aux term and the layer's output (a few matmuls
 summed in another order on each side); the router's experts, the capacity
-and every index are exact.  JAX is imported inside the fixtures only, so the
-tests marked ``cuda`` (the batched instances against their plain version on
+and every index are exact.  ``train()`` on ``olmoe-1b-7b``'s smoke config
+is held to two jitted JAX train steps (loss rtol 1e-5, parameters atol 1%
+of a step, as ``tests/test_torch_train.py``).  JAX is imported inside the
+fixtures and tests that use it only, so the tests marked ``cuda`` (the
+batched instances and the batched backward against their plain versions on
 the card, at ``chip_smoke.py`` phase 2's shapes) run on a machine without
 it: ``PYTHONPATH=src python -m pytest --noconftest -m cuda
 tests/test_torch_moe.py``.
@@ -26,7 +29,6 @@ from repro_torch.kernels import registry  # noqa: E402
 from repro_torch.kernels.hbp_matmul import hbp_matmul, matmul_ref  # noqa: E402
 from repro_torch.kernels.strassen_matmul import matmul  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
-from repro_torch.models import UnsupportedFamilyError  # noqa: E402
 from repro_torch.models import common as pt_common  # noqa: E402
 from repro_torch.models import moe_layer as pt_moe  # noqa: E402
 
@@ -242,10 +244,12 @@ def test_batched_path_and_plan_rules():
     assert mm_mod.plan(40, 768, 2048, "wgmma", 132).splits > 1
 
 
-def test_batched_matmul_shapes_and_grad_rule():
-    """Batched K2 on CPU tensors is its plain version; out_dtype holds; a
-    call that would record a gradient raises (no backward yet), and the
-    trainer refuses an MoE config on every device."""
+def test_batched_matmul_shapes_and_grad_rule(monkeypatch):
+    """Batched K2 on CPU tensors is its plain version; out_dtype holds; the
+    batched backward, ``dA = g Bᵀ`` and ``dB = Aᵀ g`` per slab (each one
+    batched call on transposed slab views), equals autograd of the plain
+    version, at a capacity (13 rows) that is no multiple of K2's K step,
+    and casts each gradient to its operand's dtype."""
     r = np.random.default_rng(3)
     a = _t(r.standard_normal((3, 13, 72)).astype(np.float32))
     b = _t(r.standard_normal((3, 72, 100)).astype(np.float32))
@@ -257,13 +261,138 @@ def test_batched_matmul_shapes_and_grad_rule():
         hbp_matmul(a, b[:2])
     with pytest.raises(ValueError):
         matmul(a, b, backend="strassen")
-    with pytest.raises(NotImplementedError, match="no backward"):
-        matmul(a.requires_grad_(), b)
+    g = _t(r.standard_normal((3, 13, 100)).astype(np.float32))
+    for dt in (torch.float32, torch.bfloat16):
+        x, w = (t.to(dt).clone().requires_grad_() for t in (a, b))
+        shapes = []
+        real = mm_mod.hbp_matmul
+
+        def spy(p, q, **kw):
+            shapes.append((tuple(p.shape), tuple(q.shape), p.stride(-1) != 1, q.stride(-1) != 1))
+            return real(p, q, **kw)
+
+        monkeypatch.setattr(mm_mod, "hbp_matmul", spy)
+        matmul(x, w).backward(g.to(dt))
+        monkeypatch.undo()
+        # forward, dA = g (3x13x100) @ wᵀ (a transposed view), dB = xᵀ @ g
+        assert shapes == [((3, 13, 72), (3, 72, 100), False, False),
+                          ((3, 13, 100), (3, 100, 72), False, True),
+                          ((3, 72, 13), (3, 13, 100), True, False)]
+        x2, w2 = (t.detach().clone().requires_grad_() for t in (x, w))
+        matmul_ref(x2, w2).backward(g.to(dt))
+        assert x.grad.dtype == w.grad.dtype == dt
+        torch.testing.assert_close(x.grad, x2.grad, atol=ATOL, rtol=1e-6)
+        torch.testing.assert_close(w.grad, w2.grad, atol=ATOL, rtol=1e-6)
     with torch.no_grad():
         torch.testing.assert_close(matmul(a, b), a @ b, atol=ATOL, rtol=1e-6)
-    cfg = reduced(get_smoke_config("olmoe-1b-7b"), dtype="float32")
-    with pytest.raises(UnsupportedFamilyError, match="MoE training"):
-        train(cfg, steps=1, data_cfg=DataConfig(global_batch=2, seq_len=8), device="cpu")
+
+
+# (label, moe_groups, capacity factor): two AdamW steps of train() on
+# olmoe-1b-7b's f32 smoke config against two jitted JAX steps; at cf 0.5
+# an expert holds 8 of a layer's 64 (token, expert) entries, fewer than the
+# busiest expert gets in every MoE call, so tokens drop in each
+TRAIN_CASES = [("g1", 1, 1.25), ("g2", 2, 1.25), ("drops", 1, 0.5)]
+TRAIN_DATA = DataConfig(global_batch=2, seq_len=16)
+
+
+@pytest.mark.parametrize("case", TRAIN_CASES, ids=lambda c: c[0])
+def test_moe_train_steps_match_jax(case, monkeypatch):
+    """``train()`` takes MoE configs: its two steps (loss, parameters) equal
+    two jitted JAX ``make_train_step`` steps from the same parameters on the
+    same batches: the losses within rtol 1e-5 and each parameter within 1%
+    of one step (the tolerances of ``tests/test_torch_train.py``) plus the
+    first update's own spread where the two sides' first gradients differ
+    relative to their size, as ``chip_smoke.py`` phase 3 holds the card to
+    the CPU: AdamW's first update moves an element by lr * g / (|g| + eps),
+    whose slope is 1 / (|g| + eps), so clipped first gradients a and b
+    (read back from each side's first moment, m = (1 - b1) g) may part the
+    updates by lr |a - b| / (min(|a|, |b|) + eps), and by up to 2 lr where
+    their signs differ.  A gradient that is rounding noise on both sides
+    (|g| ~ eps, far under the gradients' atol of 1e-5) is all spread."""
+    import dataclasses
+
+    jax = pytest.importorskip("jax")
+    jnp = jax.numpy
+    from repro.configs import get_smoke_config as jax_smoke
+    from repro.data import DataConfig as JaxDataConfig
+    from repro.data import SyntheticLMDataset as JaxDataset
+    from repro.launch.steps import make_train_step as jax_train_step
+    from repro.models import build_model as jax_build
+    from repro.models.base import RunOptions as JaxRunOptions
+    from repro.optim import AdamWConfig as JaxAdamWConfig
+    from repro.optim import adamw_init as jax_adamw_init
+    from repro_torch.checkpoint import params_from_numpy
+    from repro_torch.models import RunOptions, build_model
+    from repro_torch.launch import steps as pt_steps
+    from repro_torch.models import dense as pt_dense
+    from repro_torch.optim import AdamWConfig
+
+    _, groups, cf = case
+    cfg = dataclasses.replace(reduced(get_smoke_config("olmoe-1b-7b"), dtype="float32"),
+                              capacity_factor=cf)
+    opts = RunOptions(moe_groups=groups)
+    init = build_model(cfg, opts, device="cpu")
+    init.init(torch.Generator().manual_seed(TRAIN_DATA.seed))  # train()'s init
+    layers = {}
+    tree = {}
+    for name, p in init.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            layers.setdefault(parts[2], []).append(p.detach().numpy())
+        else:
+            tree[name] = p.detach().numpy()
+    tree["layers"] = {k: np.stack(v) for k, v in layers.items()}
+
+    jcfg = dataclasses.replace(jax_smoke("olmoe-1b-7b"), dtype="float32", capacity_factor=cf)
+    jm = jax_build(jcfg, JaxRunOptions(moe_groups=groups))
+    step = jax.jit(jax_train_step(jm, JaxAdamWConfig()))
+    ds = JaxDataset(JaxDataConfig(global_batch=TRAIN_DATA.global_batch,
+                                  seq_len=TRAIN_DATA.seq_len), jcfg)
+    p = jax.tree.map(jnp.asarray, tree)
+    opt = jax_adamw_init(p)
+    want = []
+    for i in range(2):
+        p, opt, metrics = step(p, opt, {k: jnp.asarray(v) for k, v in ds.batch_at(i).items()})
+        want.append(float(metrics["loss"]))
+        if i == 0:
+            jax_m1 = params_from_numpy(jax.tree.map(np.asarray, opt["m"]))
+    stepped = params_from_numpy(jax.tree.map(np.asarray, p))
+
+    seen = []  # per MoE call: (busiest expert's entries, capacity)
+    real = pt_dense.moe_ffn
+
+    def spy(x, w_router, *a, k, capacity_factor, n_groups, **kw):
+        _, top_e, _ = pt_moe.router(x, w_router, k, aux=False)
+        per_group = top_e.reshape(n_groups, -1)
+        cap = pt_moe.gapped_capacity(x.shape[0] // n_groups, w_router.shape[1], k,
+                                     capacity_factor)
+        seen.append((max(int(torch.bincount(g_).max()) for g_ in per_group), cap))
+        return real(x, w_router, *a, k=k, capacity_factor=capacity_factor,
+                    n_groups=n_groups, **kw)
+
+    port_m1 = {}
+    real_update = pt_steps.adamw_update
+
+    def first_moment(params, grads, opt_state, opt_cfg):
+        out = real_update(params, grads, opt_state, opt_cfg)
+        if not port_m1:
+            port_m1.update({n: m.clone() for n, m in opt_state["m"].items()})
+        return out
+
+    monkeypatch.setattr(pt_dense, "moe_ffn", spy)
+    monkeypatch.setattr(pt_steps, "adamw_update", first_moment)
+    out = train(cfg, steps=2, data_cfg=TRAIN_DATA, opts=opts, device="cpu", log_every=0)
+    np.testing.assert_allclose(out["losses"], want, rtol=1e-5)
+    opt_cfg = AdamWConfig()
+    for name, q in out["model"].named_parameters():
+        a, b = (m1[name] / (1 - opt_cfg.b1) for m1 in (port_m1, jax_m1))
+        least = torch.where(a * b > 0, torch.minimum(a.abs(), b.abs()), 0.0)
+        spread = opt_cfg.lr * (a - b).abs() / (least + opt_cfg.eps)
+        gap = (q.detach() - stepped[name]).abs()
+        assert bool((gap <= 0.01 * opt_cfg.lr + spread).all()), (name, gap.max().item())
+    assert out["start"] == 0 and int(out["opt_state"]["step"]) == 2
+    if case[0] == "drops":
+        assert all(most > cap for most, cap in seen), seen
 
 
 # -- on the card ---------------------------------------------------------------
@@ -335,6 +464,73 @@ def test_batched_layouts_and_out_dtype(cuda, inst):
         tol = 1e-4 if dt == torch.float32 else 2 ** -7
         torch.testing.assert_close(hbp_matmul(at, b).float(), matmul_ref(at, b).float(),
                                    atol=tol, rtol=tol)
+
+
+# (label, E, C, k, n) of the batched backward: olmoe-1b-7b's three expert
+# products at 4 x 128 tokens (capacity 80), at 2 x 1024 (320) and at 40
+# rows (the 40-row prefill slabs), and a ragged one with a stream-sized dA
+BACKWARD_SHAPES = [("olmoe gate/up C80", 64, 80, 2048, 1024),
+                   ("olmoe down C80", 64, 80, 1024, 2048),
+                   ("olmoe gate/up C320", 64, 320, 2048, 1024),
+                   ("olmoe down C40", 64, 40, 1024, 2048),
+                   ("ragged C13", 3, 13, 72, 104)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", BACKWARD_SHAPES, ids=lambda s: s[0])
+def test_batched_backward_matches_plain(cuda, shape, dtype):
+    """The batched backward on the card: two batched launches, ``dA = g Bᵀ``
+    and ``dB = Aᵀ g`` (K = the capacity, no multiple of the 64-deep K step
+    but for C 320), each against its plain version.  Every slab holds
+    nonzero data, so a last K step that read the next slab's rows would
+    show."""
+    _, e, c, k, n = shape
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(c + k)
+    a = torch.randn(e, c, k, device=cuda, generator=gen).to(dt).requires_grad_()
+    b = (torch.randn(e, k, n, device=cuda, generator=gen) / math.sqrt(k)).to(dt).requires_grad_()
+    g = torch.randn(e, c, n, device=cuda, generator=gen).to(dt)
+    y = matmul(a, b)
+    before, before_b = hbp_matmul.launches, hbp_matmul.batched_launches
+    y.backward(g)
+    assert hbp_matmul.launches - before == 2 and hbp_matmul.batched_launches - before_b == 2
+    tol = 2 ** -7 if dt == torch.bfloat16 else 1e-4
+    with torch.no_grad():
+        torch.testing.assert_close(a.grad.float(), matmul_ref(g, b.mT).float(), atol=tol, rtol=tol)
+        torch.testing.assert_close(b.grad.float(), matmul_ref(a.mT, g).float(), atol=tol, rtol=tol)
+    assert a.grad.dtype == b.grad.dtype == dt
+
+
+@pytest.mark.cuda
+def test_kernels_launch_from_a_fresh_thread(cuda):
+    """K2, 2-D and batched, launched first from a new thread (one that has
+    run no CUDA call, as autograd's backward thread may be when its first
+    call is the batched ``dA``): the launch succeeds and the result is
+    right."""
+    import threading
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    a = torch.randn(4, 80, 256, device=cuda, generator=gen).to(torch.bfloat16)
+    b = torch.randn(4, 256, 128, device=cuda, generator=gen).to(torch.bfloat16)
+    out = {}
+
+    def run():
+        try:
+            out["3d"] = hbp_matmul(a.mT.mT, b)
+            out["2d"] = hbp_matmul(a[0], b[0])
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 -- reported below
+            out["error"] = e
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    assert "error" not in out, out.get("error")
+    tol = 2 ** -7
+    torch.testing.assert_close(out["3d"].float(), matmul_ref(a, b).float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(out["2d"].float(), matmul_ref(a[0], b[0]).float(), atol=tol,
+                               rtol=tol)
 
 
 @pytest.mark.cuda
