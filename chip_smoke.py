@@ -141,6 +141,33 @@ Phases, each of which fails the run (exit code 1, no result line):
    saved one bit for bit, then a fresh ``train()`` on the same directory
    that resumes at step 2 and takes step 3, whose loss must be the
    uninterrupted run's within phase 13's tolerance.
+14. The recurrent-state families at full width and depth, bf16, seeded
+   weights drawn on the card after phase 13 freed its memory.
+   ``recurrentgemma-2b`` (26 layers: 8 superblocks of two RG-LRU blocks and
+   one local-attention block, 2 tail RG-LRU blocks; d 2560, 10 query heads
+   over 1 KV head at hd 256, windows of 2048, a 256,000-token tied vocab)
+   through the ``Engine`` (8 slots, 4096 positions, chunk 256, 16 requests
+   of 64-3072 prompt and 8-48 new tokens: the window binds), through a
+   ``Server`` built on the engine's weights for each layout,
+   ``Server.run_batch`` with the linear cache and with the ring cache
+   (``windowed_decode_cache``: 2048 slots; 4 prompts of 2100-2600 tokens, 32
+   new, so every ring wraps), and trained for 3 AdamW steps at 2 x 1024;
+   then ``mamba2-370m`` (48 layers, SSD state 128) through the ``Engine``
+   with the same slots and requests, chunk 256 (its SSD chunk), and trained
+   at 4 x 1024.  Gates: completion, finite logits, no straggler or shed
+   slot; exactly 111 K2 and 8 K1 launches a hybrid decode step and 1 K2 a
+   mamba one; the Server's launches by construction in both layouts; the
+   first decode step's logits of the ring layout against the linear one
+   (at f32 within ``RING_F32_ATOL``, in bf16 within twice the bf16 linear
+   layout's distance from f32, and the same bf16 greedy token in every
+   row); finite loss and grad norm, the training
+   launches by construction.  Prints each decode step's host wall and
+   device time (CUDA graph replay) and one step's device operations, each
+   training step's, the peak memory, K1 per hybrid decode step and K3 per
+   hybrid training step beside their bounds, plain versions and
+   ``scaled_dot_product_attention``, and the RG-LRU recurrence (plain
+   PyTorch) per prefill chunk and per training step beside its bytes
+   bound.
 
 Each phase prints its seconds in a summary line before the kernels line.
 
@@ -163,16 +190,29 @@ GQA ratios of the other dense-family configs (32/4, 64/8, 40/8, 16/16
 heads), and K1, K1q and K3 at ``gemma3-1b``'s hd 256 in bf16 and f32
 (4 over 1 heads, its window and global: decode lanes and a 64-row chunk
 over phase 12's 2048-slot cache, the 2 x 1024 training shape, sequences of
-57, 65 and 129; K3 twice, bit-identical); phase 3 also takes
+57, 65 and 129; K3 twice, bit-identical), and K1 and K3 at
+``recurrentgemma-2b``'s 10 over 1 heads at hd 256 in bf16 and f32 (decode
+lanes over a 2048-slot ring, wrapped ones at ``q_offset`` past ``sk`` with
+``kv_len = C``, and over the 4096-slot linear cache with its window; the
+2 x 1024 training shape, window 2048), and K2 at phase 14's shapes in bf16
+and f32 (``recurrentgemma-2b``'s attention-block and MLP products at the
+decode, chunk, 14b prefill and training rows, their backward products, and
+the tied logits of ``recurrentgemma-2b`` (256,000 rows) and ``mamba2-370m``
+(50,280 rows, a ragged last tile), forward and backward); phase 3 also takes
 one f32 training step of the smoke config, and of ``olmoe-1b-7b``'s (its
-expert products' backward on the batched ``fma`` instance), on the card and
+expert products' backward on the batched ``fma`` instance),
+``recurrentgemma-2b``'s and ``mamba2-370m``'s, on the card and
 on the CPU from the same parameters and compares the loss, every gradient
-and the updated parameters, and serves
+and the updated parameters, serves the two recurrent smoke configs
+through the ``Engine`` and the ``Server`` (the hybrid with both caches):
+card == CPU tokens, and serves
 the smoke config through the ``Engine`` with the fp and the int8 cache:
 card == CPU == lockstep tokens, and a run under an injected fault plan
 gives the clean run's tokens.
 
-The line before the last is a JSON object with one entry per kernel; the
+The line before the last is a JSON object with one entry per kernel (and
+the attention kernels' at hd 256 per ``gemma3-1b`` and per
+``recurrentgemma-2b`` step); the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or
 of the ``repro`` package.
 """
@@ -225,6 +265,28 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 128, 3  # the JAX trainer's CLI default
 FREE_AT_PEAK, TRANSIENT = 8e9, 6e9
 MOE_STEP_RTOL = 1e-3
 CKPT_KEEP = 1  # phase 13b's checkpoints kept: at most two on disk during a save
+# phase 14: the recurrent-state families at full width and depth.
+# recurrentgemma-2b (8 superblocks of rec, rec, attn and 2 tail rec blocks;
+# 10 query heads over 1 KV head at hd 256, windows of 2048) through the
+# Engine (8 slots, 4096 positions, chunk 256, 16 requests of 64-3072 prompt
+# and 8-48 new tokens, so the window binds) and the Server in both layouts
+# (4 prompts of 2100-2600 tokens, 32 new tokens: every 2048-slot ring
+# wraps), trained at 2 x 1024; mamba2-370m through the Engine with the same
+# slots and requests, chunk 256 (its ssm_chunk), trained at 4 x 1024.
+REC_ARCH, SSM_ARCH = "recurrentgemma-2b", "mamba2-370m"
+REC_LEN, REC_CHUNK, REC_PROMPTS = 4096, 256, (64, 3072)
+RING_BATCH, RING_PROMPTS, RING_NEW = 4, (2100, 2600), 32
+REC_TRAIN_BATCH, SSM_TRAIN_BATCH, REC_TRAIN_SEQ = 2, 4, 1024
+# 14b's ring-vs-linear gate on the first decode step's logits, from the same
+# prefill tokens and the same next token.  At f32 the two layouts differ only
+# in the order K1 meets each row's 2048 keys (the ring's slot order): within
+# RING_F32_ATOL, far above 26 layers' f32 rounding and far below what a wrong
+# slot mapping moves.  At bf16 the model's own rounding dominates (P rounded
+# to bf16 against another running max, a residual stream in bf16, bf16
+# logits): the ring may differ from the linear layout by at most twice the
+# linear layout's distance from the f32 model on the same weights and tokens,
+# since each layout carries its own rounding.
+RING_F32_ATOL = 1e-3
 # the registry's kernels (phase 10); no model path runs them
 REGISTRY_KERNELS = ("bp_scan", "bi_transpose", "bi_fft", "strassen_matmul")
 # card vs CPU at f32: loss, gradients (as the CPU tests hold the port to
@@ -293,6 +355,30 @@ def time_ms(torch, fn, arg_sets, reps=5, stream=None, iters=None):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (reps * iters)
+
+
+def graph_ms(torch, fn, reps=3):
+    """Device ms of one ``fn()`` (a whole step, in place) by CUDA graph
+    replay: a warm-up call on a side stream, one captured call, ``reps``
+    replays between CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
 
 
 def copies_past_l2(nbytes):
@@ -402,7 +488,9 @@ def engine_run(torch, engine, workload, label, cache_kind, counts, reset_counts,
     steps, chunks = out["decode_steps"], out["prefill_chunks"]
     per_step = trace["decode"]
     wall_ms = 1e3 * out["decode_s"] / max(steps, 1)
-    print(f"    {label}, {cache_kind} cache ({engine.cache.k.dtype}): completed "
+    kv = engine.cache["kv"] if isinstance(engine.cache, dict) else engine.cache
+    kind = f"{type(kv).__name__} {kv.k.dtype}" if hasattr(kv, "k") else type(kv).__name__
+    print(f"    {label}, {cache_kind} cache ({kind}): completed "
           f"{len(out['completed'])}/{len(reqs)}; logits finite {bool(trace['finite'])}; "
           f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     print(f"    decode {wall_ms:.3f} ms/step over {steps} steps (host wall); prefill "
@@ -480,11 +568,7 @@ def phase_11(torch, np, dev, g, smi, workload, prompts, counts, reset_counts, tr
           f"{w_bytes / 1e9:.2f} GB; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     check(n_params == cfg.param_count(), f"{n_params} parameters, param_count "
           f"{cfg.param_count()}")
-    engine._decode_rows = counted("decode", engine._decode_rows)
-    engine._chunk_first = counted("prefill", engine._chunk_first)
-    engine._chunk_cont = counted("prefill", engine._chunk_cont)
-    engine.model.decode_step = finite_logits(engine.model.decode_step)
-    engine.model.prefill_chunk = finite_logits(engine.model.prefill_chunk)
+    trace_engine(engine, counted, finite_logits)
     # the bytes one decode step must read: every weight but the input
     # embedding (one row a token) once
     step_bytes = w_bytes - engine.model.embed.numel() * 2
@@ -581,11 +665,7 @@ def phase_11(torch, np, dev, g, smi, workload, prompts, counts, reset_counts, tr
           f"{ocfg.experts_per_token}): {o_bytes / 1e9:.2f} GB built in "
           f"{time.perf_counter() - t0:.2f} s; experts {o_experts / 1e9:.2f} GB a decode step: "
           f">= {1e3 * o_experts / HBM_BYTES_PER_S:.2f} ms ({smi})")
-    engine._decode_rows = counted("decode", engine._decode_rows)
-    engine._chunk_first = counted("prefill", engine._chunk_first)
-    engine._chunk_cont = counted("prefill", engine._chunk_cont)
-    engine.model.decode_step = finite_logits(engine.model.decode_step)
-    engine.model.prefill_chunk = finite_logits(engine.model.prefill_chunk)
+    trace_engine(engine, counted, finite_logits)
     want = {"hbp_matmul_batched": 3 * OL, "hbp_matmul": 4 * OL + 1, "flash_attention": OL,
             "flash_attention_int8": 0, "flash_attention_bwd": 0, **zero}
     engine_run(torch, engine, oload, OLMOE_ARCH, "bf16", counts, reset_counts, trace,
@@ -640,6 +720,56 @@ def sdpa_backend(torch, sdpa_args):
         return f"not determined ({type(e).__name__})"
 
 
+def train_and_time(torch, dev, smi, cfg, batch, seq, per_step, label, counts, reset_counts):
+    """3 AdamW steps of ``cfg`` at ``batch`` x ``seq`` tokens through
+    ``launch.train.train`` from a seeded init (phases 12 and 14): loss and
+    grad norm finite, the launches ``per_step`` by construction; prints the
+    peak memory, each step's host wall, one step on the device (CUDA graph
+    replay) and one step's device operations.  Returns (launches, device
+    ms a step)."""
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import train
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    data_cfg = DataConfig(global_batch=batch, seq_len=seq)
+    run = train(cfg, steps=TRAIN_STEPS, data_cfg=data_cfg, device="cuda", log_every=0)
+    launches = counts()
+    print(f"    {label} trained, batch {batch} x {seq}, {TRAIN_STEPS} AdamW steps from a seeded "
+          f"init (remat full); peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    for i, (loss, gn, sec) in enumerate(zip(run["losses"], run["grad_norms"], run["step_s"])):
+        print(f"    step {i}: loss {loss:.4f}, grad norm {gn:.4f}, {1e3 * sec:.3f} ms (host wall)")
+    print(f"    launches in the run {launches}; expected per step {per_step}")
+    check(all(math.isfinite(x) for x in run["losses"] + run["grad_norms"]),
+          f"{label}: non-finite loss or grad norm in training")
+    for name, n in per_step.items():
+        check(launches[name] == TRAIN_STEPS * n,
+              f"{label} training: {name} launched {launches[name]}, expected "
+              f"{TRAIN_STEPS} x {n}")
+    train_step = make_train_step(run["model"])
+    b = {key: torch.from_numpy(x).to(dev)
+         for key, x in SyntheticLMDataset(data_cfg, cfg).batch_at(0).items()}
+    dev_ms = graph_ms(torch, lambda: train_step(run["opt_state"], b))
+    wall_ms = 1e3 * sum(run["step_s"][1:]) / max(len(run["step_s"]) - 1, 1)
+    print(f"    training step: {dev_ms:.4f} ms on the device (CUDA graph replay), "
+          f"{wall_ms:.3f} ms of host wall (steps 1-{TRAIN_STEPS - 1}): device busy "
+          f"{100 * dev_ms / wall_ms:.1f}% ({smi})")
+    bd = device_breakdown(torch, lambda: train_step(run["opt_state"], b), top=10)
+    if bd is None:
+        print("    profiler trace of one training step: no device operations seen "
+              "(not measured)")
+    else:
+        print(f"    profiler trace of one training step: {bd['n']} device operations; ours "
+              f"{sum(n for n, _ in bd['ours'].values())} in {bd['ours_ms']:.4f} ms; "
+              f"PyTorch's {bd['rest_n']} in {bd['rest_ms']:.4f} ms, the costliest (count, "
+              f"ms): { {k: (n, round(us / 1e3, 4)) for k, (n, us) in bd['top']} }")
+    del run, b, train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, dev_ms
+
+
 def phase_12(torch, np, dev, g, smi, prompts, counts, reset_counts, trace, counted,
              finite_logits, registry_kernels, sdpa, lane):
     """``gemma3-1b`` at full width and depth (phase 12): 26 layers, d 1152, 4
@@ -653,7 +783,6 @@ def phase_12(torch, np, dev, g, smi, prompts, counts, reset_counts, trace, count
     versions and ``scaled_dot_product_attention``, and both steps on the
     device.  Returns the hd-256 entries' sums for the kernels line."""
     from repro_torch.configs import get_config
-    from repro_torch.data import DataConfig, SyntheticLMDataset
     from repro_torch.kernels.flash_attention import (bwd_path, flash_attention,
                                                      flash_attention_bwd,
                                                      flash_attention_bwd_ref,
@@ -661,8 +790,6 @@ def phase_12(torch, np, dev, g, smi, prompts, counts, reset_counts, trace, count
                                                      mma_kv_tile)
     from repro_torch.launch.engine import Engine
     from repro_torch.launch.serve import Request, Server
-    from repro_torch.launch.steps import make_train_step
-    from repro_torch.launch.train import train
     from repro_torch.models.dense import layer_windows
 
     cfg = get_config(GEMMA_ARCH)
@@ -684,11 +811,7 @@ def phase_12(torch, np, dev, g, smi, prompts, counts, reset_counts, trace, count
           f"{time.perf_counter() - t0:.2f} s: {n_params / 1e9:.3f}e9 values, "
           f"{w_bytes / 1e9:.2f} GB")
     check(n_params == cfg.param_count(), f"{n_params} parameters, param_count {cfg.param_count()}")
-    engine._decode_rows = counted("decode", engine._decode_rows)
-    engine._chunk_first = counted("prefill", engine._chunk_first)
-    engine._chunk_cont = counted("prefill", engine._chunk_cont)
-    engine.model.decode_step = finite_logits(engine.model.decode_step)
-    engine.model.prefill_chunk = finite_logits(engine.model.prefill_chunk)
+    trace_engine(engine, counted, finite_logits)
     rng = np.random.default_rng(0)
     workload = [(rng.integers(3, V, int(rng.integers(64, 1537))).astype(np.int32),
                  int(rng.integers(8, 49))) for _ in range(ENGINE_REQUESTS)]
@@ -804,53 +927,9 @@ def phase_12(torch, np, dev, g, smi, prompts, counts, reset_counts, trace, count
     n_chunks = GEMMA_TRAIN_SEQ // min(512, GEMMA_TRAIN_SEQ)  # RunOptions.ce_chunk 512
     per_train_step = {"hbp_matmul": L * 7 * 4 + n_chunks * 4,
                       "flash_attention": 2 * L, "flash_attention_bwd": L}
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    run = train(cfg, steps=TRAIN_STEPS,
-                data_cfg=DataConfig(global_batch=GEMMA_TRAIN_BATCH, seq_len=GEMMA_TRAIN_SEQ),
-                device="cuda", log_every=0)
-    train_launches = counts()
-    print(f"    training, batch {GEMMA_TRAIN_BATCH} x {GEMMA_TRAIN_SEQ}, {TRAIN_STEPS} AdamW steps "
-          f"from a seeded init (remat full); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    for i, (loss, gn, sec) in enumerate(zip(run["losses"], run["grad_norms"], run["step_s"])):
-        print(f"    step {i}: loss {loss:.4f}, grad norm {gn:.4f}, {1e3 * sec:.3f} ms (host wall)")
-    print(f"    launches in the run {train_launches}; expected per step {per_train_step}")
-    check(all(math.isfinite(x) for x in run["losses"] + run["grad_norms"]),
-          f"{GEMMA_ARCH}: non-finite loss or grad norm in training")
-    for name, n in per_train_step.items():
-        check(train_launches[name] == TRAIN_STEPS * n,
-              f"{GEMMA_ARCH} training: {name} launched {train_launches[name]}, expected "
-              f"{TRAIN_STEPS} x {n}")
-    model, opt_state = run["model"], run["opt_state"]
-    train_step = make_train_step(model)
-    data_cfg = DataConfig(global_batch=GEMMA_TRAIN_BATCH, seq_len=GEMMA_TRAIN_SEQ)
-    batch = {key: torch.from_numpy(x).to(dev)
-             for key, x in SyntheticLMDataset(data_cfg, cfg).batch_at(0).items()}
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        train_step(opt_state, batch)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        train_step(opt_state, batch)
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(3):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    train_ms = start.elapsed_time(end) / 3
-    wall_ms = 1e3 * sum(run["step_s"][1:]) / max(len(run["step_s"]) - 1, 1)
-    print(f"    training step: {train_ms:.4f} ms on the device (CUDA graph replay), "
-          f"{wall_ms:.3f} ms of host wall (steps 1-{TRAIN_STEPS - 1}): device busy "
-          f"{100 * train_ms / wall_ms:.1f}%")
-    del graph, model, opt_state, run, batch
-    gc.collect()
-    torch.cuda.empty_cache()
+    train_launches, train_ms = train_and_time(
+        torch, dev, smi, cfg, GEMMA_TRAIN_BATCH, GEMMA_TRAIN_SEQ, per_train_step, GEMMA_ARCH,
+        counts, reset_counts)
 
     # K3 per training step: the windowed and the global layers' calls
     B, S = GEMMA_TRAIN_BATCH, GEMMA_TRAIN_SEQ
@@ -900,6 +979,45 @@ def phase_12(torch, np, dev, g, smi, prompts, counts, reset_counts, trace, count
     tot["flash_attention_bwd_hd256"] = bwd
     torch.cuda.empty_cache()
     return tot
+
+
+def engine_tracers(torch, counts):
+    """``(trace, counted, finite_logits)``: the engine's own launches,
+    wrapped on the instance by ``counted(kind, fn)`` to record what each
+    launch ran (kernel launches per decode step and per prefill chunk, and
+    the decode lanes, device tensors read after the run), and the model's
+    steps by ``finite_logits(fn)`` to record whether every logit was finite
+    (a device flag, so the run gains no host sync), into ``trace``."""
+    trace = {}
+
+    def counted(kind, fn):
+        def wrapper(*args):
+            before = counts()
+            result = fn(*args)
+            trace[kind].append({k: n - before[k] for k, n in counts().items()})
+            if kind == "decode":
+                trace["pos"].append(args[1].clone())
+            return result
+        return wrapper
+
+    def finite_logits(fn):
+        def wrapper(*args, **kw):
+            logits, cache = fn(*args, **kw)
+            trace["finite"] &= torch.isfinite(logits).all()
+            return logits, cache
+        return wrapper
+
+    return trace, counted, finite_logits
+
+
+def trace_engine(engine, counted, finite_logits):
+    """Wrap ``engine``'s launches with ``counted`` and its model's steps
+    with ``finite_logits`` (:func:`engine_tracers`), on the instance."""
+    engine._decode_rows = counted("decode", engine._decode_rows)
+    engine._chunk_first = counted("prefill", engine._chunk_first)
+    engine._chunk_cont = counted("prefill", engine._chunk_cont)
+    engine.model.decode_step = finite_logits(engine.model.decode_step)
+    engine.model.prefill_chunk = finite_logits(engine.model.prefill_chunk)
 
 
 def launch_counters():
@@ -1197,6 +1315,330 @@ def phase_13b(torch, cfg, data_cfg, smi):
         torch.cuda.empty_cache()
 
 
+def phase_14(torch, np, dev, g, smi, counts, reset_counts, trace, counted, finite_logits,
+             registry_kernels):
+    """The recurrent-state families at full width and depth (phase 14):
+    ``recurrentgemma-2b`` through the Engine (14a) and through the Server
+    with the linear and the ring cache (14b), trained (14c), and
+    ``mamba2-370m`` through the Engine and trained (14d); bf16, seeded
+    weights drawn on the card.  Returns the kernels line's entries for K1
+    over a hybrid decode step and K3 over a hybrid training step."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (bwd_path, flash_attention,
+                                                     flash_attention_bwd,
+                                                     flash_attention_bwd_ref,
+                                                     flash_attention_ref, fwd_path)
+    from repro_torch.launch.engine import Engine
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models import RunOptions
+    from repro_torch.models.hybrid import rglru_scan
+
+    bf, es = torch.bfloat16, 2
+    zero = {k: 0 for k in registry_kernels}
+    no_attn = {"flash_attention": 0, "flash_attention_int8": 0, "flash_attention_bwd": 0}
+    lane = lambda xs: torch.tensor(xs, dtype=torch.int32, device=dev)  # noqa: E731
+    n_chunks = REC_TRAIN_SEQ // min(512, REC_TRAIN_SEQ)  # RunOptions.ce_chunk 512
+    # one request shape for both families: lengths first, tokens per vocab
+    rng = np.random.default_rng(0)
+    shape = [(int(rng.integers(REC_PROMPTS[0], REC_PROMPTS[1] + 1)), int(rng.integers(8, 49)))
+             for _ in range(ENGINE_REQUESTS)]
+
+    def workload(vocab):
+        r = np.random.default_rng(1)
+        return [(r.integers(3, vocab, n).astype(np.int32), m) for n, m in shape]
+
+    # -- 14a: recurrentgemma-2b through the Engine -------------------------------
+    cfg = get_config(REC_ARCH)
+    L, d, h, kvh, hd, V, W = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                              cfg.head_dim_, cfg.vocab_size, cfg.sliding_window)
+    n_attn = L // len(cfg.block_pattern)
+    n_rec = L - n_attn
+    k2_step = 3 * n_rec + 7 * n_attn + 1  # rec MLPs; QKV, out, MLP; the logits
+    print(f"[14] {REC_ARCH} at full width and depth, bf16 ({n_rec} rec and {n_attn} local "
+          f"attention blocks, d={d}, LRU width {cfg.lru_width}, {h}/{kvh} heads, hd={hd}, "
+          f"window {W}, d_ff={cfg.d_ff}, vocab={V}, tied; param_count "
+          f"{cfg.param_count() / 1e9:.4f}e9) ({smi})")
+    print(f"    memory held before the build: {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = Engine(cfg, device="cuda", max_batch=SLOTS, max_len=REC_LEN, chunk=REC_CHUNK)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in engine.model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in engine.model.parameters())
+    print(f"    weights built on the card from a CUDA generator in "
+          f"{time.perf_counter() - t0:.2f} s: {n_params / 1e9:.4f}e9 values, "
+          f"{w_bytes / 1e9:.2f} GB (the analytic param_count counts each LRU gate as one "
+          f"vector of the width, the model holds its block-diagonal matrices, as JAX's)")
+    trace_engine(engine, counted, finite_logits)
+    work = workload(V)
+    lens = [len(p) for p, _ in work]
+    print(f"    {ENGINE_REQUESTS} requests, {SLOTS} slots, {REC_LEN} positions, chunk "
+          f"{REC_CHUNK}; prompts {lens} ({sum(n > W for n in lens)} past the window), "
+          f"max_new {[m for _, m in work]}")
+    want = {"hbp_matmul": k2_step, "hbp_matmul_batched": 0, **no_attn,
+            "flash_attention": n_attn, **zero}
+    launches, rec_dev_ms, rec_wall_ms = engine_run(
+        torch, engine, work, REC_ARCH, "bf16", counts, reset_counts, trace, want, smi,
+        profile=True)
+    mid = trace["pos"][len(trace["pos"]) // 2].tolist()
+    print(f"    {k2_step} K2 and {n_attn} K1 launches a decode step; device {rec_dev_ms:.4f} ms "
+          f"a step, {rec_wall_ms:.3f} ms of host wall")
+    out = {"launches_decode": launches["flash_attention"]}
+
+    # -- 14b: the lockstep Server, linear and ring layouts -------------------------
+    # one Server a layout, built through its constructor on the engine's
+    # weights (RunOptions.windowed_decode_cache picks the layout); then the
+    # same at f32 (the bf16 weights widened; K1 and K2 on their f32
+    # instances): the layouts' own difference, and the bf16 noise floor
+    params = engine.model.state_dict()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    prompts = ring_prompts(np, V)
+    plen = max(map(len, prompts))
+    toks = np.zeros((RING_BATCH, plen), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, plen - len(p):] = p  # left-pad, as Server.run_batch
+    tokens = torch.from_numpy(toks).to(dev)
+    at = torch.tensor(plen, dtype=torch.int32, device=dev)
+    nxt = None
+    first = {}
+    for dtype in ("bf16", "f32"):
+        for layout, ring in (("linear", False), ("ring", True)):
+            server = Server(cfg if dtype == "bf16" else dataclasses.replace(cfg, dtype="float32"),
+                            device="cuda", params=params, max_batch=RING_BATCH,
+                            max_len=REC_LEN, opts=RunOptions(windowed_decode_cache=ring))
+            logits, cache = server.prefill(tokens)
+            if nxt is None:
+                nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+            with torch.no_grad():
+                first[dtype, layout], cache = server.model.decode_step(nxt, at, cache)
+            kv = cache["kv"]
+            del logits, cache
+            if dtype == "bf16":
+                reqs = [Request(i, p, max_new=RING_NEW) for i, p in enumerate(prompts)]
+                reset_counts()
+                res = server.run_batch(reqs)
+                got = counts()
+                steps = res["decode_steps"]
+                print(f"    lockstep Server, {layout} cache ({type(kv).__name__}, {kv.capacity} "
+                      f"slots): {RING_BATCH} prompts of {[len(p) for p in prompts]} tokens, "
+                      f"{RING_NEW} new: completed {res['completed']}; logits finite "
+                      f"{res['logits_finite']}; decode {1e3 * res['decode_s'] / max(steps, 1):.3f} "
+                      f"ms/step over {steps} steps (host wall); prefill "
+                      f"{1e3 * res['prefill_s']:.3f} ms; launches {got}")
+                check(all(len(q.out) == RING_NEW for q in reqs) and res["logits_finite"],
+                      f"{REC_ARCH} lockstep {layout}: {res['completed']}, finite "
+                      f"{res['logits_finite']}")
+                check(got["hbp_matmul"] == k2_step * (1 + steps)
+                      and got["flash_attention"] == n_attn * (1 + steps),
+                      f"{REC_ARCH} lockstep {layout} launches {got} over a prefill and {steps} "
+                      "steps")
+                check((kv.capacity == W and min(map(len, prompts)) > W) if ring
+                      else kv.capacity == REC_LEN,
+                      f"{REC_ARCH} {layout}: a {kv.capacity}-slot cache for prompts of "
+                      f"{[len(p) for p in prompts]}")
+            del server, kv
+            gc.collect()
+            torch.cuda.empty_cache()
+    del params
+    dist = lambda a, b: (first[a] - first[b]).abs().max().item()  # noqa: E731
+    d32 = dist(("f32", "ring"), ("f32", "linear"))
+    d16 = dist(("bf16", "ring"), ("bf16", "linear"))
+    noise = dist(("bf16", "linear"), ("f32", "linear"))
+    same_top = (first["bf16", "ring"].argmax(-1) == first["bf16", "linear"].argmax(-1)).tolist()
+    ring_ok = d32 <= RING_F32_ATOL and d16 <= 2 * noise and all(same_top)
+    print(f"    first decode step's logits, ring vs linear: f32 max abs diff {d32:.4e} "
+          f"(atol {RING_F32_ATOL:g}); bf16 {d16:.4e} against twice the bf16 linear "
+          f"layout's distance from f32, 2 x {noise:.4e} (bf16 ring from f32 "
+          f"{dist(('bf16', 'ring'), ('f32', 'linear')):.4e}; |logits| up to "
+          f"{first['f32', 'linear'].abs().max().item():.3f}); the same bf16 greedy token in "
+          f"rows {same_top} {'ok' if ring_ok else 'FAIL'}")
+    check(ring_ok, f"{REC_ARCH}: ring and linear first-step logits differ by {d32:.4e} (f32), "
+          f"{d16:.4e} (bf16, noise {noise:.4e}); same bf16 greedy token in rows {same_top}")
+    del first
+
+    # K1 per decode step: the 8 attention layers' own caches (4096 positions,
+    # window 2048) at the engine run's halfway lanes
+    kpos = torch.arange(REC_LEN, device=dev)
+    kl = [min(p + 1, REC_LEN) for p in mid]
+    qo_t, kl_t = lane(mid), lane(kl)
+    ok = (kpos[None, :] < kl_t[:, None]) & (kpos[None, :] <= qo_t[:, None]) & (
+        kpos[None, :] > qo_t[:, None] - W)
+    sets, lib_sets = [], []
+    for _ in range(n_attn):
+        qd = torch.randn(SLOTS, 1, h, hd, device=dev, generator=g).to(bf)
+        k, v = (torch.randn(SLOTS, REC_LEN, kvh, hd, device=dev, generator=g).to(bf)
+                for _ in "kv")
+        sets.append((qd, k, v, qo_t, kl_t))
+        lib_sets.append((qd, k, v, ok[:, None, None, :], False))
+    seen = sum(min(n, W) for n in kl)
+    nbytes = n_attn * (2 * kvh * hd * es * seen + 2 * SLOTS * h * hd * es + SLOTS * h * 4
+                       + 2 * SLOTS * 4)
+    ops = n_attn * 4 * hd * h * seen
+    t_k = n_attn * time_ms(torch, lambda q, k, v, qo, kl: flash_attention(
+        q, k, v, causal=True, window=W, q_offset=qo, kv_len=kl), sets)
+    t_p = n_attn * time_ms(torch, lambda q, k, v, qo, kl: flash_attention_ref(
+        q, k, v, causal=True, window=W, q_offset=qo, kv_len=kl), sets)
+    t_l = n_attn * time_ms(torch, sdpa, lib_sets)
+    b_ms, b_by = bound_ms(nbytes, ops, "bfloat16")
+    print(f"    flash_attention ({fwd_path(sets[0][0])}) per decode step, {n_attn} calls of "
+          f"{SLOTS}x1x{h}x{hd} over {REC_LEN} slots, window {W}, lanes kv_len {kl}: "
+          f"{t_k:.4f} ms (bound {b_ms:.4f} by {b_by}, {100 * b_ms / t_k:.1f}% of it; "
+          f"{nbytes / 1e6:.3f} MB); plain {t_p:.4f}; scaled_dot_product_attention {t_l:.4f} "
+          f"(backend {sdpa_backend(torch, lib_sets[0])} with the boolean mask); "
+          f"{100 * t_k / rec_dev_ms:.1f}% of the device step ({smi})")
+    out["k1"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms, bytes=nbytes,
+                     ops=ops, launches=launches["flash_attention"])
+    del sets, lib_sets
+
+    # the RG-LRU recurrence per prefill chunk: a, b and h0 of the chunk's
+    # 8 x 256 rows, 18 rec blocks
+    w = cfg.lru_width
+
+    def scan_sets(b, s, grad=False):
+        n = copies_past_l2(3 * b * s * w * 4)
+        out_sets = []
+        for _ in range(n):
+            a = 0.5 + 0.5 * torch.rand(b, s, w, device=dev, generator=g)
+            x = torch.randn(b, s, w, device=dev, generator=g)
+            out_sets.append((a.requires_grad_(grad), x.requires_grad_(grad)))
+        return out_sets
+
+    h0 = torch.randn(SLOTS, w, device=dev, generator=g)
+    t_chunk = time_ms(torch, lambda a, x: rglru_scan(a, x, h0), scan_sets(SLOTS, REC_CHUNK))
+    c_bytes = 3 * SLOTS * REC_CHUNK * w * 4
+    c_bound, _ = bound_ms(c_bytes, 0, "float32")
+    print(f"    RG-LRU recurrence (rglru_scan, plain PyTorch: the associative scan's "
+          f"{math.ceil(math.log2(REC_CHUNK))} levels) per prefill chunk ({SLOTS}x{REC_CHUNK}x{w} "
+          f"f32): {t_chunk:.4f} ms a call, {n_rec * t_chunk:.4f} ms a chunk ({n_rec} calls) "
+          f"against a bytes bound of {c_bound:.4f} a call ({n_rec * c_bound:.4f} a chunk; "
+          f"reads a and b, writes h: {c_bytes / 1e6:.2f} MB) ({smi})")
+    out["scan_chunk"] = dict(ms=n_rec * t_chunk, bound_ms=n_rec * c_bound)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 14c: recurrentgemma-2b trained ----------------------------------------------
+    per_step = {"hbp_matmul": 4 * (k2_step - 1) + 4 * n_chunks, "hbp_matmul_batched": 0,
+                **no_attn, "flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn,
+                **zero}
+    train_launches, train_ms = train_and_time(torch, dev, smi, cfg, REC_TRAIN_BATCH,
+                                              REC_TRAIN_SEQ, per_step, REC_ARCH, counts,
+                                              reset_counts)
+    # K3 per training step: the 8 attention layers at 2 x 1024, window 2048
+    # (past the sequence: causal), against SDPA's causal backward
+    B, S = REC_TRAIN_BATCH, REC_TRAIN_SEQ
+    q_bytes, kv_bytes = B * S * h * hd * es, B * S * kvh * hd * es
+    sets, lib_sets = [], []
+    lib_stream = torch.cuda.Stream()
+    lib_stream.wait_stream(torch.cuda.current_stream())
+    for _ in range(copies_past_l2(8 * q_bytes)):
+        q, go = (torch.randn(B, S, h, hd, device=dev, generator=g).to(bf) for _ in "qg")
+        k, v = (torch.randn(B, S, kvh, hd, device=dev, generator=g).to(bf) for _ in "kv")
+        o, lse = flash_attention(q, k, v, causal=True, window=W)
+        sets.append((q, k, v, o, lse, go))
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        with torch.cuda.stream(lib_stream):
+            lib_out = sdpa(*leaves, None, True)
+        lib_sets.append((lib_out, leaves, go.transpose(1, 2)))
+    t_k = n_attn * time_ms(torch, lambda *a: flash_attention_bwd(*a, causal=True, window=W),
+                           sets)
+    t_p = n_attn * time_ms(torch, lambda *a: flash_attention_bwd_ref(*a, causal=True, window=W),
+                           sets)
+    torch.cuda.current_stream().wait_stream(lib_stream)
+    t_l = n_attn * time_ms(torch, lambda o, leaves, go: torch.autograd.grad(
+        o, leaves, go, retain_graph=True), lib_sets, stream=lib_stream)
+    pairs = B * h * sum(min(i + 1, W) for i in range(S))
+    nbytes = n_attn * (3 * q_bytes + 2 * kv_bytes + B * h * S * 4 + q_bytes + 2 * kv_bytes)
+    ops = n_attn * 10 * hd * pairs
+    b_ms, b_by = bound_ms(nbytes, ops, "bfloat16")
+    print(f"    flash_attention_bwd ({bwd_path(sets[0][0])}) per training step, {n_attn} calls "
+          f"of {B}x{S}x{h}x{hd}, window {W}: {t_k:.4f} ms (bound {b_ms:.4f} by {b_by}, "
+          f"{100 * b_ms / t_k:.1f}% of it); plain {t_p:.4f}; autograd backward of "
+          f"scaled_dot_product_attention {t_l:.4f} (backend "
+          f"{sdpa_backend(torch, (sets[0][0], sets[0][1], sets[0][2], None, True))}, "
+          f"is_causal); {100 * t_k / train_ms:.1f}% of the {train_ms:.4f} ms device step ({smi})")
+    out["k3"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms, bytes=nbytes,
+                     ops=ops, launches=train_launches["flash_attention_bwd"])
+    del sets, lib_sets
+    # the RG-LRU recurrence per training step: each rec block's scan runs
+    # forward twice (remat) and backward once
+    t_fwd = time_ms(torch, rglru_scan, scan_sets(B, S))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    bwd_sets = []
+    with torch.cuda.stream(side):
+        for a, x in scan_sets(B, S, grad=True):
+            hs = rglru_scan(a, x)
+            bwd_sets.append((hs, (a, x), torch.randn_like(hs)))
+    torch.cuda.current_stream().wait_stream(side)
+    t_bwd = time_ms(torch, lambda hs, leaves, go: torch.autograd.grad(
+        hs, leaves, go, retain_graph=True), bwd_sets, stream=side)
+    del bwd_sets
+    t_bytes = B * S * w * 4
+    f_bound, _ = bound_ms(3 * t_bytes, 0, "float32")
+    bw_bound, _ = bound_ms(5 * t_bytes, 0, "float32")
+    step_ms = n_rec * (2 * t_fwd + t_bwd)
+    step_bound = n_rec * (2 * f_bound + bw_bound)
+    print(f"    RG-LRU recurrence per training step ({B}x{S}x{w} f32, {n_rec} rec blocks, "
+          f"forward twice under remat and backward once): forward {t_fwd:.4f} ms a call "
+          f"(bound {f_bound:.4f}: reads a and b, writes h), backward {t_bwd:.4f} (bound "
+          f"{bw_bound:.4f}: reads dh, a and h, writes da and db); {step_ms:.4f} ms a step "
+          f"against {step_bound:.4f}, {100 * step_ms / train_ms:.1f}% of the device step ({smi})")
+    out["scan_train"] = dict(ms=step_ms, bound_ms=step_bound)
+    out["rec"] = dict(dev_ms=rec_dev_ms, wall_ms=rec_wall_ms, train_ms=train_ms)
+
+    # -- 14d: mamba2-370m through the Engine, then trained ------------------------------
+    cfg = get_config(SSM_ARCH)
+    print(f"[14] {SSM_ARCH} at full width and depth, bf16 ({cfg.n_layers} layers, d="
+          f"{cfg.d_model}, inner {cfg.ssm_d_inner}, {cfg.ssm_n_heads} heads of "
+          f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, SSD chunk {cfg.ssm_chunk}, vocab "
+          f"{cfg.vocab_size}, tied; param_count {cfg.param_count() / 1e9:.4f}e9) ({smi})")
+    torch.cuda.reset_peak_memory_stats()
+    engine = Engine(cfg, device="cuda", max_batch=SLOTS, max_len=REC_LEN, chunk=cfg.ssm_chunk)
+    n_params = sum(p.numel() for p in engine.model.parameters())
+    print(f"    weights built on the card: {n_params / 1e9:.4f}e9 values; state per slot "
+          f"{sum(t[:, 0].numel() * t.element_size() for t in engine.cache.states.values()) / 1e6:.2f} MB")
+    trace_engine(engine, counted, finite_logits)
+    want = {"hbp_matmul": 1, "hbp_matmul_batched": 0, **no_attn, **zero}
+    _, ssm_dev_ms, ssm_wall_ms = engine_run(
+        torch, engine, workload(cfg.vocab_size), SSM_ARCH, "bf16", counts, reset_counts, trace,
+        want, smi, profile=True)
+    print(f"    1 K2 launch and no attention a decode step; device {ssm_dev_ms:.4f} ms a step, "
+          f"{ssm_wall_ms:.3f} ms of host wall")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    per_step = {"hbp_matmul": 4 * n_chunks, "hbp_matmul_batched": 0, **no_attn, **zero}
+    _, ssm_train_ms = train_and_time(torch, dev, smi, cfg, SSM_TRAIN_BATCH, REC_TRAIN_SEQ,
+                                     per_step, SSM_ARCH, counts, reset_counts)
+    out["ssm"] = dict(dev_ms=ssm_dev_ms, wall_ms=ssm_wall_ms, train_ms=ssm_train_ms)
+    print(f"[14] summary ({smi}): {REC_ARCH} decode step {rec_dev_ms:.4f} ms device / "
+          f"{rec_wall_ms:.3f} ms wall, training step {train_ms:.4f} ms device; {SSM_ARCH} "
+          f"decode step {ssm_dev_ms:.4f} / {ssm_wall_ms:.3f}, training step "
+          f"{ssm_train_ms:.4f} ms device")
+    return out
+
+
+def ring_prompts(np, vocab):
+    """14b's prompts (phase 2 checks K2 at the rows of their prefill)."""
+    r = np.random.default_rng(2)
+    return [r.integers(3, vocab, int(n)).astype(np.int32)
+            for n in r.integers(RING_PROMPTS[0], RING_PROMPTS[1] + 1, RING_BATCH)]
+
+
+def sdpa(q, k, v, mask, causal):
+    """``scaled_dot_product_attention`` on the model's (b, s, heads, hd)
+    layout, grouped heads and all."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+        is_causal=causal, enable_gqa=True)
+
+
 def main():
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch is not beside this script", file=sys.stderr)
@@ -1208,7 +1650,6 @@ def main():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
-    import torch.nn.functional as F
 
     from repro_torch.configs import get_config, get_smoke_config, reduced
     from repro_torch.data import DataConfig, SyntheticLMDataset
@@ -1233,7 +1674,7 @@ def main():
     from repro_torch.launch.serve import Request, Server
     from repro_torch.launch.steps import make_train_step
     from repro_torch.launch.train import train
-    from repro_torch.models import build_model
+    from repro_torch.models import RunOptions, build_model
     from repro_torch.kernels.strassen_matmul import matmul as matmul_entry
     from repro_torch.models.moe_layer import gapped_capacity
     from repro_torch.kernels.strassen_matmul import path as k4_path
@@ -1250,6 +1691,8 @@ def main():
     serving_kernels = ("hbp_matmul", "flash_attention")
     # phase 12's entries of the kernels line: the attention kernels at hd 256
     HD256 = ("flash_attention_hd256", "flash_attention_int8_hd256", "flash_attention_bwd_hd256")
+    # phase 14's entries: K1 and K3 at hd 256 with 10 query heads over 1 KV head
+    REC_HD256 = ("flash_attention_hd256_recurrentgemma", "flash_attention_bwd_hd256_recurrentgemma")
     registry_kernels = REGISTRY_KERNELS
 
     t_start = time.perf_counter()
@@ -1318,7 +1761,7 @@ def main():
     tol = {"bfloat16": (1e-2, 2 ** -7), "float32": (1e-4, 1e-4)}  # (atol, rtol)
     g = torch.Generator(device=dev).manual_seed(0)
     max_err = {name: 0.0 for name in (*kernels, "hbp_matmul_batched", "hbp_matmul_batched_bwd",
-                                      *HD256)}
+                                      *HD256, *REC_HD256)}
     failures = []
 
     def compare(kernel, label, got, want, dtype, atol=None, rtol=None):
@@ -1450,6 +1893,62 @@ def main():
                 "K splits",
                 hbp_matmul(gr, table), matmul_ref(gr, table), dtype)
         del gr, table
+
+    # K2 at the recurrent families' shapes (phase 14).  recurrentgemma-2b:
+    # the attention blocks' and MLPs' products (the rec blocks' own are plain
+    # torch, as JAX's einsums) at 14b's lockstep decode and prefill rows, the
+    # engine's decode and chunk rows (SLOTS x REC_CHUNK, as many as 14c's
+    # training rows), and its 256,000-row tied logits at the decode rows and
+    # a cross-entropy chunk's; 14c's backward products.  mamba2-370m: its
+    # 50,280-row tied logits (ragged past the last 128-row tile), forward and
+    # backward at 14d's rows.
+    rc, sc = get_config(REC_ARCH), get_config(SSM_ARCH)
+    ring_rows = RING_BATCH * max(map(len, ring_prompts(np, rc.vocab_size)))
+    rec_t = REC_TRAIN_BATCH * REC_TRAIN_SEQ
+    ce = min(512, REC_TRAIN_SEQ)  # RunOptions.ce_chunk
+    rec_weights = {"wq, wo": (rc.d_model, rc.q_dim), "wk, wv": (rc.d_model, rc.kv_dim),
+                   "w_gate, w_up": (rc.d_model, rc.d_ff), "w_down": (rc.d_ff, rc.d_model)}
+    tied = (  # (arch, config, forward rows, a cross-entropy chunk's rows)
+        (REC_ARCH, rc, (RING_BATCH, SLOTS, SLOTS * REC_CHUNK), REC_TRAIN_BATCH * ce),
+        (SSM_ARCH, sc, (SLOTS, SSM_TRAIN_BATCH * REC_TRAIN_SEQ), SSM_TRAIN_BATCH * ce))
+    print(f"[2] K2 at {REC_ARCH}'s and {SSM_ARCH}'s shapes (phase 14: {REC_ARCH}'s "
+          f"projections at rows {RING_BATCH}, {SLOTS}, {SLOTS * REC_CHUNK} and {ring_rows}, "
+          f"trained at {rec_t} rows; tied logits of {rc.vocab_size} and {sc.vocab_size} rows)")
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+
+        def rnd(*shape, scale=1.0):
+            return (scale * torch.randn(*shape, device=dev, generator=g)).to(dt)
+
+        for name, (kk, n) in rec_weights.items():
+            w = rnd(kk, n, scale=kk ** -0.5)
+            for T in (RING_BATCH, SLOTS, SLOTS * REC_CHUNK, ring_rows):
+                x = rnd(T, kk)
+                compare("hbp_matmul", f"{dtype} {REC_ARCH} {name} ({T}x{kk} @ {kk}x{n}) "
+                        f"{mm_path(x, w)}", hbp_matmul(x, w), matmul_ref(x, w), dtype)
+            act, gr = rnd(rec_t, kk), rnd(rec_t, n, scale=rec_t ** -0.5)
+            compare("hbp_matmul", f"{dtype} {REC_ARCH} dW {name} ({kk}x{rec_t} @ {rec_t}x{n})",
+                    hbp_matmul(act.T, gr), matmul_ref(act.T, gr), dtype)
+            gr, wt = rnd(rec_t, n), rnd(kk, n, scale=n ** -0.5)
+            compare("hbp_matmul", f"{dtype} {REC_ARCH} dX {name} ({rec_t}x{n} @ ({kk}x{n})ᵀ "
+                    "view)", hbp_matmul(gr, wt.T), matmul_ref(gr, wt.T), dtype)
+            del w, x, act, gr, wt
+        for arch, c, rows, t_ce in tied:
+            d_, V_ = c.d_model, c.vocab_size
+            table = rnd(V_, d_, scale=0.02)
+            for T in (*rows, t_ce):
+                xs = rnd(T, d_)
+                compare("hbp_matmul", f"{dtype} {arch} logits ({T}x{d_} @ ({V_}x{d_})^T view) "
+                        f"{mm_path(xs, table.T)}", hbp_matmul(xs, table.T),
+                        matmul_ref(xs, table.T), dtype)
+            act, gr = rnd(t_ce, d_), rnd(t_ce, V_, scale=t_ce ** -0.5)
+            compare("hbp_matmul", f"{dtype} {arch} d embedᵀ: hᵀ g ({d_}x{t_ce} @ {t_ce}x{V_})",
+                    hbp_matmul(act.T, gr), matmul_ref(act.T, gr), dtype)
+            gr, table = rnd(t_ce, V_), rnd(V_, d_, scale=V_ ** -0.5)
+            compare("hbp_matmul", f"{dtype} {arch} dH: g E ({t_ce}x{V_} @ {V_}x{d_}) "
+                    f"{mm_path(gr, table)}, {mm_plan(t_ce, d_, V_, mm_path(gr, table), sms).splits} "
+                    "K splits", hbp_matmul(gr, table), matmul_ref(gr, table), dtype)
+            del table, xs, act, gr
 
     # bf16 K1 and K3 (the tensor-core instances) where their tiles are
     # ragged: sequences that end inside a 16-row warp tile or a 64-key K/V
@@ -1727,6 +2226,58 @@ def main():
                     failures.append(f"flash_attention_bwd hd {ghd}: two calls differ")
             del q, go, k, v, out, lse, got, want
     del gk8, gv8, gks, gvs
+
+    # K1 and K3 at recurrentgemma-2b's shapes (phase 14): 10 query heads over 1
+    # KV head at hd 256 (two-head groups in the tensor-core instances, five of
+    # them), decode lanes over a 2048-slot ring (wrapped rows at q_offset
+    # past sk with kv_len = C, unwrapped rows, an empty lane; no window mask,
+    # as the model attends a ring) and over the linear 4096-slot cache with
+    # the 2048-key window, and the 2 x 1024 training shape with window 2048
+    rcfg = get_config(REC_ARCH)
+    rh, rkvh, rhd, rwin = rcfg.n_heads, rcfg.n_kv_heads, rcfg.head_dim_, rcfg.sliding_window
+    print(f"[2] K1 and K3 at hd {rhd} ({REC_ARCH}: {rh}/{rkvh} heads; a {rwin}-slot ring, "
+          f"the {REC_LEN}-slot linear cache with window {rwin}, training "
+          f"{REC_TRAIN_BATCH} x {REC_TRAIN_SEQ})")
+    r_pos = [2100, REC_LEN - 1, rwin - 1, 0, 3000, 100, rwin, 0]
+    r_fwd = [  # (label, cache slots, window, q_offset lanes, kv_len lanes, dead lanes)
+        (f"decode {SLOTS}x1 vs a {rwin}-slot ring (wrapped: q_offset past sk), kv_len 0 lane",
+         rwin, 0, r_pos, [min(p + 1, rwin) for p in r_pos[:-1]] + [0], [7]),
+        (f"decode {SLOTS}x1 vs {REC_LEN} slots, window {rwin}, kv_len 0 lane", REC_LEN, rwin,
+         r_pos, [p + 1 for p in r_pos[:-1]] + [0], [7]),
+    ]
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        f32 = dtype == "float32"
+        for label, slots, window, qo, kl, dead in r_fwd:
+            q = torch.randn(SLOTS, 1, rh, rhd, device=dev, generator=g).to(dt)
+            kf = [torch.randn(SLOTS, slots, rkvh, rhd, device=dev, generator=g).to(dt)
+                  for _ in "kv"]
+            kw = dict(causal=True, window=window, q_offset=lane(qo), kv_len=lane(kl))
+            tag = f"{dtype} {fwd_path(q)} {label}"
+            out, lse = flash_attention(q, *kf, **kw)
+            r_out, r_lse = flash_attention_ref(q, *kf, **kw)
+            compare("flash_attention_hd256_recurrentgemma", f"{tag} out", out, r_out, dtype,
+                    *((1e-5, 0.0) if f32 else (None, None)))
+            compare("flash_attention_hd256_recurrentgemma", f"{tag} lse", lse, r_lse, dtype,
+                    1e-4, 1e-5)
+            if any(torch.count_nonzero(out[r]).item() for r in dead):
+                failures.append(f"{REC_ARCH} {tag}: lanes {dead} not exact zeros")
+            del q, kf
+        B, S = REC_TRAIN_BATCH, REC_TRAIN_SEQ
+        q, go = (torch.randn(B, S, rh, rhd, device=dev, generator=g).to(dt) for _ in "qg")
+        k, v = (torch.randn(B, S, rkvh, rhd, device=dev, generator=g).to(dt) for _ in "kv")
+        kw = dict(causal=True, window=rwin)
+        out, lse = flash_attention(q, k, v, **kw)
+        r_out, r_lse = flash_attention_ref(q, k, v, **kw)
+        tag = f"{dtype} training {B}x{S} window {rwin}"
+        compare("flash_attention_hd256_recurrentgemma", f"{tag} out", out, r_out, dtype,
+                *((1e-5, 0.0) if f32 else (None, None)))
+        got = flash_attention_bwd(q, k, v, out, lse, go, **kw)
+        want = flash_attention_bwd_ref(q, k, v, out, lse, go, **kw)
+        for name, x, w in zip(("dq", "dk", "dv"), got, want):
+            compare("flash_attention_bwd_hd256_recurrentgemma", f"{tag} {bwd_path(q)} {name}",
+                    x, w, dtype)
+        del q, go, k, v, out, lse, got, want
     torch.cuda.synchronize()
     check(not failures, f"kernels disagree with their plain versions: {failures}")
 
@@ -1756,7 +2307,17 @@ def main():
     osmall = reduced(get_smoke_config(OLMOE_ARCH), dtype="float32")
     omodel = build_model(osmall, device="cpu")
     omodel.init(torch.Generator().manual_seed(0))
-    for arch, tcfg, tparams in ((ARCH, small, params), (OLMOE_ARCH, osmall, omodel.state_dict())):
+    # and of the recurrent families' (phase 14's paths: the RG-LRU scan, the
+    # conv, K1 and K3 at the hybrid's local attention; the SSD chunks)
+    rec_small = {}
+    for arch in (REC_ARCH, SSM_ARCH):
+        rcfg = reduced(get_smoke_config(arch), dtype="float32")
+        rmodel = build_model(rcfg, device="cpu")
+        rmodel.init(torch.Generator().manual_seed(0))
+        rec_small[arch] = (rcfg, rmodel.state_dict())
+    del rmodel
+    for arch, tcfg, tparams in ((ARCH, small, params), (OLMOE_ARCH, osmall, omodel.state_dict()),
+                                *((a, c, p) for a, (c, p) in rec_small.items())):
         smoke_batch = SyntheticLMDataset(DataConfig(global_batch=4, seq_len=32),
                                          tcfg).batch_at(0)
         runs = {}
@@ -1912,6 +2473,37 @@ def main():
     check(all(same.values()), f"smoke {GEMMA_ARCH}: card and CPU tokens differ: {got}")
     del gmodel, gparams, eng, srv
 
+    # the recurrent families' smoke configs at f32: card == CPU tokens through
+    # the Engine (the hybrid at chunk 5 against windows of 8, the SSM at its
+    # SSD chunk of 8) and the Server (the hybrid with the linear cache and
+    # with the 8-slot ring, which the prompts wrap)
+    for arch, (rcfg, rparams) in rec_small.items():
+        hybrid = rcfg.family == "hybrid"
+        layouts = [("linear", None)] + ([("ring", RunOptions(windowed_decode_cache=True))]
+                                        if hybrid else [])
+        got = {}
+        for where in ("cuda", "cpu"):
+            eng = Engine(rcfg, device=where, params=rparams, max_batch=3, max_len=64,
+                         chunk=5 if hybrid else rcfg.ssm_chunk)
+            reqs = smoke_requests(6)
+            eng.run(reqs)
+            got[f"{where} engine"] = [r.out for r in reqs]
+            for layout, opts in layouts:
+                srv = Server(rcfg, device=where, params=rparams, max_batch=BATCH, max_len=64,
+                             opts=opts)
+                reqs = [Request(i, p, max_new=12) for i, p in enumerate(g_prompts)]
+                srv.run_batch(reqs)
+                got[f"{where} {layout}"] = [r.out for r in reqs]
+        same = {key.split()[1]: got[key] == got[key.replace("cuda", "cpu")]
+                for key in got if key.startswith("cuda")}
+        print(f"[3] smoke f32 {arch} ({rcfg.family}): cuda == cpu through the Engine "
+              f"{same['engine']}, through the Server "
+              f"{ {k: v for k, v in same.items() if k != 'engine'} } "
+              f"({sum(map(len, got['cuda engine']))} + {sum(map(len, got['cuda linear']))} "
+              f"tokens) {'ok' if all(same.values()) else 'FAIL'}")
+        check(all(same.values()), f"smoke {arch}: card and CPU tokens differ: {got}")
+    del rec_small, eng, srv
+
     # -- 4. full width ----------------------------------------------------------
     mark(4)
     t0 = time.perf_counter()
@@ -2002,11 +2594,6 @@ def main():
         for name, (kk, n) in weights.items():
             time_matmul(f"{phase} {name} {T}x{kk}@{kk}x{n}", T, kk, n, False, L, phase)
     time_matmul(f"logits {BATCH}x{d}@({V}x{d})^T", BATCH, d, V, True, 1, "decode")
-
-    def sdpa(q, k, v, mask, causal):
-        return F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
-            is_causal=causal, enable_gqa=True)
 
     def time_attention(label, sq, kv_lens, calls, path):
         sk = MAX_LEN if sq == 1 else sq
@@ -2175,23 +2762,7 @@ def main():
     train_step = make_train_step(model)
     batch = {key: torch.from_numpy(x).to(dev) for key, x in SyntheticLMDataset(
         DataConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ), cfg).batch_at(0).items()}
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        train_step(opt_state, batch)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        train_step(opt_state, batch)
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(3):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    train_step_ms = start.elapsed_time(end) / 3
+    train_step_ms = graph_ms(torch, lambda: train_step(opt_state, batch))
     wall_train_ms = 1e3 * sum(run["step_s"][1:]) / max(len(run["step_s"]) - 1, 1)
     kernel_train_ms = sum(r["ms"] * r["calls"] for r in rows if r["path"] == "train")
     print(f"    training step: {train_step_ms:.4f} ms on the device (CUDA graph replay), "
@@ -2223,7 +2794,7 @@ def main():
           f"{1e3 * 28 * n_params / HBM_BYTES_PER_S:.4f} ms); the rest (norms, RoPE, SwiGLU, "
           f"casts, residuals, embedding, cross-entropy; by difference) "
           f"{train_step_ms - kernel_train_ms - opt_ms:.4f} ms")
-    del graph, model, opt_state, run, params, grads
+    del model, opt_state, run, params, grads
     torch.cuda.empty_cache()
 
     # -- 8. the continuous-batching engine at full width --------------------------
@@ -2232,34 +2803,8 @@ def main():
     erng = np.random.default_rng(0)
     workload = [(erng.integers(3, V, int(erng.integers(16, 193))).astype(np.int32),
                  int(erng.integers(8, 49))) for _ in range(ENGINE_REQUESTS)]
-    # the engine's own launches, wrapped on the instance to record what each
-    # launch ran: kernel launches per decode step and per prefill chunk, the
-    # decode lanes (device tensors, read after the run), and whether every
-    # logit was finite (a device flag, so the run gains no host sync)
-    trace = {}
-
-    def counted(kind, fn):
-        def wrapper(*args):
-            before = counts()
-            result = fn(*args)
-            trace[kind].append({k: n - before[k] for k, n in counts().items()})
-            if kind == "decode":
-                trace["pos"].append(args[1].clone())
-            return result
-        return wrapper
-
-    def finite_logits(fn):
-        def wrapper(*args, **kw):
-            logits, cache = fn(*args, **kw)
-            trace["finite"] &= torch.isfinite(logits).all()
-            return logits, cache
-        return wrapper
-
-    engine._decode_rows = counted("decode", engine._decode_rows)
-    engine._chunk_first = counted("prefill", engine._chunk_first)
-    engine._chunk_cont = counted("prefill", engine._chunk_cont)
-    engine.model.decode_step = finite_logits(engine.model.decode_step)
-    engine.model.prefill_chunk = finite_logits(engine.model.prefill_chunk)
+    trace, counted, finite_logits = engine_tracers(torch, counts)
+    trace_engine(engine, counted, finite_logits)
     print(f"[8] {ARCH} full width bf16 through the Engine: {SLOTS} slots, max_len "
           f"{ENGINE_LEN}, chunk {CHUNK}; {ENGINE_REQUESTS} requests, prompts "
           f"{[len(p) for p, _ in workload]}, max_new {[m for _, m in workload]}")
@@ -2696,6 +3241,13 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     moe_bwd = phase_13(torch, np, dev, g, smi, counts, reset_counts, registry_kernels)
+
+    # -- 14. the recurrent-state families at full width and depth --------------------
+    mark(14)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = phase_14(torch, np, dev, g, smi, counts, reset_counts, trace, counted, finite_logits,
+                   registry_kernels)
     mark(None)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
           + f"; {time.perf_counter() - t_start:.1f} in all")
@@ -2772,6 +3324,22 @@ def main():
         t, (src, kernel) = hd256[name], hd256_source[name]
         entries.append({
             "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}.cu",
+            "replaces": replaces[kernel], "launches": t["launches"],
+            "max_abs_err": max_err[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": ("bytes" if t["bytes"] / HBM_BYTES_PER_S
+                         >= t["ops"] / PEAK_OPS["bfloat16"] else "operations"),
+            "library_ms": t["library_ms"],
+        })
+    # K1 over one recurrentgemma-2b decode step's 8 calls (its launches from
+    # phase 14's engine run), K3 over one training step's 8 (its launches
+    # from phase 14's training run)
+    for name, key, kernel in (("flash_attention_hd256_recurrentgemma", "k1", "flash_attention"),
+                              ("flash_attention_bwd_hd256_recurrentgemma", "k3",
+                               "flash_attention_bwd")):
+        t = rec[key]
+        entries.append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{kernel}.cu",
             "replaces": replaces[kernel], "launches": t["launches"],
             "max_abs_err": max_err[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],

@@ -1,13 +1,15 @@
 """Checkpoints in ``repro``'s on-disk format, without JAX: the counterpart
 of ``repro/checkpoint/checkpoint.py``, read and write side.
 
-``repro`` keeps a dense model's parameters as a pytree whose per-layer
-leaves are stacked along a leading layer axis (``layers/wq`` is
-``(L, d, q_dim)``).  The port's ``DenseLM`` holds one module per layer
-(``layers.<i>.wq``).  :func:`params_from_numpy` converts the pytree, as
-numpy arrays, into the port's state dict by unstacking the layer axis;
-:func:`load_repro_checkpoint` does the same from a checkpoint directory of
-a parameter pytree.
+``repro`` keeps a model's parameters as a pytree whose per-layer leaves
+are stacked along a leading layer axis (``layers/wq`` is ``(L, d,
+q_dim)``; the hybrid stacks its groups, ``groups/rec1/w_x``,
+``groups/rec2/...``, ``groups/attn/...`` and ``tail_rec/...``).  The port
+holds one module per layer (``layers.<i>.wq``, ``groups.rec1.<i>.w_x``,
+``tail_rec.<i>.w_x``).  :func:`params_from_numpy` converts the pytree, as
+numpy arrays, into the port's state dict by unstacking each stacked
+group's leading axis; :func:`load_repro_checkpoint` does the same from a
+checkpoint directory of a parameter pytree.
 
 The format (``repro.checkpoint.save_checkpoint``): ``<dir>/step_<N>/``
 holds one ``.npy`` per leaf, ``leaf_<i>.npy`` in the order of the tree's
@@ -21,9 +23,10 @@ keeps the last ``keep`` steps.
 The write side takes a state in the port's form, nested dicts whose leaves
 are tensors (or numpy arrays) and whose innermost keys may be the port's
 parameter names: the trainer's ``{"params": {name: tensor}, "opt_state":
-{"step", "master", "m", "v"}}``.  Every ``layers.<i>.<x>`` of one dict is
-stacked into the leaf ``.../layers/<x>`` of shape ``(L, ...)``, and any
-other ``.`` in a name becomes a ``/``, so the files carry the JAX tree's
+{"step", "master", "m", "v"}}``.  Every ``<group>.<i>.<x>`` of one dict
+(``layers``, ``groups.rec1``, ``tail_rec``, ...) is stacked into the leaf
+``.../<group>/<x>`` of shape ``(n, ...)``, and any other ``.`` in a name
+becomes a ``/``, so the files carry the JAX tree's
 names and shapes: ``repro.checkpoint.load_checkpoint`` reads them into the
 JAX ``{"params", "opt_state"}`` tree, and :func:`load_checkpoint` reads
 what JAX's ``save_checkpoint`` wrote for that tree.  One device has no mesh:
@@ -70,19 +73,25 @@ def _logical_dtype(x) -> str:
     return str(np.asarray(x).dtype)
 
 
+# the JAX trees' layer-stacked groups: the dense and SSM models' ``layers``,
+# the hybrid's superblock groups and its tail (``repro/models/hybrid.py``)
+STACKED = ("layers", "groups/rec1", "groups/rec2", "groups/attn", "tail_rec")
+
+
 def _unstack(flat: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-    """``/``-joined pytree names -> the port's state dict: ``layers/<x>``
-    of shape (L, ...) becomes ``layers.<i>.<x>`` for each layer i."""
+    """``/``-joined pytree names -> the port's state dict: a stacked
+    group's ``<group>/<x>`` of shape (n, ...) becomes ``<group>.<i>.<x>``
+    (with ``.`` for ``/``) for each i."""
     out = {}
     for name, t in flat.items():
-        parts = name.split("/")
-        if parts[0] == "layers":
-            if len(parts) != 2:
-                raise ValueError(f"unexpected layer leaf {name!r}")
+        group, _, leaf = name.rpartition("/")
+        if group in STACKED:
             for i in range(t.shape[0]):
-                out[f"layers.{i}.{parts[1]}"] = t[i].clone()
+                out[f"{group.replace('/', '.')}.{i}.{leaf}"] = t[i].clone()
+        elif any(name.startswith(g + "/") for g in STACKED):
+            raise ValueError(f"unexpected layer leaf {name!r}")
         else:
-            out[".".join(parts)] = t
+            out[name.replace("/", ".")] = t
     return out
 
 
@@ -100,13 +109,15 @@ def _flatten(tree, prefix: str = "") -> dict:
 def _repro_name(path: str) -> tuple[str, Optional[int]]:
     """A flattened path of the port's state -> (the JAX tree's leaf name,
     the layer index or None): ``opt_state/m/layers.3.wq`` ->
-    (``opt_state/m/layers/wq``, 3), ``params/final_norm`` -> itself."""
+    (``opt_state/m/layers/wq``, 3), ``params/groups.rec1.2.w_x`` ->
+    (``params/groups/rec1/w_x``, 2), ``params/final_norm`` -> itself."""
     head, _, last = path.rpartition("/")
     parts = last.split(".")
     layer = None
-    if len(parts) == 3 and parts[0] == "layers" and parts[1].isdigit():
-        layer = int(parts[1])
-        parts = [parts[0], parts[2]]
+    if (len(parts) >= 3 and parts[-2].isdigit()
+            and "/".join(parts[:-2]) in STACKED):
+        layer = int(parts[-2])
+        parts = parts[:-2] + parts[-1:]
     return "/".join(([head] if head else []) + parts), layer
 
 

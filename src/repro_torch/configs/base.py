@@ -7,7 +7,8 @@ sides (a test holds the two field lists equal).  ``activation_dtype`` is a
 package's analytic counts.  Only the architectures the port serves are
 registered: the dense family (``qwen3-1.7b``, ``qwen3-32b``,
 ``qwen2.5-14b``, ``gemma3-1b``) and its MoE configs (``olmoe-1b-7b``,
-``qwen3-moe-30b-a3b``); ``list_archs`` names them.
+``qwen3-moe-30b-a3b``), the hybrid ``recurrentgemma-2b`` and the SSM
+``mamba2-370m``; ``list_archs`` names them.
 """
 from __future__ import annotations
 
@@ -100,6 +101,23 @@ class ModelConfig:
     @property
     def activation_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+    @property
+    def is_attention_free(self) -> bool:
+        """JAX's property, mirrored for the parity tests; no port code
+        reads it."""
+        return self.family == "ssm"
+
+    @property
+    def supports_long_context(self) -> bool:
+        """True if attention cost is sub-quadratic in context (SSM / hybrid /
+        mostly-sliding-window).  JAX's property, mirrored for the parity
+        tests: JAX picks its long-context cells by it; the port has no such
+        cell and no port code reads it."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        # mostly-local attention (Gemma3 5:1) bounds the full-attention layers
+        return self.sliding_window is not None and (self.global_every or 0) > 1
 
     @property
     def ssm_d_inner(self) -> int:
@@ -216,9 +234,11 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
 def _ensure_loaded() -> None:
     from repro_torch.configs import (  # noqa: F401  (each registers itself)
         gemma3_1b,
+        mamba2_370m,
         olmoe_1b_7b,
         qwen2_5_14b,
         qwen3_1_7b,
         qwen3_32b,
         qwen3_moe_30b_a3b,
+        recurrentgemma_2b,
     )

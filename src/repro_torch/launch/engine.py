@@ -43,7 +43,9 @@ old one drains.  This engine removes both stalls:
     the same values again: the retry is sound because injected faults fire
     BEFORE the launch (``FaultInjector.before_launch``), and a launch that
     failed part way rewrites what it wrote identically (a first chunk's
-    scales are recomputed from the same fresh k/v).  A row whose logits go
+    scales are recomputed from the same fresh k/v); recurrent state
+    (``StateCarry``) comes back in new tensors, so a retry starts from the
+    state the failed launch read.  A row whose logits go
     non-finite is bisected by the per-row validity vector the decode step
     returns: only that slot is evicted and its request re-queued, its token
     suppressed, so greedy replay (from its last row snapshot, else the full
@@ -72,11 +74,20 @@ the longest prompt, since lockstep prefill calibrates the scales over the
 whole prompt and the engine over the first chunk.  An MoE config's expert
 capacity is per call, so a token that the batched step drops may be kept
 when its request runs alone (as in the JAX engine): the parity holds where
-no expert overflows.
+no expert overflows.  The recurrent families (``hybrid``, ``ssm``) are
+exact because parked rows carry identity state updates; the hybrid needs
+``chunk`` >= the longest prompt (the LRU's h0 fold reassociates across
+chunk boundaries) and the SSM prompt and chunk lengths on ``cfg.ssm_chunk``
+multiples, as in JAX.  Against the JAX engine at the same ``chunk`` the
+port is exact either way.
 
     python -m repro_torch.launch.engine --arch qwen3-moe-30b-a3b
     python -m repro_torch.launch.engine --arch olmoe-1b-7b --reduced --device cpu
     python -m repro_torch.launch.engine --arch gemma3-1b --reduced --device cpu --chunk 5
+    python -m repro_torch.launch.engine --arch recurrentgemma-2b --reduced --device cpu \
+        --chunk 32 --check-lockstep
+    python -m repro_torch.launch.engine --arch mamba2-370m --reduced --device cpu \
+        --chunk 8 --prompt-align 8 --check-lockstep
     python -m repro_torch.launch.engine --reduced --device cpu
     python -m repro_torch.launch.engine --reduced --device cpu \\
         --impl 'attention=pallas:kv_dtype=int8' --chunk 24 --check-lockstep
@@ -98,7 +109,7 @@ from repro_torch.core import pws
 from repro_torch.kernels import policy
 from repro_torch.launch.serve import Request, Server, install_impl
 from repro_torch.models import cache as dcache
-from repro_torch.models.base import Model, UnsupportedFamilyError
+from repro_torch.models.base import Model, RunOptions, UnsupportedFamilyError
 from repro_torch.runtime.fault_tolerance import (
     FaultInjector,
     FaultPolicy,
@@ -212,9 +223,9 @@ class Engine(Server):
                  injector: Optional[FaultInjector] = None,
                  snapshot_every: int = 16,
                  degrade_after: int = 3, degrade_window: int = 8,
-                 heal_after: int = 16):
+                 heal_after: int = 16, opts: Optional[RunOptions] = None):
         super().__init__(cfg, device=device, params=params, max_batch=max_batch,
-                         max_len=max_len)
+                         max_len=max_len, opts=opts)
         for name in ("init_cache", "prefill_chunk", "decode_step"):
             impl = getattr(type(self.model), name, None)
             if impl is None or impl is getattr(Model, name, None):
@@ -718,6 +729,10 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--chunk", type=int, default=16)
+    ap.add_argument("--prompt-align", type=int, default=1,
+                    help="round generated prompt lengths up to a multiple "
+                         "of N (ssm exactness needs chunk boundaries on "
+                         "cfg.ssm_chunk multiples)")
     ap.add_argument("--cache-budget", type=int, default=0,
                     help="total live context tokens across slots before "
                          "pressure eviction kicks in (0 = unbounded)")
@@ -748,8 +763,12 @@ def main(argv=None):
                     injector=FaultInjector(args.inject) if args.inject else None,
                     snapshot_every=args.snapshot_every)
     rng = np.random.default_rng(0)
-    reqs = [Request(i, rng.integers(3, cfg.vocab_size,
-                                    int(rng.integers(4, 24))).astype(np.int32),
+
+    def plen():
+        n = int(rng.integers(4, 24))
+        return -(-n // args.prompt_align) * args.prompt_align
+
+    reqs = [Request(i, rng.integers(3, cfg.vocab_size, plen()).astype(np.int32),
                     max_new=int(rng.integers(2, args.max_new + 1)))
             for i in range(args.requests)]
     out = engine.run(reqs)

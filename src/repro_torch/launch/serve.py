@@ -17,6 +17,9 @@ mesh in the port yet.  ``--impl`` installs the execution policy
     python -m repro_torch.launch.serve --arch qwen3-1.7b --device cuda
     python -m repro_torch.launch.serve --arch qwen2.5-14b --reduced --device cpu
     python -m repro_torch.launch.serve --arch gemma3-1b --reduced --device cpu
+    python -m repro_torch.launch.serve --arch recurrentgemma-2b --reduced --device cpu \
+        --windowed-decode-cache
+    python -m repro_torch.launch.serve --arch mamba2-370m --reduced --device cpu
     python -m repro_torch.launch.serve --reduced --device cpu \
         --impl 'attention=pallas:kv_dtype=int8'
 
@@ -37,7 +40,7 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.kernels import policy
-from repro_torch.models import build_model
+from repro_torch.models import RunOptions, build_model
 
 log = logging.getLogger("repro_torch.serve")
 
@@ -52,14 +55,17 @@ class Request:
 
 class Server:
     def __init__(self, cfg, *, device=None, params: Optional[dict] = None,
-                 max_batch: int = 8, max_len: int = 256):
+                 max_batch: int = 8, max_len: int = 256,
+                 opts: Optional[RunOptions] = None):
         """``params``: a state dict (``repro_torch.checkpoint``) to load;
         without one the weights are drawn by the model's ``init`` from a
-        ``torch.Generator`` seeded with 0, as the JAX server uses key 0."""
+        ``torch.Generator`` seeded with 0, as the JAX server uses key 0.
+        ``opts``: the model's ``RunOptions`` (``windowed_decode_cache``
+        serves the hybrid's decode from its ring cache)."""
         self.cfg = cfg
         self.max_batch = max_batch
         self.max_len = max_len
-        self.model = build_model(cfg, device=device)
+        self.model = build_model(cfg, opts, device=device)
         self.device = self.model.device
         if params is None:
             self.model.init(torch.Generator(device=self.device).manual_seed(0))
@@ -149,11 +155,15 @@ def main(argv=None):
     ap.add_argument("--impl", default="",
                     help="execution-policy impl map, op=backend[:knob=value][,...] "
                          "(see the module docstring)")
+    ap.add_argument("--windowed-decode-cache", action="store_true",
+                    help="decode a windowed arch (the hybrid) from a ring cache of "
+                         "window slots")
     args = ap.parse_args(argv)
     install_impl(args.impl)
 
     cfg = get_smoke_config(args.arch) if args.reduced else get_config(args.arch)
-    server = Server(cfg, device=args.device, max_batch=args.batch, max_len=128)
+    server = Server(cfg, device=args.device, max_batch=args.batch, max_len=128,
+                    opts=RunOptions(windowed_decode_cache=args.windowed_decode_cache))
     rng = np.random.default_rng(0)
     reqs = [Request(i, rng.integers(3, cfg.vocab_size, rng.integers(4, 20)).astype(np.int32),
                     max_new=args.max_new) for i in range(args.batch)]

@@ -13,6 +13,7 @@ trainer's mesh, sharding planner and autotune have no counterpart yet
 
     python -m repro_torch.launch.train --arch qwen3-1.7b --steps 3
     python -m repro_torch.launch.train --arch olmoe-1b-7b --reduced --device cpu --steps 2
+    python -m repro_torch.launch.train --arch recurrentgemma-2b --reduced --device cpu --steps 2
     python -m repro_torch.launch.train --reduced --device cpu --steps 4 \\
         --ckpt-dir /tmp/run --save-every 2
 

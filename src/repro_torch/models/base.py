@@ -3,10 +3,11 @@
 
 A model is an ``nn.Module`` that owns its parameters, so the JAX methods'
 ``params`` argument goes away.  ``RunOptions`` keeps the fields the
-training path reads (``remat``, ``ce_chunk``, ``microbatches``) and the MoE
-dispatch's (``moe_dispatch``, ``moe_groups``), with the JAX names and
-defaults; the rest of the JAX dataclass chooses attention tiles and jnp
-routes, and the port's kernels pick their own tiles and have no jnp route.
+training path reads (``remat``, ``ce_chunk``, ``microbatches``), the MoE
+dispatch's (``moe_dispatch``, ``moe_groups``) and the hybrid's decode-cache
+layout (``windowed_decode_cache``), with the JAX names and defaults; the
+rest of the JAX dataclass chooses attention tiles and jnp routes, and the
+port's kernels pick their own tiles and have no jnp route.
 """
 from __future__ import annotations
 
@@ -23,14 +24,15 @@ from repro_torch.configs.base import ModelConfig
 
 @dataclass(frozen=True)
 class RunOptions:
-    """Execution options the training path and the MoE layers read (JAX
-    ``base.py:37-69``)."""
+    """Execution options the training path, the MoE layers and the
+    hybrid's cache read (JAX ``base.py:37-69``)."""
 
     remat: str = "full"  # "none" | "full": recompute each layer in backward
     ce_chunk: int = 512  # sequence chunk of the cross-entropy
     microbatches: int = 1  # gradient-accumulation microbatches
     moe_dispatch: str = "sort"  # "sort" (prod) | "onehot" (reference)
     moe_groups: int = 1  # dispatch groups (set to dp size by the planner)
+    windowed_decode_cache: bool = False  # ring-buffer cache for local layers
 
 
 class UnsupportedFamilyError(TypeError):

@@ -1,25 +1,36 @@
-"""Decode-cache state: the counterpart of the ``LinearKV`` layout and the
-composite helpers of ``repro/models/cache.py``.
+"""Decode-cache state: the counterpart of ``repro/models/cache.py``: the
+``LinearKV``, ``RingKV`` and ``StateCarry`` layouts and the composite
+helpers (``CrossKV`` comes with the encoder-decoder family).
 
 ``LinearKV`` holds contiguous k/v slabs with the batch at axis ``b_axis``
 and the sequence right after it, an optional int8 quantization (per-(batch,
 kv-head) f32 scales ride alongside, ``(*lead, b, kvh)``), and a per-row
 ``(b,)`` int32 ``pos``: each row's context depth and next write position,
-the same vector the attention kernel reads as its per-row lanes.  The
-serving engine talks to a cache only through the module-level helpers
-(:func:`slot`, :func:`set_slot`, :func:`reset_row`, :func:`set_row_valid`,
-:func:`lengths`, :func:`snapshot_row`, :func:`restore_row`), which take a
-layout or a dict/tuple of layouts, as in JAX.
+the same vector the attention kernel reads as its per-row lanes.
+``RingKV`` is the hybrid's windowed decode buffer: ``C`` slots, position
+``p`` in slot ``p % C``, attended with ``q_offset = pos`` and ``kv_len =
+min(pos + 1, C)`` (:meth:`RingKV.attend_lens`).  ``StateCarry`` holds the
+recurrent families' state (conv tails, the RG-LRU's hidden state, the SSD
+state), every tensor with the batch at axis 1, and a per-row ``valid``
+flag.  The serving engine talks to a cache only through the module-level
+helpers (:func:`slot`, :func:`set_slot`, :func:`reset_row`,
+:func:`set_row_valid`, :func:`lengths`, :func:`snapshot_row`,
+:func:`restore_row`), which take a layout or a dict/tuple of layouts, as in
+JAX.
 
 Where JAX donates the cache to the jitted step and gets a new one back, the
-port writes the slabs and scales in place (:func:`linear_write`,
-:meth:`LinearKV.set_slot`): a full-width cache would otherwise be copied on
-every step.  A ``LinearKV`` returned by a step therefore shares its slabs
-with the one passed in, and :meth:`LinearKV.slot` returns views.  Only
-``pos`` is replaced rather than written, so a step that fails part way
-leaves the cursors where they were.  A snapshot must not follow later
-writes, so :func:`snapshot_row` copies (``.to("cpu")`` alone returns the
-same storage for a CPU tensor).
+port writes the k/v slabs and scales in place (:func:`linear_write`,
+:func:`ring_write`, ``set_slot``): a full-width cache would otherwise be
+copied on every step.  A ``LinearKV`` or ``RingKV`` returned by a step
+therefore shares its slabs with the one passed in, and ``slot`` returns
+views.  Only ``pos`` is replaced rather than written, so a step that fails
+part way leaves the cursors where they were.  A step returns NEW recurrent
+state tensors (the old ones are read, never written), so a step that fails
+part way leaves a ``StateCarry`` as it was and a retried step starts from
+the same state; ``set_slot`` and ``reset_row`` write a ``StateCarry``'s
+rows in place, as they do the slabs, and replace ``valid``.  A snapshot
+must not follow later writes, so :func:`snapshot_row` copies
+(``.to("cpu")`` alone returns the same storage for a CPU tensor).
 """
 from __future__ import annotations
 
@@ -30,8 +41,55 @@ from typing import Optional, Union
 import torch
 
 
+class _Slabs:
+    """The row logic the positional layouts share: k/v slabs (and
+    ``LinearKV``'s scales, the fields named in ``_ROWS``) with the batch at
+    axis ``b_axis`` and the slots right after it, and a (b,) int32 cursor
+    ``pos``."""
+
+    _ROWS = ("k", "v")
+
+    @property
+    def capacity(self) -> int:
+        return self.k.shape[self.b_axis + 1]
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+    def slot(self, i: int):
+        """Row ``i`` as a b=1 cache whose slabs and scales are VIEWS of this
+        cache's (``pos`` is a copy)."""
+        rows = {n: None if (t := getattr(self, n)) is None else t.narrow(self.b_axis, i, 1)
+                for n in self._ROWS}
+        return self.replace(pos=self.pos[i:i + 1].clone(), **rows)
+
+    def set_slot(self, i: int, sub):
+        """Write the b=1 cache ``sub`` into row ``i``: slabs and scales in
+        place, through :meth:`slot`'s views; ``pos`` in a new vector."""
+        dst = self.slot(i)
+        for name in self._ROWS:
+            t = getattr(dst, name)
+            if t is not None:
+                t.copy_(getattr(sub, name))
+        pos = self.pos.clone()
+        pos[i:i + 1] = sub.pos.to(pos.device)
+        return self.replace(pos=pos)
+
+    def reset_row(self, i: int):
+        # slabs need no zeroing: writes are position-exact and nothing
+        # attends past the row's pos (the per-row kv_len masks it)
+        pos = self.pos.clone()
+        pos[i] = 0
+        return self.replace(pos=pos)
+
+    def map_tensors(self, fn):
+        """This layout with ``fn`` applied to each of its tensors."""
+        rows = {n: None if (t := getattr(self, n)) is None else fn(t) for n in self._ROWS}
+        return self.replace(pos=fn(self.pos), **rows)
+
+
 @dataclass(frozen=True)
-class LinearKV:
+class LinearKV(_Slabs):
     """Contiguous k/v slabs; batch at axis ``b_axis``, sequence at
     ``b_axis + 1``."""
 
@@ -41,6 +99,8 @@ class LinearKV:
     k_scale: Optional[torch.Tensor]   # (*lead, b, kvh) f32 | None
     v_scale: Optional[torch.Tensor]
     b_axis: int
+
+    _ROWS = ("k", "v", "k_scale", "v_scale")
 
     @classmethod
     def create(cls, lead, batch, seq, kv_heads, head_dim, dtype, *,
@@ -58,51 +118,110 @@ class LinearKV:
                    k_scale=scale(), v_scale=scale(), b_axis=len(lead))
 
     @property
-    def capacity(self) -> int:
-        return self.k.shape[self.b_axis + 1]
-
-    @property
     def quantized(self) -> bool:
         return self.k_scale is not None
-
-    def replace(self, **kw) -> "LinearKV":
-        return dataclasses.replace(self, **kw)
-
-    def _rows(self, t: Optional[torch.Tensor], i: int) -> Optional[torch.Tensor]:
-        return None if t is None else t.narrow(self.b_axis, i, 1)
-
-    def slot(self, i: int) -> "LinearKV":
-        """Row ``i`` as a b=1 cache whose slabs and scales are VIEWS of this
-        cache's (``pos`` is a copy)."""
-        return self.replace(k=self._rows(self.k, i), v=self._rows(self.v, i),
-                            pos=self.pos[i:i + 1].clone(),
-                            k_scale=self._rows(self.k_scale, i),
-                            v_scale=self._rows(self.v_scale, i))
-
-    def set_slot(self, i: int, sub: "LinearKV") -> "LinearKV":
-        """Write the b=1 cache ``sub`` into row ``i``: slabs and scales in
-        place, through :meth:`slot`'s views; ``pos`` in a new vector."""
-        dst = self.slot(i)
-        for name in ("k", "v", "k_scale", "v_scale"):
-            t = getattr(dst, name)
-            if t is not None:
-                t.copy_(getattr(sub, name))
-        pos = self.pos.clone()
-        pos[i:i + 1] = sub.pos.to(pos.device)
-        return self.replace(pos=pos)
-
-    def reset_row(self, i: int) -> "LinearKV":
-        # slabs need no zeroing: writes are position-exact and nothing
-        # attends past the row's pos (the per-row kv_len masks it)
-        pos = self.pos.clone()
-        pos[i] = 0
-        return self.replace(pos=pos)
 
     def lengths(self) -> torch.Tensor:
         return self.pos
 
 
-_LAYOUTS = (LinearKV,)
+@dataclass(frozen=True)
+class RingKV(_Slabs):
+    """Windowed ring buffer: capacity ``C`` slots at axis ``b_axis + 1``,
+    absolute position ``p`` in slot ``p % C``.  ``pos`` (b,) int32 counts
+    the tokens written to each row (the absolute cursor)."""
+
+    k: torch.Tensor                   # (*lead, b, C, kvh, hd)
+    v: torch.Tensor
+    pos: torch.Tensor                 # (b,) int32
+    b_axis: int
+
+    @classmethod
+    def create(cls, lead, batch, capacity, kv_heads, head_dim, dtype, *,
+               device) -> "RingKV":
+        shape = tuple(lead) + (batch, capacity, kv_heads, head_dim)
+        return cls(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   pos=torch.zeros((batch,), dtype=torch.int32, device=device),
+                   b_axis=len(lead))
+
+    def lengths(self) -> torch.Tensor:
+        return self.pos.clamp(max=self.capacity)
+
+    # -- the per-row wrap-aware mapping onto the attention kernel's lanes --
+    def attend_lens(self, pos: torch.Tensor) -> torch.Tensor:
+        """``kv_len`` for a decode at absolute positions ``pos``: ``min(pos
+        + 1, C)`` slots are live.  With ``q_offset = pos`` and causal
+        masking the kernel attends exactly those: an unwrapped row's
+        contiguous prefix, or (wrapped) the whole ring, every slot of which
+        is inside the window since ``C <= window``."""
+        return (pos.to(torch.int32) + 1).clamp(max=self.capacity)
+
+    def slot_positions(self, pos: torch.Tensor) -> torch.Tensor:
+        """The true position each slot holds, per row: slot ``j`` holds
+        ``pos - ((pos - j) mod C)``; a never-written slot gets ``2^30``, so
+        causal masking drops it.  (b, C) int32.  JAX's method, mirrored:
+        the decode step attends through :meth:`attend_lens` instead, and
+        only the parity tests read this."""
+        c = self.capacity
+        pos = pos.to(torch.int32).reshape(-1, 1)
+        idx = torch.arange(c, dtype=torch.int32, device=pos.device)[None, :]
+        ring_pos = pos - torch.remainder(pos - idx, c)
+        return torch.where(ring_pos >= 0, ring_pos, 1 << 30)
+
+
+@dataclass(frozen=True)
+class StateCarry:
+    """Recurrent per-row state: a dict of tensors, each with the batch at
+    axis 1 (layers stacked in front).  ``valid`` (b,) bool marks rows whose
+    carried state belongs to a live decode: a decode step carries a row
+    that is not valid through unchanged, and a reused slot resets its row
+    independently of its neighbours."""
+
+    states: dict
+    valid: torch.Tensor               # (b,) bool
+
+    @classmethod
+    def create(cls, states: dict) -> "StateCarry":
+        first = next(iter(states.values()))
+        return cls(states=dict(states),
+                   valid=torch.ones((first.shape[1],), dtype=torch.bool,
+                                    device=first.device))
+
+    def replace(self, **kw) -> "StateCarry":
+        return dataclasses.replace(self, **kw)
+
+    def slot(self, i: int) -> "StateCarry":
+        """Row ``i`` as a b=1 carry whose states are VIEWS of this one's."""
+        return StateCarry(states={k: a.narrow(1, i, 1) for k, a in self.states.items()},
+                          valid=self.valid[i:i + 1].clone())
+
+    def set_slot(self, i: int, sub: "StateCarry") -> "StateCarry":
+        for k, a in self.states.items():
+            a.narrow(1, i, 1).copy_(sub.states[k])
+        valid = self.valid.clone()
+        valid[i:i + 1] = sub.valid.to(valid.device)
+        return self.replace(valid=valid)
+
+    def reset_row(self, i: int) -> "StateCarry":
+        for a in self.states.values():
+            a.narrow(1, i, 1).zero_()
+        return self.set_row_valid(i, False)
+
+    def set_row_valid(self, i: int, flag: bool) -> "StateCarry":
+        valid = self.valid.clone()
+        valid[i] = bool(flag)
+        return self.replace(valid=valid)
+
+    def lengths(self):
+        return None
+
+    def map_tensors(self, fn) -> "StateCarry":
+        return StateCarry(states={k: fn(a) for k, a in self.states.items()},
+                          valid=fn(self.valid))
+
+
+_LAYOUTS = (LinearKV, RingKV, StateCarry)
 
 
 # ---------------------------------------------------------------------------
@@ -119,13 +238,22 @@ def _map_layouts(cache, fn):
     raise TypeError(f"not a DecodeCache composite: {type(cache)!r}")
 
 
+def _fields(lo) -> list:
+    """A layout's tensors (None where a ``LinearKV`` has no scales) with
+    the names of their fields, a ``StateCarry``'s as ``states.<key>``."""
+    if isinstance(lo, StateCarry):
+        return ([(f"states.{k}", a) for k, a in sorted(lo.states.items())]
+                + [("valid", lo.valid)])
+    return [(f.name, getattr(lo, f.name)) for f in dataclasses.fields(lo)
+            if f.name != "b_axis"]
+
+
 def _leaves(cache) -> list:
-    """Every tensor of a composite (None where a layout has no scales), in
-    a fixed order, with the layout fields that name them."""
+    """Every tensor of a composite, in a fixed order, each named by its
+    layout and field (``LinearKV.k``, ``StateCarry.states.conv``)."""
     out = []
     _map_layouts(cache, lambda lo: out.extend(
-        (f.name, getattr(lo, f.name)) for f in dataclasses.fields(lo)
-        if f.name != "b_axis") or lo)
+        (f"{type(lo).__name__}.{name}", t) for name, t in _fields(lo)) or lo)
     return out
 
 
@@ -144,16 +272,18 @@ def set_slot(cache, i: int, sub):
 
 
 def reset_row(cache, i: int):
-    """Row ``i`` leaves its request: cursors to zero.  The engine calls this
-    at admission so a reused slot never sees its predecessor's context."""
+    """Row ``i`` leaves its request: cursors to zero, recurrent state zeroed
+    and invalidated.  The engine calls this at admission so a reused slot
+    never sees its predecessor's context."""
     return _map_layouts(cache, lambda lo: lo.reset_row(i))
 
 
 def set_row_valid(cache, i: int, flag: bool):
-    """Flip row ``i``'s recurrent-state validity.  Only recurrent-state
-    layouts carry one, and the port has none yet: ``LinearKV`` rows are
-    already row-exact through their cursors, so this returns ``cache``."""
-    return cache
+    """Flip row ``i``'s recurrent-state validity (``StateCarry`` layouts
+    only; positional layouts are already row-exact through their cursors
+    and come back as they are)."""
+    return _map_layouts(
+        cache, lambda lo: lo.set_row_valid(i, flag) if isinstance(lo, StateCarry) else lo)
 
 
 def snapshot_row(cache, i: int):
@@ -163,16 +293,14 @@ def snapshot_row(cache, i: int):
     reach it.  It is the resume point for fault recovery and pressure
     eviction; restore with :func:`restore_row`, into the same or a
     DIFFERENT slot (row slices carry no slot identity)."""
-    def copy(lo):
-        return lo.replace(**{name: None if t is None else t.to("cpu", copy=True)
-                             for name, t in _leaves(lo)})
-    return _map_layouts(slot(cache, i), copy)
+    return _map_layouts(slot(cache, i),
+                        lambda lo: lo.map_tensors(lambda t: t.to("cpu", copy=True)))
 
 
 def restore_row(cache, i: int, snap):
-    """Write a :func:`snapshot_row` back into slot ``i``: slabs, cursor and
-    int8 scales all land, so the row resumes exactly at its snapshot
-    point."""
+    """Write a :func:`snapshot_row` back into slot ``i``: slabs, cursors,
+    int8 scales, recurrent state and its validity all land, so the row
+    resumes exactly at its snapshot point."""
     return set_slot(cache, i, snap)
 
 
@@ -205,12 +333,16 @@ def snapshot_compatible(cache, snap) -> None:
 
 
 def lengths(cache):
-    """Per-row context depth: the elementwise max over every layout's
-    lengths."""
+    """Per-row context depth: the elementwise max over every positional
+    layout's lengths, or None if the cache is position-free (a pure state
+    carry)."""
     found = []
     _map_layouts(cache, lambda lo: found.append(lo.lengths()) or lo)
-    out = found[0]
-    for x in found[1:]:
+    vecs = [x for x in found if x is not None]
+    if not vecs:
+        return None
+    out = vecs[0]
+    for x in vecs[1:]:
         out = torch.maximum(out, x)
     return out
 
@@ -243,6 +375,24 @@ def linear_write(slab: torch.Tensor, new: torch.Tensor,
     return slab.scatter_(1, idx, new)
 
 
+def ring_write(slab: torch.Tensor, new: torch.Tensor,
+               write_at: Union[int, torch.Tensor]) -> torch.Tensor:
+    """Write ``new`` (b, s, kvh, hd) into the ring ``slab`` (b, C, kvh, hd)
+    at absolute offset ``write_at`` (an int, or an int tensor holding a
+    scalar or one offset per row), in place, and return ``slab``: position
+    ``p`` lands in slot ``p % C``.  When ``s >= C`` only the last ``C``
+    tokens survive (unique slots: no scatter-order hazard)."""
+    b, s = new.shape[:2]
+    c = slab.shape[1]
+    wa = torch.as_tensor(write_at, device=slab.device).reshape(-1).long().expand(b)
+    if s >= c:
+        new = new[:, s - c:]
+        wa = wa + (s - c)
+        s = c
+    idx = torch.remainder(wa[:, None] + torch.arange(s, device=slab.device), c)
+    return slab.scatter_(1, idx[:, :, None, None].expand_as(new), new)
+
+
 def masked_rows(mask: torch.Tensor, new: torch.Tensor, old: torch.Tensor,
                 axis: int = 0) -> torch.Tensor:
     """Per-row select ``where(mask, new, old)`` with ``mask`` (b,) aligned
@@ -260,3 +410,23 @@ def pick_last(x: torch.Tensor, lens: Optional[torch.Tensor]) -> torch.Tensor:
         return x[:, -1]
     row = (lens.long() - 1).clamp(0, x.shape[1] - 1)
     return x[torch.arange(x.shape[0], device=x.device), row]
+
+
+def conv_tail(xp: torch.Tensor, lens: torch.Tensor, width: int) -> torch.Tensor:
+    """Per-row causal-conv state after consuming ``lens`` valid tokens of a
+    padded chunk.  ``xp`` (b, s + width, dim) is the conv input with the
+    previous state prepended; row ``r``'s new state is ``xp[r, lens[r] :
+    lens[r] + width]``: ``lens = 0`` returns the old state untouched, ``lens
+    = s`` the true tail."""
+    b, xp_len, dim = xp.shape
+    start = lens.reshape(-1).long().expand(b).clamp(0, xp_len - width)
+    idx = start[:, None] + torch.arange(width, device=xp.device)
+    return torch.gather(xp, 1, idx[:, :, None].expand(b, width, dim))
+
+
+def token_mask(lens: Optional[torch.Tensor], s: int) -> Optional[torch.Tensor]:
+    """(b, s) bool valid-token mask from per-row counts; None = all valid
+    (the lockstep full-sequence path takes no masking at all)."""
+    if lens is None:
+        return None
+    return torch.arange(s, device=lens.device)[None, :] < lens.reshape(-1, 1)

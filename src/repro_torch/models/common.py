@@ -20,6 +20,7 @@ import math
 from typing import Optional
 
 import torch
+from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import policy, registry
@@ -28,6 +29,12 @@ from repro_torch.kernels import policy, registry
 # ---------------------------------------------------------------------------
 # initialization helpers
 # ---------------------------------------------------------------------------
+
+def param(*shape, dtype, device) -> nn.Parameter:
+    """An uninitialised parameter of ``shape``: a model's ``init`` (or a
+    loaded state dict) fills it."""
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+
 
 def dense_init(t: torch.Tensor, generator: torch.Generator,
                scale: Optional[float] = None) -> torch.Tensor:

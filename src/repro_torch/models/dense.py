@@ -58,10 +58,6 @@ def layer_thetas(cfg: ModelConfig) -> list[float]:
             for w in layer_windows(cfg)]
 
 
-def _param(*shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
-
-
 class DenseLayer(nn.Module):
     """One layer's parameters, with the JAX names and shapes (``dense.py:63-88``):
     the QKV biases under ``qkv_bias``; under ``n_experts`` an f32 ``router``
@@ -71,7 +67,7 @@ class DenseLayer(nn.Module):
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
         d, hd = cfg.d_model, cfg.head_dim_
-        p = lambda *shape: _param(*shape, dtype=dtype, device=device)  # noqa: E731
+        p = lambda *shape: common.param(*shape, dtype=dtype, device=device)  # noqa: E731
         self.ln1, self.ln2 = p(d), p(d)
         self.wq, self.wk = p(d, cfg.q_dim), p(d, cfg.kv_dim)
         self.wv, self.wo = p(d, cfg.kv_dim), p(cfg.q_dim, d)
@@ -81,7 +77,7 @@ class DenseLayer(nn.Module):
             self.q_norm, self.k_norm = p(hd), p(hd)
         if cfg.n_experts:
             e, f = cfg.n_experts, cfg.expert_d_ff
-            self.router = _param(d, e, dtype=torch.float32, device=device)
+            self.router = common.param(d, e, dtype=torch.float32, device=device)
             self.e_gate, self.e_up, self.e_down = p(e, d, f), p(e, d, f), p(e, f, d)
         else:
             self.w_gate, self.w_up = p(d, cfg.d_ff), p(d, cfg.d_ff)
@@ -94,12 +90,12 @@ class DenseLM(Model):
         super().__init__(cfg, opts)
         self.device = resolve_device(device)
         dt = cfg.activation_dtype
-        self.embed = _param(cfg.vocab_size, cfg.d_model, dtype=dt, device=self.device)
+        self.embed = common.param(cfg.vocab_size, cfg.d_model, dtype=dt, device=self.device)
         self.layers = nn.ModuleList(DenseLayer(cfg, dt, self.device)
                                     for _ in range(cfg.n_layers))
-        self.final_norm = _param(cfg.d_model, dtype=dt, device=self.device)
+        self.final_norm = common.param(cfg.d_model, dtype=dt, device=self.device)
         if not cfg.tie_embeddings:
-            self.lm_head = _param(cfg.vocab_size, cfg.d_model, dtype=dt, device=self.device)
+            self.lm_head = common.param(cfg.vocab_size, cfg.d_model, dtype=dt, device=self.device)
         self.windows = layer_windows(cfg)
         self.thetas = layer_thetas(cfg)
 

@@ -13,8 +13,11 @@ f32 leaves, the same bits), and a checkpoint JAX's ``save_checkpoint``
 wrote after two jitted JAX steps resumed by the port's ``train()``, whose
 third step gives JAX's third loss within rtol 1e-5 at f32 (the loss
 tolerance of ``tests/test_torch_train.py``); the JAX side runs once per
-module.  Schedules and compression: rtol 1e-6 on f32 values computed by the
-same f32 operations, the int8 codes exact.
+module.  The hybrid's tree (``groups/*`` and ``tail_rec`` stacked) both
+ways: the port's checkpoint read by JAX, and JAX's parameters read by the
+port giving JAX's prefill and decode logits within atol 1e-5 at f32.
+Schedules and compression: rtol 1e-6 on f32 values computed by the same f32
+operations, the int8 codes exact.
 """
 import dataclasses
 import logging
@@ -310,6 +313,80 @@ def test_port_checkpoint_loads_in_jax(tmp_path):
     jax_save_checkpoint(tmp_path / "params", 4, tree["params"])
     for name, t in load_repro_checkpoint(tmp_path / "params").items():
         assert _equal(t, want[f"params/{name}"]), name
+
+
+HYBRID = "recurrentgemma-2b"
+HYBRID_LAYERS = 5  # one superblock and a tail of two rec blocks
+
+
+def _hybrid_cfgs(dtype="bfloat16"):
+    """The hybrid's smoke config at 5 layers, in the port and in JAX."""
+    return (reduced(get_smoke_config(HYBRID), n_layers=HYBRID_LAYERS, dtype=dtype),
+            dataclasses.replace(jax_smoke(HYBRID), n_layers=HYBRID_LAYERS, dtype=dtype))
+
+
+def test_hybrid_checkpoint_loads_in_jax(tmp_path):
+    """The hybrid's tree both ways through the JAX format: the port's
+    checkpoint of its bf16 smoke config (one AdamW step) read by JAX's
+    ``load_checkpoint`` into the JAX tree (``groups/rec1|rec2|attn`` and
+    ``tail_rec`` stacked, ``opt_state/m|v`` under the same names): every
+    leaf's name, shape, dtype and bits, with the LRU's leaves f32 in the
+    bf16 tree."""
+    cfg, jcfg = _hybrid_cfgs()
+    out = train(cfg, steps=1, data_cfg=DATA, device="cpu", log_every=0,
+                ckpt_dir=str(tmp_path))
+    aparams = jax.eval_shape(lambda: jax_build(jcfg, JaxRunOptions()).init(jax.random.key(0)))
+    like = {"params": aparams, "opt_state": jax.eval_shape(jax_adamw_init, aparams)}
+    step, tree = jax_load_checkpoint(tmp_path, like)
+    assert step == 0
+    got = {f"params/{n}": t for n, t in params_from_numpy(
+        jax.tree.map(np.asarray, tree["params"])).items()}
+    for key in ("master", "m", "v"):
+        got.update({f"{key}/{n}": t for n, t in params_from_numpy(
+            jax.tree.map(np.asarray, tree["opt_state"][key])).items()})
+    got["step"] = torch.from_numpy(np.array(tree["opt_state"]["step"]))
+    want = _state_of(out)
+    assert got.keys() == want.keys()
+    for name, t in want.items():
+        assert _equal(got[name], t), name
+    rec = tree["params"]["groups"]["rec1"]
+    assert tree["params"]["embed"].dtype == jnp.bfloat16 and rec["w_x"].dtype == jnp.bfloat16
+    for leaf in ("lru_a_gate", "lru_i_gate", "lru_a_param"):
+        assert rec[leaf].dtype == jnp.float32, leaf
+        assert tree["opt_state"]["m"]["groups"]["attn"]["wq"].dtype == jnp.float32
+    assert rec["lru_a_gate"].shape[0] == 1 and tree["params"]["tail_rec"]["w_x"].shape[0] == 2
+
+
+def test_jax_hybrid_checkpoint_gives_the_same_logits(tmp_path):
+    """A JAX ``save_checkpoint`` of the hybrid's f32 smoke parameters, read
+    by ``load_repro_checkpoint``: the port's prefill and one decode step
+    give JAX's logits (atol 1e-5), and a bf16 init's checkpoint keeps its
+    f32 leaves f32."""
+    cfg, jcfg = _hybrid_cfgs("float32")
+    jm = jax_build(jcfg, JaxRunOptions())
+    params = jm.init(jax.random.key(3))
+    jax_save_checkpoint(tmp_path / "f32", 7, params)
+    toks = np.random.default_rng(0).integers(3, jcfg.vocab_size, (2, 11)).astype(np.int32)
+    want, cache = jax.jit(lambda p, t: jm.prefill(p, {"tokens": t}, 32))(params, toks)
+    nxt = jnp.argmax(want, -1).astype(jnp.int32)[:, None]
+    want_dec, _ = jax.jit(jm.decode_step)(params, nxt, jnp.asarray(11, jnp.int32), cache)
+
+    from repro_torch.models import build_model
+
+    model = build_model(cfg, device="cpu")
+    model.load_state_dict(load_repro_checkpoint(tmp_path / "f32"))
+    got, pcache = model.prefill(torch.from_numpy(toks), 32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    got_dec, _ = model.decode_step(torch.from_numpy(np.array(nxt)),
+                                   torch.tensor(11, dtype=torch.int32), pcache)
+    np.testing.assert_allclose(got_dec.numpy(), np.asarray(want_dec), atol=1e-5)
+
+    bf16 = jax_build(_hybrid_cfgs()[1], JaxRunOptions()).init(jax.random.key(0))
+    jax_save_checkpoint(tmp_path / "bf16", 0, bf16)
+    loaded = load_repro_checkpoint(tmp_path / "bf16")
+    assert loaded["tail_rec.1.lru_a_param"].dtype == torch.float32
+    assert loaded["groups.rec2.0.lru_i_gate"].dtype == torch.float32
+    assert loaded["groups.attn.0.wq"].dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("warmup", [0, 5])

@@ -123,7 +123,8 @@ def test_configs_and_counts_match_jax():
     ``list_archs`` is the JAX list without the families it lacks)."""
     assert set(ARCHS) <= set(list_archs())
     assert "gemma3-1b" in list_archs()  # K1, K1q and K3 take head dim 256
-    unported = ("hybrid", "ssm", "audio", "vlm")
+    assert {"recurrentgemma-2b", "mamba2-370m"} <= set(list_archs())  # hybrid, ssm
+    unported = ("audio", "vlm")
     assert list_archs() == [a for a in jax_list_archs() if jax_config(a).family not in unported]
     for arch in list_archs():
         for get_p, get_j in ((get_config, jax_config), (get_smoke_config, jax_smoke)):
@@ -253,6 +254,7 @@ def test_server_serves_every_arch_and_unported_families_raise():
                 for i, n in enumerate((5, 9))]
         out = srv.run_batch(reqs)
         assert out["logits_finite"] and all(len(r.out) == 3 for r in reqs), arch
-    hybrid = get_smoke_config("qwen3-1.7b")
-    with pytest.raises(UnsupportedFamilyError):
-        build_model(dataclasses.replace(hybrid, family="hybrid"), device="cpu")
+    for family in ("audio", "vlm"):
+        with pytest.raises(UnsupportedFamilyError):
+            build_model(dataclasses.replace(get_smoke_config("qwen3-1.7b"), family=family),
+                        device="cpu")

@@ -167,9 +167,10 @@ def test_init_distributions():
 
 
 def test_build_model_rejects_other_families():
-    """The families the port lacks raise; the dense family's MoE layers, QKV
-    bias and untied head, which it once refused, now build."""
-    for family in ("ssm", "hybrid", "audio", "vlm"):
+    """The families the port lacks (audio, vlm) raise; the dense family's MoE
+    layers, QKV bias and untied head, which it once refused, now build, as
+    do the hybrid and the SSM from their own configs."""
+    for family in ("audio", "vlm"):
         cfg = reduced(get_smoke_config("qwen3-1.7b"), family=family)
         with pytest.raises(UnsupportedFamilyError) as e:
             build_model(cfg, device="cpu")
@@ -177,6 +178,8 @@ def test_build_model_rejects_other_families():
     for ported in (dict(family="moe", n_experts=4, experts_per_token=2, expert_d_ff=32),
                    dict(qkv_bias=True), dict(tie_embeddings=False)):
         build_model(reduced(get_smoke_config("qwen3-1.7b"), **ported), device="cpu")
+    for arch in ("recurrentgemma-2b", "mamba2-370m"):
+        assert build_model(get_smoke_config(arch), device="cpu").cfg.family in ("hybrid", "ssm")
 
 
 def test_entry_points_need_cuda_unless_told_otherwise():
