@@ -168,6 +168,36 @@ Phases, each of which fails the run (exit code 1, no result line):
    ``scaled_dot_product_attention``, and the RG-LRU recurrence (plain
    PyTorch) per prefill chunk and per training step beside its bytes
    bound.
+15. The cross-attention families, bf16, seeded weights drawn on the card
+   after phase 14 freed its memory.  ``seamless-m4t-large-v2`` at full
+   width and depth (24 encoder and 24 decoder layers, d 1024, 16/16 heads at
+   hd 64, d_ff 8192, an untied 256,206-token head; 2.03e9 values, 4.07 GB)
+   through the ``Engine`` (8 slots, 2048 positions: 512 frames a row; chunk
+   256; 16 requests of 64-1536 prompt and 8-48 new tokens, each with its own
+   seeded ``audio_frames``) and through a ``Server`` built on the engine's
+   weights (4 prompts of 64-512 tokens, 16 new, the frames it draws), and
+   trained for 3 AdamW steps at 4 x 1024 tokens (256 frames); then
+   ``llama-3.2-vision-90b`` at full width and 10 of its 100 layers (two
+   superblocks of 4 self and 1 gated cross layer; d 8192, 64/8 heads at hd
+   128, d_ff 28672, 1601 image tokens, an untied 128,256-token head; 21.3 GB,
+   its 175 GB at full depth do not fit one card), its gates drawn N(0, 1),
+   through the same ``Engine`` traffic with its own seeded ``image_embeds``
+   a request and the same ``Server`` traffic.  Gates: completion, finite
+   logits, no straggler or shed slot; exactly 217 K2 and 48 K1 launches a
+   seamless decode step and 67 K2 and 10 K1 a VLM one (the phase's
+   docstring derives them); the Servers' launches by construction; no
+   ``aten::scaled_dot_product_attention``, ``aten::mm``, ``aten::bmm`` (nor
+   ``addmm``, ``baddbmm``, ``matmul``) in a seamless decode step or first
+   chunk; finite loss and grad norm and the training launches by
+   construction (72 K3 a step; 4 launches of K2's ``wmma`` instance, the
+   head's ``dA`` and ``dB`` of each logits chunk); the first decode logits
+   of one VLM row move when its image is redrawn and every other row's keep
+   their bits.  Prints each decode step's device time (CUDA graph replay)
+   and host wall beside its weight floor (the bytes of the weights a step
+   reads over 3.35 TB/s), the peak memory, and K1 per decode step's
+   cross-attention calls, K3 per seamless training step and the ``wmma``
+   head backward per training step beside their bounds, plain versions and
+   ``scaled_dot_product_attention`` (no mask) / ``torch.matmul``.
 
 Each phase prints its seconds in a summary line before the kernels line.
 
@@ -198,7 +228,14 @@ lanes over a 2048-slot ring, wrapped ones at ``q_offset`` past ``sk`` with
 and f32 (``recurrentgemma-2b``'s attention-block and MLP products at the
 decode, chunk, 14b prefill and training rows, their backward products, and
 the tied logits of ``recurrentgemma-2b`` (256,000 rows) and ``mamba2-370m``
-(50,280 rows, a ragged last tile), forward and backward); phase 3 also takes
+(50,280 rows, a ragged last tile), forward and backward), and at phase 15's
+shapes K1 non-causal with ``sq != sk`` and no lanes (decode and a 64-row
+chunk over 1601 image keys at 64/8 heads, hd 128; decode and a 256-row
+chunk over 512 frames at 16/16 heads, hd 64; 17 keys), K3 non-causal (1024
+queries over 256 frames, the encoder's 256 x 256, 1601 keys at hd 128, 65
+keys) and K2 at ``seamless-m4t-large-v2``'s 256,206-column head (the
+logits at 8 and 512 rows, ``stream`` and ``wgmma``, and both backward
+products of a 512-row chunk on ``wmma``), bf16 and f32; phase 3 also takes
 one f32 training step of the smoke config, and of ``olmoe-1b-7b``'s (its
 expert products' backward on the batched ``fma`` instance),
 ``recurrentgemma-2b``'s and ``mamba2-370m``'s, on the card and
@@ -212,7 +249,10 @@ gives the clean run's tokens.
 
 The line before the last is a JSON object with one entry per kernel (and
 the attention kernels' at hd 256 per ``gemma3-1b`` and per
-``recurrentgemma-2b`` step); the
+``recurrentgemma-2b`` step, K1's cross-attention per ``seamless-m4t-large-v2``
+and per ``llama-3.2-vision-90b`` decode step, K3 per
+``seamless-m4t-large-v2`` training step and K2's ``wmma`` instance over its
+head's backward); the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or
 of the ``repro`` package.
 """
@@ -233,6 +273,8 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 L2_BYTES = 50 * 2 ** 20
 ARCH = "qwen3-1.7b"
+# phase 2's default tolerances against the plain versions, (atol, rtol)
+COMPARE_TOL = {"bfloat16": (1e-2, 2 ** -7), "float32": (1e-4, 1e-4)}
 BATCH, MAX_NEW, MAX_LEN = 4, 16, 256
 # phase 8: the engine at full width
 SLOTS, ENGINE_LEN, CHUNK, ENGINE_REQUESTS = 8, 512, 64, 16
@@ -287,6 +329,22 @@ REC_TRAIN_BATCH, SSM_TRAIN_BATCH, REC_TRAIN_SEQ = 2, 4, 1024
 # linear layout's distance from the f32 model on the same weights and tokens,
 # since each layout carries its own rounding.
 RING_F32_ATOL = 1e-3
+# phase 15: the cross-attention families.  seamless-m4t-large-v2 at full
+# width and depth through the Engine (8 slots, 2048 positions: 512 frames a
+# row; chunk 256; 16 requests of 64-1536 prompt and 8-48 new tokens, each
+# with its own seeded audio_frames) and the Server (4 prompts of 64-512
+# tokens, 16 new), trained at 4 x 1024 (256 frames); llama-3.2-vision-90b at
+# full width and 10 of its 100 layers (two superblocks; 175 GB of bf16
+# weights at full depth), its gates drawn non-zero, through the same Engine
+# traffic with 1601 image tokens a request and the same Server traffic
+SEAMLESS_ARCH, VLM_ARCH = "seamless-m4t-large-v2", "llama-3.2-vision-90b"
+X_LEN, X_CHUNK, X_PROMPTS = 2048, 256, (64, 1536)
+X_SERVER_BATCH, X_SERVER_PROMPTS, X_SERVER_NEW = 4, (64, 512), 16
+X_TRAIN_BATCH, X_TRAIN_SEQ = 4, 1024
+VLM_LAYERS = 10
+# library products and attention that the port's paths must not dispatch
+LIBRARY_OPS = ("aten::scaled_dot_product_attention", "aten::mm", "aten::bmm", "aten::addmm",
+               "aten::baddbmm", "aten::matmul")
 # the registry's kernels (phase 10); no model path runs them
 REGISTRY_KERNELS = ("bp_scan", "bi_transpose", "bi_fft", "strassen_matmul")
 # card vs CPU at f32: loss, gradients (as the CPU tests hold the port to
@@ -324,6 +382,25 @@ class SmokeFailure(Exception):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def comparer(max_err, failures):
+    """``compare(kernel, label, got, want, dtype, atol=None, rtol=None)``:
+    prints one case against its tolerance (by default ``COMPARE_TOL`` of
+    its dtype: ``|got - want| <= atol + rtol |want|`` elementwise), keeps
+    the kernel's largest error in ``max_err`` and appends a failed case to
+    ``failures``."""
+    def compare(kernel, label, got, want, dtype, atol=None, rtol=None):
+        a_tol, r_tol = COMPARE_TOL[dtype] if atol is None else (atol, rtol)
+        diff = (got.float() - want.float()).abs()
+        err = diff.max().item()
+        ok = bool((diff <= a_tol + r_tol * want.float().abs()).all())
+        max_err[kernel] = max(max_err.get(kernel, 0.0), err)
+        print(f"    {kernel:19s} {label:52s} max_abs_err {err:.3e} "
+              f"(atol {a_tol:g} + rtol {r_tol:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{kernel} {label}")
+    return compare
 
 
 def bound_ms(nbytes, ops, dtype):
@@ -468,8 +545,9 @@ def device_breakdown(torch, fn, top=8):
 
 def engine_run(torch, engine, workload, label, cache_kind, counts, reset_counts, trace,
                per_step_want, smi, profile=False):
-    """Serve ``workload`` through ``engine`` (phases 11 and 12) with the
-    ``cache_kind`` cache: every request complete with finite logits, no
+    """Serve ``workload`` (``(prompt, max_new)`` or ``(prompt, max_new,
+    extras)`` a request) through ``engine`` (phases 11, 12, 14 and 15) with
+    the ``cache_kind`` cache: every request complete with finite logits, no
     straggler flagged and no slot shed, and each decode step launching
     ``per_step_want``; prints the walls and one decode step's device time
     (and with ``profile`` its device operations by kind).  Returns the run's
@@ -479,7 +557,8 @@ def engine_run(torch, engine, workload, label, cache_kind, counts, reset_counts,
 
     trace.update(decode=[], prefill=[], pos=[],
                  finite=torch.ones((), dtype=torch.bool, device=engine.device))
-    reqs = [Request(i, p, max_new=m) for i, (p, m) in enumerate(workload)]
+    reqs = [Request(i, w[0], max_new=w[1], extras=w[2] if len(w) > 2 else None)
+            for i, w in enumerate(workload)]
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     with policy.apply(**(INT8 if cache_kind == "int8" else {})):
@@ -488,7 +567,8 @@ def engine_run(torch, engine, workload, label, cache_kind, counts, reset_counts,
     steps, chunks = out["decode_steps"], out["prefill_chunks"]
     per_step = trace["decode"]
     wall_ms = 1e3 * out["decode_s"] / max(steps, 1)
-    kv = engine.cache["kv"] if isinstance(engine.cache, dict) else engine.cache
+    kv = (next(engine.cache[k] for k in ("kv", "self") if k in engine.cache)
+          if isinstance(engine.cache, dict) else engine.cache)
     kind = f"{type(kv).__name__} {kv.k.dtype}" if hasattr(kv, "k") else type(kv).__name__
     print(f"    {label}, {cache_kind} cache ({kind}): completed "
           f"{len(out['completed'])}/{len(reqs)}; logits finite {bool(trace['finite'])}; "
@@ -720,6 +800,98 @@ def sdpa_backend(torch, sdpa_args):
         return f"not determined ({type(e).__name__})"
 
 
+def time_attention_decode(torch, dev, g, b, sk, heads, calls, causal=False, window=0,
+                          lanes=None):
+    """K1 over one decode step's ``calls`` attentions of ``b`` rows of one
+    query over ``sk`` keys (bf16, a k/v set a layer and past the L2),
+    against its plain version and ``scaled_dot_product_attention``.
+    ``lanes``: the rows' ``(q_offset, kv_len)`` lists, which the library
+    call gets as a boolean mask; without them every key is visible (no
+    mask).  Returns the step's ms, plain_ms, library_ms, bound_ms, bound_by,
+    bytes (each row's visible k/v, q, out and lse, the lanes), ops (two
+    products over each visible key), the kernel's path and SDPA's backend."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref, fwd_path
+
+    h, kvh, hd = heads
+    bf, es = torch.bfloat16, 2
+    qo_t = kl_t = mask = None
+    seen = b * sk  # keys visible to the step's rows
+    if lanes is not None:
+        qo_t, kl_t = (torch.tensor(x, dtype=torch.int32, device=dev) for x in lanes)
+        kpos = torch.arange(sk, device=dev)
+        ok = (kpos[None, :] < kl_t[:, None]) & (kpos[None, :] <= qo_t[:, None])
+        if window:
+            ok &= kpos[None, :] > qo_t[:, None] - window
+        mask = ok[:, None, None, :]
+        seen = sum(min(n, window) if window else n for n in lanes[1])
+    sets = [(torch.randn(b, 1, h, hd, device=dev, generator=g).to(bf),
+             *(torch.randn(b, sk, kvh, hd, device=dev, generator=g).to(bf) for _ in "kv"))
+            for _ in range(max(calls, copies_past_l2(2 * b * sk * kvh * hd * es)))]
+    kw = dict(causal=causal, window=window, q_offset=qo_t, kv_len=kl_t)
+    t_k = calls * time_ms(torch, lambda q, k, v: flash_attention(q, k, v, **kw), sets)
+    t_p = calls * time_ms(torch, lambda q, k, v: flash_attention_ref(q, k, v, **kw), sets)
+    t_l = calls * time_ms(torch, lambda q, k, v: sdpa(q, k, v, mask, False), sets)
+    nbytes = calls * (2 * kvh * hd * es * seen + 2 * b * h * hd * es + b * h * 4
+                      + (0 if lanes is None else 2 * b * 4))
+    ops = calls * 4 * hd * h * seen
+    b_ms, b_by = bound_ms(nbytes, ops, "bfloat16")
+    return dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms, bound_by=b_by,
+                bytes=nbytes, ops=ops, path=fwd_path(sets[0][0]),
+                backend=sdpa_backend(torch, (*sets[0], mask, False)))
+
+
+def time_attention_bwd(torch, dev, g, b, sq, sk, heads, causal, window=0, mask=None):
+    """K3 at one call's shape (bf16, input sets past the L2), against its
+    plain version and autograd's backward of one
+    ``scaled_dot_product_attention`` call (``mask``: its boolean mask;
+    without one its ``is_causal`` is ``causal``), timed alone.  Returns one
+    call's ms, plain_ms, library_ms, bound_ms, bound_by, bytes (read q, k,
+    v, out, lse and dO; write dq, dk and dv), ops (the five products S, dP,
+    dq, dk and dv over each visible (query, key) pair), the kernel's path
+    and SDPA's backend."""
+    from repro_torch.kernels.flash_attention import (bwd_path, flash_attention,
+                                                     flash_attention_bwd,
+                                                     flash_attention_bwd_ref)
+
+    h, kvh, hd = heads
+    bf, es = torch.bfloat16, 2
+    q_bytes, kv_bytes = b * sq * h * hd * es, b * sk * kvh * hd * es
+    lib_causal = causal and mask is None
+    sets, lib_sets = [], []
+    lib_stream = torch.cuda.Stream()
+    lib_stream.wait_stream(torch.cuda.current_stream())
+    for _ in range(copies_past_l2(4 * q_bytes + 4 * kv_bytes)):
+        q, go = (torch.randn(b, sq, h, hd, device=dev, generator=g).to(bf) for _ in "qg")
+        k, v = (torch.randn(b, sk, kvh, hd, device=dev, generator=g).to(bf) for _ in "kv")
+        o, lse = flash_attention(q, k, v, causal=causal, window=window)
+        sets.append((q, k, v, o, lse, go))
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        with torch.cuda.stream(lib_stream):
+            lib_out = sdpa(*leaves, mask, lib_causal)
+        lib_sets.append((lib_out, leaves, go.transpose(1, 2)))
+    kw = dict(causal=causal, window=window)
+    t_k = time_ms(torch, lambda *a: flash_attention_bwd(*a, **kw), sets)
+    t_p = time_ms(torch, lambda *a: flash_attention_bwd_ref(*a, **kw), sets)
+    torch.cuda.current_stream().wait_stream(lib_stream)
+    t_l = time_ms(torch, lambda o, leaves, go: torch.autograd.grad(o, leaves, go,
+                                                                  retain_graph=True),
+                  lib_sets, stream=lib_stream)
+    w = window or sq
+    pairs = b * h * (sum(min(i + 1, w) for i in range(sq)) if causal else sq * sk)
+    nbytes = 4 * q_bytes + 4 * kv_bytes + b * h * sq * 4
+    b_ms, b_by = bound_ms(nbytes, 10 * hd * pairs, "bfloat16")
+    return dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms, bound_by=b_by,
+                bytes=nbytes, ops=10 * hd * pairs, path=bwd_path(q),
+                backend=sdpa_backend(torch, (q, k, v, mask, lib_causal)))
+
+
+def add_calls(tot, part, calls):
+    """``tot`` += ``calls`` x ``part`` in the summed keys of a timing."""
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "ops"):
+        tot[key] = tot.get(key, 0) + calls * part[key]
+    return tot
+
+
 def train_and_time(torch, dev, smi, cfg, batch, seq, per_step, label, counts, reset_counts):
     """3 AdamW steps of ``cfg`` at ``batch`` x ``seq`` tokens through
     ``launch.train.train`` from a seeded init (phases 12 and 14): loss and
@@ -783,11 +955,8 @@ def phase_12(torch, np, dev, g, smi, prompts, counts, reset_counts, trace, count
     versions and ``scaled_dot_product_attention``, and both steps on the
     device.  Returns the hd-256 entries' sums for the kernels line."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import (bwd_path, flash_attention,
-                                                     flash_attention_bwd,
-                                                     flash_attention_bwd_ref,
-                                                     flash_attention_ref, fwd_path, kv_splits,
-                                                     mma_kv_tile)
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_ref,
+                                                     fwd_path, kv_splits, mma_kv_tile)
     from repro_torch.launch.engine import Engine
     from repro_torch.launch.serve import Request, Server
     from repro_torch.models.dense import layer_windows
@@ -933,46 +1102,19 @@ def phase_12(torch, np, dev, g, smi, prompts, counts, reset_counts, trace, count
 
     # K3 per training step: the windowed and the global layers' calls
     B, S = GEMMA_TRAIN_BATCH, GEMMA_TRAIN_SEQ
-    q_bytes, kv_bytes = B * S * h * hd * es, B * S * kvh * hd * es
     pos = torch.arange(S, device=dev)
-    bwd = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes=0, ops=0,
-               launches=train_launches["flash_attention_bwd"])
+    bwd = dict(launches=train_launches["flash_attention_bwd"])
     for w in sorted(set(windows)):
         calls = windows.count(w)
         band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - w) if w else None
-        sets, lib_sets = [], []
-        lib_stream = torch.cuda.Stream()
-        lib_stream.wait_stream(torch.cuda.current_stream())
-        for _ in range(copies_past_l2(8 * q_bytes)):
-            q, go = (torch.randn(B, S, h, hd, device=dev, generator=g).to(bf) for _ in "qg")
-            k, v = (torch.randn(B, S, kvh, hd, device=dev, generator=g).to(bf) for _ in "kv")
-            out, lse = flash_attention(q, k, v, causal=True, window=w)
-            sets.append((q, k, v, out, lse, go))
-            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-            with torch.cuda.stream(lib_stream):
-                lib_out = sdpa(*leaves, band, not w)
-            lib_sets.append((lib_out, leaves, go.transpose(1, 2)))
-        t_k = time_ms(torch, lambda *a, w=w: flash_attention_bwd(*a, causal=True, window=w), sets)
-        t_p = time_ms(torch, lambda *a, w=w: flash_attention_bwd_ref(*a, causal=True, window=w),
-                      sets)
-        torch.cuda.current_stream().wait_stream(lib_stream)
-        t_l = time_ms(torch, lambda o, leaves, go: torch.autograd.grad(o, leaves, go,
-                                                                      retain_graph=True),
-                      lib_sets, stream=lib_stream)
-        pairs = B * h * sum(min(i + 1, w) if w else i + 1 for i in range(S))
-        nbytes = 3 * q_bytes + 2 * kv_bytes + B * h * S * 4 + q_bytes + 2 * kv_bytes
-        ops = 10 * hd * pairs
-        b_ms, b_by = bound_ms(nbytes, ops, "bfloat16")
-        backend = sdpa_backend(torch, (sets[0][0], sets[0][1], sets[0][2], band, not w))
-        for key, val in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l),
-                         ("bound_ms", b_ms), ("bytes", nbytes), ("ops", ops)):
-            bwd[key] += calls * val
-        print(f"    flash_attention_bwd_hd256 ({bwd_path(sets[0][0])}) {B}x{S}x{h}x{hd}, "
-              f"{'window ' + str(w) if w else 'global'}: {t_k:.4f} ms a call (bound {b_ms:.4f} by "
-              f"{b_by}, {100 * b_ms / t_k:.1f}% of it); plain {t_p:.4f}; autograd backward of "
-              f"scaled_dot_product_attention {t_l:.4f} (backend {backend}"
+        t = time_attention_bwd(torch, dev, g, B, S, S, (h, kvh, hd), True, window=w, mask=band)
+        add_calls(bwd, t, calls)
+        print(f"    flash_attention_bwd_hd256 ({t['path']}) {B}x{S}x{h}x{hd}, "
+              f"{'window ' + str(w) if w else 'global'}: {t['ms']:.4f} ms a call (bound "
+              f"{t['bound_ms']:.4f} by {t['bound_by']}, {100 * t['bound_ms'] / t['ms']:.1f}% of "
+              f"it); plain {t['plain_ms']:.4f}; autograd backward of "
+              f"scaled_dot_product_attention {t['library_ms']:.4f} (backend {t['backend']}"
               f"{' with the boolean band mask' if w else ', is_causal'}); {calls} calls a step")
-        del sets, lib_sets
     print(f"    K3 per training step ({L} calls): {bwd['ms']:.4f} ms (bound {bwd['bound_ms']:.4f}, "
           f"plain {bwd['plain_ms']:.4f}, library {bwd['library_ms']:.4f}); "
           f"{100 * bwd['ms'] / train_ms:.1f}% of the {train_ms:.4f} ms device step ({smi})")
@@ -1026,7 +1168,8 @@ def launch_counters():
     ``counts()`` splits K2's in two, ``hbp_matmul`` its 2-D products and
     ``hbp_matmul_batched`` its batched ones (one launch for all the experts
     of a product), of which ``hbp_matmul_batched_bwd`` counts those of
-    batched backwards."""
+    batched backwards; ``hbp_matmul_wmma`` counts those of K2's ``wmma``
+    instance among all of them."""
     from repro_torch.kernels.bi_fft import bi_fft
     from repro_torch.kernels.bi_transpose import bi_transpose
     from repro_torch.kernels.bp_scan import bp_scan
@@ -1045,6 +1188,7 @@ def launch_counters():
         for k in kernels.values():
             k.launches = 0
         hbp_matmul.batched_launches = 0
+        hbp_matmul.wmma_launches = 0
         matmul.batched_backward_launches = 0
 
     def counts():
@@ -1052,6 +1196,7 @@ def launch_counters():
         c["hbp_matmul_batched"] = hbp_matmul.batched_launches
         c["hbp_matmul"] -= c["hbp_matmul_batched"]
         c["hbp_matmul_batched_bwd"] = matmul.batched_backward_launches
+        c["hbp_matmul_wmma"] = hbp_matmul.wmma_launches
         return c
 
     return kernels, reset_counts, counts
@@ -1326,10 +1471,6 @@ def phase_14(torch, np, dev, g, smi, counts, reset_counts, trace, counted, finit
     import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import (bwd_path, flash_attention,
-                                                     flash_attention_bwd,
-                                                     flash_attention_bwd_ref,
-                                                     flash_attention_ref, fwd_path)
     from repro_torch.launch.engine import Engine
     from repro_torch.launch.serve import Request, Server
     from repro_torch.models import RunOptions
@@ -1462,37 +1603,17 @@ def phase_14(torch, np, dev, g, smi, counts, reset_counts, trace, counted, finit
 
     # K1 per decode step: the 8 attention layers' own caches (4096 positions,
     # window 2048) at the engine run's halfway lanes
-    kpos = torch.arange(REC_LEN, device=dev)
     kl = [min(p + 1, REC_LEN) for p in mid]
-    qo_t, kl_t = lane(mid), lane(kl)
-    ok = (kpos[None, :] < kl_t[:, None]) & (kpos[None, :] <= qo_t[:, None]) & (
-        kpos[None, :] > qo_t[:, None] - W)
-    sets, lib_sets = [], []
-    for _ in range(n_attn):
-        qd = torch.randn(SLOTS, 1, h, hd, device=dev, generator=g).to(bf)
-        k, v = (torch.randn(SLOTS, REC_LEN, kvh, hd, device=dev, generator=g).to(bf)
-                for _ in "kv")
-        sets.append((qd, k, v, qo_t, kl_t))
-        lib_sets.append((qd, k, v, ok[:, None, None, :], False))
-    seen = sum(min(n, W) for n in kl)
-    nbytes = n_attn * (2 * kvh * hd * es * seen + 2 * SLOTS * h * hd * es + SLOTS * h * 4
-                       + 2 * SLOTS * 4)
-    ops = n_attn * 4 * hd * h * seen
-    t_k = n_attn * time_ms(torch, lambda q, k, v, qo, kl: flash_attention(
-        q, k, v, causal=True, window=W, q_offset=qo, kv_len=kl), sets)
-    t_p = n_attn * time_ms(torch, lambda q, k, v, qo, kl: flash_attention_ref(
-        q, k, v, causal=True, window=W, q_offset=qo, kv_len=kl), sets)
-    t_l = n_attn * time_ms(torch, sdpa, lib_sets)
-    b_ms, b_by = bound_ms(nbytes, ops, "bfloat16")
-    print(f"    flash_attention ({fwd_path(sets[0][0])}) per decode step, {n_attn} calls of "
+    t = time_attention_decode(torch, dev, g, SLOTS, REC_LEN, (h, kvh, hd), n_attn, causal=True,
+                              window=W, lanes=(mid, kl))
+    print(f"    flash_attention ({t['path']}) per decode step, {n_attn} calls of "
           f"{SLOTS}x1x{h}x{hd} over {REC_LEN} slots, window {W}, lanes kv_len {kl}: "
-          f"{t_k:.4f} ms (bound {b_ms:.4f} by {b_by}, {100 * b_ms / t_k:.1f}% of it; "
-          f"{nbytes / 1e6:.3f} MB); plain {t_p:.4f}; scaled_dot_product_attention {t_l:.4f} "
-          f"(backend {sdpa_backend(torch, lib_sets[0])} with the boolean mask); "
-          f"{100 * t_k / rec_dev_ms:.1f}% of the device step ({smi})")
-    out["k1"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms, bytes=nbytes,
-                     ops=ops, launches=launches["flash_attention"])
-    del sets, lib_sets
+          f"{t['ms']:.4f} ms (bound {t['bound_ms']:.4f} by {t['bound_by']}, "
+          f"{100 * t['bound_ms'] / t['ms']:.1f}% of it; {t['bytes'] / 1e6:.3f} MB); plain "
+          f"{t['plain_ms']:.4f}; scaled_dot_product_attention {t['library_ms']:.4f} (backend "
+          f"{t['backend']} with the boolean mask); {100 * t['ms'] / rec_dev_ms:.1f}% of the "
+          f"device step ({smi})")
+    out["k1"] = dict(t, launches=launches["flash_attention"])
 
     # the RG-LRU recurrence per prefill chunk: a, b and h0 of the chunk's
     # 8 x 256 rows, 18 rec blocks
@@ -1530,39 +1651,15 @@ def phase_14(torch, np, dev, g, smi, counts, reset_counts, trace, counted, finit
     # K3 per training step: the 8 attention layers at 2 x 1024, window 2048
     # (past the sequence: causal), against SDPA's causal backward
     B, S = REC_TRAIN_BATCH, REC_TRAIN_SEQ
-    q_bytes, kv_bytes = B * S * h * hd * es, B * S * kvh * hd * es
-    sets, lib_sets = [], []
-    lib_stream = torch.cuda.Stream()
-    lib_stream.wait_stream(torch.cuda.current_stream())
-    for _ in range(copies_past_l2(8 * q_bytes)):
-        q, go = (torch.randn(B, S, h, hd, device=dev, generator=g).to(bf) for _ in "qg")
-        k, v = (torch.randn(B, S, kvh, hd, device=dev, generator=g).to(bf) for _ in "kv")
-        o, lse = flash_attention(q, k, v, causal=True, window=W)
-        sets.append((q, k, v, o, lse, go))
-        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-        with torch.cuda.stream(lib_stream):
-            lib_out = sdpa(*leaves, None, True)
-        lib_sets.append((lib_out, leaves, go.transpose(1, 2)))
-    t_k = n_attn * time_ms(torch, lambda *a: flash_attention_bwd(*a, causal=True, window=W),
-                           sets)
-    t_p = n_attn * time_ms(torch, lambda *a: flash_attention_bwd_ref(*a, causal=True, window=W),
-                           sets)
-    torch.cuda.current_stream().wait_stream(lib_stream)
-    t_l = n_attn * time_ms(torch, lambda o, leaves, go: torch.autograd.grad(
-        o, leaves, go, retain_graph=True), lib_sets, stream=lib_stream)
-    pairs = B * h * sum(min(i + 1, W) for i in range(S))
-    nbytes = n_attn * (3 * q_bytes + 2 * kv_bytes + B * h * S * 4 + q_bytes + 2 * kv_bytes)
-    ops = n_attn * 10 * hd * pairs
-    b_ms, b_by = bound_ms(nbytes, ops, "bfloat16")
-    print(f"    flash_attention_bwd ({bwd_path(sets[0][0])}) per training step, {n_attn} calls "
-          f"of {B}x{S}x{h}x{hd}, window {W}: {t_k:.4f} ms (bound {b_ms:.4f} by {b_by}, "
-          f"{100 * b_ms / t_k:.1f}% of it); plain {t_p:.4f}; autograd backward of "
-          f"scaled_dot_product_attention {t_l:.4f} (backend "
-          f"{sdpa_backend(torch, (sets[0][0], sets[0][1], sets[0][2], None, True))}, "
-          f"is_causal); {100 * t_k / train_ms:.1f}% of the {train_ms:.4f} ms device step ({smi})")
-    out["k3"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms, bytes=nbytes,
-                     ops=ops, launches=train_launches["flash_attention_bwd"])
-    del sets, lib_sets
+    t = time_attention_bwd(torch, dev, g, B, S, S, (h, kvh, hd), True, window=W)
+    print(f"    flash_attention_bwd ({t['path']}) per training step, {n_attn} calls "
+          f"of {B}x{S}x{h}x{hd}, window {W}: {n_attn * t['ms']:.4f} ms (bound "
+          f"{n_attn * t['bound_ms']:.4f} by {t['bound_by']}, "
+          f"{100 * t['bound_ms'] / t['ms']:.1f}% of it); plain {n_attn * t['plain_ms']:.4f}; "
+          f"autograd backward of scaled_dot_product_attention {n_attn * t['library_ms']:.4f} "
+          f"(backend {t['backend']}, is_causal); {100 * n_attn * t['ms'] / train_ms:.1f}% of "
+          f"the {train_ms:.4f} ms device step ({smi})")
+    out["k3"] = add_calls(dict(launches=train_launches["flash_attention_bwd"]), t, n_attn)
     # the RG-LRU recurrence per training step: each rec block's scan runs
     # forward twice (remat) and backward once
     t_fwd = time_ms(torch, rglru_scan, scan_sets(B, S))
@@ -1619,6 +1716,433 @@ def phase_14(torch, np, dev, g, smi, counts, reset_counts, trace, counted, finit
           f"{rec_wall_ms:.3f} ms wall, training step {train_ms:.4f} ms device; {SSM_ARCH} "
           f"decode step {ssm_dev_ms:.4f} / {ssm_wall_ms:.3f}, training step "
           f"{ssm_train_ms:.4f} ms device")
+    return out
+
+
+def aten_ops(torch, fn):
+    """The names of the operators one call of ``fn`` dispatched, from a
+    ``torch.profiler`` trace of the host side."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()}
+
+
+def spec_rows(cfg, key, seq_len):
+    """Rows of one request's modality input ``key`` at ``seq_len``
+    positions, from the model's own ``batch_extras_specs`` (built on the
+    meta device: no memory)."""
+    from repro_torch.models import build_model
+
+    return build_model(cfg, device="meta").batch_extras_specs(1, seq_len)[key].shape[1]
+
+
+def cross_kernel_checks(torch, dev, g, compare, failures):
+    """Phase 2's cases for phase 15, at the shapes phase 15 runs, bf16 and
+    f32.  K1 non-causal with no lanes: ``llama-3.2-vision-90b``'s 64/8
+    heads at hd 128 over its 1601 image tokens (decode, a 64-row chunk, the
+    engine's 8 x 256 first chunk, the Server's prefill of 4 x 512);
+    ``seamless-m4t-large-v2``'s 16/16 heads at hd 64 over 512 encoder
+    frames (decode, the engine's 8 x 256 chunk, the encoder's 8 x 512 x
+    512 self-attention) and 17 keys, below one tile.  K3 non-causal (the
+    encoder-decoder's training: 1024 queries over 256 frames and the
+    encoder's 256 x 256; 1601 keys at hd 128; 65 keys, one into a tile).
+    K2 at the 256,206-column head: the logits through the transposed
+    ``lm_head`` view at 8, 512 and 2048 rows (``stream``, ``wgmma``), and
+    the backward products ``dA = g W`` and ``dB = hᵀ g`` of a 512-row chunk
+    and of the training step's 4 x 512-row chunk, whose gradient's row
+    pitch TMA cannot describe (``wmma``).  The gradient is drawn N(0,
+    1/64): the products' entries are ~1.3 (``dA``, sums of 256,206 terms)
+    and ~3-6 (``dB``), so each tolerance's atol is under 1% of a typical
+    entry."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (bwd_path, flash_attention,
+                                                     flash_attention_bwd,
+                                                     flash_attention_bwd_ref,
+                                                     flash_attention_ref, fwd_path)
+    from repro_torch.kernels.hbp_matmul import hbp_matmul, matmul_ref
+    from repro_torch.kernels.hbp_matmul import path as mm_path
+
+    scfg, vcfg = get_config(SEAMLESS_ARCH), get_config(VLM_ARCH)
+    s_heads = (scfg.n_heads, scfg.n_kv_heads, scfg.head_dim_)
+    v_heads = (vcfg.n_heads, vcfg.n_kv_heads, vcfg.head_dim_)
+    enc, n_img = spec_rows(scfg, "audio_frames", X_LEN), spec_rows(vcfg, "image_embeds", X_LEN)
+    enc_train = spec_rows(scfg, "audio_frames", X_TRAIN_SEQ)
+    ce_rows = X_TRAIN_BATCH * min(512, X_TRAIN_SEQ)  # a training logits chunk (ce_chunk 512)
+    prefill = X_SERVER_PROMPTS[1]
+    print(f"[2] cross-attention and the ragged head ({VLM_ARCH}: {n_img} image keys, heads "
+          f"{v_heads}; {SEAMLESS_ARCH}: {enc} frames, heads {s_heads}, vocab "
+          f"{scfg.vocab_size})")
+    vlm, sml = "flash_attention_cross_vlm", "flash_attention_cross_seamless"
+    fwd = [  # (entry, label, b, sq, sk, (h, kvh, hd))
+        (vlm, f"decode {SLOTS}x1 vs {n_img}", SLOTS, 1, n_img, v_heads),
+        (vlm, f"chunk {SLOTS}x64 vs {n_img}", SLOTS, 64, n_img, v_heads),
+        (vlm, f"first chunk {SLOTS}x{X_CHUNK} vs {n_img}", SLOTS, X_CHUNK, n_img, v_heads),
+        (vlm, f"prefill {X_SERVER_BATCH}x{prefill} vs {n_img}", X_SERVER_BATCH, prefill, n_img,
+         v_heads),
+        (sml, f"decode {SLOTS}x1 vs {enc}", SLOTS, 1, enc, s_heads),
+        (sml, f"chunk {SLOTS}x{X_CHUNK} vs {enc}", SLOTS, X_CHUNK, enc, s_heads),
+        (sml, f"encoder {SLOTS}x{enc} vs {enc}", SLOTS, enc, enc, s_heads),
+        (sml, "chunk 2x33 vs 17", 2, 33, 17, s_heads),
+    ]
+    bwd = [  # (label, b, sq, sk, (h, kvh, hd))
+        (f"cross {X_TRAIN_BATCH}x{X_TRAIN_SEQ} vs {enc_train} (training)", X_TRAIN_BATCH,
+         X_TRAIN_SEQ, enc_train, s_heads),
+        (f"encoder {X_TRAIN_BATCH}x{enc_train} (training)", X_TRAIN_BATCH, enc_train, enc_train,
+         s_heads),
+        (f"cross 1x64 vs {n_img}", 1, 64, n_img, v_heads),
+        ("cross 2x100 vs 65", 2, 100, 65, s_heads),
+    ]
+    V, d = scfg.vocab_size, scfg.d_model
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        f32 = dtype == "float32"
+        for entry, label, b, sq, sk, (h, kvh, hd) in fwd:
+            q = torch.randn(b, sq, h, hd, device=dev, generator=g).to(dt)
+            k, v = (torch.randn(b, sk, kvh, hd, device=dev, generator=g).to(dt) for _ in "kv")
+            out, lse = flash_attention(q, k, v, causal=False)
+            r_out, r_lse = flash_attention_ref(q, k, v, causal=False)
+            tag = f"{dtype} {fwd_path(q)} non-causal {label}, hd {hd}"
+            compare(entry, f"{tag} out", out, r_out, dtype, *((1e-5, 0.0) if f32 else (None, None)))
+            compare(entry, f"{tag} lse", lse, r_lse, dtype, 1e-4, 1e-5)
+            del q, k, v, out, lse, r_out, r_lse
+        for label, b, sq, sk, (h, kvh, hd) in bwd:
+            q, go = (torch.randn(b, sq, h, hd, device=dev, generator=g).to(dt) for _ in "qg")
+            k, v = (torch.randn(b, sk, kvh, hd, device=dev, generator=g).to(dt) for _ in "kv")
+            out, lse = flash_attention(q, k, v, causal=False)
+            got = flash_attention_bwd(q, k, v, out, lse, go, causal=False)
+            want = flash_attention_bwd_ref(q, k, v, out, lse, go, causal=False)
+            for name, x, w in zip(("dq", "dk", "dv"), got, want):
+                compare("flash_attention_bwd_cross",
+                        f"{dtype} {bwd_path(q)} non-causal {label}, hd {hd} {name}", x, w, dtype)
+            del q, go, k, v, out, lse, got, want
+        head = (0.02 * torch.randn(V, d, device=dev, generator=g)).to(dt)
+        for rows in (SLOTS, 512, ce_rows):
+            x = torch.randn(rows, d, device=dev, generator=g).to(dt)
+            compare("hbp_matmul", f"{dtype} logits ({rows}x{d} @ ({V}x{d})^T view) "
+                    f"{mm_path(x, head.T)}", hbp_matmul(x, head.T), matmul_ref(x, head.T), dtype)
+            if rows == SLOTS:
+                continue
+            gr = (torch.randn(rows, V, device=dev, generator=g) / 8).to(dt)
+            for label, a, b_ in (("dA = g W", gr, head), ("dB = hᵀ g", x.T, gr)):
+                inst = mm_path(a, b_)
+                if inst != ("fma" if f32 else "wmma"):
+                    failures.append(f"hbp_matmul {dtype} {label}: instance {inst}")
+                compare("hbp_matmul_wmma", f"{dtype} head {label} ({tuple(a.shape)} @ "
+                        f"{tuple(b_.shape)}) {inst}", hbp_matmul(a, b_), matmul_ref(a, b_), dtype)
+            del gr
+        del head, x
+    torch.cuda.empty_cache()
+
+
+def phase_15(torch, np, dev, g, smi, counts, reset_counts, trace, counted, finite_logits,
+             registry_kernels):
+    """The cross-attention families (phase 15), bf16, seeded weights drawn
+    on the card after phase 14 freed its memory: ``seamless-m4t-large-v2``
+    at full width and depth through the Engine (15a) and the Server (15b),
+    trained (15c); ``llama-3.2-vision-90b`` at full width and 10 of its 100
+    layers, its gates drawn non-zero, through the Engine (15d) and the
+    Server (15e).
+
+    Launches a decode step, by construction.  ``seamless-m4t-large-v2``:
+    each of the 24 decoder layers projects q, k, v and o of its
+    self-attention, q and o of its cross-attention (the cross k/v are the
+    request's frozen cache) and three MLP products, and the head one
+    product: 9 x 24 + 1 = 217 K2; it attends its self cache and the frames'
+    k/v: 2 x 24 = 48 K1.  ``llama-3.2-vision-90b`` at 10 layers (2
+    superblocks of 4 self layers and 1 cross layer): a self layer 7 K2 (q,
+    k, v, o, three MLP), a cross layer 5 (q, o, three MLP; the image k/v
+    are cached), the head 1: 7 x 8 + 5 x 2 + 1 = 67 K2, and 8 + 2 = 10 K1.
+    A training step of ``seamless-m4t-large-v2`` (remat: each forward twice,
+    then both backward products): 4 K2 for each of the 24 x 7 encoder and
+    24 x 11 decoder products (the cross k/v of the encoder output are
+    projected in each layer) and for each of the 2 logits chunks (the
+    cross-entropy's 512 positions); 2 of those 4 for a chunk, ``dA`` and
+    ``dB`` of the 256,206-column head, run K2's ``wmma`` instance; K1 twice
+    and K3 once for each of 24 encoder, 24 decoder self and 24 cross
+    attentions.  Returns the kernels line's entries."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels.hbp_matmul import hbp_matmul, matmul_ref
+    from repro_torch.kernels.hbp_matmul import path as mm_path
+    from repro_torch.launch.engine import Engine
+    from repro_torch.launch.serve import Request, Server
+
+    bf, es = torch.bfloat16, 2
+    zero = {k: 0 for k in registry_kernels}
+    no_attn = {"flash_attention": 0, "flash_attention_int8": 0, "flash_attention_bwd": 0}
+    out = {}
+    rng = np.random.default_rng(0)
+    shape = [(int(rng.integers(X_PROMPTS[0], X_PROMPTS[1] + 1)), int(rng.integers(8, 49)))
+             for _ in range(ENGINE_REQUESTS)]
+
+    def workload(cfg, key, rows):
+        """The engine's requests, each with its own seeded modality rows."""
+        r = np.random.default_rng(1)
+        return [(r.integers(3, cfg.vocab_size, n).astype(np.int32), m,
+                 {key: r.standard_normal((rows, cfg.d_model), dtype=np.float32)})
+                for n, m in shape]
+
+    def server_prompts(vocab):
+        r = np.random.default_rng(2)
+        return [r.integers(3, vocab, int(n)).astype(np.int32)
+                for n in r.integers(X_SERVER_PROMPTS[0], X_SERVER_PROMPTS[1] + 1,
+                                    X_SERVER_BATCH)]
+
+    def floor(model, skip):
+        """The bytes of the weights a decode step reads (no encoder, no
+        embedding table past its rows, no cached k/v projection) and of all
+        of them."""
+        params = dict(model.named_parameters())
+        total = sum(p.numel() * p.element_size() for p in params.values())
+        read = sum(p.numel() * p.element_size() for n, p in params.items()
+                   if not (n.startswith(skip)
+                           or re.search(r"cross_(attn|layers\.\d+)\.w[kv]$", n)))
+        return read, total
+
+    def server_run(cfg, params, k2_first, k1_first, k2_step, k1_step):
+        """``Server.run_batch`` on the engine's weights: completion, finite
+        logits, the launches of a prefill (``k2_first``/``k1_first``) and of
+        each decode step."""
+        server = Server(cfg, device="cuda", params=params, max_batch=X_SERVER_BATCH,
+                        max_len=X_LEN)
+        prompts = server_prompts(cfg.vocab_size)
+        reqs = [Request(i, p, max_new=X_SERVER_NEW) for i, p in enumerate(prompts)]
+        reset_counts()
+        res = server.run_batch(reqs)
+        got = counts()
+        steps = res["decode_steps"]
+        print(f"    lockstep Server: {X_SERVER_BATCH} prompts of {[len(p) for p in prompts]} "
+              f"tokens with the extras it draws, {X_SERVER_NEW} new: completed "
+              f"{res['completed']}; logits finite {res['logits_finite']}; decode "
+              f"{1e3 * res['decode_s'] / max(steps, 1):.3f} ms/step over {steps} steps (host "
+              f"wall); prefill {1e3 * res['prefill_s']:.3f} ms; launches {got}")
+        check(all(len(q.out) == X_SERVER_NEW for q in reqs) and res["logits_finite"],
+              f"{cfg.name} lockstep: {res['completed']}, finite {res['logits_finite']}")
+        check(got["hbp_matmul"] == k2_first + k2_step * steps
+              and got["flash_attention"] == k1_first + k1_step * steps
+              and got["hbp_matmul_batched"] == 0 and got["flash_attention_int8"] == 0,
+              f"{cfg.name} lockstep launches {got} over a prefill and {steps} steps")
+        del server
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def k1_cross(label, b, sk, heads, calls, launches, dev_ms):
+        """K1 over one decode step's ``calls`` cross-attentions (``b`` rows of
+        one query over ``sk`` keys, non-causal, no lanes)."""
+        h, _, hd = heads
+        t = time_attention_decode(torch, dev, g, b, sk, heads, calls)
+        print(f"    flash_attention ({t['path']}) cross-attention per decode step, {calls} calls "
+              f"of {b}x1x{h}x{hd} over {sk} keys (non-causal, no lanes): {t['ms']:.4f} ms "
+              f"(bound {t['bound_ms']:.4f} by {t['bound_by']}, "
+              f"{100 * t['bound_ms'] / t['ms']:.1f}% of it; {t['bytes'] / 1e6:.3f} MB); plain "
+              f"{t['plain_ms']:.4f}; scaled_dot_product_attention {t['library_ms']:.4f} "
+              f"(backend {t['backend']}, no mask); {100 * t['ms'] / dev_ms:.1f}% of the device "
+              f"step ({label}; {smi})")
+        return dict(t, launches=launches)
+
+    # -- 15a: seamless-m4t-large-v2 through the Engine ------------------------------
+    cfg = get_config(SEAMLESS_ARCH)
+    L, E, d, V = cfg.n_layers, cfg.encoder_layers, cfg.d_model, cfg.vocab_size
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_)
+    k2_step, k1_step = 9 * L + 1, 2 * L
+    print(f"[15] {SEAMLESS_ARCH} at full width and depth, bf16 ({E} encoder and {L} decoder "
+          f"layers, d={d}, heads {heads[0]}/{heads[1]} at hd {heads[2]}, d_ff={cfg.d_ff}, "
+          f"untied vocab {V}; param_count {cfg.param_count() / 1e9:.4f}e9) ({smi})")
+    print(f"    memory held before the build: {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = Engine(cfg, device="cuda", max_batch=SLOTS, max_len=X_LEN, chunk=X_CHUNK)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in engine.model.parameters())
+    read, total = floor(engine.model, ("encoder.", "enc_norm", "embed"))
+    s_floor = 1e3 * read / HBM_BYTES_PER_S
+    enc = engine.model.enc_len(X_LEN)
+    print(f"    weights built on the card from a CUDA generator in "
+          f"{time.perf_counter() - t0:.2f} s: {n_params / 1e9:.4f}e9 values, {total / 1e9:.2f} "
+          f"GB; a decode step reads {read / 1e9:.3f} GB of them (the decoder without its "
+          f"cached cross k/v projections, and the head): weight floor {s_floor:.4f} ms")
+    trace_engine(engine, counted, finite_logits)
+    work = workload(cfg, "audio_frames", enc)
+    print(f"    {ENGINE_REQUESTS} requests, {SLOTS} slots, {X_LEN} positions ({enc} frames a "
+          f"row), chunk {X_CHUNK}; prompts {[len(p) for p, *_ in work]}, max_new "
+          f"{[m for _, m, _ in work]}, each with its own seeded audio_frames")
+    want = {"hbp_matmul": k2_step, "hbp_matmul_batched": 0, **no_attn,
+            "flash_attention": k1_step, **zero}
+    launches, s_dev_ms, s_wall_ms = engine_run(
+        torch, engine, work, SEAMLESS_ARCH, "bf16", counts, reset_counts, trace, want, smi,
+        profile=True)
+    mid_pos = trace["pos"][len(trace["pos"]) // 2]
+    tok = torch.zeros((SLOTS, 1), dtype=torch.int32, device=dev)
+    frames = torch.randn(SLOTS, enc, d, device=dev, generator=g)
+    chunk_lens = torch.full((SLOTS,), X_CHUNK, dtype=torch.int32, device=dev)
+    seen = (aten_ops(torch, lambda: engine.model.decode_step(tok, mid_pos, engine.cache))
+            | aten_ops(torch, lambda: engine.model.prefill_chunk(
+                tok.expand(SLOTS, X_CHUNK).contiguous(), torch.zeros_like(chunk_lens),
+                engine.cache, first=True, lens=chunk_lens, extras={"audio_frames": frames})))
+    bad = sorted(seen & set(LIBRARY_OPS))
+    print(f"    library products or attention in a decode step and a first chunk (encoder "
+          f"included): {bad or 'none'} (of {list(LIBRARY_OPS)})")
+    check(not bad, f"{SEAMLESS_ARCH}: the path dispatched {bad}")
+    print(f"    {k2_step} K2 and {k1_step} K1 launches a decode step; device {s_dev_ms:.4f} ms a "
+          f"step against its weight floor {s_floor:.4f} ms; host wall {s_wall_ms:.3f} ms")
+    out["k1_seamless"] = k1_cross(SEAMLESS_ARCH, SLOTS, enc, heads, L,
+                                  launches["flash_attention"], s_dev_ms)
+    params = engine.model.state_dict()
+    del engine, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 15b: the lockstep Server on the engine's weights ----------------------------
+    server_run(cfg, params, 7 * E + 2 * L + k2_step, E + k1_step, k2_step, k1_step)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 15c: seamless-m4t-large-v2 trained ----------------------------------------------
+    n_chunks = X_TRAIN_SEQ // min(512, X_TRAIN_SEQ)  # RunOptions.ce_chunk 512
+    n_attn = E + 2 * L
+    per_step = {"hbp_matmul": 4 * (7 * E + 11 * L) + 4 * n_chunks,
+                "hbp_matmul_wmma": 2 * n_chunks, "hbp_matmul_batched": 0, **no_attn,
+                "flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn, **zero}
+    train_launches, s_train_ms = train_and_time(torch, dev, smi, cfg, X_TRAIN_BATCH,
+                                                X_TRAIN_SEQ, per_step, SEAMLESS_ARCH, counts,
+                                                reset_counts)
+    # K3 per training step: the encoder's self-attention (256 frames), the
+    # decoder's causal self-attention and its cross-attention over the frames
+    B, S = X_TRAIN_BATCH, X_TRAIN_SEQ
+    F_ = spec_rows(cfg, "audio_frames", S)
+    tot = dict(launches=train_launches["flash_attention_bwd"])
+    parts = []
+    for label, sq, sk, causal, calls in (("encoder", F_, F_, False, E),
+                                         ("decoder self", S, S, True, L),
+                                         ("cross", S, F_, False, L)):
+        t = time_attention_bwd(torch, dev, g, B, sq, sk, heads, causal)
+        add_calls(tot, t, calls)
+        parts.append(f"{label} {calls} x {B}x{sq} over {sk} "
+                     f"({'causal' if causal else 'non-causal'}) {calls * t['ms']:.4f} / plain "
+                     f"{calls * t['plain_ms']:.4f} / library {calls * t['library_ms']:.4f} "
+                     f"(bound {calls * t['bound_ms']:.4f} by {t['bound_by']})")
+    print(f"    flash_attention_bwd ({t['path']}) per training step, {n_attn} calls: "
+          f"{tot['ms']:.4f} ms (bound {tot['bound_ms']:.4f}, "
+          f"{100 * tot['bound_ms'] / tot['ms']:.1f}% of it); plain {tot['plain_ms']:.4f}; "
+          f"autograd backward of scaled_dot_product_attention {tot['library_ms']:.4f}; "
+          f"{'; '.join(parts)} ms; {100 * tot['ms'] / s_train_ms:.1f}% of the "
+          f"{s_train_ms:.4f} ms device step ({smi})")
+    out["k3"] = tot
+    # K2's wmma instance per training step: dA = g W and dB = hᵀ g of each
+    # logits chunk (B x 512 rows), the gradient's row pitch 512,412 bytes
+    rows = B * min(512, S)
+    head = (0.02 * torch.randn(V, d, device=dev, generator=g)).to(bf)
+    g_bytes = rows * V * es
+    mm_sets = [((torch.randn(rows, V, device=dev, generator=g) / rows).to(bf),
+                torch.randn(rows, d, device=dev, generator=g).to(bf))
+               for _ in range(copies_past_l2(g_bytes))]
+    da = [(gr, head) for gr, _ in mm_sets]
+    db = [(x.T, gr) for gr, x in mm_sets]
+    insts = {mm_path(*da[0]), mm_path(*db[0])}
+    check(insts == {"wmma"}, f"{SEAMLESS_ARCH} head backward ran {insts}, not wmma")
+    t_k = n_chunks * (time_ms(torch, hbp_matmul, da) + time_ms(torch, hbp_matmul, db))
+    t_p = n_chunks * (time_ms(torch, matmul_ref, da) + time_ms(torch, matmul_ref, db))
+    t_l = n_chunks * (time_ms(torch, torch.matmul, da) + time_ms(torch, torch.matmul, db))
+    nbytes = n_chunks * ((g_bytes + V * d * es + rows * d * es)
+                         + (rows * d * es + g_bytes + d * V * es))
+    ops = n_chunks * 2 * (2 * rows * d * V)
+    b_ms, b_by = bound_ms(nbytes, ops, "bfloat16")
+    print(f"    hbp_matmul (wmma) per training step, the head's dA = g W ({rows}x{V} @ {V}x{d}) "
+          f"and dB = hᵀ g ({d}x{rows} @ {rows}x{V}) of {n_chunks} chunks: {t_k:.4f} ms (bound "
+          f"{b_ms:.4f} by {b_by}, {100 * b_ms / t_k:.1f}% of it); plain {t_p:.4f}; torch.matmul "
+          f"{t_l:.4f}; {100 * t_k / s_train_ms:.1f}% of the device step ({smi})")
+    out["wmma"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms, bytes=nbytes,
+                       ops=ops, launches=train_launches["hbp_matmul_wmma"])
+    del head, mm_sets, da, db
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 15d: llama-3.2-vision-90b at 10 layers through the Engine --------------------
+    full = get_config(VLM_ARCH)
+    cfg = reduced(full, n_layers=VLM_LAYERS)
+    n_sb, n_self = cfg.n_layers // cfg.cross_attn_every, cfg.cross_attn_every - 1
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_)
+    n_img = cfg.n_image_tokens
+    k2_step, k1_step = 7 * n_sb * n_self + 5 * n_sb + 1, n_sb * (n_self + 1)
+    print(f"[15] {VLM_ARCH} at full width, {cfg.n_layers} of its {full.n_layers} layers "
+          f"({n_sb} superblocks of {n_self} self and 1 gated cross layer), bf16 "
+          f"(d={cfg.d_model}, heads {heads[0]}/{heads[1]} at hd {heads[2]}, d_ff={cfg.d_ff}, "
+          f"{n_img} image tokens, untied vocab {cfg.vocab_size}) ({smi})")
+    print(f"    memory held before the build: {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = Engine(cfg, device="cuda", max_batch=SLOTS, max_len=X_LEN, chunk=X_CHUNK)
+    model = engine.model
+    with torch.no_grad():  # the gates start at zero: the image would change nothing
+        for layer in model.cross_layers:
+            layer.xgate_attn.normal_(generator=g)
+            layer.xgate_ffn.normal_(generator=g)
+    torch.cuda.synchronize()
+    gates = [(round(c.xgate_attn.item(), 4), round(c.xgate_ffn.item(), 4))
+             for c in model.cross_layers]
+    n_params = sum(p.numel() for p in model.parameters())
+    per_sb = sum(p.numel() for p in (*model.self_layers[0].parameters(),
+                                     *model.cross_layers[0].parameters()))
+    full_values = n_params + (full.n_layers // full.cross_attn_every - n_sb) * per_sb
+    read, total = floor(model, ("embed",))
+    v_floor = 1e3 * read / HBM_BYTES_PER_S
+    print(f"    weights built on the card from a CUDA generator in "
+          f"{time.perf_counter() - t0:.2f} s: {n_params / 1e9:.4f}e9 values, {total / 1e9:.2f} "
+          f"GB ({1e3 * total / HBM_BYTES_PER_S:.4f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; "
+          f"{full_values / 1e9:.4f}e9 values, {2 * full_values / 1e9:.1f} GB, at full depth, "
+          f"more than one card holds); a "
+          f"decode step reads {read / 1e9:.3f} GB of them (no embedding table, no cached "
+          f"image k/v projection): weight floor {v_floor:.4f} ms; gates (attn, ffn) drawn "
+          f"N(0, 1): {gates}")
+    check(all(a != 0 and f != 0 for a, f in gates), f"{VLM_ARCH}: a gate is zero: {gates}")
+    trace_engine(engine, counted, finite_logits)
+    work = workload(cfg, "image_embeds", n_img)
+    want = {"hbp_matmul": k2_step, "hbp_matmul_batched": 0, **no_attn,
+            "flash_attention": k1_step, **zero}
+    launches, v_dev_ms, v_wall_ms = engine_run(
+        torch, engine, work, VLM_ARCH, "bf16", counts, reset_counts, trace, want, smi,
+        profile=True)
+    print(f"    {k2_step} K2 and {k1_step} K1 launches a decode step; device {v_dev_ms:.4f} ms a "
+          f"step against its weight floor {v_floor:.4f} ms; host wall {v_wall_ms:.3f} ms")
+    # one request's image redrawn: its first decode logits move, no other
+    # row's do (each row's products and attention read its own rows only)
+    r = 3
+    toks = torch.randint(3, cfg.vocab_size, (SLOTS, 32), device=dev, generator=g,
+                         dtype=torch.int32)
+    img = torch.randn(SLOTS, n_img, cfg.d_model, device=dev, generator=g).to(bf)
+    moved = img.clone()
+    moved[r] = torch.randn(n_img, cfg.d_model, device=dev, generator=g).to(bf)
+    first = []
+    for im in (img, moved):
+        logits, cache = model.prefill({"tokens": toks, "image_embeds": im}, 64)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        dec, _ = model.decode_step(nxt, torch.tensor(32, dtype=torch.int32, device=dev), cache)
+        first.append(dec)
+        del logits, cache
+    moved_by = (first[1] - first[0]).abs().amax(dim=-1).tolist()
+    same = [i for i in range(SLOTS) if i != r and moved_by[i] == 0]
+    print(f"    row {r}'s image redrawn: first decode logits moved by (max abs, per row) "
+          f"{[round(x, 4) for x in moved_by]}: row {r} moved, {len(same)} of {SLOTS - 1} other "
+          "rows the same bits")
+    check(moved_by[r] > 1e-3 and len(same) == SLOTS - 1,
+          f"{VLM_ARCH}: redrawing row {r}'s image moved the rows by {moved_by}")
+    out["k1_vlm"] = k1_cross(VLM_ARCH, SLOTS, n_img, heads, n_sb, launches["flash_attention"],
+                             v_dev_ms)
+    params = model.state_dict()
+    del engine, model, img, moved, first, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 15e: the lockstep Server on the engine's weights ----------------------------
+    server_run(cfg, params, 2 * n_sb + k2_step, k1_step, k2_step, k1_step)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[15] summary ({smi}): {SEAMLESS_ARCH} decode step {s_dev_ms:.4f} ms device (weight "
+          f"floor {s_floor:.4f}) / {s_wall_ms:.3f} ms wall, training step {s_train_ms:.4f} ms "
+          f"device; {VLM_ARCH} ({VLM_LAYERS} layers) decode step {v_dev_ms:.4f} ms device "
+          f"(weight floor {v_floor:.4f}) / {v_wall_ms:.3f} ms wall")
     return out
 
 
@@ -1693,6 +2217,12 @@ def main():
     HD256 = ("flash_attention_hd256", "flash_attention_int8_hd256", "flash_attention_bwd_hd256")
     # phase 14's entries: K1 and K3 at hd 256 with 10 query heads over 1 KV head
     REC_HD256 = ("flash_attention_hd256_recurrentgemma", "flash_attention_bwd_hd256_recurrentgemma")
+    # phase 15's entries: K1 over the cross-attention of a seamless-m4t-large-v2
+    # and of a llama-3.2-vision-90b decode step, K3 over a seamless training
+    # step (non-causal encoder and cross-attention), K2's wmma instance over
+    # its head's backward
+    CROSS = ("flash_attention_cross_seamless", "flash_attention_cross_vlm",
+             "flash_attention_bwd_cross", "hbp_matmul_wmma")
     registry_kernels = REGISTRY_KERNELS
 
     t_start = time.perf_counter()
@@ -1758,22 +2288,11 @@ def main():
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     weights = {"wq": (d, cfg.q_dim), "wk": (d, cfg.kv_dim), "wv": (d, cfg.kv_dim),
                "wo": (cfg.q_dim, d), "w_gate": (d, ff), "w_up": (d, ff), "w_down": (ff, d)}
-    tol = {"bfloat16": (1e-2, 2 ** -7), "float32": (1e-4, 1e-4)}  # (atol, rtol)
     g = torch.Generator(device=dev).manual_seed(0)
     max_err = {name: 0.0 for name in (*kernels, "hbp_matmul_batched", "hbp_matmul_batched_bwd",
-                                      *HD256, *REC_HD256)}
+                                      *HD256, *REC_HD256, *CROSS)}
     failures = []
-
-    def compare(kernel, label, got, want, dtype, atol=None, rtol=None):
-        a_tol, r_tol = tol[dtype] if atol is None else (atol, rtol)
-        diff = (got.float() - want.float()).abs()
-        err = diff.max().item()
-        ok = bool((diff <= a_tol + r_tol * want.float().abs()).all())
-        max_err[kernel] = max(max_err[kernel], err)
-        print(f"    {kernel:19s} {label:52s} max_abs_err {err:.3e} "
-              f"(atol {a_tol:g} + rtol {r_tol:g}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            failures.append(f"{kernel} {label}")
+    compare = comparer(max_err, failures)
 
     # phase 4's prompts, drawn here so that phase 2 checks its exact shapes too
     rng = np.random.default_rng(0)
@@ -2278,6 +2797,7 @@ def main():
             compare("flash_attention_bwd_hd256_recurrentgemma", f"{tag} {bwd_path(q)} {name}",
                     x, w, dtype)
         del q, go, k, v, out, lse, got, want
+    cross_kernel_checks(torch, dev, g, compare, failures)
     torch.cuda.synchronize()
     check(not failures, f"kernels disagree with their plain versions: {failures}")
 
@@ -2517,7 +3037,7 @@ def main():
 
     # launches per prefill and per decode step (also the warm-up)
     reset_counts()
-    logits, kvc = server.model.prefill(toks, MAX_LEN)
+    logits, kvc = server.model.prefill({"tokens": toks}, MAX_LEN)
     per_prefill = counts()
     reset_counts()
     server.model.decode_step(logits.argmax(-1).to(torch.int32)[:, None],
@@ -2647,7 +3167,7 @@ def main():
 
     # one whole decode step on the device: every kernel and elementwise op,
     # captured in a CUDA graph and replayed back to back (no host gaps)
-    logits, kvc = server.model.prefill(toks, MAX_LEN)
+    logits, kvc = server.model.prefill({"tokens": toks}, MAX_LEN)
     tok = logits.argmax(-1).to(torch.int32)[:, None]
     pos = torch.tensor(mid_pos, dtype=torch.int32, device=dev)
     step_ms = time_ms(torch, lambda: server.model.decode_step(tok, pos, kvc), [()])
@@ -2715,38 +3235,11 @@ def main():
 
     # K3 at the training shape; the library is autograd's backward of one
     # scaled_dot_product_attention call, timed alone
-    sets, lib_sets = [], []
-    lib_stream = torch.cuda.Stream()
-    lib_stream.wait_stream(torch.cuda.current_stream())
-    for _ in range(copies_past_l2(8 * TRAIN_BATCH * TRAIN_SEQ * h * hd * es)):
-        q, go = (torch.randn(TRAIN_BATCH, TRAIN_SEQ, h, hd, device=dev, generator=g).to(bf)
-                 for _ in "qg")
-        k, v = (torch.randn(TRAIN_BATCH, TRAIN_SEQ, kvh, hd, device=dev, generator=g).to(bf)
-                for _ in "kv")
-        out, lse = flash_attention(q, k, v, causal=True)
-        sets.append((q, k, v, out, lse, go))
-        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-        with torch.cuda.stream(lib_stream):
-            lib_out = sdpa(*leaves, None, True)
-        lib_sets.append((lib_out, leaves, go.transpose(1, 2)))
-    t_k = time_ms(torch, lambda *a: flash_attention_bwd(*a, causal=True), sets)
-    t_p = time_ms(torch, lambda *a: flash_attention_bwd_ref(*a, causal=True), sets)
-    torch.cuda.current_stream().wait_stream(lib_stream)
-    t_l = time_ms(torch, lambda o, leaves, go: torch.autograd.grad(o, leaves, go,
-                                                                  retain_graph=True),
-                  lib_sets, stream=lib_stream)
-    pairs = TRAIN_BATCH * h * TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
-    q_bytes = TRAIN_BATCH * TRAIN_SEQ * h * hd * es
-    kv_bytes = TRAIN_BATCH * TRAIN_SEQ * kvh * hd * es
-    # read q, k, v, out, lse, dO; write dq, dk, dv.  Work: the five products
-    # S, dP, dq, dk, dv over each visible (query, key) pair
-    nbytes = 3 * q_bytes + 2 * kv_bytes + TRAIN_BATCH * h * TRAIN_SEQ * 4 + q_bytes + 2 * kv_bytes
-    b_ms, b_by = bound_ms(nbytes, 10 * hd * pairs, "bfloat16")
+    t = time_attention_bwd(torch, dev, g, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, (h, kvh, hd), True)
     rows.append(dict(kernel="flash_attention_bwd", label=f"causal 4x{TRAIN_SEQ}x{h}x{hd}",
-                     calls=L, ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
-                     bytes=nbytes, ops=10 * hd * pairs, bound_by=b_by, path="train",
-                     instance=bwd_path(sets[0][0])))
-    del sets, lib_sets
+                     calls=L, path="train", instance=t["path"],
+                     **{k: t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes",
+                                          "ops", "bound_by")}))
     print_rows(("train",))
     for name in ("hbp_matmul", "flash_attention", "flash_attention_bwd"):
         rs = [r for r in rows if r["kernel"] == name and r["path"] == "train"]
@@ -3248,6 +3741,13 @@ def main():
     torch.cuda.empty_cache()
     rec = phase_14(torch, np, dev, g, smi, counts, reset_counts, trace, counted, finite_logits,
                    registry_kernels)
+
+    # -- 15. the cross-attention families -------------------------------------------------
+    mark(15)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cross = phase_15(torch, np, dev, g, smi, counts, reset_counts, trace, counted, finite_logits,
+                     registry_kernels)
     mark(None)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
           + f"; {time.perf_counter() - t_start:.1f} in all")
@@ -3359,6 +3859,27 @@ def main():
                      >= moe_bwd["ops"] / PEAK_OPS["bfloat16"] else "operations"),
         "library_ms": moe_bwd["library_ms"],
     })
+    # phase 15: K1 over one seamless-m4t-large-v2 decode step's 24 and one
+    # llama-3.2-vision-90b (10-layer) decode step's 2 cross-attention calls
+    # (their launches from the engine runs), K3 over one seamless training
+    # step's 72 calls and K2's wmma instance over its head's 4 backward
+    # products (their launches from the training run)
+    for name, key, kernel, src in (
+            ("flash_attention_cross_seamless", "k1_seamless", "flash_attention",
+             "flash_attention"),
+            ("flash_attention_cross_vlm", "k1_vlm", "flash_attention", "flash_attention"),
+            ("flash_attention_bwd_cross", "k3", "flash_attention_bwd", "flash_attention_bwd"),
+            ("hbp_matmul_wmma", "wmma", "hbp_matmul", "hbp_matmul")):
+        t = cross[key]
+        entries.append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}.cu",
+            "replaces": replaces[kernel], "launches": t["launches"],
+            "max_abs_err": max_err[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": ("bytes" if t["bytes"] / HBM_BYTES_PER_S
+                         >= t["ops"] / PEAK_OPS["bfloat16"] else "operations"),
+            "library_ms": t["library_ms"],
+        })
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -4,12 +4,16 @@ of ``repro/checkpoint/checkpoint.py``, read and write side.
 ``repro`` keeps a model's parameters as a pytree whose per-layer leaves
 are stacked along a leading layer axis (``layers/wq`` is ``(L, d,
 q_dim)``; the hybrid stacks its groups, ``groups/rec1/w_x``,
-``groups/rec2/...``, ``groups/attn/...`` and ``tail_rec/...``).  The port
-holds one module per layer (``layers.<i>.wq``, ``groups.rec1.<i>.w_x``,
-``tail_rec.<i>.w_x``).  :func:`params_from_numpy` converts the pytree, as
-numpy arrays, into the port's state dict by unstacking each stacked
-group's leading axis; :func:`load_repro_checkpoint` does the same from a
-checkpoint directory of a parameter pytree.
+``groups/rec2/...``, ``groups/attn/...`` and ``tail_rec/...``; the
+encoder-decoder its ``encoder`` and ``decoder``, whose leaves are nested
+dicts, ``decoder/self_attn/wq``; the VLM its ``cross_layers`` and, twice,
+its ``self_layers``, ``(n_super, n_self, ...)``).  The port holds one
+module per layer (``layers.<i>.wq``, ``groups.rec1.<i>.w_x``,
+``decoder.<i>.self_attn.wq``, ``self_layers.<s>.<j>.wq``).
+:func:`params_from_numpy` converts the pytree, as numpy arrays, into the
+port's state dict by unstacking each stacked group's leading axes;
+:func:`load_repro_checkpoint` does the same from a checkpoint directory of
+a parameter pytree.
 
 The format (``repro.checkpoint.save_checkpoint``): ``<dir>/step_<N>/``
 holds one ``.npy`` per leaf, ``leaf_<i>.npy`` in the order of the tree's
@@ -24,9 +28,10 @@ The write side takes a state in the port's form, nested dicts whose leaves
 are tensors (or numpy arrays) and whose innermost keys may be the port's
 parameter names: the trainer's ``{"params": {name: tensor}, "opt_state":
 {"step", "master", "m", "v"}}``.  Every ``<group>.<i>.<x>`` of one dict
-(``layers``, ``groups.rec1``, ``tail_rec``, ...) is stacked into the leaf
-``.../<group>/<x>`` of shape ``(n, ...)``, and any other ``.`` in a name
-becomes a ``/``, so the files carry the JAX tree's
+(``layers``, ``groups.rec1``, ``tail_rec``, ``decoder``, ...) is stacked
+into the leaf ``.../<group>/<x>`` of shape ``(n, ...)`` (every
+``self_layers.<s>.<j>.<x>`` into ``(n_super, n_self, ...)``), and any
+other ``.`` in a name becomes a ``/``, so the files carry the JAX tree's
 names and shapes: ``repro.checkpoint.load_checkpoint`` reads them into the
 JAX ``{"params", "opt_state"}`` tree, and :func:`load_checkpoint` reads
 what JAX's ``save_checkpoint`` wrote for that tree.  One device has no mesh:
@@ -35,6 +40,7 @@ what JAX's ``save_checkpoint`` wrote for that tree.  One device has no mesh:
 from __future__ import annotations
 
 import hashlib
+import itertools
 import json
 import os
 import shutil
@@ -73,25 +79,37 @@ def _logical_dtype(x) -> str:
     return str(np.asarray(x).dtype)
 
 
-# the JAX trees' layer-stacked groups: the dense and SSM models' ``layers``,
-# the hybrid's superblock groups and its tail (``repro/models/hybrid.py``)
-STACKED = ("layers", "groups/rec1", "groups/rec2", "groups/attn", "tail_rec")
+# the JAX trees' layer-stacked groups and the number of stacked axes of
+# each: the dense and SSM models' ``layers``, the hybrid's superblock groups
+# and its tail (``repro/models/hybrid.py``), the encoder-decoder's stacks
+# (``encdec.py``) and the VLM's superblocks (``vlm.py``), whose self layers
+# are stacked twice, (n_super, n_self, ...)
+STACKED = {"layers": 1, "groups/rec1": 1, "groups/rec2": 1, "groups/attn": 1,
+           "tail_rec": 1, "encoder": 1, "decoder": 1, "self_layers": 2,
+           "cross_layers": 1}
+
+
+def _stacked_group(name: str) -> Optional[str]:
+    """The stacked group a ``/``-joined pytree name lies under, or None."""
+    return next((g for g in STACKED if name.startswith(g + "/")), None)
 
 
 def _unstack(flat: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     """``/``-joined pytree names -> the port's state dict: a stacked
     group's ``<group>/<x>`` of shape (n, ...) becomes ``<group>.<i>.<x>``
-    (with ``.`` for ``/``) for each i."""
+    for each i, (n1, n2, ...) under a group stacked twice
+    ``<group>.<i>.<j>.<x>``, with ``.`` for ``/`` (``<x>`` may itself be a
+    path: ``decoder/self_attn/wq`` -> ``decoder.<i>.self_attn.wq``)."""
     out = {}
     for name, t in flat.items():
-        group, _, leaf = name.rpartition("/")
-        if group in STACKED:
-            for i in range(t.shape[0]):
-                out[f"{group.replace('/', '.')}.{i}.{leaf}"] = t[i].clone()
-        elif any(name.startswith(g + "/") for g in STACKED):
-            raise ValueError(f"unexpected layer leaf {name!r}")
-        else:
+        group = _stacked_group(name)
+        if group is None:
             out[name.replace("/", ".")] = t
+            continue
+        leaf = name[len(group) + 1:].replace("/", ".")
+        lead = t.shape[:STACKED[group]]
+        for idx in itertools.product(*map(range, lead)):
+            out[".".join([group.replace("/", "."), *map(str, idx), leaf])] = t[idx].clone()
     return out
 
 
@@ -106,35 +124,44 @@ def _flatten(tree, prefix: str = "") -> dict:
     return {prefix[:-1]: tree}
 
 
-def _repro_name(path: str) -> tuple[str, Optional[int]]:
+def _repro_name(path: str) -> tuple[str, Optional[tuple]]:
     """A flattened path of the port's state -> (the JAX tree's leaf name,
-    the layer index or None): ``opt_state/m/layers.3.wq`` ->
-    (``opt_state/m/layers/wq``, 3), ``params/groups.rec1.2.w_x`` ->
-    (``params/groups/rec1/w_x``, 2), ``params/final_norm`` -> itself."""
+    the layer index tuple or None): ``opt_state/m/layers.3.wq`` ->
+    (``opt_state/m/layers/wq``, (3,)), ``params/groups.rec1.2.w_x`` ->
+    (``params/groups/rec1/w_x``, (2,)), ``params/self_layers.1.2.wq`` ->
+    (``params/self_layers/wq``, (1, 2)), ``params/decoder.0.mlp.w_up`` ->
+    (``params/decoder/mlp/w_up``, (0,)), ``params/final_norm`` -> itself."""
     head, _, last = path.rpartition("/")
     parts = last.split(".")
     layer = None
-    if (len(parts) >= 3 and parts[-2].isdigit()
-            and "/".join(parts[:-2]) in STACKED):
-        layer = int(parts[-2])
-        parts = parts[:-2] + parts[-1:]
+    for k in range(1, len(parts)):
+        depth = STACKED.get("/".join(parts[:k]))
+        idx = parts[k:k + depth] if depth else []
+        if depth and len(parts) > k + depth and all(p.isdigit() for p in idx):
+            layer = tuple(map(int, idx))
+            parts = parts[:k] + parts[k + depth:]
+            break
     return "/".join(([head] if head else []) + parts), layer
 
 
 def _repro_leaves(state) -> dict[str, list]:
     """The JAX tree's leaf names, in its flattening order, each with its
-    sources: ``[(layer, leaf), ...]`` for a stacked leaf, ``[(None, leaf)]``
-    for any other."""
+    sources: ``[(layer, leaf), ...]`` for a stacked leaf (``layer`` an index
+    tuple, the sources in index order), ``[(None, leaf)]`` for any other."""
     groups: dict[str, list] = {}
     for path, leaf in _flatten(state).items():
         name, layer = _repro_name(path)
         groups.setdefault(name, []).append((layer, leaf))
     for name, srcs in groups.items():
-        layers = sorted(i for i, _ in srcs if i is not None)
-        if len(srcs) > 1 and layers != list(range(len(srcs))):
-            raise ValueError(f"{name}: layers {layers} are not 0..{len(srcs) - 1}")
-    return {name: sorted(groups[name], key=lambda s: s[0] or 0)
-            for name in sorted(groups, key=lambda n: n.split("/"))}
+        if srcs[0][0] is None:
+            if len(srcs) > 1:
+                raise ValueError(f"{name}: {len(srcs)} leaves of one name")
+            continue
+        srcs.sort(key=lambda s: s[0])
+        grid = [i + 1 for i in srcs[-1][0]]
+        if [i for i, _ in srcs] != list(itertools.product(*map(range, grid))):
+            raise ValueError(f"{name}: layers {[i for i, _ in srcs]} do not fill {tuple(grid)}")
+    return {name: groups[name] for name in sorted(groups, key=lambda n: n.split("/"))}
 
 
 def _host_tree(state) -> dict[str, tuple[np.ndarray, str]]:
@@ -148,10 +175,11 @@ def _host_tree(state) -> dict[str, tuple[np.ndarray, str]]:
             out[name] = (_to_numpy(first), _logical_dtype(first))
             continue
         one = _to_numpy(first)
-        arr = np.empty((len(srcs), *one.shape), dtype=one.dtype)
-        arr[0] = one
-        for i, (_, leaf) in enumerate(srcs[1:], 1):
-            arr[i] = _to_numpy(leaf)
+        grid = tuple(i + 1 for i in srcs[-1][0])
+        arr = np.empty(grid + one.shape, dtype=one.dtype)
+        arr[srcs[0][0]] = one
+        for idx, leaf in srcs[1:]:
+            arr[idx] = _to_numpy(leaf)
         out[name] = (arr, _logical_dtype(first))
     return out
 

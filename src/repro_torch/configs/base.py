@@ -4,11 +4,12 @@
 same names and defaults, so that a configuration means the same on both
 sides (a test holds the two field lists equal).  ``activation_dtype`` is a
 ``torch.dtype``.  ``param_count`` and ``active_param_count`` are the JAX
-package's analytic counts.  Only the architectures the port serves are
+package's analytic counts.  Every architecture of the JAX package is
 registered: the dense family (``qwen3-1.7b``, ``qwen3-32b``,
 ``qwen2.5-14b``, ``gemma3-1b``) and its MoE configs (``olmoe-1b-7b``,
-``qwen3-moe-30b-a3b``), the hybrid ``recurrentgemma-2b`` and the SSM
-``mamba2-370m``; ``list_archs`` names them.
+``qwen3-moe-30b-a3b``), the hybrid ``recurrentgemma-2b``, the SSM
+``mamba2-370m``, the encoder-decoder ``seamless-m4t-large-v2`` and the VLM
+``llama-3.2-vision-90b``; ``list_archs`` names them.
 """
 from __future__ import annotations
 
@@ -234,6 +235,7 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
 def _ensure_loaded() -> None:
     from repro_torch.configs import (  # noqa: F401  (each registers itself)
         gemma3_1b,
+        llama_3_2_vision_90b,
         mamba2_370m,
         olmoe_1b_7b,
         qwen2_5_14b,
@@ -241,4 +243,5 @@ def _ensure_loaded() -> None:
         qwen3_32b,
         qwen3_moe_30b_a3b,
         recurrentgemma_2b,
+        seamless_m4t_large_v2,
     )

@@ -47,8 +47,10 @@ reads the next slab's rows.
 
 A tensor on the CPU takes :func:`matmul_ref`, the plain version; a CUDA
 tensor launches the kernel or raises.  ``hbp_matmul.launches`` counts the
-kernel launches, each once, and ``hbp_matmul.batched_launches`` those of
-batched calls among them.
+kernel launches, each once, ``hbp_matmul.batched_launches`` those of
+batched calls among them and ``hbp_matmul.wmma_launches`` those of the
+``wmma`` instance (the untied 256,206-column head's backward products,
+whose gradient's row pitch TMA cannot describe).
 """
 from __future__ import annotations
 
@@ -269,8 +271,11 @@ def hbp_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.Ten
     hbp_matmul.launches += 1
     if batched:
         hbp_matmul.batched_launches += 1
+    if instance == "wmma":
+        hbp_matmul.wmma_launches += 1
     return out
 
 
 hbp_matmul.launches = 0
 hbp_matmul.batched_launches = 0
+hbp_matmul.wmma_launches = 0

@@ -67,6 +67,19 @@ old one drains.  This engine removes both stalls:
 Row snapshots (``models.cache.snapshot_row``/``restore_row``) are host
 copies taken every ``snapshot_every`` generated tokens.
 
+**Modality staging** (the encoder-decoder's ``audio_frames``, the VLM's
+``image_embeds``; JAX ``engine.py:274-280, :504-506, :536-539``): one host
+buffer per ``batch_extras_specs`` entry, ``(max_batch, ...)`` in the
+spec's dtype.  Admission writes a request's ``extras`` into its slot's row
+(a request without extras leaves the row as it was, as in JAX); every
+first-chunk launch ships the whole buffers, and the model writes the
+cross-attention cache of its live rows only.  A request evicted, poisoned
+or drained and replayed from its prompt is admitted again, so its first
+chunk reads its own row again; one resumed from a snapshot restores its
+cross-attention cache with the row.  Extras whose key or row shape does
+not match a spec raise ``ValueError`` naming the key when the request is
+queued (``begin``, ``adopt``).
+
 Numerics contract: with greedy decoding the engine's per-request tokens are
 IDENTICAL to running each request alone through the lockstep path
 (:func:`check_lockstep_parity`); with an int8 cache this needs ``chunk`` >=
@@ -88,6 +101,10 @@ port is exact either way.
         --chunk 32 --check-lockstep
     python -m repro_torch.launch.engine --arch mamba2-370m --reduced --device cpu \
         --chunk 8 --prompt-align 8 --check-lockstep
+    python -m repro_torch.launch.engine --arch seamless-m4t-large-v2 --reduced --device cpu \\
+        --chunk 5 --check-lockstep
+    python -m repro_torch.launch.engine --arch llama-3.2-vision-90b --reduced --device cpu \\
+        --chunk 5 --check-lockstep
     python -m repro_torch.launch.engine --reduced --device cpu
     python -m repro_torch.launch.engine --reduced --device cpu \\
         --impl 'attention=pallas:kv_dtype=int8' --chunk 24 --check-lockstep
@@ -230,8 +247,11 @@ class Engine(Server):
             impl = getattr(type(self.model), name, None)
             if impl is None or impl is getattr(Model, name, None):
                 raise UnsupportedFamilyError(cfg.family, name)
-        if self.model.batch_extras_specs(max_batch, max_len):
-            raise UnsupportedFamilyError(cfg.family, "modality-frontend inputs")
+        # host staging for modality-frontend inputs: one full-batch buffer
+        # per spec, rows written at admission, shipped with first chunks
+        self._extras_specs = self.model.batch_extras_specs(max_batch, max_len)
+        self._extras_host = {k: torch.zeros(sp.shape, dtype=sp.dtype)
+                             for k, sp in self._extras_specs.items()} or None
         self.chunk = int(chunk)
         self.eos_id = eos_id
         self.cache_budget = cache_budget
@@ -266,13 +286,31 @@ class Engine(Server):
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         return nxt, ok, cache
 
-    def _chunk_step(self, tokens, offset, lens, cache, *, first):
-        logits, cache = self.model.prefill_chunk(tokens, offset, cache,
-                                                 first=first, lens=lens)
+    def _chunk_step(self, tokens, offset, lens, cache, extras, *, first):
+        logits, cache = self.model.prefill_chunk(tokens, offset, cache, first=first,
+                                                 lens=lens, extras=extras)
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
+
+    # -- modality staging ----------------------------------------------------
+    def _check_extras(self, req: Request):
+        """Raise ``ValueError`` naming the key when ``req.extras`` holds a
+        key no spec names or a row whose shape is not the spec's row."""
+        for key, val in (req.extras or {}).items():
+            spec = self._extras_specs.get(key)
+            if spec is None:
+                raise ValueError(f"request {req.uid}: extras key {key!r} is not one of "
+                                 f"the model's inputs {sorted(self._extras_specs)}")
+            if tuple(np.shape(val)) != tuple(spec.shape[1:]):
+                raise ValueError(f"request {req.uid}: extras[{key!r}] has shape "
+                                 f"{tuple(np.shape(val))}; a row is {tuple(spec.shape[1:])}")
+
+    def _stage_extras(self, i: int, req: Request):
+        """Write ``req``'s modality inputs into slot ``i``'s staged rows."""
+        for key, val in (req.extras or {}).items():
+            self._extras_host[key][i].copy_(torch.as_tensor(val))
 
     # -- scheduling ----------------------------------------------------------
     @staticmethod
@@ -426,6 +464,8 @@ class Engine(Server):
             # slabs are NOT zeroed: write-before-attend makes stale tokens
             # unreachable
             self.cache = dcache.reset_row(self.cache, slot_id)
+            if self._extras_host is not None:
+                self._stage_extras(slot_id, req)
 
     def _advance_prefill(self):
         """Advance EVERY prefilling slot by one chunk, batched: one padded
@@ -453,9 +493,12 @@ class Engine(Server):
                     lens[i] = end - s.filled
                 else:  # park: overwritten before anything attends it
                     offset[i] = s.context
+            extras = None
+            if fn is self._chunk_first and self._extras_host is not None:
+                extras = {k: v.to(self.device) for k, v in self._extras_host.items()}
             nxt, self.cache = self._launch(
                 "prefill", fn, self._to_device(toks), self._to_device(offset),
-                self._to_device(lens), self.cache, series=series)
+                self._to_device(lens), self.cache, extras, series=series)
             nxt = nxt.cpu().numpy()
             self._prefill_s += time.perf_counter() - t0
             self._n_chunks += 1
@@ -542,6 +585,8 @@ class Engine(Server):
         state and queue ``requests``.  ``begin``/``step``/``busy``/
         ``finish`` are the seam a fleet tier drives; :meth:`run` composes
         them for one replica."""
+        for r in requests:
+            self._check_extras(r)
         self.queue: list[Request] = list(requests)
         self.scheduler = SlotScheduler(self.max_batch)  # per-run telemetry
         self.slots = [_Slot() for _ in range(self.max_batch)]
@@ -651,6 +696,7 @@ class Engine(Server):
         """Accept a request (with a host-staged snapshot, possibly taken on
         another engine of the same serving config, validated against this
         engine's cache before staging)."""
+        self._check_extras(req)
         if snap is not None:
             dcache.snapshot_compatible(self.cache, snap["row"])
             self._snaps[req.uid] = snap
@@ -701,7 +747,9 @@ def check_lockstep_parity(engine: Engine, requests: list[Request]) -> bool:
     for r in requests:
         alone = Request(r.uid, r.prompt, max_new=r.max_new)
         tokens = torch.from_numpy(np.asarray(r.prompt, np.int32)[None]).to(engine.device)
-        logits, cache = engine.prefill(tokens)
+        extras = {k: torch.as_tensor(v)[None].to(engine.device)
+                  for k, v in (r.extras or {}).items()}
+        logits, cache = engine.prefill(tokens, extras)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         for step in range(r.max_new):
             tok = int(nxt[0])
@@ -768,8 +816,16 @@ def main(argv=None):
         n = int(rng.integers(4, 24))
         return -(-n // args.prompt_align) * args.prompt_align
 
+    specs = engine.model.batch_extras_specs(1, 128)
+
+    def mk_extras():
+        # one random modality-frontend row per request (VLM/audio stubs), in
+        # f32 as JAX draws it at f32 (the engine's buffer casts it)
+        return {k: rng.standard_normal(sp.shape[1:]).astype(np.float32)
+                for k, sp in specs.items()} or None
+
     reqs = [Request(i, rng.integers(3, cfg.vocab_size, plen()).astype(np.int32),
-                    max_new=int(rng.integers(2, args.max_new + 1)))
+                    max_new=int(rng.integers(2, args.max_new + 1)), extras=mk_extras())
             for i in range(args.requests)]
     out = engine.run(reqs)
     print(f"served {out['tokens']} tokens in {out['wall_s']:.2f}s "

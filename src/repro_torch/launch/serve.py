@@ -20,12 +20,18 @@ mesh in the port yet.  ``--impl`` installs the execution policy
     python -m repro_torch.launch.serve --arch recurrentgemma-2b --reduced --device cpu \
         --windowed-decode-cache
     python -m repro_torch.launch.serve --arch mamba2-370m --reduced --device cpu
+    python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 --reduced --device cpu
+    python -m repro_torch.launch.serve --arch llama-3.2-vision-90b --reduced --device cpu
     python -m repro_torch.launch.serve --reduced --device cpu \
         --impl 'attention=pallas:kv_dtype=int8'
 
 :meth:`Server.prefill` and :meth:`Server.decode` are the per-call entry
 points of the lockstep path; ``run_batch`` drives them, and the engine's
-``check_lockstep_parity`` runs each request alone through them.
+``check_lockstep_parity`` runs each request alone through them.  A modality
+family (the encoder-decoder's ``audio_frames``, the VLM's ``image_embeds``)
+takes its inputs beside the tokens; ``run_batch`` draws them as the JAX
+server does, from ``np.random.default_rng(0)`` in f32, so the two servers'
+tokens compare.
 """
 from __future__ import annotations
 
@@ -51,6 +57,9 @@ class Request:
     prompt: np.ndarray  # (plen,) int32
     max_new: int = 16
     out: list = field(default_factory=list)
+    # modality-frontend inputs keyed by the model's batch_extras_specs()
+    # ("image_embeds" / "audio_frames"), one row each, no batch axis
+    extras: Optional[dict] = None
 
 
 class Server:
@@ -74,10 +83,21 @@ class Server:
         log.info("policy %s", policy.current().describe())
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor):
-        """Prefill ``tokens`` (b, s) into a fresh ``max_len`` cache; returns
-        (last-token logits (b, V) f32, cache)."""
-        return self.model.prefill(tokens, self.max_len)
+    def prefill(self, tokens: torch.Tensor, extras: Optional[dict] = None):
+        """Prefill ``tokens`` (b, s) into a fresh ``max_len`` cache, with the
+        modality inputs ``extras`` (each with b rows) for a family that
+        takes them; returns (last-token logits (b, V) f32, cache)."""
+        return self.model.prefill({"tokens": tokens, **(extras or {})}, self.max_len)
+
+    def draw_extras(self, b: int) -> dict:
+        """The modality inputs of a ``b``-row wave at the shapes of the
+        model's ``batch_extras_specs(b, max_len)``, drawn as the JAX server
+        draws them (``serve.py:137-144``): ``np.random.default_rng(0)``,
+        standard normal in f32; none for a text-only family."""
+        rng = np.random.default_rng(0)
+        return {k: torch.from_numpy(rng.standard_normal(sp.shape, dtype=np.float32)
+                                    ).to(self.device)
+                for k, sp in self.model.batch_extras_specs(b, self.max_len).items()}
 
     @torch.no_grad()
     def decode(self, tokens: torch.Tensor, pos: torch.Tensor, cache):
@@ -91,7 +111,9 @@ class Server:
     def run_batch(self, requests: list[Request],
                   eos_id: Optional[int] = None) -> dict:
         """Prefill + greedy decode a batch of requests in lockstep with
-        per-row stop.  Returns per-request completion counts, the wave's
+        per-row stop.  A modality family's inputs come from
+        :meth:`draw_extras`, as in JAX (the requests' own ``extras`` are the
+        engine's).  Returns per-request completion counts, the wave's
         totals, the prefill and decode wall times, and whether every logit
         the wave produced was finite."""
         if len(requests) > self.max_batch:
@@ -102,9 +124,10 @@ class Server:
         for i, r in enumerate(requests):
             toks[i, plen - len(r.prompt):] = r.prompt  # left-pad
         tokens = torch.from_numpy(toks).to(self.device)
+        extras = self.draw_extras(b)
 
         t0 = time.perf_counter()
-        logits, cache = self.prefill(tokens)
+        logits, cache = self.prefill(tokens, extras)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)  # first maximum, as jnp
         finite = torch.isfinite(logits).all()
         host = nxt.tolist()  # waits for the prefill

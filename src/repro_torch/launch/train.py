@@ -9,11 +9,16 @@ attention forward on K1 and every attention backward on K3.  With
 the JAX package's format (``repro_torch.checkpoint``): a JAX run can resume
 from the port's checkpoints and the port from JAX's.  One device; the JAX
 trainer's mesh, sharding planner and autotune have no counterpart yet
-(``ROADMAP.md``), so a config trains at the depth that fits one card.
+(``ROADMAP.md``), so a config trains at the depth that fits one card.  The
+data pipeline's modality inputs (the encoder-decoder's ``audio_frames``,
+the VLM's ``image_embeds``, f32) go to the device with the tokens; the
+model casts them to its activation dtype.
 
     python -m repro_torch.launch.train --arch qwen3-1.7b --steps 3
     python -m repro_torch.launch.train --arch olmoe-1b-7b --reduced --device cpu --steps 2
     python -m repro_torch.launch.train --arch recurrentgemma-2b --reduced --device cpu --steps 2
+    python -m repro_torch.launch.train --arch seamless-m4t-large-v2 --reduced --device cpu --steps 2
+    python -m repro_torch.launch.train --arch llama-3.2-vision-90b --reduced --device cpu --steps 2
     python -m repro_torch.launch.train --reduced --device cpu --steps 4 \\
         --ckpt-dir /tmp/run --save-every 2
 

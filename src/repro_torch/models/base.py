@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -33,6 +33,14 @@ class RunOptions:
     moe_dispatch: str = "sort"  # "sort" (prod) | "onehot" (reference)
     moe_groups: int = 1  # dispatch groups (set to dp size by the planner)
     windowed_decode_cache: bool = False  # ring-buffer cache for local layers
+
+
+class TensorSpec(NamedTuple):
+    """Shape and dtype of a modality input (JAX's ``ShapeDtypeStruct`` in
+    ``batch_extras_specs``)."""
+
+    shape: tuple
+    dtype: torch.dtype
 
 
 class UnsupportedFamilyError(TypeError):
@@ -59,27 +67,33 @@ class Model(nn.Module):
         raise NotImplementedError
 
     def loss(self, batch: dict) -> torch.Tensor:
-        """batch: ``tokens`` and ``labels`` (b, s).  Returns the mean loss,
-        an f32 scalar that carries the graph back to the parameters."""
+        """batch: ``tokens`` and ``labels`` (b, s), and the family's
+        modality inputs (:meth:`batch_extras_specs`).  Returns the mean
+        loss, an f32 scalar that carries the graph back to the parameters."""
         raise NotImplementedError
 
     def init_cache(self, batch_size: int, max_len: int):
         raise NotImplementedError
 
-    def prefill(self, tokens: torch.Tensor, max_len: int):
-        """tokens: (b, s).  Returns (last-token logits (b, V) f32, cache)."""
+    def prefill(self, batch: dict, max_len: int):
+        """batch: ``tokens`` (b, s) and the family's modality inputs, each
+        with b rows (:meth:`batch_extras_specs`).  Returns (last-token
+        logits (b, V) f32, cache)."""
         raise NotImplementedError
 
     def prefill_chunk(self, tokens: torch.Tensor, offset: torch.Tensor, cache, *,
-                      first: bool = False, lens: Optional[torch.Tensor] = None):
+                      first: bool = False, lens: Optional[torch.Tensor] = None,
+                      extras: Optional[dict] = None):
         """One padded prefill chunk over the full cache batch.
 
         tokens: (b, s); offset: int32 scalar or per-row (b,) context depths
         already in the cache; lens: optional (b,) valid-token counts (None =
         the whole chunk is valid on every row; 0 parks a row, whose cache
         state must come through unchanged).  ``first`` marks each request's
-        first chunk (scale calibration runs there).  Returns (per-row
-        last-valid-token logits (b, V) f32, cache)."""
+        first chunk (scale calibration runs there, and a modality family
+        reads ``extras``, its full-batch inputs, to fill each live row's
+        cross-attention cache).  Returns (per-row last-valid-token logits
+        (b, V) f32, cache)."""
         raise NotImplementedError
 
     def decode_step(self, tokens: torch.Tensor, pos: torch.Tensor, cache):
@@ -87,7 +101,7 @@ class Model(nn.Module):
         Returns (logits (b, V) f32, cache)."""
         raise NotImplementedError
 
-    def batch_extras_specs(self, batch_size: int, seq_len: int) -> dict:
+    def batch_extras_specs(self, batch_size: int, seq_len: int) -> dict[str, TensorSpec]:
         """Shapes and dtypes of modality-frontend inputs (VLM/audio), keyed
         by name; none for a text-only family."""
         return {}

@@ -1,15 +1,19 @@
 """Decode-cache state: the counterpart of ``repro/models/cache.py``: the
-``LinearKV``, ``RingKV`` and ``StateCarry`` layouts and the composite
-helpers (``CrossKV`` comes with the encoder-decoder family).
+``LinearKV``, ``RingKV``, ``CrossKV`` and ``StateCarry`` layouts and the
+composite helpers.
 
 ``LinearKV`` holds contiguous k/v slabs with the batch at axis ``b_axis``
 and the sequence right after it, an optional int8 quantization (per-(batch,
 kv-head) f32 scales ride alongside, ``(*lead, b, kvh)``), and a per-row
 ``(b,)`` int32 ``pos``: each row's context depth and next write position,
-the same vector the attention kernel reads as its per-row lanes.
+the same vector the attention kernel reads as its per-row lanes; its
+``lead`` may have several axes (the VLM's ``(n_super, n_self)``).
 ``RingKV`` is the hybrid's windowed decode buffer: ``C`` slots, position
 ``p`` in slot ``p % C``, attended with ``q_offset = pos`` and ``kv_len =
-min(pos + 1, C)`` (:meth:`RingKV.attend_lens`).  ``StateCarry`` holds the
+min(pos + 1, C)`` (:meth:`RingKV.attend_lens`).  ``CrossKV`` holds the
+cross-attention k/v of the encoder-decoder and the VLM: written for a
+row at its request's first prefill chunk and frozen for the request's
+lifetime, position-free.  ``StateCarry`` holds the
 recurrent families' state (conv tails, the RG-LRU's hidden state, the SSD
 state), every tensor with the batch at axis 1, and a per-row ``valid``
 flag.  The serving engine talks to a cache only through the module-level
@@ -124,6 +128,14 @@ class LinearKV(_Slabs):
     def lengths(self) -> torch.Tensor:
         return self.pos
 
+    def lanes(self, offset: torch.Tensor, s: int):
+        """The attention kernel's lanes for ``s`` query rows at ``offset``
+        (an int32 scalar or (b,) tensor) over this cache: ``q_offset``, and
+        ``kv_len`` the keys up to the last query row, clipped to the
+        capacity (JAX ``_attention_via_kernel``)."""
+        q_offset = offset.reshape(-1)
+        return q_offset, (q_offset + s).clamp(max=self.capacity)
+
 
 @dataclass(frozen=True)
 class RingKV(_Slabs):
@@ -168,6 +180,58 @@ class RingKV(_Slabs):
         idx = torch.arange(c, dtype=torch.int32, device=pos.device)[None, :]
         ring_pos = pos - torch.remainder(pos - idx, c)
         return torch.where(ring_pos >= 0, ring_pos, 1 << 30)
+
+
+@dataclass(frozen=True)
+class CrossKV:
+    """Cross-attention k/v (JAX ``cache.py:217-250``): slabs of the
+    encoder's or the image's ``E`` keys with the batch at axis ``b_axis``,
+    written at a request's first prefill chunk and frozen for its lifetime.
+    Position-free: no cursor, and a reset leaves the slabs alone (the next
+    first chunk overwrites the row whole)."""
+
+    k: torch.Tensor                   # (*lead, b, E, kvh, hd)
+    v: torch.Tensor
+    b_axis: int
+
+    @classmethod
+    def create(cls, lead, batch, enc, kv_heads, head_dim, dtype, *,
+               device) -> "CrossKV":
+        shape = tuple(lead) + (batch, enc, kv_heads, head_dim)
+        return cls(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   b_axis=len(lead))
+
+    def replace(self, **kw) -> "CrossKV":
+        return dataclasses.replace(self, **kw)
+
+    def write(self, li, k: torch.Tensor, v: torch.Tensor,
+              live: Optional[torch.Tensor] = None) -> None:
+        """Write layer ``li``'s k/v (b, E, kvh, hd) into its slabs, in place;
+        with ``live`` (b,) bool only those rows, the others keeping theirs
+        (a first-chunk launch and its parked rows)."""
+        for slab, new in ((self.k[li], k), (self.v[li], v)):
+            slab.copy_(new if live is None else masked_rows(live, new, slab))
+
+    def slot(self, i: int) -> "CrossKV":
+        """Row ``i`` as a b=1 cache whose slabs are VIEWS of this one's."""
+        return self.replace(k=self.k.narrow(self.b_axis, i, 1),
+                            v=self.v.narrow(self.b_axis, i, 1))
+
+    def set_slot(self, i: int, sub: "CrossKV") -> "CrossKV":
+        dst = self.slot(i)
+        dst.k.copy_(sub.k)
+        dst.v.copy_(sub.v)
+        return self
+
+    def reset_row(self, i: int) -> "CrossKV":
+        return self  # overwritten whole at the row's next first chunk
+
+    def lengths(self):
+        return None
+
+    def map_tensors(self, fn) -> "CrossKV":
+        return self.replace(k=fn(self.k), v=fn(self.v))
 
 
 @dataclass(frozen=True)
@@ -221,7 +285,7 @@ class StateCarry:
                           valid=fn(self.valid))
 
 
-_LAYOUTS = (LinearKV, RingKV, StateCarry)
+_LAYOUTS = (LinearKV, RingKV, CrossKV, StateCarry)
 
 
 # ---------------------------------------------------------------------------

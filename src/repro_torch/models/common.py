@@ -24,6 +24,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import policy, registry
+from repro_torch.models import cache as dcache
 
 
 # ---------------------------------------------------------------------------
@@ -113,6 +114,23 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     return registry.dispatch("attention", q, k, v, causal=causal,
                              window=window, q_offset=q_offset, kv_len=kv_len,
                              k_scale=k_scale, v_scale=v_scale)
+
+
+def cached_self_attention(q, k, v, cache=None, li=None, write_at=None, q_offset=None,
+                          kv_len=None, chunked: bool = False) -> torch.Tensor:
+    """Causal self-attention of fresh q/k/v (the encoder-decoder's and the
+    VLM's).  With a ``LinearKV`` ``cache`` the fresh k/v are first written
+    into layer ``li``'s slabs at ``write_at``; decode (one query row) and
+    continuation chunks (``chunked``) then attend the cache through the
+    lanes ``q_offset``/``kv_len``, prefill and first chunks their fresh
+    k/v, as training does."""
+    if cache is not None:
+        kc, vc = cache.k[li], cache.v[li]
+        dcache.linear_write(kc, k, write_at)
+        dcache.linear_write(vc, v, write_at)
+        if q.shape[1] == 1 or chunked:
+            return attention(q, kc, vc, causal=True, q_offset=q_offset, kv_len=kv_len)
+    return attention(q, k, v, causal=True)
 
 
 def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

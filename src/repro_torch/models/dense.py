@@ -255,21 +255,13 @@ class DenseLM(Model):
             (cfg.n_layers,), batch_size, max_len, cfg.n_kv_heads, cfg.head_dim_,
             dtype, device=self.device, quantized=quantized)
 
-    @staticmethod
-    def _cache_lanes(cache: dcache.LinearKV, q_offset: torch.Tensor, s: int):
-        """The kernel's lanes for ``s`` query rows at ``q_offset`` (scalar or
-        (b,)) over the cache: keys up to the last query row, clipped to the
-        capacity (JAX ``_attention_via_kernel``)."""
-        q_offset = q_offset.reshape(-1)
-        return q_offset, (q_offset + s).clamp(max=cache.capacity)
-
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, max_len: int):
+    def prefill(self, batch: dict, max_len: int):
+        tokens = batch["tokens"]
         b, s = tokens.shape
         q_pos = torch.arange(s, dtype=torch.int32, device=self.device)
         kv = self.init_cache(b, max_len)
-        q_offset, kv_len = self._cache_lanes(
-            kv, torch.zeros((), dtype=torch.int32, device=self.device), s)
+        q_offset, kv_len = kv.lanes(torch.zeros((), dtype=torch.int32, device=self.device), s)
         x, _ = self._backbone(tokens, q_pos, kv, write_at=0, q_offset=q_offset,
                               kv_len=kv_len)
         logits = common.logits_matmul(x[:, -1], self._out_embed())
@@ -279,7 +271,8 @@ class DenseLM(Model):
     @torch.no_grad()
     def prefill_chunk(self, tokens: torch.Tensor, offset: torch.Tensor,
                       cache: dcache.LinearKV, *, first: bool = False,
-                      lens: Optional[torch.Tensor] = None):
+                      lens: Optional[torch.Tensor] = None,
+                      extras: Optional[dict] = None):
         """One fixed-size chunk of a chunked prefill (JAX ``dense.py:300-327``):
         write this chunk's k/v at ``offset`` (an int32 tensor, scalar or
         per-row) and attend causally.  The first chunk attends its fresh k/v
@@ -292,7 +285,7 @@ class DenseLM(Model):
         offset = offset.to(torch.int32)
         q_pos = (offset[:, None] if offset.dim() else offset) + torch.arange(
             s, dtype=torch.int32, device=self.device)
-        q_offset, kv_len = self._cache_lanes(cache, offset, s)
+        q_offset, kv_len = cache.lanes(offset, s)
         x, _ = self._backbone(tokens, q_pos, cache, write_at=offset, q_offset=q_offset,
                               kv_len=kv_len, chunked=not first,
                               calib_len=s if lens is None else lens)
@@ -309,7 +302,7 @@ class DenseLM(Model):
         b = tokens.shape[0]
         pos = pos.to(torch.int32)
         q_pos = pos[:, None] if pos.dim() else pos.reshape(1)
-        q_offset, kv_len = self._cache_lanes(cache, pos, 1)
+        q_offset, kv_len = cache.lanes(pos, 1)
         x, _ = self._backbone(tokens, q_pos, cache, write_at=pos,
                               q_offset=q_offset, kv_len=kv_len)
         logits = common.logits_matmul(x[:, -1], self._out_embed())

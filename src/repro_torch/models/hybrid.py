@@ -359,7 +359,8 @@ class HybridLM(Model):
         return {"state": state, "kv": kv}
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, max_len: int):
+    def prefill(self, batch: dict, max_len: int):
+        tokens = batch["tokens"]
         b, s = tokens.shape
         q_pos = torch.arange(s, dtype=torch.int32, device=self.device)
         x, cache = self._backbone(tokens, q_pos, self.init_cache(b, max_len), write_at=0)
@@ -369,7 +370,8 @@ class HybridLM(Model):
 
     @torch.no_grad()
     def prefill_chunk(self, tokens: torch.Tensor, offset: torch.Tensor, cache: dict, *,
-                      first: bool = False, lens: Optional[torch.Tensor] = None):
+                      first: bool = False, lens: Optional[torch.Tensor] = None,
+                      extras: Optional[dict] = None):
         """Chunked prefill against the linear layout (the engine's path; JAX
         ``hybrid.py:337-362``).  The ring is decode-only: a windowed chunked
         prefill would have to wrap-attend mid-prompt, so the engine serves

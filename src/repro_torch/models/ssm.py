@@ -241,14 +241,16 @@ class SSMLM(Model):
         })
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, max_len: int):
+    def prefill(self, batch: dict, max_len: int):
+        tokens = batch["tokens"]
         x, cache = self._backbone(tokens, self.init_cache(tokens.shape[0], max_len))
         return common.logits_matmul(x[:, -1], self.embed), cache
 
     @torch.no_grad()
     def prefill_chunk(self, tokens: torch.Tensor, offset: torch.Tensor,
                       cache: dcache.StateCarry, *, first: bool = False,
-                      lens: Optional[torch.Tensor] = None):
+                      lens: Optional[torch.Tensor] = None,
+                      extras: Optional[dict] = None):
         """Position-free chunked prefill (JAX ``ssm.py:235-245``): the
         carried state is the context, so ``offset`` is ignored and chunks
         continue the scan.  The engine matches the lockstep path exactly

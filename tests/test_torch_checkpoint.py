@@ -15,7 +15,9 @@ third step gives JAX's third loss within rtol 1e-5 at f32 (the loss
 tolerance of ``tests/test_torch_train.py``); the JAX side runs once per
 module.  The hybrid's tree (``groups/*`` and ``tail_rec`` stacked) both
 ways: the port's checkpoint read by JAX, and JAX's parameters read by the
-port giving JAX's prefill and decode logits within atol 1e-5 at f32.
+port giving JAX's prefill and decode logits within atol 1e-5 at f32.  The
+cross-attention families' trees (the encoder-decoder's nested stacks, the
+VLM's twice-stacked self layers at 10 layers) both ways, bit for bit.
 Schedules and compression: rtol 1e-6 on f32 values computed by the same f32
 operations, the int8 codes exact.
 """
@@ -375,7 +377,7 @@ def test_jax_hybrid_checkpoint_gives_the_same_logits(tmp_path):
 
     model = build_model(cfg, device="cpu")
     model.load_state_dict(load_repro_checkpoint(tmp_path / "f32"))
-    got, pcache = model.prefill(torch.from_numpy(toks), 32)
+    got, pcache = model.prefill({"tokens": torch.from_numpy(toks)}, 32)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
     got_dec, _ = model.decode_step(torch.from_numpy(np.array(nxt)),
                                    torch.tensor(11, dtype=torch.int32), pcache)
@@ -387,6 +389,79 @@ def test_jax_hybrid_checkpoint_gives_the_same_logits(tmp_path):
     assert loaded["tail_rec.1.lru_a_param"].dtype == torch.float32
     assert loaded["groups.rec2.0.lru_i_gate"].dtype == torch.float32
     assert loaded["groups.attn.0.wq"].dtype == torch.bfloat16
+
+
+# the cross-attention families' trees: the encoder-decoder's ``encoder`` and
+# ``decoder`` stacks, whose leaves are nested dicts (``decoder/self_attn/wq``),
+# and the VLM's ``self_layers`` stacked twice, (n_super, n_self, ...), beside
+# ``cross_layers`` with scalar gates; the VLM at 10 layers, two superblocks
+CROSS_ARCHS = {"seamless-m4t-large-v2": {}, "llama-3.2-vision-90b": {"n_layers": 10}}
+
+
+def _cross_cfgs(arch, dtype="bfloat16"):
+    kw = CROSS_ARCHS[arch]
+    return (reduced(get_smoke_config(arch), dtype=dtype, **kw),
+            dataclasses.replace(jax_smoke(arch), dtype=dtype, **kw))
+
+
+@pytest.mark.parametrize("arch", CROSS_ARCHS)
+def test_cross_family_checkpoint_loads_in_jax(tmp_path, arch):
+    """The port's checkpoint of the bf16 smoke config after one AdamW step
+    (its frames or images from the data pipeline), read by JAX's
+    ``load_checkpoint`` into the JAX tree: every leaf's name, shape, dtype
+    and bits, the nested and the twice-stacked groups included."""
+    cfg, jcfg = _cross_cfgs(arch)
+    out = train(cfg, steps=1, data_cfg=DATA, device="cpu", log_every=0,
+                ckpt_dir=str(tmp_path))
+    aparams = jax.eval_shape(lambda: jax_build(jcfg, JaxRunOptions()).init(jax.random.key(0)))
+    like = {"params": aparams, "opt_state": jax.eval_shape(jax_adamw_init, aparams)}
+    step, tree = jax_load_checkpoint(tmp_path, like)
+    assert step == 0
+    got = {f"params/{n}": t for n, t in params_from_numpy(
+        jax.tree.map(np.asarray, tree["params"])).items()}
+    for key in ("master", "m", "v"):
+        got.update({f"{key}/{n}": t for n, t in params_from_numpy(
+            jax.tree.map(np.asarray, tree["opt_state"][key])).items()})
+    got["step"] = torch.from_numpy(np.array(tree["opt_state"]["step"]))
+    want = _state_of(out)
+    assert got.keys() == want.keys()
+    for name, t in want.items():
+        assert _equal(got[name], t), name
+    params = tree["params"]
+    if arch == "llama-3.2-vision-90b":
+        assert params["self_layers"]["wq"].shape[:2] == (2, 4)
+        assert params["cross_layers"]["xgate_attn"].shape == (2,)
+    else:
+        assert params["decoder"]["cross_attn"]["wk"].shape[0] == 2
+
+
+@pytest.mark.parametrize("arch", CROSS_ARCHS)
+def test_jax_cross_family_checkpoint_reads_bit_for_bit(tmp_path, arch):
+    """A JAX ``save_checkpoint`` of the bf16 smoke parameters (the VLM's
+    gates and norms set non-zero), read by ``load_repro_checkpoint`` and,
+    into a model's own tensors, by ``load_checkpoint``: every leaf the same
+    bits as ``params_from_numpy`` of the JAX tree."""
+    from repro_torch.models import build_model
+
+    cfg, jcfg = _cross_cfgs(arch)
+    params = jax.tree.map(np.asarray, jax_build(jcfg, JaxRunOptions()).init(jax.random.key(2)))
+    if "cross_layers" in params:
+        rng = np.random.default_rng(0)
+        params["cross_layers"] = {
+            k: (rng.standard_normal(v.shape).astype(v.dtype)
+                if k in ("xgate_attn", "xgate_ffn", "q_norm", "k_norm") else v)
+            for k, v in params["cross_layers"].items()}
+    jax_save_checkpoint(tmp_path, 4, params)
+    want = params_from_numpy(params)
+    got = load_repro_checkpoint(tmp_path)
+    assert got.keys() == want.keys()
+    model = build_model(cfg, device="cpu")
+    assert set(dict(model.named_parameters())) == set(want)
+    step, _ = load_checkpoint(tmp_path, dict(model.named_parameters()), in_place=True)
+    assert step == 4
+    state = model.state_dict()
+    for name, t in want.items():
+        assert _equal(got[name], t) and _equal(state[name], t), name
 
 
 @pytest.mark.parametrize("warmup", [0, 5])

@@ -37,7 +37,7 @@ from repro_torch.configs import get_config, get_smoke_config, list_archs, reduce
 from repro_torch.kernels import policy  # noqa: E402
 from repro_torch.launch.engine import Engine  # noqa: E402
 from repro_torch.launch.serve import Request, Server  # noqa: E402
-from repro_torch.models import UnsupportedFamilyError, build_model  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
 
 ARCHS = ("qwen3-moe-30b-a3b", "olmoe-1b-7b", "qwen2.5-14b", "qwen3-32b")
 INT8_ARCH = "qwen3-moe-30b-a3b"
@@ -120,12 +120,11 @@ def _port_cfg(arch):
 def test_configs_and_counts_match_jax():
     """Every registered arch: the config field for field (smoke too), the
     analytic parameter counts, and the registry's names (the port's
-    ``list_archs`` is the JAX list without the families it lacks)."""
+    ``list_archs`` is the JAX list: every family is ported)."""
     assert set(ARCHS) <= set(list_archs())
     assert "gemma3-1b" in list_archs()  # K1, K1q and K3 take head dim 256
     assert {"recurrentgemma-2b", "mamba2-370m"} <= set(list_archs())  # hybrid, ssm
-    unported = ("audio", "vlm")
-    assert list_archs() == [a for a in jax_list_archs() if jax_config(a).family not in unported]
+    assert list_archs() == jax_list_archs()
     for arch in list_archs():
         for get_p, get_j in ((get_config, jax_config), (get_smoke_config, jax_smoke)):
             assert dataclasses.asdict(get_p(arch)) == dataclasses.asdict(get_j(arch)), arch
@@ -169,7 +168,7 @@ def test_prefill_logits_match_jax(family, arch):
     ref = family[arch]
     model = build_model(_port_cfg(arch), device="cpu")
     model.load_state_dict(ref["params"])
-    logits, _ = model.prefill(torch.from_numpy(ref["toks"]), MAX_LEN)
+    logits, _ = model.prefill({"tokens": torch.from_numpy(ref["toks"])}, MAX_LEN)
     np.testing.assert_allclose(logits.numpy(), ref["logits"], atol=LOGITS_ATOL)
 
 
@@ -245,8 +244,9 @@ def test_bias_and_head_loss_and_grads_match_jax(family):
 
 def test_server_serves_every_arch_and_unported_families_raise():
     """The lockstep Server on each new smoke config (bf16, seeded init):
-    finite logits and every request complete; a family the port lacks
-    still raises."""
+    finite logits and every request complete; so do the encoder-decoder and
+    the VLM, which the port once refused, with the frames or images the
+    Server draws."""
     for arch in ARCHS:
         cfg = get_smoke_config(arch)
         srv = Server(cfg, device="cpu", max_batch=2, max_len=32)
@@ -254,7 +254,10 @@ def test_server_serves_every_arch_and_unported_families_raise():
                 for i, n in enumerate((5, 9))]
         out = srv.run_batch(reqs)
         assert out["logits_finite"] and all(len(r.out) == 3 for r in reqs), arch
-    for family in ("audio", "vlm"):
-        with pytest.raises(UnsupportedFamilyError):
-            build_model(dataclasses.replace(get_smoke_config("qwen3-1.7b"), family=family),
-                        device="cpu")
+    for arch in ("seamless-m4t-large-v2", "llama-3.2-vision-90b"):
+        srv = Server(get_smoke_config(arch), device="cpu", max_batch=2, max_len=32)
+        reqs = [Request(i, np.arange(3, 3 + n, dtype=np.int32), max_new=3)
+                for i, n in enumerate((5, 9))]
+        out = srv.run_batch(reqs)
+        assert out["logits_finite"] and all(len(r.out) == 3 for r in reqs), arch
+        assert srv.model.cfg.family in ("audio", "vlm") and srv.draw_extras(2)

@@ -55,6 +55,8 @@ FA_CASES = [
     ("chunk_gqa_4_1_window_hd256", 2, 24, 96, 4, 1, 256, True, 16, [72, 0], [96, 0]),
     ("decode_gqa_4_1_window_hd256", 3, 1, 96, 4, 1, 256, True, 16, [95, 40, 7], [96, 41, 0]),
 ]
+# cross-attention: queries over another key set, every key visible
+FA_CROSS_CASES = [("cross_noncausal_sq5_sk17", 2, 5, 17, 4, 2, 16, False, 0, None, None)]
 
 
 # (name, b, sq, sk, h, kvh, hd, causal, window, q_offset, kv_len)
@@ -65,6 +67,7 @@ BWD_CASES = [
     ("window", 2, 16, 16, 4, 2, 16, True, 5, None, None),
     ("causal_gqa_4_1_hd256", 2, 16, 16, 4, 1, 256, True, 0, None, None),
     ("window_gqa_4_1_sk96_hd256", 1, 24, 96, 4, 1, 256, True, 16, [72], [96]),
+    ("noncausal_cross_sq8_sk24", 2, 8, 24, 4, 2, 16, False, 0, None, None),
 ]
 # (m, k, n, b passed as the transposed view of an (n, k) table)
 MM_BWD_CASES = [(8, 16, 24, False), (16, 32, 64, True)]
@@ -134,7 +137,7 @@ def jax_refs():
         out["mm"][(m, k, n)] = (a, b, np.asarray(jax_mm(jnp.asarray(a), jnp.asarray(b),
                                                         interpret=True)),
                                 np.asarray(ref.matmul_ref(jnp.asarray(a), jnp.asarray(b))))
-    for case in FA_CASES:
+    for case in FA_CASES + FA_CROSS_CASES:
         name, b, sq, sk, h, kvh, hd, causal, window, qo, kl = case
         q, k, v = _fa_inputs(case)
         kw = dict(causal=causal, window=window,
@@ -231,7 +234,7 @@ def test_matmul_path_rule():
     assert mm_mod.path(act.float().T, torch.zeros(512, 7)) == "fma"
 
 
-@pytest.mark.parametrize("case", FA_CASES, ids=lambda c: c[0])
+@pytest.mark.parametrize("case", FA_CASES + FA_CROSS_CASES, ids=lambda c: c[0])
 def test_flash_attention_ref_matches_jax(jax_refs, case):
     name, *_, causal, window, qo, kl = case
     q, k, v = (torch.from_numpy(x) for x in _fa_inputs(case))
@@ -509,10 +512,36 @@ EDGE_CASES = [
      [0, 700, 2047, 7], [1, 701, 2048, 0]),
 ]
 
+# cross-attention, non-causal with sq != sk and no lanes: llama-3.2-vision-90b's
+# 64/8 heads at hd 128 over 1601 image tokens (25 tiles of 64 keys and one
+# key; decode, a chunk, the engine's 8 x 256 first chunk, the Server's 4 x 512
+# prefill), seamless-m4t-large-v2's 16/16 heads at hd 64 over 512 encoder
+# frames (and the encoder's own 512 x 512), and 17 keys, below one tile
+CROSS_CASES = [
+    ("cross_decode_8x1_vs_1601_hd128", 8, 1, 1601, 64, 8, 128, False, 0, None, None),
+    ("cross_chunk_2x64_vs_1601_hd128", 2, 64, 1601, 64, 8, 128, False, 0, None, None),
+    ("cross_chunk_8x256_vs_1601_hd128", 8, 256, 1601, 64, 8, 128, False, 0, None, None),
+    ("cross_prefill_4x512_vs_1601_hd128", 4, 512, 1601, 64, 8, 128, False, 0, None, None),
+    ("cross_decode_8x1_vs_512_hd64", 8, 1, 512, 16, 16, 64, False, 0, None, None),
+    ("cross_chunk_4x64_vs_512_hd64", 4, 64, 512, 16, 16, 64, False, 0, None, None),
+    ("encoder_8x512_hd64", 8, 512, 512, 16, 16, 64, False, 0, None, None),
+    ("cross_chunk_2x33_vs_17_hd64", 2, 33, 17, 16, 16, 64, False, 0, None, None),
+]
+# K3 non-causal: the encoder-decoder's training (decoder cross-attention of
+# 1024 queries over 256 frames, the encoder's 256 x 256), the VLM's 1601
+# image keys at hd 128, and keys ending one into a tile (65)
+CROSS_BWD_CASES = [
+    ("cross_bwd_2x1024_vs_256_hd64", 2, 1024, 256, 16, 16, 64, False, 0, None, None),
+    ("encoder_bwd_2x256_hd64", 2, 256, 256, 16, 16, 64, False, 0, None, None),
+    ("cross_bwd_1x64_vs_1601_hd128", 1, 64, 1601, 64, 8, 128, False, 0, None, None),
+    ("cross_bwd_2x100_vs_65_hd64", 2, 100, 65, 16, 16, 64, False, 0, None, None),
+]
+
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", FA_CASES + EDGE_CASES, ids=lambda c: c[0])
+@pytest.mark.parametrize("case", FA_CASES + FA_CROSS_CASES + EDGE_CASES + CROSS_CASES,
+                         ids=lambda c: c[0])
 def test_flash_kernel_matches_plain(cuda, dtype, case):
     """K1 against its plain version on the card; a kv_len 0 lane gives exact
     zeros."""
@@ -530,8 +559,8 @@ def test_flash_kernel_matches_plain(cuda, dtype, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", FA_CASES[:3] + BWD_CASES + [c for c in EDGE_CASES if c[2] > 1],
-                         ids=lambda c: c[0])
+@pytest.mark.parametrize("case", FA_CASES[:3] + BWD_CASES + [c for c in EDGE_CASES if c[2] > 1]
+                         + CROSS_BWD_CASES, ids=lambda c: c[0])
 def test_flash_bwd_kernel_matches_plain(cuda, dtype, case):
     """K3 against its plain version on the card; a kv_len 0 lane gives exact
     zeros."""
@@ -735,6 +764,40 @@ def test_matmul_graph_replay_matches_eager(cuda, case):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(captured, eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_ragged_vocab_head(cuda, dtype):
+    """seamless-m4t-large-v2's untied head, 256,206 columns (not a multiple
+    of 8): the logits through the transposed ``lm_head`` view at 8 rows
+    (bf16: ``stream``), 512 and 2048 (``wgmma``), whose output rows are no
+    whole 16-byte steps, and both backward products of a 512-row logits
+    chunk and of a training step's 4 x 512-row chunk, whose gradient TMA
+    cannot describe (bf16: ``wmma``), against the plain version.  The
+    gradient is drawn N(0, 1/64), so the products' entries are ~1.3
+    (``dA``) and ~3-6 (``dB``) and the tolerance's atol is under 1% of a
+    typical entry."""
+    dt = getattr(torch, dtype)
+    vocab, d = 256206, 1024
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    head = (0.02 * torch.randn(vocab, d, device=cuda, generator=gen)).to(dt)
+    tol = _mm_tol(dt, None)
+    bf = dt == torch.bfloat16
+    for rows, inst in ((8, "stream"), (512, "wgmma"), (2048, "wgmma")):
+        h = torch.randn(rows, d, device=cuda, generator=gen).to(dt)
+        assert mm_mod.path(h, head.T) == (inst if bf else "fma")
+        torch.testing.assert_close(hbp_matmul(h, head.T).float(),
+                                   matmul_ref(h, head.T).float(), atol=tol, rtol=tol)
+        if rows == 8:
+            continue
+        g = (torch.randn(rows, vocab, device=cuda, generator=gen) / 8).to(dt)
+        for a, b in ((g, head), (h.T, g)):  # dA = g W, dB = hᵀ g
+            assert mm_mod.path(a, b) == ("wmma" if bf else "fma")
+            before = hbp_matmul.wmma_launches
+            got = hbp_matmul(a, b)
+            assert hbp_matmul.wmma_launches == before + bf
+            torch.testing.assert_close(got.float(), matmul_ref(a, b).float(), atol=tol, rtol=tol)
 
 
 # -- K1q: attention over an int8 KV cache --------------------------------------

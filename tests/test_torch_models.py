@@ -23,7 +23,7 @@ from repro.models import common as jax_common  # noqa: E402
 from repro.models.base import RunOptions  # noqa: E402
 from repro_torch.checkpoint import params_from_numpy  # noqa: E402
 from repro_torch.configs import ModelConfig, get_config, get_smoke_config, reduced  # noqa: E402
-from repro_torch.models import UnsupportedFamilyError, build_model  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import cache as pt_cache  # noqa: E402
 from repro_torch.models import common as pt_common  # noqa: E402
 
@@ -133,7 +133,7 @@ def test_pick_last_and_cache_rows_match_jax():
 
 
 def test_prefill_matches_jax(dense):
-    logits, cache = dense["model"].prefill(_t(dense["toks"]), MAX_LEN)
+    logits, cache = dense["model"].prefill({"tokens": _t(dense["toks"])}, MAX_LEN)
     np.testing.assert_allclose(logits.numpy(), dense["logits"], atol=LOGITS_ATOL)
     np.testing.assert_allclose(cache.k.numpy(), dense["cache_k"], atol=ATOL)
     assert cache.pos.tolist() == [PLEN] * B
@@ -142,7 +142,7 @@ def test_prefill_matches_jax(dense):
 @pytest.mark.parametrize("per_row", [False, True], ids=["scalar_pos", "row_pos"])
 def test_decode_step_matches_jax(dense, per_row):
     m = dense["model"]
-    _, cache = m.prefill(_t(dense["toks"]), MAX_LEN)
+    _, cache = m.prefill({"tokens": _t(dense["toks"])}, MAX_LEN)
     pos = (torch.tensor([PLEN, PLEN - 2], dtype=torch.int32) if per_row
            else torch.tensor(PLEN, dtype=torch.int32))
     logits, new = m.decode_step(_t(dense["nxt"]), pos, cache)
@@ -167,14 +167,16 @@ def test_init_distributions():
 
 
 def test_build_model_rejects_other_families():
-    """The families the port lacks (audio, vlm) raise; the dense family's MoE
-    layers, QKV bias and untied head, which it once refused, now build, as
-    do the hybrid and the SSM from their own configs."""
-    for family in ("audio", "vlm"):
-        cfg = reduced(get_smoke_config("qwen3-1.7b"), family=family)
-        with pytest.raises(UnsupportedFamilyError) as e:
-            build_model(cfg, device="cpu")
-        assert e.value.family == family
+    """Every family of the JAX package builds: the encoder-decoder (audio)
+    and the VLM from their own configs, which the port once refused, the
+    dense family's MoE layers, QKV bias and untied head, the hybrid and the
+    SSM; an unknown family raises ``ValueError``, as JAX's ``build_model``
+    does."""
+    for arch, cls in (("seamless-m4t-large-v2", "EncDecLM"),
+                      ("llama-3.2-vision-90b", "VisionLM")):
+        assert type(build_model(get_smoke_config(arch), device="cpu")).__name__ == cls
+    with pytest.raises(ValueError, match="unknown family 'speech'"):
+        build_model(reduced(get_smoke_config("qwen3-1.7b"), family="speech"), device="cpu")
     for ported in (dict(family="moe", n_experts=4, experts_per_token=2, expert_d_ff=32),
                    dict(qkv_bias=True), dict(tie_embeddings=False)):
         build_model(reduced(get_smoke_config("qwen3-1.7b"), **ported), device="cpu")
@@ -201,7 +203,7 @@ def test_windowed_layers_match_jax():
 
     pm = build_model(_port_cfg(jcfg), device="cpu")
     pm.load_state_dict(params_from_numpy(jax.tree.map(np.asarray, params)))
-    got, pcache = pm.prefill(_t(toks), MAX_LEN)
+    got, pcache = pm.prefill({"tokens": _t(toks)}, MAX_LEN)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=LOGITS_ATOL)
     got_dec, _ = pm.decode_step(_t(np.asarray(nxt)), torch.tensor(12, dtype=torch.int32), pcache)
     np.testing.assert_allclose(got_dec.numpy(), np.asarray(want_dec), atol=LOGITS_ATOL)

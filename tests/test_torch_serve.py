@@ -104,7 +104,7 @@ def test_bf16_prefill_logits_close_to_jax():
     want, _ = js._prefill(js.params, {"tokens": jnp.asarray(toks)})
     server = Server(get_smoke_config("qwen3-1.7b"), device="cpu",
                     params=params_from_numpy(_host_params(js)), max_len=MAX_LEN)
-    got, _ = server.model.prefill(torch.from_numpy(toks), MAX_LEN)
+    got, _ = server.model.prefill({"tokens": torch.from_numpy(toks)}, MAX_LEN)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=BF16_LOGITS_ATOL)
 

@@ -257,7 +257,7 @@ def test_serving_path_takes_no_autograd_route(monkeypatch):
     for name in ("flash_attention", "flash_attention_bwd"):
         monkeypatch.setattr(fa_mod, name, counted(name, getattr(fa_mod, name)))
     toks = torch.from_numpy(np.random.default_rng(0).integers(3, 256, (2, 5)).astype(np.int32))
-    logits, cache = m.prefill(toks, 16)
+    logits, cache = m.prefill({"tokens": toks}, 16)
     per_call = {"hbp_matmul": 7 * cfg.n_layers + 1, "flash_attention": cfg.n_layers,
                 "flash_attention_bwd": 0}
     assert calls == per_call
