@@ -198,6 +198,29 @@ Phases, each of which fails the run (exit code 1, no result line):
    cross-attention calls, K3 per seamless training step and the ``wmma``
    head backward per training step beside their bounds, plain versions and
    ``scaled_dot_product_attention`` (no mask) / ``torch.matmul``.
+16. The fleet: ``qwen3-1.7b`` at full width and depth, bf16, seeded weights
+   drawn on the card, behind the ``Router`` (``repro_torch.launch.router``):
+   2 replicas of 4 slots (512 positions, chunk 64, a row snapshot every 4
+   tokens) serve phase 8's 16 requests by ``pws``, by ``rws`` (seed 5), with
+   a rebalance threshold that drains decoding slots to the other replica,
+   and with a replica joined and replica 0 removed mid-run; a second fleet
+   runs ``pws`` under ``|decode@6=raise:99``: replica 1 dies and a
+   replacement restarts from the 3.44 GB fleet checkpoint (the disk room
+   checked first, the checkpoints removed after).  Gates: completion,
+   finite logits, K1 and K2 launched and nothing else; 1 death, a restart
+   and a migration; a slot migration; 1 join and 1 leave; every
+   checkpoint-streamed replica's params and first-chunk logits bit-equal
+   to replica 0's; every request that never moved gets a clean single
+   engine's (4 slots, replica 0's params) tokens bit for bit.  Moved
+   requests' matches are printed.  Prints both fleet clocks, each
+   replica's ``busy_s``, the checkpoint's save and each restart's seconds
+   and the router's host ms a round.  Then phase 8's engine traffic with
+   ``RunOptions(fused_qkv=True)`` beside the unfused run on the same
+   weights: exactly 56 fewer K2 launches a decode step (one QKV product a
+   layer for three), layer 0's fused QKV product within phase 2's bf16
+   tolerance of the three products, and the first decode logits at most
+   twice as far from the unfused run's as those are from the f32 model's;
+   the token match share and each run's device ms a decode step printed.
 
 Each phase prints its seconds in a summary line before the kernels line.
 
@@ -235,7 +258,11 @@ chunk over 512 frames at 16/16 heads, hd 64; 17 keys), K3 non-causal (1024
 queries over 256 frames, the encoder's 256 x 256, 1601 keys at hd 128, 65
 keys) and K2 at ``seamless-m4t-large-v2``'s 256,206-column head (the
 logits at 8 and 512 rows, ``stream`` and ``wgmma``, and both backward
-products of a 512-row chunk on ``wmma``), bf16 and f32; phase 3 also takes
+products of a 512-row chunk on ``wmma``), bf16 and f32, and K2 at the fused
+QKV width of phase 16 (2048 x 4096 at 8 and 512 rows, bf16 and f32); phase
+3 also serves the smoke config through the ``Router`` on the card and on
+the CPU (``pws``, ``rws`` and a replica's death: card == CPU == a single
+engine's tokens, the same placements and counters), takes
 one f32 training step of the smoke config, and of ``olmoe-1b-7b``'s (its
 expert products' backward on the batched ``fma`` instance),
 ``recurrentgemma-2b``'s and ``mamba2-370m``'s, on the card and
@@ -263,6 +290,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -278,6 +306,15 @@ COMPARE_TOL = {"bfloat16": (1e-2, 2 ** -7), "float32": (1e-4, 1e-4)}
 BATCH, MAX_NEW, MAX_LEN = 4, 16, 256
 # phase 8: the engine at full width
 SLOTS, ENGINE_LEN, CHUNK, ENGINE_REQUESTS = 8, 512, 64, 16
+# phase 16: the fleet (phase 8's requests, max_len and chunk) and its runs:
+# (c) replica 1's sixth decode launch fails through every retry; (d) the
+# work-remaining skew past which a round migrates work (queue depth 0, so
+# the donor's decoding slots move once the queue drains); (e) the rounds
+# before the join and between the join and replica 0's leave
+FLEET_REPLICAS, FLEET_SLOTS, FLEET_SNAPSHOT = 2, 4, 4
+FLEET_DEATH = "|decode@6=raise:99"
+FLEET_REBALANCE = 24
+FLEET_JOIN_AT, FLEET_LEAVE_AT = 4, 8
 INT8 = dict(impl={"attention": "pallas"}, variants={"attention": {"kv_dtype": "int8"}})
 # the rest of the dense family (phases 2, 3 and 11): two MoE configs, QKV
 # bias, untied output heads, GQA ratios 8, 16/16 and 5
@@ -291,6 +328,8 @@ WIDE_LAYERS, WIDE_NEW = 2, 4  # qwen2.5-14b and qwen3-32b at full width, 2 layer
 GEMMA_ARCH = "gemma3-1b"
 GEMMA_LEN, GEMMA_TRAIN_BATCH, GEMMA_TRAIN_SEQ = 2048, 2, 1024
 FAULT_PLAN = "decode@3=raise,slot@1=nan_logits"
+# phase 3's fleet: replica 1's third decode launch fails through every retry
+SMOKE_FLEET_DEATH = "|decode@3=raise:99"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 128, 3  # the JAX trainer's CLI defaults
 # phase 13: olmoe-1b-7b trained at full width.  Training state is 16 bytes a
 # parameter (bf16 weight and gradient, f32 master, m and v); the depth is
@@ -2146,6 +2185,344 @@ def phase_15(torch, np, dev, g, smi, counts, reset_counts, trace, counted, finit
     return out
 
 
+def fused_qkv_checks(torch, dev, g, compare):
+    """Phase 2's cases for phase 16: K2 at the fused QKV width of
+    ``qwen3-1.7b`` (d x (q + 2 kv) = 2048 x 4096, ``RunOptions(fused_qkv=True)``)
+    at the engine's decode rows and a 512-row chunk (``SLOTS`` x ``CHUNK``),
+    bf16 and f32, against its plain version."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.hbp_matmul import hbp_matmul, matmul_ref
+    from repro_torch.kernels.hbp_matmul import path as mm_path
+
+    cfg = get_config(ARCH)
+    d, n = cfg.d_model, cfg.q_dim + 2 * cfg.kv_dim
+    print(f"[2] K2 at the fused QKV width ({d}x{n}) vs its plain version")
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        w = (torch.randn(d, n, device=dev, generator=g) / math.sqrt(d)).to(dt)
+        for T in (SLOTS, SLOTS * CHUNK):
+            x = torch.randn(T, d, device=dev, generator=g).to(dt)
+            compare("hbp_matmul", f"{dtype} fused wqkv ({T}x{d} @ {d}x{n}) {mm_path(x, w)}",
+                    hbp_matmul(x, w), matmul_ref(x, w), dtype)
+
+
+def engine_workload(np, vocab):
+    """Phase 8's requests (and phase 16's): prompts of 16-192 tokens, 8-48 new."""
+    erng = np.random.default_rng(0)
+    return [(erng.integers(3, vocab, int(erng.integers(16, 193))).astype(np.int32),
+             int(erng.integers(8, 49))) for _ in range(ENGINE_REQUESTS)]
+
+
+def first_divergence(a, b):
+    """The first index where token lists ``a`` and ``b`` differ (None: equal)."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                None if len(a) == len(b) else min(len(a), len(b)))
+
+
+def phase_16(torch, np, dev, smi, counts, reset_counts, trace, counted, finite_logits,
+             registry_kernels, cfg=None):
+    """The fleet (phase 16): ``qwen3-1.7b`` at full width and depth, bf16,
+    seeded weights drawn on the card, behind the ``Router``: 2 replicas of
+    ``FLEET_SLOTS`` slots (``ENGINE_LEN`` positions, chunk ``CHUNK``,
+    ``snapshot_every`` ``FLEET_SNAPSHOT``) serve phase 8's 16 requests (a)
+    by ``pws``, (b) by ``rws`` seed 5, (d) by ``pws`` with the rebalance
+    threshold ``FLEET_REBALANCE`` (queue depth 0), which drains decoding
+    slots to the other replica, and (e) with a replica joined after
+    ``FLEET_JOIN_AT`` rounds and replica 0 removed ``FLEET_LEAVE_AT``
+    rounds later, all on one fleet; (c) a second fleet under
+    ``FLEET_DEATH``: replica 1 dies and a replacement restarts from the
+    full-width checkpoint.  The reference is one clean ``Engine`` of
+    ``FLEET_SLOTS`` slots with replica 0's params (the same shapes).
+
+    Gates: every request gets its ``max_new`` tokens with finite logits;
+    (c) 1 death, at least 1 restart and 1 migration; (d) at least 1 slot
+    migration; (e) 1 join and 1 leave; each checkpoint-streamed replica's
+    params and first-chunk logits on a fixed prompt bit-equal to replica
+    0's; every request placed once (never moved) gets the single engine's
+    tokens bit for bit; every run launches K1 and K2 and nothing else.
+    Requests that moved are printed, not gated: their tail replays through
+    a chunk launch (another K2 instance than the decode step's) or from a
+    snapshot.  Then phase 8's engine traffic (``SLOTS`` slots) with
+    ``RunOptions(fused_qkv=True)`` beside the unfused run on the same
+    weights: exactly ``2 L`` fewer K2 launches a decode step (one QKV
+    product a layer where there were three); layer 0's fused QKV product
+    within phase 2's bf16 tolerance of the three products; the first
+    decode step's logits at most twice as far from the unfused run's as
+    the unfused run's are from the f32 model's on the same weights and
+    tokens (K2's split-K plan changes with the product's width, so bf16
+    roundings move and grow over 28 layers, as two cache layouts' do in
+    phase 14); the token match share and the device ms a decode step
+    printed.  Returns the phase's numbers.  ``cfg`` (default
+    the full config) lets a rehearsal run the phase at a small size."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import policy
+    from repro_torch.launch.engine import Engine
+    from repro_torch.launch.router import Router
+    from repro_torch.launch.serve import Request
+    from repro_torch.models import RunOptions, build_model, common
+    from repro_torch.runtime import FaultInjector
+
+    cfg = cfg or get_config(ARCH)
+    L, V = cfg.n_layers, cfg.vocab_size
+    work = engine_workload(np, V)
+    kw = dict(max_batch=FLEET_SLOTS, max_len=ENGINE_LEN, chunk=CHUNK,
+              snapshot_every=FLEET_SNAPSHOT)
+    want = {"flash_attention_int8": 0, "flash_attention_bwd": 0, "hbp_matmul_batched": 0,
+            **{k: 0 for k in registry_kernels}}
+    out = {}
+    fixed = torch.from_numpy(np.random.default_rng(2).integers(
+        3, V, (FLEET_SLOTS, CHUNK)).astype(np.int32)).to(dev)
+
+    @torch.no_grad()
+    def first_chunk_logits(engine):
+        """One first chunk of ``fixed`` on a fresh cache of ``engine``'s shape."""
+        cache = engine.model.init_cache(FLEET_SLOTS, ENGINE_LEN)
+        zeros = torch.zeros(FLEET_SLOTS, dtype=torch.int32, device=dev)
+        lens = torch.full((FLEET_SLOTS,), CHUNK, dtype=torch.int32, device=dev)
+        logits, _ = engine.model.prefill_chunk(fixed, zeros, cache, first=True, lens=lens)
+        return logits
+
+    def same_replica(rep, ref, ref_logits):
+        """``rep``'s params and first-chunk logits bit-equal to ``ref``'s."""
+        mine = rep.engine.model.state_dict()
+        params_eq = all(torch.equal(t, mine[k]) for k, t in ref.items())
+        logits_eq = torch.equal(first_chunk_logits(rep.engine), ref_logits)
+        print(f"    replica {rep.rid} ({rep.spawned_from}, up in {rep.spawn_s:.3f} s): params "
+              f"bit-equal to replica 0's {params_eq}, first-chunk logits bit-equal {logits_eq}")
+        check(params_eq and logits_eq, f"replica {rep.rid} restored params or logits differ "
+              "from replica 0's")
+
+    def requests():
+        return [Request(i, p, max_new=m) for i, (p, m) in enumerate(work)]
+
+    def fleet_run(router, label, steer=None):
+        """One fleet run (``steer(router)`` runs it when given), its gates,
+        and its line of numbers."""
+        cls = type(router.replicas[0].engine.model)
+        plain = cls.decode_step, cls.prefill_chunk
+        cls.decode_step, cls.prefill_chunk = (finite_logits(f) for f in plain)
+        trace.update(finite=torch.ones((), dtype=torch.bool, device=dev))
+        reqs = requests()
+        reset_counts()
+        try:
+            if steer is None:
+                res = router.run(reqs)
+            else:
+                res = steer(router, reqs)
+            launches = counts()
+        finally:
+            cls.decode_step, cls.prefill_chunk = plain
+        c = res["counters"]
+        tokens = [r.out for r in reqs]
+        placed = {}
+        for uid, _ in res["placements"]:
+            placed[uid] = placed.get(uid, 0) + 1
+        moved = sorted(u for u, n in placed.items() if n > 1)
+        still = [u for u in range(len(reqs)) if u not in moved]
+        same = [u for u in still if tokens[u] == ref_tokens[u]]
+        m_same = [u for u in moved if tokens[u] == ref_tokens[u]]
+        diverge = {u: first_divergence(tokens[u], ref_tokens[u]) for u in moved
+                   if u not in m_same}
+        faults = [row["faults"] for row in res["replicas"]]
+        print(f"    ({label}) {res['tokens']} tokens: fleet {res['fleet_tok_per_s']:.1f} tok/s "
+              f"(makespan {res['fleet_busy_s']:.3f} s), sequential {res['tok_per_s']:.1f} "
+              f"tok/s ({res['wall_s']:.3f} s); busy_s "
+              f"{ {row['rid']: round(row['busy_s'], 3) for row in res['replicas']} }; router "
+              f"host {1e3 * res['router_host_s'] / max(res['rounds'], 1):.3f} ms a round over "
+              f"{res['rounds']} rounds ({smi})")
+        print(f"        counters {c}")
+        print(f"        launches {launches}; logits finite {bool(trace['finite'])}; unmoved "
+              f"requests == single engine {len(same)}/{len(still)}; moved {moved}: "
+              f"{len(m_same)} match, first divergent index {diverge} (bf16, not gated)")
+        check(all(len(r.out) == r.max_new for r in reqs),
+              f"fleet ({label}): requests not completed: {[len(r.out) for r in reqs]}")
+        check(bool(trace["finite"]) and all(f["slots_poisoned"] == 0 for f in faults),
+              f"fleet ({label}): non-finite logits ({faults})")
+        check(launches["flash_attention"] > 0 and launches["hbp_matmul"] > 0
+              and all(launches[k] == n for k, n in want.items()),
+              f"fleet ({label}): launches {launches}")
+        check(len(same) == len(still), f"fleet ({label}): unmoved requests "
+              f"{[u for u in still if u not in same]} differ from the single engine")
+        return {"counters": c, "fleet_tok_per_s": res["fleet_tok_per_s"],
+                "tok_per_s": res["tok_per_s"], "busy_s": [row["busy_s"] for row in res["replicas"]],
+                "router_host_ms_per_round": 1e3 * res["router_host_s"] / max(res["rounds"], 1),
+                "moved": len(moved), "moved_match": len(m_same)}
+
+    def join_leave(router, reqs):
+        router.begin(reqs)
+        for _ in range(FLEET_JOIN_AT):
+            router.step_round()
+        joiner = router.add_replica()
+        for _ in range(FLEET_LEAVE_AT):
+            router.step_round()
+        router.remove_replica(0)
+        while not router.done():
+            router.step_round()
+        res = router.finish(reqs)
+        res["joiner"] = joiner
+        return res
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_fleet_"))
+    try:
+        # -- 16a, b, d, e: one fleet ------------------------------------------------------
+        ckpt_bytes = 2 * cfg.param_count()
+        room = shutil.disk_usage(tmp).free
+        print(f"[16] {ARCH} fleet: {FLEET_REPLICAS} replicas x {FLEET_SLOTS} slots, max_len "
+              f"{ENGINE_LEN}, chunk {CHUNK}, snapshot every {FLEET_SNAPSHOT}; phase 8's "
+              f"{len(work)} requests; fleet checkpoint {ckpt_bytes / 1e9:.2f} GB, {tmp}: "
+              f"{room / 1e9:.2f} GB free")
+        check(room >= 2 * ckpt_bytes, f"phase 16: {room / 1e9:.2f} GB free under {tmp}, "
+              f"{2 * ckpt_bytes / 1e9:.2f} GB needed for the fleet checkpoints")
+        router = Router(cfg, device=dev, n_replicas=FLEET_REPLICAS, ckpt_dir=tmp / "a", **kw)
+        rep0 = router.replicas[0]
+        params = rep0.engine.model.state_dict()
+        ref_logits = first_chunk_logits(rep0.engine)
+        print(f"    fleet checkpoint written in {router.ckpt_save_s:.3f} s (host clock)")
+        out["ckpt_save_s"] = router.ckpt_save_s
+        same_replica(router.replicas[1], params, ref_logits)
+        out["restart_s"] = [router.replicas[1].spawn_s]
+        single = Engine(cfg, device=dev, params=params, injector=FaultInjector(""), **kw)
+        reqs = requests()
+        t0 = time.perf_counter()
+        single.run(reqs)
+        ref_tokens = [r.out for r in reqs]
+        print(f"    single engine ({FLEET_SLOTS} slots, replica 0's params): "
+              f"{sum(map(len, ref_tokens))} tokens in {time.perf_counter() - t0:.3f} s")
+        del single
+        out["a"] = fleet_run(router, "a: pws")
+        router.route, router.seed = "rws", 5
+        out["b"] = fleet_run(router, "b: rws, seed 5")
+        router.route, router.seed = "pws", 0
+        router.rebalance_threshold, router.queue_depth = FLEET_REBALANCE, 0
+        out["d"] = fleet_run(router, f"d: pws, rebalance threshold {FLEET_REBALANCE}, "
+                             "queue depth 0")
+        check(out["d"]["counters"]["slot_migrations"] >= 1,
+              f"fleet (d): no slot migration ({out['d']['counters']})")
+        router.rebalance_threshold, router.queue_depth = None, 1
+        out["e"] = fleet_run(router, f"e: pws, a replica joined after {FLEET_JOIN_AT} rounds, "
+                             f"replica 0 removed {FLEET_LEAVE_AT} rounds later", join_leave)
+        c = out["e"]["counters"]
+        check(c["joins"] == 1 and c["leaves"] == 1, f"fleet (e): joins and leaves {c}")
+        same_replica(router.replicas[-1], params, ref_logits)
+        out["restart_s"].append(router.replicas[-1].spawn_s)
+        del router, rep0
+        shutil.rmtree(tmp / "a")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- 16c: a replica dies and restarts from the checkpoint ---------------------------
+        router = Router(cfg, device=dev, n_replicas=FLEET_REPLICAS, ckpt_dir=tmp / "c",
+                        params=params, fleet_faults=FLEET_DEATH, **kw)
+        out["c"] = fleet_run(router, f"c: pws under '{FLEET_DEATH}'")
+        c = out["c"]["counters"]
+        check(c["replica_deaths"] == 1 and c["replica_restarts"] >= 1 and c["migrations"] >= 1,
+              f"fleet (c): deaths, restarts and migrations {c}")
+        for rep in router.replicas[1:]:
+            if rep.state == "live":
+                same_replica(rep, params, ref_logits)
+                out["restart_s"].append(rep.spawn_s)
+        del router
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- 16f: phase 8's engine traffic with fused QKV ----------------------------------------
+    fused_opts = RunOptions(fused_qkv=True)
+    fused_scope = policy.from_run_options(fused_opts)
+    a_tol, r_tol = COMPARE_TOL["bfloat16"]
+    # one attention block's QKV products, fused (one K2 launch) against
+    # unfused (three), on layer 0's weights at the decode and chunk rows:
+    # within phase 2's bf16 tolerance, as each is of its plain version
+    w3 = [params[f"layers.0.{k}"] for k in ("wq", "wk", "wv")]
+    qkv_err = 0.0
+    for T in (SLOTS, SLOTS * CHUNK):
+        x = torch.randn(T, cfg.d_model, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(T)).to(w3[0].dtype)
+        three = common.qkv_project(x, *w3)
+        with policy.apply(**fused_scope):
+            one = common.qkv_project(x, *w3)
+        for got, want in zip(one, three):
+            err = (got.float() - want.float()).abs()
+            qkv_err = max(qkv_err, err.max().item())
+            check(bool((err <= a_tol + r_tol * want.float().abs()).all()),
+                  f"fused QKV product at {T} rows differs from the three products by "
+                  f"{err.max().item()}")
+    print(f"    (f) layer 0's QKV products fused vs unfused at {SLOTS} and {SLOTS * CHUNK} rows: "
+          f"max_abs_err {qkv_err:.3e} (atol {a_tol:g} + rtol {r_tol:g}) ok")
+    runs = {}
+    for name, opts in (("unfused", None), ("fused", fused_opts)):
+        engine = Engine(cfg, device=dev, params=params, max_batch=SLOTS, max_len=ENGINE_LEN,
+                        chunk=CHUNK, opts=opts)
+        trace_engine(engine, counted, finite_logits)
+        trace.update(decode=[], prefill=[], pos=[],
+                     finite=torch.ones((), dtype=torch.bool, device=dev))
+        reqs = requests()
+        reset_counts()
+        res = engine.run(reqs)
+        per_step = trace["decode"]
+        k2 = sorted({c["hbp_matmul"] for c in per_step})
+        mid_pos = trace["pos"][len(trace["pos"]) // 2]
+        tok = torch.zeros((SLOTS, 1), dtype=torch.int32, device=dev)
+        with policy.apply(**(fused_scope if opts else {})):
+            dev_ms = time_ms(torch, lambda: type(engine.model).decode_step(
+                engine.model, tok, mid_pos, engine.cache), [()])
+        # the first decode step's logits on a fixed batch, after one prefill
+        with torch.no_grad():
+            prompt = fixed[:, :CHUNK].repeat(SLOTS // FLEET_SLOTS, 1)[:SLOTS]
+            logits, cache = engine.model.prefill({"tokens": prompt}, 2 * CHUNK)
+            if name == "unfused":
+                nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+            first, _ = engine.model.decode_step(nxt, torch.tensor(CHUNK, dtype=torch.int32,
+                                                                  device=dev), cache)
+        runs[name] = dict(tokens=[r.out for r in reqs], k2=k2, dev_ms=dev_ms, first=first,
+                          wall_ms=1e3 * res["decode_s"] / max(res["decode_steps"], 1))
+        print(f"    (f) {name} QKV, phase 8's traffic ({SLOTS} slots): completed "
+              f"{len(res['completed'])}/{len(reqs)}, logits finite {bool(trace['finite'])}; K2 "
+              f"launches a decode step {k2}; decode step {dev_ms:.4f} ms on the device (CUDA "
+              f"graph replay), {runs[name]['wall_ms']:.3f} ms host wall ({smi})")
+        check(all(len(r.out) == r.max_new for r in reqs) and bool(trace["finite"]),
+              f"{name} QKV engine: requests not completed or non-finite logits")
+        check(all(c["flash_attention"] == L for c in per_step),
+              f"{name} QKV engine: attention launches {per_step[:1]}")
+        del engine, cache, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the same first decode step of the f32 model on the same weights: the
+    # distance bf16 rounding alone puts between a bf16 model and its f32
+    # self, the yardstick of the fused run's distance from the unfused one
+    wide = build_model(reduced(cfg, dtype="float32"), device=dev)
+    wide.load_state_dict(params)
+    with torch.no_grad():
+        _, cache = wide.prefill({"tokens": prompt}, 2 * CHUNK)
+        f32_first, _ = wide.decode_step(nxt, torch.tensor(CHUNK, dtype=torch.int32,
+                                                          device=dev), cache)
+    del wide, cache
+    fewer = [u - f for u, f in zip(runs["unfused"]["k2"], runs["fused"]["k2"])]
+    want_l, got_l = runs["unfused"]["first"], runs["fused"]["first"]
+    gap = (got_l - want_l).abs().max().item()
+    noise = (want_l - f32_first).abs().max().item()
+    agree = sum(a == b for a, b in zip(runs["unfused"]["tokens"], runs["fused"]["tokens"]))
+    print(f"    (f) fused QKV: {fewer} fewer K2 launches a decode step (want {2 * L}); first "
+          f"decode logits {gap:.3e} max abs from the unfused run's, which is {noise:.3e} from "
+          f"the f32 model's (gate: at most twice that) {'ok' if gap <= 2 * noise else 'FAIL'}; "
+          f"requests with the same tokens {agree}/{len(work)}; decode step "
+          f"{runs['fused']['dev_ms']:.4f} ms fused, {runs['unfused']['dev_ms']:.4f} ms unfused "
+          f"on the device (not a claim)")
+    check(runs["unfused"]["k2"] == [7 * L + 1] and runs["fused"]["k2"] == [5 * L + 1],
+          f"K2 launches a decode step: unfused {runs['unfused']['k2']}, fused "
+          f"{runs['fused']['k2']}; want {7 * L + 1} and {5 * L + 1}")
+    check(gap <= 2 * noise, f"fused QKV first decode logits are {gap} from the unfused run's, "
+          f"more than twice the unfused run's {noise} from the f32 model's")
+    out["fused"] = {"k2_fewer": fewer[0], "qkv_err": qkv_err, "first_logits_gap": gap,
+                    "bf16_noise": noise, "token_match": agree,
+                    "dev_ms": runs["fused"]["dev_ms"], "unfused_dev_ms": runs["unfused"]["dev_ms"]}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def ring_prompts(np, vocab):
     """14b's prompts (phase 2 checks K2 at the rows of their prefill)."""
     r = np.random.default_rng(2)
@@ -2195,6 +2572,7 @@ def main():
     from repro_torch.kernels.hbp_matmul import path as mm_path
     from repro_torch.kernels.hbp_matmul import plan as mm_plan
     from repro_torch.launch.engine import Engine, check_lockstep_parity
+    from repro_torch.launch.router import Router
     from repro_torch.launch.serve import Request, Server
     from repro_torch.launch.steps import make_train_step
     from repro_torch.launch.train import train
@@ -2354,6 +2732,8 @@ def main():
             if dead:
                 print(f"    {'flash_attention':19s} rows {dead} exact zeros: "
                       f"{all(torch.count_nonzero(out[r]).item() == 0 for r in dead)}")
+
+    fused_qkv_checks(torch, dev, g, compare)
 
     # the training path's kernels: K3, and K2 reading A as a transposed view
     print(f"[2] training kernels vs plain versions (phase 6 runs {TRAIN_BATCH} x "
@@ -2928,6 +3308,35 @@ def main():
               f"smoke engine ({cache_kind} cache): tokens {got}, lockstep parity {lockstep}, "
               f"faults {faults}")
 
+    # the fleet Router on the smoke config at f32 (2 replicas of 2 slots,
+    # chunk 8, snapshot every 2): both arms and the death plan, each on the
+    # card and on the CPU, replica 0 holding ``params``; card == CPU == a
+    # clean single engine's tokens, and the same placements and counters
+    fleet_kw = dict(max_batch=2, max_len=64, chunk=8, snapshot_every=2)
+    single = Engine(small, device="cuda", params=params, injector=FaultInjector(""), **fleet_kw)
+    reqs = smoke_requests(6)
+    single.run(reqs)
+    alone = [r.out for r in reqs]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_router_") as tmp:
+        for label, rkw in (("pws", {}), ("rws", dict(route="rws", seed=5)),
+                           ("death", dict(fleet_faults=SMOKE_FLEET_DEATH))):
+            got = {}
+            for where in ("cuda", "cpu"):
+                router = Router(small, device=where, n_replicas=2, params=params,
+                                ckpt_dir=f"{tmp}/{label}_{where}", **rkw, **fleet_kw)
+                reqs = smoke_requests(6)
+                res = router.run(reqs)
+                got[where] = ([r.out for r in reqs], res["placements"], res["counters"])
+            c = got["cuda"][2]
+            ok = (got["cuda"][0] == got["cpu"][0] == alone and got["cuda"][1:] == got["cpu"][1:]
+                  and (label != "death" or (c["replica_deaths"], c["replica_restarts"]) == (1, 1)))
+            print(f"[3] smoke f32 Router ({label}): cuda == cpu == single engine tokens "
+                  f"{got['cuda'][0] == got['cpu'][0] == alone}, same placements and counters "
+                  f"{got['cuda'][1:] == got['cpu'][1:]} (deaths {c['replica_deaths']}, restarts "
+                  f"{c['replica_restarts']}, migrations {c['migrations']}) {'ok' if ok else 'FAIL'}")
+            check(ok, f"smoke Router ({label}): {got}, single engine {alone}")
+    del single, router
+
     # the rest of the dense family's smoke configs at f32: one set of
     # parameters, card == CPU tokens through the Engine (the MoE configs'
     # expert products on the batched fma instance), and through the lockstep
@@ -3293,9 +3702,7 @@ def main():
     # -- 8. the continuous-batching engine at full width --------------------------
     mark(8)
     engine = Engine(cfg, device="cuda", max_batch=SLOTS, max_len=ENGINE_LEN, chunk=CHUNK)
-    erng = np.random.default_rng(0)
-    workload = [(erng.integers(3, V, int(erng.integers(16, 193))).astype(np.int32),
-                 int(erng.integers(8, 49))) for _ in range(ENGINE_REQUESTS)]
+    workload = engine_workload(np, V)
     trace, counted, finite_logits = engine_tracers(torch, counts)
     trace_engine(engine, counted, finite_logits)
     print(f"[8] {ARCH} full width bf16 through the Engine: {SLOTS} slots, max_len "
@@ -3748,6 +4155,13 @@ def main():
     torch.cuda.empty_cache()
     cross = phase_15(torch, np, dev, g, smi, counts, reset_counts, trace, counted, finite_logits,
                      registry_kernels)
+
+    # -- 16. the fleet ------------------------------------------------------------------------
+    mark(16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_16(torch, np, dev, smi, counts, reset_counts, trace, counted, finite_logits,
+             registry_kernels)
     mark(None)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
           + f"; {time.perf_counter() - t_start:.1f} in all")

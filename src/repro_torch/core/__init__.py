@@ -1,1 +1,2 @@
-"""Scheduling cores shared by the port's launchers (``pws.match_round``)."""
+"""Scheduling cores shared by the port's launchers (``pws.match_round``,
+``rws.two_choice``)."""

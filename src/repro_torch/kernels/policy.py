@@ -9,7 +9,13 @@ frozen value holding
     and the implicit default is ``"auto"``;
   * ``variants``     — per-op variant-knob overrides merged into dispatch
     under explicit call-site kwargs (``{"matmul": {"backend":
-    "classical"}}``, ``{"attention": {"kv_dtype": "int8"}}``);
+    "classical"}}``, ``{"attention": {"kv_dtype": "int8"}}``), and read by
+    the model layer for ``{"matmul": {"qkv_fused": True}}`` (one QKV
+    product per attention block, ``models.common.qkv_project``);
+  * ``autotune``     — the measured-plan mode.  ``None`` and ``"off"`` run
+    the planner's tiles; ``"replay"`` and ``"search"`` raise
+    ``NotImplementedError`` until the autotune is ported (ROADMAP queue 1
+    item 6);
   * ``interpret``    — the JAX knob that forces Pallas interpret mode.  The
     port has no interpret mode: ``True`` on a CUDA tensor raises
     ``ValueError``, and on a CPU tensor the plain version runs anyway;
@@ -28,20 +34,24 @@ Op names are the registry's (``registry.names()``).  Backends name the
 route of a call: ``auto`` and ``pallas`` mean the op's kernel wrapper (the
 CUDA kernel on a CUDA tensor, its plain version on a CPU tensor); ``jnp``
 and ``ref`` mean the oracle, which the registry runs only on CPU tensors
-(``registry.route``).  The ``autotune`` field and ``bind`` /
-``from_run_options`` (the ``RunOptions`` knobs they read are not in the
-port's ``RunOptions``) wait for autotune.
+(``registry.route``).
+
+:func:`from_run_options` and :func:`bind` carry ``RunOptions``'
+``attention_impl`` / ``matmul_impl`` / ``fused_qkv`` / ``autotune`` into a
+policy scope around a model's entry points, as in the JAX package.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 from contextvars import ContextVar
 from dataclasses import dataclass, field, replace
 from types import MappingProxyType
-from typing import Mapping, Optional
+from typing import Callable, Mapping, Optional
 
 IMPLS = ("auto", "jnp", "ref", "pallas")
+AUTOTUNE_MODES = ("off", "replay", "search")
 
 
 def _frozen_map(d: Optional[Mapping]) -> Mapping:
@@ -62,6 +72,7 @@ class ExecutionPolicy:
 
     impl: Mapping[str, str] = field(default_factory=dict)
     variants: Mapping[str, Mapping] = field(default_factory=dict)
+    autotune: Optional[str] = None
     interpret: Optional[bool] = None
     strict_tiles: bool = False
     reason: Optional[str] = None
@@ -83,6 +94,14 @@ class ExecutionPolicy:
             if op not in known:
                 raise ValueError(f"unknown op {op!r} in variants map; "
                                  f"registered: {sorted(known)}")
+        if self.autotune is not None and self.autotune not in AUTOTUNE_MODES:
+            raise ValueError(f"unknown autotune mode {self.autotune!r}; "
+                             f"expected one of {AUTOTUNE_MODES}")
+        if self.autotune not in (None, "off"):
+            raise NotImplementedError(
+                f"autotune={self.autotune!r}: the measured autotune is not ported yet "
+                "(ROADMAP queue 1 item 6); the port runs the planner's tiles "
+                "(autotune None or 'off')")
 
     def impl_for(self, op: str) -> str:
         """The op's backend: its own entry, else ``"*"``, else ``"auto"``."""
@@ -120,7 +139,7 @@ class ExecutionPolicy:
             for knob, v in sorted(self.variants.get(op, {}).items()):
                 entry += f":{knob}={_fmt_knob(v)}"
             parts.append(entry)
-        for f_name in ("interpret", "strict_tiles", "reason"):
+        for f_name in ("autotune", "interpret", "strict_tiles", "reason"):
             v = getattr(self, f_name)
             if v not in (None, False):
                 parts.append(f"{f_name}={v}")
@@ -258,3 +277,41 @@ def pin(op: str, backend: str, *, reason: str):
 def pin_if(cond, op: str, backend: str, *, reason: str):
     """:func:`pin` when ``cond`` (a Python bool), else a no-op scope."""
     return pin(op, backend, reason=reason) if cond else contextlib.nullcontext()
+
+
+def from_run_options(opts) -> Optional[dict]:
+    """Translate ``RunOptions``' backend knobs (``attention_impl`` /
+    ``matmul_impl`` / ``fused_qkv`` / ``autotune``) into :func:`apply`
+    updates, or None when every field is at its ambient-deferring default.
+    The same update dict as JAX's ``from_run_options`` for the same
+    options."""
+    updates: dict = {}
+    impl = {}
+    for op, fld in (("attention", "attention_impl"), ("matmul", "matmul_impl")):
+        v = getattr(opts, fld, "auto")
+        if v != "auto":
+            impl[op] = v
+    if impl:
+        updates["impl"] = impl
+    if getattr(opts, "fused_qkv", False):
+        # one (d, q+k+v) product per attention block instead of three: the
+        # model layer reads this variant in ``common.qkv_project``
+        updates["variants"] = {"matmul": {"qkv_fused": True}}
+    tune = getattr(opts, "autotune", None)
+    if tune is not None:
+        updates["autotune"] = tune
+    return updates or None
+
+
+def bind(updates: Optional[dict], fn: Callable) -> Callable:
+    """Wrap ``fn`` so each call runs under ``apply(**updates)``.  No-op for
+    None."""
+    if not updates:
+        return fn
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with apply(**updates):
+            return fn(*args, **kwargs)
+
+    return wrapper

@@ -29,7 +29,10 @@ The plain versions stay reachable on the card only by importing them.
 callers; the models need not ask, since both of their ops carry a
 backward); :func:`dispatch` runs the resolved backend: the oracle for
 ``jnp``/``ref``, else the wrapper with the planner's tiles, under the
-policy's variant overrides, under explicit call-site tile kwargs.  The
+policy's variant overrides, under explicit call-site tile kwargs.  Only
+an op's own knobs (``KernelSpec.pallas_only``) reach its wrapper; the
+matmul op's ``qkv_fused`` variant is read by the model layer
+(``models.common.qkv_project``), which then dispatches one product.  The
 route is memoized on (op, policy, impl, device type, ``needs`` verdict) and
 the plan on (op, shapes, dtypes, device, ``REPRO_FAST_BYTES``), and
 dispatch makes no host sync, so it runs under CUDA-graph capture.  There

@@ -35,8 +35,8 @@ old one drains.  This engine removes both stalls:
     retries raises ``LaunchFailedError`` out of :meth:`Engine.run`.  A CUDA
     error (a kernel that does not build, a sticky fault) fails every retry
     and surfaces this way; the engine never moves to the CPU on its own.
-    The JAX engine's ``restart`` from a checkpoint waits for the port's
-    checkpoint write side and ``runtime/elastic.py`` (ROADMAP queue 6).
+    :meth:`Engine.restart` rebuilds a replica from the latest checkpoint
+    (the fleet router's respawn and join path).
 (b) *Transient launch fault / poisoned row.*  Every launch runs under
     bounded retry with seeded backoff.  The port writes the cache in place
     (``models.cache``), so a retried launch writes the same positions with
@@ -274,6 +274,27 @@ class Engine(Server):
         self._chunk_first = functools.partial(self._chunk_step, first=True)
         self._chunk_cont = functools.partial(self._chunk_step, first=False)
         self.begin([])  # stats() and adopt() are valid before the first run
+
+    @classmethod
+    def restart(cls, cfg, ckpt_dir, *, device=None, **kw) -> "Engine":
+        """Failure model (a): rebuild a serving replica on ``device`` with
+        params from the latest checkpoint under ``ckpt_dir`` (the JAX
+        package's format) via ``elastic.serving_restore``: the model's
+        names, shapes and dtypes come from a copy built on the ``meta``
+        device, the leaves are read onto ``device`` and loaded, so the
+        restored replica's logits equal the original's.  Caches start empty;
+        in-flight requests re-enter through admission and replay."""
+        from repro_torch import resolve_device
+        from repro_torch.checkpoint import CheckpointManager
+        from repro_torch.models import build_model
+        from repro_torch.runtime import elastic
+
+        device = resolve_device(device)
+        like = build_model(cfg, kw.get("opts"), device="meta").state_dict()
+        step, params = elastic.serving_restore(CheckpointManager(ckpt_dir), like, device)
+        eng = cls(cfg, device=device, params=params, **kw)
+        log.info("engine restarted from step-%d checkpoint on %s", step, device)
+        return eng
 
     # -- the two launches ----------------------------------------------------
     def _decode_rows(self, tokens, pos, cache, poison):

@@ -2,15 +2,13 @@
 ``repro/models/base.py``.
 
 A model is an ``nn.Module`` that owns its parameters, so the JAX methods'
-``params`` argument goes away.  ``RunOptions`` keeps the fields the
-training path reads (``remat``, ``ce_chunk``, ``microbatches``), the MoE
-dispatch's (``moe_dispatch``, ``moe_groups``) and the hybrid's decode-cache
-layout (``windowed_decode_cache``), with the JAX names and defaults; the
-rest of the JAX dataclass chooses attention tiles and jnp routes, and the
-port's kernels pick their own tiles and have no jnp route.
+``params`` argument goes away.  ``RunOptions`` has every field of the JAX
+dataclass, with its names, order and defaults, so a JAX ``RunOptions``
+carries across; its docstring says what each knob does in the port.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
@@ -20,19 +18,54 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import policy
 
 
 @dataclass(frozen=True)
 class RunOptions:
-    """Execution options the training path, the MoE layers and the
-    hybrid's cache read (JAX ``base.py:37-69``)."""
+    """Execution options (JAX ``base.py:37-69``: the same fields, order and
+    defaults).  What each does in the port:
+
+    * ``remat``, ``ce_chunk``, ``microbatches``: the training path's.
+    * ``moe_dispatch``, ``moe_groups``: the MoE layers'.
+    * ``windowed_decode_cache``: the hybrid's ring cache for local layers.
+    * ``attention_impl``, ``matmul_impl``: the backend of the model's
+      ``attention`` / ``matmul`` dispatches, bound by ``Model.__init__`` as
+      a policy scope around ``loss``, ``prefill``, ``prefill_chunk`` and
+      ``decode_step`` (``policy.from_run_options``, as in JAX).  ``auto``
+      and ``pallas`` take the kernel (its plain version on a CPU tensor);
+      ``jnp`` and ``ref`` take the plain version on a CPU tensor and raise
+      on a CUDA one (``registry.route``).
+    * ``fused_qkv``: the matmul op's ``qkv_fused`` variant in that scope:
+      each attention block's three input projections become one product
+      over ``cat([wq, wk, wv], 1)`` (``common.qkv_project``), one K2 launch
+      where there were three.
+    * ``autotune``: ``None`` and ``"off"`` run the planner's tiles;
+      ``"replay"`` and ``"search"`` raise ``NotImplementedError`` when the
+      model is built, until the autotune is ported (ROADMAP queue 1 item 6).
+    * ``use_banded_local``, ``causal_block_skip``: in JAX these leave the
+      attention kernel for jnp routes that compute the same attention.  The
+      port has no jnp route on the card, so attention stays on K1, which
+      already skips fully masked tiles; they change nothing.
+    * ``q_block``, ``kv_block``: in JAX they size only those jnp routes'
+      tiles and thresholds; K1, K1q and K3 fix their own blocks, so they
+      change nothing.
+    """
 
     remat: str = "full"  # "none" | "full": recompute each layer in backward
     ce_chunk: int = 512  # sequence chunk of the cross-entropy
-    microbatches: int = 1  # gradient-accumulation microbatches
+    q_block: Optional[int] = None  # JAX's jnp-route tiles: no effect here
+    kv_block: Optional[int] = None
+    attention_impl: str = "auto"  # "auto" | "pallas" | "jnp" | "ref"
+    matmul_impl: str = "auto"
+    autotune: Optional[str] = None  # None | "off" ("replay", "search": item 6)
+    use_banded_local: bool = False  # JAX's jnp routes: attention stays on K1
+    causal_block_skip: bool = False
+    windowed_decode_cache: bool = False  # ring-buffer cache for local layers
     moe_dispatch: str = "sort"  # "sort" (prod) | "onehot" (reference)
     moe_groups: int = 1  # dispatch groups (set to dp size by the planner)
-    windowed_decode_cache: bool = False  # ring-buffer cache for local layers
+    fused_qkv: bool = False  # one QKV product per attention block
+    microbatches: int = 1  # gradient-accumulation microbatches
 
 
 class TensorSpec(NamedTuple):
@@ -61,6 +94,14 @@ class Model(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.opts = opts or RunOptions()
+        # RunOptions' backend knobs -> a policy scope around the entry points
+        # (JAX base.py:90-94); building the scope's policy once here raises on
+        # a knob the port refuses (an autotune mode) when the model is built
+        self._policy_updates = policy.from_run_options(self.opts)
+        if self._policy_updates is not None:
+            policy.ExecutionPolicy().with_(**self._policy_updates)
+            for name in ("loss", "prefill", "prefill_chunk", "decode_step"):
+                setattr(self, name, policy.bind(self._policy_updates, getattr(self, name)))
 
     def init(self, generator: torch.Generator) -> None:
         """Fill every parameter in place from ``generator``."""
@@ -111,11 +152,20 @@ def maybe_remat(fn, opts: RunOptions):
     """``fn`` recomputed in the backward when ``opts.remat == "full"``
     (``torch.utils.checkpoint``, the non-reentrant form): only its inputs
     are kept between forward and backward.  The layers draw no random
-    numbers, so no RNG state is stashed for the recomputation."""
-    if opts.remat == "full":
-        return functools.partial(checkpoint, fn, use_reentrant=False,
-                                 preserve_rng_state=False)
-    return fn
+    numbers, so no RNG state is stashed for the recomputation.  The
+    recomputation runs under the policy the forward ran under (the backward
+    runs outside the model's policy scope), so it dispatches the same
+    products (fused QKV or not) and saves the same tensors."""
+    if opts.remat != "full":
+        return fn
+
+    def remat(*args, **kwargs):
+        pol = policy.current()
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                          context_fn=lambda: (contextlib.nullcontext(), policy.apply(pol)),
+                          **kwargs)
+
+    return functools.wraps(fn)(remat)
 
 
 def right_shift(tokens: torch.Tensor, bos: int = 1) -> torch.Tensor:

@@ -142,6 +142,16 @@ def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def qkv_project(x, wq, wk, wv):
+    """The attention block's input projections (JAX ``common.py:610``).
+    Under the matmul op's ``qkv_fused`` variant (``--impl
+    'matmul=pallas:qkv_fused=true'`` or ``RunOptions.fused_qkv``) the three
+    collapse into ONE :func:`project` over ``cat([wq, wk, wv], 1)``, one
+    K2 launch streaming ``x`` once instead of three, split back into views;
+    the weights are concatenated per call, as in JAX.  Without it, three
+    :func:`project` calls."""
+    if policy.current().variant_for("matmul").get("qkv_fused"):
+        fused = project(x, torch.cat([wq, wk, wv], dim=1))
+        return fused.split([wq.shape[1], wk.shape[1], wv.shape[1]], dim=-1)
     return project(x, wq), project(x, wk), project(x, wv)
 
 

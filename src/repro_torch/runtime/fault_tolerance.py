@@ -1,7 +1,6 @@
 """Fault tolerance: fault injection, bounded retry, straggler detection.
-The port's copy of ``repro/runtime/fault_tolerance.py``, but for the fleet
-grammar ``parse_fleet_plan``, which comes with the router (ROADMAP queue
-5).
+The port's copy of ``repro/runtime/fault_tolerance.py``, the fleet
+grammar ``parse_fleet_plan`` that the router reads included.
 
 The engine (``repro_torch.launch.engine``) maps the failure taxonomy onto
 launches: (a) a launch that exhausts its retries raises
@@ -48,6 +47,28 @@ def export_fault_counters(counters: dict) -> dict:
     """The fault-tolerance slice of an engine's telemetry counters (missing
     keys read as 0)."""
     return {k: counters.get(k, 0) for k in FAULT_COUNTER_KEYS}
+
+
+def parse_fleet_plan(plan: str, n_replicas: int) -> list[str]:
+    """Split a fleet fault plan into per-replica engine plans.  The fleet
+    grammar is ``plan[|plan...]``: ``|``-separated positional per-replica
+    plans (position = replica id, missing tails empty), e.g.
+    ``|decode@4=raise:99`` faults replica 1 only.  A plan with no ``|``
+    applies to EVERY replica, as a single engine's plan would.  Each piece
+    is validated through :func:`parse_fault_plan`; a plan naming more
+    replicas than the router has raises ``ValueError``."""
+    if "|" in plan:
+        pieces = [p.strip() for p in plan.split("|")]
+        if len(pieces) > n_replicas:
+            raise ValueError(
+                f"fleet fault plan names {len(pieces)} replicas but the "
+                f"router has {n_replicas}")
+        pieces += [""] * (n_replicas - len(pieces))
+    else:
+        pieces = [plan] * n_replicas
+    for piece in pieces:
+        parse_fault_plan(piece)
+    return pieces
 
 
 class InjectedFault(RuntimeError):

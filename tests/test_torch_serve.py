@@ -134,7 +134,9 @@ def test_import_loads_neither_jax_nor_repro():
             "repro_torch.kernels.registry, repro_torch.kernels.planner, "
             "repro_torch.core.costmodel, "
             "repro_torch.runtime.fault_tolerance, repro_torch.models.dense, "
-            "repro_torch.models.moe_layer, repro_torch.configs, sys; "
+            "repro_torch.models.moe_layer, repro_torch.configs, "
+            "repro_torch.launch.router, repro_torch.runtime.replica, "
+            "repro_torch.runtime.elastic, repro_torch.core.rws, sys; "
             "assert 'qwen3-moe-30b-a3b' in repro_torch.configs.list_archs(); "
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))]; assert not bad, bad")
