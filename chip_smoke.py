@@ -221,6 +221,34 @@ Phases, each of which fails the run (exit code 1, no result line):
    tolerance of the three products, and the first decode logits at most
    twice as far from the unfused run's as those are from the f32 model's;
    the token match share and each run's device ms a decode step printed.
+17. The measured autotune (``repro_torch.kernels.autotune``) on the card:
+   ``autotune.search`` on every distinct K2 product of one ``qwen3-1.7b``
+   engine decode step (``stream``) and one 64-token chunk step (``wgmma``),
+   phase 8's configuration at full width, recorded off the engine's own
+   dispatches, on phase 9's int8 K1q decode call (its cluster split) and
+   on phase 10's scan, transpose, FFT and f32 and bf16 Strassen shapes;
+   each winner is held against its plain version (phase 2's tolerance for
+   K2 and K1q, phase 10's for the registry ops) and one line
+   ``{"autotune": [...]}`` lists each key, analytic plan and µs, best plan
+   and µs, and candidate count.  Then phase 8's engine traffic under
+   ``RunOptions(autotune="replay")`` on that table beside the analytic
+   plans (``"off"``), the same weights: every request completes with
+   finite logits, ``7 L + 1`` K2 launches a decode step, and the replayed
+   first decode logits at most twice as far from the analytic run's as
+   those are from the f32 model's (phase 16's rule); each run's decode
+   step on the device (CUDA graph replay) and the host µs of one
+   ``dispatch`` printed.  ``python3 tools/autotune.py`` runs it alone.
+18. The simulator core (``repro_torch.core``): ``algorithms_torch`` on the
+   card against torch oracles (prefix sums of 2^24, ``mt_bi`` at 4096^2,
+   ``strassen`` at 2048^2, ``fft_six_step`` of 2^20), then one simulator
+   run of each HBP program under ``PWS`` at the paper demo's ``p, M, B``
+   (host only), its stats printed, at most p-1 steals a priority.
+
+The run keeps its tuned tables in a temporary ``REPRO_TUNE_DIR`` of its own,
+removed at the end: no phase replays a table an earlier run left, and the
+servers and engines of phases 1-16, which replay by default, run the
+analytic plans their numbers came from (the table is empty until phase
+17).  Phase 3 searches and replays its own table in a directory apart.
 
 Each phase prints its seconds in a summary line before the kernels line.
 
@@ -272,7 +300,10 @@ through the ``Engine`` and the ``Server`` (the hybrid with both caches):
 card == CPU tokens, and serves
 the smoke config through the ``Engine`` with the fp and the int8 cache:
 card == CPU == lockstep tokens, and a run under an injected fault plan
-gives the clean run's tokens.
+gives the clean run's tokens; and serves the smoke config at f32 on the
+card under ``RunOptions(autotune="search")`` (each product searched on the
+card into a table of its own), under ``"replay"`` of that table and with
+``fused_qkv=True`` (on the card and on the CPU): card == CPU tokens.
 
 The line before the last is a JSON object with one entry per kernel (and
 the attention kernels' at hd 256 per ``gemma3-1b`` and per
@@ -286,6 +317,7 @@ of the ``repro`` package.
 import gc
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -2523,6 +2555,449 @@ def phase_16(torch, np, dev, smi, counts, reset_counts, trace, counted, finite_l
     return out
 
 
+def smoke_autotune_checks(torch, small, params, prompts, want, tune_dir):
+    """Phase 3's autotune and fused-QKV cases at f32: the smoke ``Server``
+    on the card under ``RunOptions(autotune="search")`` (every product it
+    meets searched on the card and recorded in a table under ``tune_dir``,
+    its own directory, so no later phase replays it), then under
+    ``"replay"`` of that table with each entry's plan moved to the last of
+    its call's candidates (the search keeps the analytic plan within its
+    noise, so the replay would otherwise run the analytic plans), then with
+    ``fused_qkv=True`` on the card and on the CPU: every run's greedy tokens
+    equal ``want``, the CPU's (the fused runs: the fused CPU run's)."""
+    from repro_torch.kernels import autotune, planner
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models import RunOptions
+
+    prev = os.environ["REPRO_TUNE_DIR"]
+    os.environ["REPRO_TUNE_DIR"] = str(tune_dir)
+    autotune.clear_cache()
+
+    def serve(where, opts):
+        srv = Server(small, device=where, params=params, max_batch=BATCH, max_len=64,
+                     opts=opts)
+        reqs = [Request(i, p, max_new=12) for i, p in enumerate(prompts)]
+        srv.run_batch(reqs)
+        return [r.out for r in reqs]
+
+    kind = planner.device_params(torch.device("cuda")).kind
+    far = {}
+    real_search = autotune.search
+
+    def search(op, *args, **kw):
+        far[autotune.entry_key(op, *args, kwargs=kw)] = autotune.candidates(
+            op, *args, kwargs=kw)[-1]
+        return real_search(op, *args, **kw)
+
+    autotune.search = search
+    try:
+        got = {"search": serve("cuda", RunOptions(autotune="search"))}
+        autotune.search = real_search
+        table = autotune.load_table(kind)
+        for key, plan in far.items():
+            table[key] = {**table[key], "plan": plan}
+        autotune.save_table(kind)
+        autotune.clear_cache()
+        got["replay"] = serve("cuda", RunOptions(autotune="replay"))
+        table = autotune.load_table(kind)
+        moved = sum(e["plan"] != e["analytic_plan"] for e in table.values())
+        fused = {where: serve(where, RunOptions(fused_qkv=True)) for where in ("cuda", "cpu")}
+    finally:
+        autotune.search = real_search
+        os.environ["REPRO_TUNE_DIR"] = prev
+        autotune.clear_cache()
+        autotune.set_mode(None)
+    print(f"[3] smoke f32 under the autotune on the card: search (table of {len(table)} "
+          f"entries) tokens == cpu {got['search'] == want}, replay of that table moved to "
+          f"the last candidates ({moved} off the analytic plan) == cpu "
+          f"{got['replay'] == want}; fused QKV cuda == cpu "
+          f"{fused['cuda'] == fused['cpu']}")
+    check(table and all(k.startswith(("matmul|", "attention|")) for k in table),
+          f"the searched smoke table holds {sorted(table)}")
+    check(moved > 0, "the replayed smoke table holds no plan off the analytic one")
+    for mode, toks in got.items():
+        check(toks == want, f"{mode} cuda tokens {toks} != cpu tokens {want}")
+    check(fused["cuda"] == fused["cpu"],
+          f"fused QKV cuda tokens {fused['cuda']} != cpu tokens {fused['cpu']}")
+
+
+def phase_17(torch, np, dev, smi, reset_counts, trace, counted, finite_logits, cfg=None):
+    """The measured autotune on the card (phase 17), ``qwen3-1.7b`` at full
+    width (``cfg``: another config, for a rehearsal at a small size), bf16,
+    seeded weights, phase 8's ``Engine`` configuration.
+
+    (a) ``autotune.search`` on every distinct K2 product of one engine
+    decode step (8 rows: the ``stream`` instance) and one 64-token chunk
+    step (512 rows: ``wgmma``), recorded off the engine's own dispatches;
+    on phase 9's int8 K1q decode call (its cluster split); and on phase
+    10's scan, transpose, FFT and f32 and bf16 Strassen products.  Each
+    winner is held against its plain version at the tolerance its phase
+    gates it with (phase 2's for K2 and K1q, phase 10's for the registry
+    ops), as is every other candidate it ran, and each search's key, analytic and best plan and µs and
+    candidate count go into one ``{"autotune": [...]}`` line.  (b) Phase
+    8's engine traffic through an engine under ``RunOptions(autotune=
+    "replay")`` on that table beside one under ``"off"`` (the analytic
+    plans), the same weights: every request completes with finite logits,
+    both make ``7 L + 1`` K2 launches a decode step, and the replayed
+    engine's first decode logits on a fixed batch are at most twice as far
+    from the analytic run's as those are from the f32 model's (phase 16's
+    rule: K2's split-K changes bf16 roundings).  Prints each run's decode
+    step on the device (CUDA graph replay) and the host µs of one
+    ``dispatch`` of a decode product under each mode (the memoized
+    overlay's cost).  Returns the search rows and the run's numbers.  With
+    ``cfg`` given (a rehearsal at a small size) the registry ops shrink
+    too."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import autotune, planner, policy, registry
+    from repro_torch.kernels.bi_fft import bi_fft_plain
+    from repro_torch.kernels.bi_transpose import transpose_ref
+    from repro_torch.kernels.bp_scan import bp_scan_plain
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.kernels.hbp_matmul import matmul_ref
+    from repro_torch.kernels.hbp_matmul import path as mm_path
+    from repro_torch.kernels.strassen_matmul import strassen_matmul_plain
+    from repro_torch.launch.engine import Engine
+    from repro_torch.launch.serve import Request
+    from repro_torch.models import RunOptions, build_model
+    from repro_torch.models.common import kv_scale, quantize_kv
+
+    full = cfg is None
+    cfg = cfg or get_config(ARCH)
+    L, V = cfg.n_layers, cfg.vocab_size
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    kind = planner.device_params(dev).kind
+    scan_n, tr_n, fft_n, mm_n = (2 ** 20, 8192, 2 ** 16, STRASSEN_N) if full else \
+        (2 ** 12, 256, 2 ** 10, 256)
+    g = torch.Generator(device=dev).manual_seed(17)
+    rows = []
+
+    # -- 17a. the products of one decode step and one chunk step --------------------------
+    engine = Engine(cfg, device=dev, max_batch=SLOTS, max_len=ENGINE_LEN, chunk=CHUNK,
+                    opts=RunOptions(autotune="off"))
+    params = engine.model.state_dict()
+    calls = {}
+    real = registry.dispatch
+
+    def record(name, *args, **kw):
+        if name == "matmul":
+            calls.setdefault(autotune.entry_key(name, *args, kwargs=kw),
+                             ([a.detach().clone() for a in args], kw))
+        return real(name, *args, **kw)
+
+    prompt = np.random.default_rng(3).integers(3, V, CHUNK).astype(np.int32)
+    registry.dispatch = record
+    try:
+        engine.run([Request(0, prompt, max_new=2)])  # one chunk step, one decode step
+    finally:
+        registry.dispatch = real
+
+    def normwise(got, want):
+        got, want = (t if t.is_complex() else t.float() for t in (got, want))
+        return ((got - want).abs().max() / want.abs().max()).item()
+
+    def held(op, args, kw, plan):
+        """(max abs err of the winner against its plain version, ok, rule)."""
+        got = registry.get(op).kernel(*args, **kw, **plan)
+        if op == "matmul" and args[0].dim() == 2 and args[0].shape[0] == args[0].shape[1] \
+                == args[1].shape[1] == mm_n:
+            want = (strassen_matmul_plain(*args, cutoff=plan.get("cutoff"))
+                    if plan.get("backend") == "strassen" else matmul_ref(*args))
+            tol = MM_TOL[0] if args[0].dtype == torch.float32 else MM_TOL_BF16[0]
+            e = normwise(got, want)
+            return e, e <= tol, f"normwise {tol:g}"
+        if op in ("matmul", "attention"):
+            want = (matmul_ref(*args) if op == "matmul" else
+                    flash_attention_ref(*args, **kw)[0])
+            a_tol, r_tol = COMPARE_TOL[str(args[0].dtype).removeprefix("torch.")]
+            diff = (got.float() - want.float()).abs()
+            return (diff.max().item(), bool((diff <= a_tol + r_tol * want.float().abs()).all()),
+                    f"atol {a_tol:g} + rtol {r_tol:g}")
+        x = args[0]
+        if op == "scan":
+            want = bp_scan_plain(x, plan.get("block", x.shape[-1])).float()
+            diff = (got.float() - want).abs()
+            slack = SCAN_SLACK * torch.cumsum(x.float().abs(), dim=-1) + SCAN_SLACK
+            return diff.max().item(), bool((diff <= slack).all()), \
+                f"{SCAN_SLACK:g} * cumsum|x| + {SCAN_SLACK:g}"
+        if op == "transpose":
+            return 0.0 if torch.equal(got, transpose_ref(x)) else float("inf"), \
+                torch.equal(got, transpose_ref(x)), "exact"
+        e = normwise(got, bi_fft_plain(x, n1=plan.get("n1")))
+        return e, e <= FFT_TOL[0], f"normwise {FFT_TOL[0]:g}"
+
+    def search(label, op, args, kw=None):
+        kw = kw or {}
+        t0 = time.perf_counter()
+        entry = autotune.search(op, *args, **kw)
+        took = time.perf_counter() - t0
+        # the winner, and every other candidate the search ran, against the
+        # plain version: a plan another shape may replay is a checked one
+        cands = autotune.candidates(op, *args, kwargs=kw)
+        with torch.no_grad():
+            err, ok, rule = held(op, args, kw, entry["plan"])
+            bad = [p for p in cands if not held(op, args, kw, p)[1]]
+        check(not bad, f"autotune {label}: candidates {bad} disagree with the plain version")
+        key = autotune.entry_key(op, *args, kwargs=kw)
+        rows.append({"key": key, "analytic_plan": entry["analytic_plan"],
+                     "analytic_us": entry["analytic_us"], "plan": entry["plan"],
+                     "us": entry["us"], "candidates": entry["candidates"]})
+        print(f"    {label}: analytic {entry['analytic_plan']} {entry['analytic_us']} us, best "
+              f"{entry['plan']} {entry['us']} us ({entry['analytic_us'] / entry['us']:.3f}x) of "
+              f"{entry['candidates']} candidates in {took:.2f} s, each within tolerance of "
+              f"the plain version; winner vs plain {err:.3e} ({rule}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"autotune {label}: the winner {entry['plan']} disagrees with its plain "
+              f"version ({err} against {rule})")
+
+    print(f"[17] the measured autotune on the card ({smi}); table {autotune.table_path(kind)}")
+    print(f"    {len(calls)} distinct K2 products in one decode and one {CHUNK}-token chunk "
+          f"step of phase 8's engine:")
+    for key, (args, kw) in calls.items():
+        a, b = args
+        search(f"{key} [{mm_path(a, b)}]", "matmul", args, kw)
+    # phase 9's K1q decode call: bf16 q over phase 8's int8 cache at seeded lanes
+    qo = torch.from_numpy(np.random.default_rng(4).integers(
+        16, ENGINE_LEN - 1, SLOTS).astype(np.int32)).to(dev)
+    fp = [torch.randn(SLOTS, ENGINE_LEN, kvh, hd, device=dev, generator=g) for _ in "kv"]
+    scales = [kv_scale(x) for x in fp]
+    k8, v8 = (quantize_kv(x, sc) for x, sc in zip(fp, scales))
+    del fp
+    q = torch.randn(SLOTS, 1, h, hd, device=dev, generator=g).to(torch.bfloat16)
+    search(f"K1q decode {SLOTS}x1 vs int8 {ENGINE_LEN}", "attention", (q, k8, v8),
+           dict(causal=True, q_offset=qo, kv_len=qo + 1, k_scale=scales[0],
+                v_scale=scales[1]))
+    del q, k8, v8
+    # phase 10's registry ops past the L2
+    reg = [(f"scan f32 64x{scan_n}", "scan",
+            (torch.randn(64, scan_n, device=dev, generator=g),)),
+           (f"transpose f32 {tr_n}x{tr_n}", "transpose",
+            (torch.randn(tr_n, tr_n, device=dev, generator=g),)),
+           (f"fft complex64 256x{fft_n}", "fft",
+            (torch.randn(256, fft_n, dtype=torch.complex64, device=dev, generator=g),)),
+           (f"matmul f32 {mm_n}^2", "matmul",
+            tuple(torch.randn(mm_n, mm_n, device=dev, generator=g) for _ in "ab")),
+           (f"matmul bf16 {mm_n}^2", "matmul",
+            tuple(torch.randn(mm_n, mm_n, device=dev, generator=g).to(torch.bfloat16)
+                  for _ in "ab"))]
+    for label, op, args in reg:
+        search(label, op, args)
+    del reg
+    gc.collect()
+    torch.cuda.empty_cache()
+    table = autotune.load_table(kind)
+    print(json.dumps({"autotune": rows}))
+    check(len(table) == len(rows), f"the table holds {len(table)} entries for {len(rows)} "
+          "searches")
+
+    # -- 17b. phase 8's traffic replayed on the table, beside the analytic plans ------------
+    work = engine_workload(np, V)
+    fixed = torch.from_numpy(np.random.default_rng(2).integers(
+        3, V, (SLOTS, CHUNK)).astype(np.int32)).to(dev)
+    dec_a = torch.randn(SLOTS, cfg.d_model, device=dev, generator=g).to(torch.bfloat16)
+    w_dec = params["layers.0.w_gate"] if "layers.0.w_gate" in params else next(
+        t for t in params.values() if t.dim() == 2)
+
+    def host_us(fn, n=2000):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return 1e6 * (t1 - t0) / n
+
+    runs = {}
+    del engine
+    gc.collect()
+    for mode in ("off", "replay"):
+        eng = Engine(cfg, device=dev, params=params, max_batch=SLOTS, max_len=ENGINE_LEN,
+                     chunk=CHUNK, opts=RunOptions(autotune=mode))
+        trace_engine(eng, counted, finite_logits)
+        trace.update(decode=[], prefill=[], pos=[],
+                     finite=torch.ones((), dtype=torch.bool, device=dev))
+        reqs = [Request(i, p, max_new=m) for i, (p, m) in enumerate(work)]
+        reset_counts()
+        res = eng.run(reqs)
+        k2 = sorted({c["hbp_matmul"] for c in trace["decode"]})
+        mid_pos = trace["pos"][len(trace["pos"]) // 2]
+        tok = torch.zeros((SLOTS, 1), dtype=torch.int32, device=dev)
+        with policy.apply(autotune=mode), torch.no_grad():
+            dev_ms = time_ms(torch, lambda: type(eng.model).decode_step(
+                eng.model, tok, mid_pos, eng.cache), [()])
+            logits, cache = eng.model.prefill({"tokens": fixed}, 2 * CHUNK)
+            if mode == "off":
+                nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+            first, _ = eng.model.decode_step(nxt, torch.tensor(CHUNK, dtype=torch.int32,
+                                                               device=dev), cache)
+        runs[mode] = dict(tokens=[r.out for r in reqs], first=first, dev_ms=dev_ms, k2=k2,
+                          wall_ms=1e3 * res["decode_s"] / max(res["decode_steps"], 1))
+        print(f"    (b) autotune {mode}: phase 8's traffic completed {len(res['completed'])}/"
+              f"{len(reqs)}, logits finite {bool(trace['finite'])}; K2 launches a decode step "
+              f"{k2}; decode step {dev_ms:.4f} ms on the device (CUDA graph replay), "
+              f"{runs[mode]['wall_ms']:.3f} ms host wall ({smi})")
+        check(all(len(r.out) == r.max_new for r in reqs) and bool(trace["finite"]),
+              f"autotune {mode} engine: requests not completed or non-finite logits")
+        check(k2 == [7 * L + 1] or dev.type != "cuda",  # a CPU rehearsal launches none
+              f"autotune {mode} engine: K2 launches a decode step {k2}")
+        del eng, cache, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the host's cost of one dispatch of a decode product under each mode,
+    # alternated (the host's spread between runs is wide), and how often
+    # the overlay was computed (not taken from its memo) in those calls
+    computed = [0]
+    real_overlay = autotune._overlay
+
+    def counted_overlay(*a, **kw):
+        computed[0] += 1
+        return real_overlay(*a, **kw)
+
+    autotune._overlay = counted_overlay
+    host = {"off": [], "replay": []}
+    try:
+        with torch.no_grad():
+            for _ in range(3):
+                for mode in host:
+                    with policy.apply(autotune=mode):
+                        host[mode].append(host_us(lambda: registry.dispatch(
+                            "matmul", dec_a, w_dec)))
+    finally:
+        autotune._overlay = real_overlay
+    for mode, v in host.items():
+        runs[mode]["us"] = sorted(v)[1]
+    print(f"    (b) host us per dispatch of a {SLOTS}x{cfg.d_model} @ {tuple(w_dec.shape)} "
+          f"product, 3 alternated rounds of 2000 calls: off {[round(u, 2) for u in host['off']]}, "
+          f"replay {[round(u, 2) for u in host['replay']]} (medians {runs['off']['us']:.2f}, "
+          f"{runs['replay']['us']:.2f}); the overlay computed {computed[0]} times in "
+          f"{3 * 2001} replayed calls")
+    check(computed[0] <= 1, f"the dispatch overlay was computed {computed[0]} times for one "
+          "call signature: its memo misses")
+    wide = build_model(reduced(cfg, dtype="float32"), device=dev)
+    wide.load_state_dict(params)
+    with torch.no_grad():
+        _, cache = wide.prefill({"tokens": fixed}, 2 * CHUNK)
+        f32_first, _ = wide.decode_step(nxt, torch.tensor(CHUNK, dtype=torch.int32,
+                                                          device=dev), cache)
+    del wide, cache, params
+    gap = (runs["replay"]["first"] - runs["off"]["first"]).abs().max().item()
+    noise = (runs["off"]["first"] - f32_first).abs().max().item()
+    agree = sum(a == b for a, b in zip(runs["off"]["tokens"], runs["replay"]["tokens"]))
+    print(f"    (b) replayed first decode logits {gap:.3e} max abs from the analytic run's, "
+          f"which is {noise:.3e} from the f32 model's (gate: at most twice that) "
+          f"{'ok' if gap <= 2 * noise else 'FAIL'}; requests with the same tokens "
+          f"{agree}/{len(work)}; decode step {runs['replay']['dev_ms']:.4f} ms replayed, "
+          f"{runs['off']['dev_ms']:.4f} ms analytic on the device; host wall per decode step "
+          f"{runs['replay']['wall_ms']:.3f} ms replayed, {runs['off']['wall_ms']:.3f} ms "
+          f"analytic; dispatch host us {runs['replay']['us']:.2f} replayed, "
+          f"{runs['off']['us']:.2f} analytic")
+    check(gap <= 2 * noise, f"replayed first decode logits are {gap} from the analytic run's, "
+          f"more than twice the analytic run's {noise} from the f32 model's")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"rows": rows, "first_logits_gap": gap, "bf16_noise": noise, "token_match": agree,
+            **{f"{k}_{m}": runs[m][k] for m in runs for k in ("dev_ms", "us", "wall_ms")}}
+
+
+# phase 18's simulator runs at the demo's machine (examples/hbp_paper_demo_torch.py)
+SIM_P, SIM_M, SIM_B = 8, 512, 16
+
+
+def phase_18(torch, dev, g, smi):
+    """The simulator core and the value-level algorithms (phase 18).
+    ``algorithms_torch`` on the card at real sizes against torch oracles:
+    prefix sums of 2^24 f32 against ``torch.cumsum`` in f64 (within
+    ``SCAN_SLACK`` times the running sum of |x|), ``mt_bi`` of a 4096^2
+    BI-layout matrix against the BI layout of ``m.t()`` (exact),
+    ``strassen`` at 2048 (leaves of 64) against ``torch.matmul`` (f32, TF32
+    off; normwise ``MM_TOL[1]``) and ``fft_six_step`` of 2^20 against
+    ``torch.fft.fft`` (normwise ``FFT_TOL[1]``).  Then one run of each
+    simulator program on ``Machine(SIM_P, SIM_M, SIM_B)`` under ``PWS``
+    (host only), its stats printed; gates: work done, and at most p-1
+    steals of any priority (Obs. 4.3)."""
+    import time
+
+    from repro_torch.core import algorithms, algorithms_torch
+    from repro_torch.core.hbp import Memory
+    from repro_torch.core.machine import Machine
+    from repro_torch.core.pws import PWS
+
+    print(f"[18] the simulator core: algorithms_torch on the card ({smi})")
+
+    def normwise(got, want):
+        return ((got - want).abs().max() / want.abs().max()).item()
+
+    x = torch.randn(2 ** 24, device=dev, generator=g)
+    t0 = time.perf_counter()
+    got = algorithms_torch.prefix_sums(x)
+    torch.cuda.synchronize()
+    t_ps = time.perf_counter() - t0
+    diff = (got.double() - torch.cumsum(x.double(), 0)).abs()
+    slack = SCAN_SLACK * torch.cumsum(x.double().abs(), 0) + SCAN_SLACK
+    ok_ps = bool((diff <= slack).all())
+    print(f"    prefix_sums 2^24 f32: max abs err vs f64 cumsum {diff.max().item():.3e} "
+          f"({SCAN_SLACK:g} * cumsum|x| + {SCAN_SLACK:g}) {'ok' if ok_ps else 'FAIL'} "
+          f"({t_ps:.3f} s)")
+    del x, got, diff, slack
+    n = 4096
+    m = torch.randn(n, n, device=dev, generator=g)
+    t0 = time.perf_counter()
+    got = algorithms_torch.mt_bi(algorithms_torch.rm_to_bi(m), n)
+    torch.cuda.synchronize()
+    t_mt = time.perf_counter() - t0
+    ok_mt = torch.equal(got, algorithms_torch.rm_to_bi(m.t().contiguous())) and torch.equal(
+        algorithms_torch.bi_to_rm(got, n), m.t())
+    print(f"    mt_bi {n}^2 (BI in, BI out): equal to the BI layout of m.t() "
+          f"{'ok' if ok_mt else 'FAIL'} ({t_mt:.3f} s with rm_to_bi)")
+    del m, got
+    a, b = (torch.randn(2048, 2048, device=dev, generator=g) for _ in "ab")
+    t0 = time.perf_counter()
+    got = algorithms_torch.strassen(a, b)
+    torch.cuda.synchronize()
+    t_st = time.perf_counter() - t0
+    e_st = normwise(got, torch.matmul(a, b))
+    print(f"    strassen 2048^2 (leaves of 64) f32: normwise err vs torch.matmul {e_st:.3e} "
+          f"(tol {MM_TOL[1]:g}) {'ok' if e_st <= MM_TOL[1] else 'FAIL'} ({t_st:.3f} s)")
+    del a, b, got
+    x = torch.randn(2 ** 20, dtype=torch.complex64, device=dev, generator=g)
+    t0 = time.perf_counter()
+    got = algorithms_torch.fft_six_step(x)
+    torch.cuda.synchronize()
+    t_ff = time.perf_counter() - t0
+    e_ff = normwise(got, torch.fft.fft(x))
+    print(f"    fft_six_step 2^20: normwise err vs torch.fft.fft {e_ff:.3e} (tol "
+          f"{FFT_TOL[1]:g}) {'ok' if e_ff <= FFT_TOL[1] else 'FAIL'} ({t_ff:.3f} s)")
+    del x, got
+    check(ok_ps and ok_mt and e_st <= MM_TOL[1] and e_ff <= FFT_TOL[1],
+          "algorithms_torch disagrees with its torch oracles")
+
+    progs = {
+        "MSum 2^14": lambda: algorithms.MSum(1 << 14, Memory(SIM_B)),
+        "prefix sums 2^12": lambda: algorithms.prefix_sums_programs(1 << 12, Memory(SIM_B)),
+        "MTBI 64": lambda: algorithms.MTBI(64, Memory(SIM_B)),
+        "RMtoBI 64": lambda: algorithms.RMtoBI(64, Memory(SIM_B)),
+        "BItoRMDirect 64": lambda: algorithms.BItoRMDirect(64, Memory(SIM_B)),
+        "BItoRM gapped 64": lambda: algorithms.bi_to_rm_gapped_programs(64, Memory(SIM_B)),
+        "strassen 16": lambda: algorithms.strassen_program(16, Memory(SIM_B), base=4),
+        "fft 2^10": lambda: algorithms.fft_program(1 << 10, Memory(SIM_B)),
+        "list ranking 2^14": lambda: algorithms.list_ranking_phase_programs(1 << 14,
+                                                                            Memory(SIM_B)),
+    }
+    print(f"    simulated multicore p={SIM_P}, M={SIM_M} words, B={SIM_B} (host), PWS:")
+    for label, make in progs.items():
+        t0 = time.perf_counter()
+        ps = make()
+        mach = Machine(SIM_P, SIM_M, SIM_B, scheduler=PWS())
+        st = mach.run_sequence(ps) if isinstance(ps, list) else mach.run(ps)
+        spp = st.steals_per_priority()
+        print(f"      {label:18s} accesses {st.accesses} cache misses "
+              f"{st.total_cache_misses()} block misses {st.total_block_misses()} steals "
+              f"{len(st.steals)} (max {max(spp.values(), default=0)} a priority) idle "
+              f"{st.idle_time:.0f} makespan {st.finish_time:.0f} usurpations "
+              f"{st.usurpations} ({time.perf_counter() - t0:.2f} s)")
+        check(st.accesses > 0 and max(spp.values(), default=0) <= SIM_P - 1,
+              f"simulator {label}: {st.accesses} accesses, steals per priority {spp}")
+
+
 def ring_prompts(np, vocab):
     """14b's prompts (phase 2 checks K2 at the rows of their prefill)."""
     r = np.random.default_rng(2)
@@ -2541,6 +3016,18 @@ def sdpa(q, k, v, mask, causal):
 
 
 def main():
+    """The run, in a tune directory of its own (``REPRO_TUNE_DIR``, removed
+    at the end): no phase replays a table an earlier run left, and phases
+    1-16 run the analytic plans their numbers came from."""
+    tune = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    os.environ["REPRO_TUNE_DIR"] = tune
+    try:
+        return run()
+    finally:
+        shutil.rmtree(tune, ignore_errors=True)
+
+
+def run():
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch is not beside this script", file=sys.stderr)
         return 1
@@ -3200,6 +3687,8 @@ def main():
           f"({sum(map(len, tokens['cuda']))} tokens)")
     check(tokens["cuda"] == tokens["cpu"],
           f"cuda tokens {tokens['cuda']} != cpu tokens {tokens['cpu']}")
+    smoke_autotune_checks(torch, small, params, small_prompts, tokens["cpu"],
+                          Path(os.environ["REPRO_TUNE_DIR"]) / "phase3")
 
     # one f32 training step of the smoke config, card vs CPU, same params; then
     # of olmoe-1b-7b's (routers, the sort dispatch's gathers, the expert
@@ -4162,6 +4651,16 @@ def main():
     torch.cuda.empty_cache()
     phase_16(torch, np, dev, smi, counts, reset_counts, trace, counted, finite_logits,
              registry_kernels)
+
+    # -- 17. the measured autotune on the card ---------------------------------------------------
+    mark(17)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_17(torch, np, dev, smi, reset_counts, trace, counted, finite_logits)
+
+    # -- 18. the simulator core -------------------------------------------------------------------
+    mark(18)
+    phase_18(torch, dev, g, smi)
     mark(None)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
           + f"; {time.perf_counter() - t_start:.1f} in all")

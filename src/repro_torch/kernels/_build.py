@@ -16,6 +16,7 @@ CUDA toolkit, where only the plain versions run.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -57,6 +58,18 @@ def library_path(name: str) -> Path:
         digest.update(header.name.encode() + b"\0" + header.read_bytes())
     digest.update(" ".join(FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+@functools.lru_cache(maxsize=None)
+def source_digest() -> str:
+    """One digest of every kernel source, shared header and flag: the
+    hashes :func:`library_path` names each library by, hashed together.
+    A kernel's measured timings hold for this digest only (the autotune
+    stamps its tables with it)."""
+    digest = hashlib.sha256()
+    for name in sources():
+        digest.update(library_path(name).name.encode() + b"\0")
+    return digest.hexdigest()[:16]
 
 
 def build(names=None) -> dict[str, str]:

@@ -249,6 +249,52 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+SPLITS = (1, 2, 4, 8)  # K1q's cluster sizes (csrc: 1-8 blocks, doubled by the plan)
+
+
+def kv_tile(hd: int, device) -> int:
+    """Keys per K/V tile of the tensor-core instance at ``hd``: the built
+    kernel's (:func:`mma_kv_tile`) on the card, its rule (``mma_bk``: 32
+    past hd 128, else 64) for a CPU tensor."""
+    if torch.device(device).type == "cuda":
+        return mma_kv_tile(hd)
+    return 32 if hd > 128 else 64
+
+
+def takes_splits(q, k) -> bool:
+    """Whether a call reads ``splits``: K1q's tensor-core instance (bf16
+    ``q`` over an int8 cache); K1, K3 and the FMA template ignore it."""
+    return k.dtype == torch.int8 and fwd_path(q) == "mma"
+
+
+def plan_splits(q, k) -> int:
+    """The cluster split :func:`kv_splits` plans for this K1q call, on the
+    card's SMs (a CPU tensor: ``hbp_matmul.NOMINAL_SMS``)."""
+    from repro_torch.kernels.hbp_matmul import sm_count
+
+    b, sq, h, hd = q.shape
+    return kv_splits(b, sq, h, k.shape[2], k.shape[1], sm_count(q.device),
+                     kv_tile(hd, q.device))
+
+
+def check_splits(q, k, splits) -> None:
+    """Validate a ``splits`` override as :func:`kv_splits` bounds its own
+    plan: K1q's tensor-core instance only (:func:`takes_splits`), a size in
+    :data:`SPLITS`, and no more blocks than the cache has K/V tiles.
+    Raises ``ValueError``."""
+    if not takes_splits(q, k):
+        raise ValueError(f"flash_attention: splits={splits!r} on a {q.dtype} q over a "
+                         f"{k.dtype} cache; only K1q's tensor-core instance (bfloat16 q, "
+                         "int8 k/v) reads it")
+    if isinstance(splits, bool) or splits not in SPLITS:
+        raise ValueError(f"flash_attention: splits={splits!r}; expected one of {SPLITS}")
+    hd = q.shape[3]
+    tiles = -(-k.shape[1] // kv_tile(hd, q.device)) if hd in HEAD_DIMS else 1
+    if splits > max(tiles, 1):
+        raise ValueError(f"flash_attention: splits={splits} over {k.shape[1]} keys, "
+                         f"{tiles} K/V tile(s) of the tensor-core instance")
+
+
 def _tensor_core_layout(x) -> bool:
     """Whether the mma instances can stage ``x`` with 16-byte copies: a
     16-byte aligned pointer and (batch, seq, head) strides that are
@@ -285,9 +331,11 @@ def _lib():
     return fn
 
 
-def _launch_fwd(q, k, v, causal, window, q_offset, kv_len, k_scale, v_scale, what):
+def _launch_fwd(q, k, v, causal, window, q_offset, kv_len, k_scale, v_scale, what,
+                splits=None):
     """One launch of K1 (``k_scale`` None) or K1q on CUDA tensors that
-    :func:`_check` passed; returns ``(out, lse)``."""
+    :func:`_check` passed; returns ``(out, lse)``.  ``splits``: K1q's
+    cluster split (None: :func:`kv_splits`' plan)."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {q.device}")
     b, sq, h, hd = q.shape
@@ -304,8 +352,10 @@ def _launch_fwd(q, k, v, causal, window, q_offset, kv_len, k_scale, v_scale, wha
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    splits = (kv_splits(b, sq, h, kvh, sk, _sm_count(q.device.index or 0), mma_kv_tile(hd))
-              if k_scale is not None and fwd_path(q) == "mma" else 1)
+    if splits is None:
+        splits = (kv_splits(b, sq, h, kvh, sk, _sm_count(q.device.index or 0),
+                            mma_kv_tile(hd))
+                  if k_scale is not None and fwd_path(q) == "mma" else 1)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  lse.data_ptr(),
@@ -324,14 +374,19 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     q_offset: Optional[torch.Tensor] = None,
                     kv_len: Optional[torch.Tensor] = None,
                     k_scale: Optional[torch.Tensor] = None,
-                    v_scale: Optional[torch.Tensor] = None):
+                    v_scale: Optional[torch.Tensor] = None,
+                    splits: Optional[int] = None):
     """Attention forward; returns ``(out, lse)``.  With ``k_scale`` and
-    ``v_scale`` the int8 ``k``/``v`` go to K1q (:func:`flash_attention_int8`).
-    See the module docstring."""
+    ``v_scale`` the int8 ``k``/``v`` go to K1q (:func:`flash_attention_int8`),
+    with ``splits`` (its cluster split; any other call raises on it).  See
+    the module docstring."""
     _check(q, k, v, q_offset, kv_len, k_scale, v_scale)
     if k_scale is not None:
         return flash_attention_int8(q, k, v, k_scale, v_scale, causal=causal,
-                                    window=window, q_offset=q_offset, kv_len=kv_len)
+                                    window=window, q_offset=q_offset, kv_len=kv_len,
+                                    splits=splits)
+    if splits is not None:
+        check_splits(q, k, splits)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset, kv_len=kv_len)
@@ -346,19 +401,24 @@ flash_attention.launches = 0
 
 def flash_attention_int8(q, k, v, k_scale, v_scale, *, causal: bool = True,
                          window: int = 0, q_offset: Optional[torch.Tensor] = None,
-                         kv_len: Optional[torch.Tensor] = None):
+                         kv_len: Optional[torch.Tensor] = None,
+                         splits: Optional[int] = None):
     """K1q: attention forward over int8 ``k``/``v`` (``(b, sk, kvh, hd)``)
     with f32 ``k_scale``/``v_scale`` of shape ``(b, kvh)``; ``q`` f32 or
-    bf16.  Returns ``(out, lse)`` as :func:`flash_attention`.  Forward only."""
+    bf16.  Returns ``(out, lse)`` as :func:`flash_attention`.  Forward only.
+    ``splits`` overrides the tensor-core instance's cluster split
+    (:func:`check_splits`, on a CPU tensor too; None: :func:`kv_splits`)."""
     if k_scale is None or v_scale is None:
         raise ValueError("flash_attention_int8: needs both k_scale and v_scale")
     _check(q, k, v, q_offset, kv_len, k_scale, v_scale)
+    if splits is not None:
+        check_splits(q, k, splits)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset, kv_len=kv_len,
                                    k_scale=k_scale, v_scale=v_scale)
     out, lse = _launch_fwd(q, k, v, causal, window, q_offset, kv_len, k_scale, v_scale,
-                           "flash_attention_int8")
+                           "flash_attention_int8", splits)
     flash_attention_int8.launches += 1
     return out, lse
 
@@ -472,17 +532,22 @@ def attention(q, k, v, *, causal: bool = True, window=0,
               q_offset: Optional[torch.Tensor] = None,
               kv_len: Optional[torch.Tensor] = None,
               k_scale: Optional[torch.Tensor] = None,
-              v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+              v_scale: Optional[torch.Tensor] = None,
+              splits: Optional[int] = None) -> torch.Tensor:
     """The registry's ``attention`` entry: the output alone, differentiable
     in q, k, v through :class:`FlashAttention` (K1 forward, K3 backward);
     with ``k_scale``/``v_scale`` the int8 ``k``/``v`` go to K1q, forward
-    only, as the JAX kernel's quantized path.  Without a gradient to record
-    it calls the forward directly, past the autograd Function."""
+    only, as the JAX kernel's quantized path.  ``splits``: K1q's cluster
+    split, its one tunable knob (:func:`check_splits`).  Without a gradient
+    to record it calls the forward directly, past the autograd Function."""
     window = 0 if window is None else int(window)
     if k_scale is not None or not (torch.is_grad_enabled() and (
             q.requires_grad or k.requires_grad or v.requires_grad)):
         return flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
-                               kv_len=kv_len, k_scale=k_scale, v_scale=v_scale)[0]
+                               kv_len=kv_len, k_scale=k_scale, v_scale=v_scale,
+                               splits=splits)[0]
+    if splits is not None:
+        check_splits(q, k, splits)
     return FlashAttention.apply(q, k, v, q_offset, kv_len, causal, window)
 
 

@@ -22,7 +22,11 @@ feeding warpgroup MMAs), ``"stream"`` (bf16, at most 16 rows of a row-major
 summed inside a thread-block cluster), ``"wmma"`` (bf16 operands that TMA
 cannot describe) and ``"fma"`` (f32).  :func:`plan` sizes the launch for the
 instance; both are memoized, and so is the SM count, so a call pays for
-neither twice.
+neither twice.  ``hbp_matmul(..., plan={"tile_n": ..., "splits": ...})``
+overrides the plan's tile width and K splits (the measured autotune's
+knobs, ``kernels/autotune.py``); :func:`check_override` says what each
+instance takes, and an override it cannot take raises ``ValueError``, on a
+CPU tensor too.
 
 **Batched.**  With 3-D operands, ``a (E, m, k) @ b (E, k, n)``, one launch
 computes all ``E`` products, ``C[e] = A[e] @ B[e]``: the counterpart of
@@ -70,6 +74,11 @@ STREAM_MAX_SPLITS = 8  # its split-K is one thread-block cluster (portable size)
 # (tile rows, K step) of each instance; wgmma's tile widths, one template each
 TILE = {"wgmma": (128, 64), "stream": (16, 64), "wmma": (64, 32), "fma": (128, 16)}
 WGMMA_BN = (64, 128, 192, 256)
+# the tile widths each instance is built for (a plan override's tile_n)
+TILE_N = {"wgmma": WGMMA_BN, "stream": (64,), "wmma": (64,), "fma": (128,)}
+# the SMs a plan for a CPU tensor assumes: the H100 SXM's, so a CPU plan is
+# the plan the card would run
+NOMINAL_SMS = 132
 L2_SHARE = 16 * 2 ** 20  # an A this small stays in L2 while every B panel streams by
 
 
@@ -166,6 +175,70 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def sm_count(device) -> int:
+    """The SMs a plan on ``device`` counts: the card's, or
+    :data:`NOMINAL_SMS` for a CPU tensor."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return NOMINAL_SMS
+    return _sm_count(torch.cuda.current_device() if device.index is None else device.index)
+
+
+def check_override(m: int, n: int, k: int, instance: str, batch: int, override) -> dict:
+    """The plan override ``{"tile_n": ..., "splits": ...}`` (either key may
+    be missing or None) validated against the instance it would change;
+    returns the keys that are set.  Raises ``ValueError`` where the
+    instance cannot take it: a ``tile_n`` it was not built for
+    (:data:`TILE_N`: wgmma's 64-256, 64 for stream and wmma, 128 for fma),
+    ``splits`` that is not a positive int, more K splits than the product
+    has K steps, more than :data:`STREAM_MAX_SPLITS` (one cluster) for
+    stream, or a workspace split-K (wgmma, wmma, fma) on a batched call."""
+    unknown = set(override) - {"tile_n", "splits"}
+    if unknown:
+        raise ValueError(f"hbp_matmul: plan keys {sorted(unknown)}; expected tile_n, splits")
+    got = {key: v for key, v in override.items() if v is not None}
+    tile_n, splits = got.get("tile_n"), got.get("splits")
+    if tile_n is not None and tile_n not in TILE_N[instance]:
+        raise ValueError(f"hbp_matmul: tile_n {tile_n!r} on the {instance} instance, "
+                         f"which is built for {TILE_N[instance]}")
+    if splits is not None:
+        steps = math.ceil(k / TILE[instance][1])
+        if isinstance(splits, bool) or not isinstance(splits, int) or splits < 1:
+            raise ValueError(f"hbp_matmul: splits {splits!r}; expected an int >= 1")
+        if splits > max(steps, 1):
+            raise ValueError(f"hbp_matmul: {splits} K splits of a product with {steps} "
+                             f"K steps on the {instance} instance")
+        if instance == "stream" and splits > STREAM_MAX_SPLITS:
+            raise ValueError(f"hbp_matmul: {splits} K splits on the stream instance, "
+                             f"whose split-K is one cluster of at most {STREAM_MAX_SPLITS}")
+        if instance != "stream" and batch > 1 and splits > 1:
+            raise ValueError(f"hbp_matmul: {splits} K splits on a batched {instance} "
+                             "call, which has no workspace split-K")
+    return got
+
+
+def launch_plan(m: int, n: int, k: int, instance: str, sms: int, batch: int = 1,
+                override=None) -> Plan:
+    """:func:`plan`, with a validated override of its ``tile_n`` and
+    ``splits`` (:func:`check_override`; ``splits`` is rounded to whole K
+    steps a split, as the plan's own are).  Memoized per override."""
+    if not override:
+        return plan(m, n, k, instance, sms, batch)
+    return _overridden(m, n, k, instance, sms, batch, tuple(sorted(override.items())))
+
+
+@functools.lru_cache(maxsize=4096)
+def _overridden(m, n, k, instance, sms, batch, override) -> Plan:
+    p = plan(m, n, k, instance, sms, batch)
+    got = check_override(m, n, k, instance, batch, dict(override))
+    if "tile_n" in got:
+        p = p._replace(tile_n=got["tile_n"])
+    if "splits" in got:
+        splits, kchunk = _k_split(k, TILE[instance][1], got["splits"])
+        p = p._replace(splits=splits, kchunk=kchunk)
+    return p
+
+
 def _lib():
     lib = _build.load("hbp_matmul")
     fn = lib.hbp_matmul
@@ -227,9 +300,13 @@ def path(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> str:
     return "wgmma"
 
 
-def hbp_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
+def hbp_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
+               plan=None) -> torch.Tensor:
     """``a (m, k) @ b (k, n)``, or ``a (E, m, k) @ b (E, k, n)`` in one
-    launch, with an f32 accumulator; see the module docstring."""
+    launch, with an f32 accumulator; see the module docstring.  ``plan``:
+    an override of the launch's ``tile_n`` and ``splits`` (the autotune's
+    knobs), validated against the instance on a CPU tensor too
+    (:func:`check_override`)."""
     batched = a.dim() == 3
     if (a.dim() not in (2, 3) or b.dim() != a.dim() or a.shape[-1] != b.shape[-2]
             or (batched and a.shape[0] != b.shape[0])):
@@ -242,14 +319,16 @@ def hbp_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.Ten
         raise TypeError(f"hbp_matmul: out_dtype {out_dtype}")
     if a.device != b.device:
         raise ValueError(f"hbp_matmul: operands on {a.device} and {b.device}")
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
+    batch = a.shape[0] if batched else 1
     if a.device.type == "cpu":
+        if plan:
+            launch_plan(m, n, k, path(a, b), NOMINAL_SMS, batch, plan)  # validates it
         return matmul_ref(a, b, out_dtype)
     if a.device.type != "cuda":
         raise ValueError(f"hbp_matmul: no kernel for device {a.device}")
 
-    m, k = a.shape[-2:]
-    n = b.shape[-1]
-    batch = a.shape[0] if batched else 1
     out = torch.empty((*a.shape[:-2], m, n), dtype=out_dtype, device=a.device)
     if out.numel() == 0:
         return out
@@ -259,7 +338,7 @@ def hbp_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.Ten
     ldb, trans_b = _layout(_slab(b), "b")
     sa, sb = (a.stride(0), b.stride(0)) if batched else (0, 0)
     instance = path(a, b)
-    p = plan(m, n, k, instance, _sm_count(a.device.index or 0), batch)
+    p = launch_plan(m, n, k, instance, _sm_count(a.device.index or 0), batch, plan)
     ws = (torch.empty((p.splits, m, n), dtype=torch.float32, device=a.device)
           if p.splits > 1 and instance != "stream" else None)
     stream = torch.cuda.current_stream(a.device).cuda_stream

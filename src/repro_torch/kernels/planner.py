@@ -267,6 +267,41 @@ def plan_fft(n: int, dp: Optional[DeviceParams] = None) -> dict:
     return {"n1": 1 << (n.bit_length() - 1) // 2}
 
 
+def default_attention_blocks(dp: Optional[DeviceParams] = None,
+                             head_dim: int = 128,
+                             dtype=torch.bfloat16) -> tuple[int, int]:
+    """Shape-agnostic blockwise-attention leaf sizes (JAX
+    ``planner.py:331-338``): the envelope of :func:`plan_attention`,
+    uncommitted to a sequence length.  The port's attention kernels fix
+    their own blocks; ``RunOptions.q_block``/``kv_block`` carry these for
+    the record, as JAX's jnp routes would read them."""
+    plan = plan_attention(1 << 30, 1 << 30, head_dim, dtype, dp)
+    return plan["q_block"], plan["kv_block"]
+
+
+def resolve_run_options(opts, *, head_dim: int = 128, dtype=torch.bfloat16):
+    """Fill the planner-owned ``None`` fields of a ``RunOptions`` (q_block,
+    kv_block, autotune) from the device and the model's head_dim and
+    activation dtype, as JAX's (``planner.py:341-358``): ``autotune=None``
+    resolves to ``REPRO_AUTOTUNE``, else ``replay``.  Idempotent."""
+    import dataclasses
+
+    updates = {}
+    if opts.q_block is None or opts.kv_block is None:
+        qb, kb = default_attention_blocks(head_dim=head_dim, dtype=dtype)
+        if opts.q_block is None:
+            updates["q_block"] = qb
+        if opts.kv_block is None:
+            updates["kv_block"] = kb
+    if getattr(opts, "autotune", "off") is None:
+        from repro_torch.kernels import autotune  # layered above the planner
+
+        updates["autotune"] = autotune.resolve_mode()
+    if not updates:
+        return opts
+    return dataclasses.replace(opts, **updates)
+
+
 def modeled_matmul_misses(m: int, k: int, n: int, dtype, plan: dict,
                           dp: Optional[DeviceParams] = None) -> float:
     """Cache-line traffic of a (bm, bn, bk) tiling."""

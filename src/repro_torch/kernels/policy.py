@@ -12,10 +12,10 @@ frozen value holding
     "classical"}}``, ``{"attention": {"kv_dtype": "int8"}}``), and read by
     the model layer for ``{"matmul": {"qkv_fused": True}}`` (one QKV
     product per attention block, ``models.common.qkv_project``);
-  * ``autotune``     — the measured-plan mode.  ``None`` and ``"off"`` run
-    the planner's tiles; ``"replay"`` and ``"search"`` raise
-    ``NotImplementedError`` until the autotune is ported (ROADMAP queue 1
-    item 6);
+  * ``autotune``     — the measured-plan mode (``kernels/autotune.py``):
+    ``"off"`` runs the planner's plans, ``"replay"`` overlays a tuned
+    table's, ``"search"`` also measures a call the table misses; ``None``
+    defers to the process mode (``autotune.mode()``);
   * ``interpret``    — the JAX knob that forces Pallas interpret mode.  The
     port has no interpret mode: ``True`` on a CUDA tensor raises
     ``ValueError``, and on a CPU tensor the plain version runs anyway;
@@ -97,11 +97,6 @@ class ExecutionPolicy:
         if self.autotune is not None and self.autotune not in AUTOTUNE_MODES:
             raise ValueError(f"unknown autotune mode {self.autotune!r}; "
                              f"expected one of {AUTOTUNE_MODES}")
-        if self.autotune not in (None, "off"):
-            raise NotImplementedError(
-                f"autotune={self.autotune!r}: the measured autotune is not ported yet "
-                "(ROADMAP queue 1 item 6); the port runs the planner's tiles "
-                "(autotune None or 'off')")
 
     def impl_for(self, op: str) -> str:
         """The op's backend: its own entry, else ``"*"``, else ``"auto"``."""
@@ -305,13 +300,21 @@ def from_run_options(opts) -> Optional[dict]:
 
 def bind(updates: Optional[dict], fn: Callable) -> Callable:
     """Wrap ``fn`` so each call runs under ``apply(**updates)``.  No-op for
-    None."""
+    None.  The updated policy is derived once per base policy (the last
+    one is kept), so repeated calls reuse one policy object and the
+    registry's memoized routes for it."""
     if not updates:
         return fn
+    last = [(None, None)]  # (base policy, its update), swapped as one value
 
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):
-        with apply(**updates):
+        base = current()
+        seen, derived = last[0]
+        if seen is not base:
+            derived = base.with_(**updates)
+            last[0] = (base, derived)
+        with apply(derived):
             return fn(*args, **kwargs)
 
     return wrapper

@@ -35,9 +35,23 @@ matmul op's ``qkv_fused`` variant is read by the model layer
 (``models.common.qkv_project``), which then dispatches one product.  The
 route is memoized on (op, policy, impl, device type, ``needs`` verdict) and
 the plan on (op, shapes, dtypes, device, ``REPRO_FAST_BYTES``), and
-dispatch makes no host sync, so it runs under CUDA-graph capture.  There
-is no autotune overlay, and ``KernelSpec.simulator`` stays ``None``: both
-wait for the simulator and autotune to be ported.
+dispatch makes no host sync, so it runs under CUDA-graph capture.
+
+Between the planner's plan and the policy's variants sits the measured
+autotune (``autotune.py``), as in JAX: under ``replay`` or ``search`` a
+tuned table entry for the call overlays the plan (K2's ``tile_n`` and
+``splits``, the matmul ``backend`` and ``cutoff``, K1q's ``splits``, K5's
+``block``, K6's ``bt`` and ``morton``, K7's ``n1``), then the policy's
+variants, then explicit kwargs; forced variant knobs key the lookup.  The
+overlay is memoized in the plan's entry, whose key then adds the mode, the
+table generation, strides, 16-byte alignment, the semantic kwargs and the
+forced variants, so a repeated call pays one key and two dict lookups, no
+table I/O and no host sync.
+
+The same op names key the simulator side: :func:`simulator_program` builds
+the op's access-trace HBP program from ``repro_torch.core.algorithms``
+(``scan``, ``matmul``, ``transpose``, ``fft``), so kernel dispatch and the
+simulator's cost cross-checks share one namespace.
 """
 from __future__ import annotations
 
@@ -48,7 +62,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import planner, policy
+from repro_torch.kernels import autotune, planner, policy
 from repro_torch.kernels.bi_fft import bi_fft, fft_ref
 from repro_torch.kernels.bi_transpose import bi_transpose, transpose_ref
 from repro_torch.kernels.bp_scan import bp_scan, bp_scan_ref
@@ -73,9 +87,11 @@ class KernelSpec:
     ``needs(**context) -> bool`` is the capability gate over the call's
     semantic kwargs.  A ``pallas_only`` kwarg that the port's kernel fixes
     itself (K2's ``bm``/``bn``/``bk``/``morton``, K1's blocks) is not a
-    parameter of the wrapper and raises ``TypeError`` on the kernel path.
-    ``simulator`` is the JAX field for the op's access-trace program; the
-    port has none yet."""
+    parameter of the wrapper and raises ``TypeError`` on the kernel path;
+    the knobs the wrappers take (K2's ``tile_n``/``splits``, K1q's
+    ``splits``) are what the autotune overlays.  ``simulator(n, mem, **kw)``
+    builds the op's access-trace twin from ``repro_torch.core.algorithms``
+    (None: no simulator program for this op, as for ``attention``)."""
 
     name: str
     kernel: Callable
@@ -162,8 +178,10 @@ _WARNED_DROPPED: set[str] = set()
 
 
 def reset_warnings() -> None:
-    """Test hook: clear the warn-once state."""
+    """Test hook: clear the registry's and the autotune's warn/log-once
+    state."""
     _WARNED_DROPPED.clear()
+    autotune._INTERP_LOGGED.clear()
 
 
 def _check_dropped_overrides(name: str, overrides: dict, *, strict: bool) -> None:
@@ -183,16 +201,36 @@ def _check_dropped_overrides(name: str, overrides: dict, *, strict: bool) -> Non
         warnings.warn(msg, stacklevel=3)
 
 
-# (op, shapes and dtypes, device, REPRO_FAST_BYTES) -> the plan's tile kwargs
+# (op, device, REPRO_FAST_BYTES, each tensor's shape and dtype) -> the
+# planner's tile kwargs.  Under an autotune mode the key adds the mode, the
+# tables' generation, each tensor's strides and 16-byte alignment (they pick
+# the kernel instance whose knobs the overlay snaps to), the call's
+# non-tensor kwargs and its forced variants, and the entry holds the tuned
+# knobs merged over the plan.  A redirected REPRO_TUNE_DIR takes effect at
+# autotune.clear_cache(), which bumps the generation.
 _PLANS: dict = {}
 
 
-def _plan(spec: KernelSpec, args, device) -> dict:
-    key = (spec.name, device, os.environ.get("REPRO_FAST_BYTES"),
-           *[(a.shape, a.dtype) for a in args if isinstance(a, torch.Tensor)])
+def _plan(spec: KernelSpec, args, device, fast_bytes, mode: str, kwargs: dict,
+          variant: Optional[dict]) -> dict:
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    if mode == "off":
+        key = (spec.name, device, fast_bytes, *[(a.shape, a.dtype) for a in tensors])
+    else:
+        key = (spec.name, device, fast_bytes, mode, autotune.generation(),
+               *[(a.shape, a.dtype, a.stride(), a.data_ptr() % 16 == 0) for a in tensors],
+               *[(k, v) for k, v in kwargs.items() if not isinstance(v, torch.Tensor)],
+               *sorted(variant.items()))
     plan = _PLANS.get(key)
     if plan is None:
-        plan = _PLANS[key] = dict(spec.plan(*args))
+        plan, final = dict(spec.plan(*args)), True
+        if mode != "off":
+            tuned, final = autotune._overlay(spec.name, args, {**kwargs, **variant})
+            plan.update(tuned)
+        if final:
+            if len(_PLANS) >= 4096:
+                _PLANS.clear()
+            _PLANS[key] = plan
     return plan
 
 
@@ -228,9 +266,13 @@ def dispatch(name: str, *args, impl: Optional[str] = None,
     override (``"auto"`` | ``"jnp"``/``"ref"`` | ``"pallas"``); None reads
     the policy.  An unforced choice honors the ``needs`` gate; an explicit
     ``impl="pallas"`` skips it.  ``interpret`` (else the op's ``interpret``
-    knob, else the policy's) may not be true on a CUDA tensor.  The route
-    is memoized per (op, policy, impl, device type, ``needs`` verdict) and
-    the plan per shape, so a repeated call pays two lookups."""
+    knob, else the policy's) may not be true on a CUDA tensor.  The kernel
+    path runs the planner's plan, overlaid by the autotune's tuned plan
+    (``autotune.mode()`` not ``off``), the policy's variants and the
+    explicit kwargs, strongest last.  The route is memoized per (op,
+    policy, impl, device type, ``needs`` verdict) and the plan with its
+    overlay per call signature (``_PLANS``), so a repeated call pays two
+    lookups."""
     spec = get(name)
     device = args[0].device
     device_type = device.type
@@ -253,14 +295,68 @@ def dispatch(name: str, *args, impl: Optional[str] = None,
     if interpret and device_type == "cuda":
         raise ValueError(f"dispatch({name!r}): interpret mode has no meaning on a "
                          "CUDA tensor; the port's kernels compile for the card")
-    tiles = _plan(spec, args, device)
-    if pol_tiles or explicit:
-        tiles = {**tiles, **pol_tiles, **explicit}
+    forced = {**pol_tiles, **explicit}
+    mode = autotune.mode(pol)
+    # forced variant knobs (e.g. the matmul backend) select which table entry
+    # to replay; tile overrides stay out (they win regardless)
+    variant = ({k: v for k, v in forced.items() if k in autotune.variant_keys(name)}
+               if mode != "off" else None)
+    tiles = _plan(spec, args, device, os.environ.get("REPRO_FAST_BYTES"), mode, kwargs,
+                  variant)
+    if forced:
+        tiles = {**tiles, **forced}
     return spec.kernel(*args, **kwargs, **tiles)
 
 
 def _dp(x):
     return planner.device_params(x.device)
+
+
+# ---------------------------------------------------------------------------
+# simulator namespace: one op namespace for kernels and the simulator
+# ---------------------------------------------------------------------------
+
+def simulator_program(name: str, n: int, mem=None, **kwargs):
+    """Build the op's access-trace HBP program (``repro_torch.core.algorithms``)
+    under the name the kernel dispatches as (JAX ``registry.py:224-245``).
+    ``n`` is the op's natural size (matrix edge for matmul/transpose,
+    length for scan/fft); a fresh ``core.hbp.Memory`` is allocated unless
+    one is given.  Returns what the core builder returns (a program, or a
+    program list for the two-pass scan)."""
+    spec = get(name)
+    if spec.simulator is None:
+        raise KeyError(f"kernel {name!r} has no registered simulator program; "
+                       f"ops with one: "
+                       f"{[s for s in names() if get(s).simulator is not None]}")
+    if mem is None:
+        from repro_torch.core.hbp import Memory
+
+        mem = Memory()
+    return spec.simulator(n, mem, **kwargs)
+
+
+def _sim_scan(n, mem, **kw):
+    from repro_torch.core import algorithms
+
+    return algorithms.prefix_sums_programs(n, mem, **kw)
+
+
+def _sim_matmul(n, mem, **kw):
+    from repro_torch.core import algorithms
+
+    return algorithms.strassen_program(n, mem, **kw)
+
+
+def _sim_transpose(n, mem, **kw):
+    from repro_torch.core import algorithms
+
+    return algorithms.MTBI(n, mem, **kw)
+
+
+def _sim_fft(n, mem, **kw):
+    from repro_torch.core import algorithms
+
+    return algorithms.fft_program(n, mem, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -273,6 +369,7 @@ register(KernelSpec(
     ref=bp_scan_ref,
     plan=lambda x: planner.plan_scan(x.shape, x.dtype, _dp(x)),
     pallas_only=("block",),
+    simulator=_sim_scan,
 ))
 
 def _plan_matmul(a, b) -> dict:
@@ -288,14 +385,16 @@ register(KernelSpec(
     name="matmul",
     # classical -> one K2 call, strassen -> K4 (f32: fused launches; bf16:
     # the recursion over K2); carries
-    # its backward (dA = g Bᵀ, dB = Aᵀ g, each re-planned).  K2 fixes its
-    # own per-block tile, so the plan is the backend verdict alone.  3-D
-    # operands: E products in one batched K2 launch, forward only
+    # its backward (dA = g Bᵀ, dB = Aᵀ g, each re-planned).  K2 sizes its
+    # own launch (hbp_matmul.plan), so the plan is the backend verdict; the
+    # autotune may overlay K2's tile_n and splits (forward product only).
+    # 3-D operands: E products in one batched K2 launch
     kernel=backend_matmul,
     ref=matmul_ref,
     plan=_plan_matmul,
-    pallas_only=("bm", "bn", "bk", "morton", "backend", "cutoff"),
+    pallas_only=("bm", "bn", "bk", "morton", "backend", "cutoff", "tile_n", "splits"),
     has_vjp=True,
+    simulator=_sim_matmul,
 ))
 
 register(KernelSpec(
@@ -304,15 +403,17 @@ register(KernelSpec(
     ref=transpose_ref,
     plan=lambda x: planner.plan_transpose(x.shape[0], x.shape[1], x.dtype, _dp(x)),
     pallas_only=("bt", "morton"),
+    simulator=_sim_transpose,
 ))
 
 register(KernelSpec(
     name="attention",
     kernel=attention,
     ref=attention_ref,
-    # K1, K1q and K3 fix their own blocks
+    # K1, K1q and K3 fix their own blocks; K1q plans its cluster split
+    # (flash_attention.kv_splits), which the autotune may overlay
     plan=lambda q, k, v: {},
-    pallas_only=("q_block", "kv_block"),
+    pallas_only=("q_block", "kv_block", "splits"),
     has_vjp=True,
     # the kernel hard-codes the 1/sqrt(hd) scale and takes a static int window
     needs=lambda softmax_scale=None, window=None, **_: (
@@ -325,4 +426,5 @@ register(KernelSpec(
     ref=fft_ref,
     plan=lambda x: planner.plan_fft(x.shape[-1]),
     pallas_only=("n1",),
+    simulator=_sim_fft,
 ))

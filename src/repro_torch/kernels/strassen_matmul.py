@@ -310,14 +310,15 @@ def strassen_matmul_plain(a: torch.Tensor, b: torch.Tensor, *,
     return _strassen(a, b, cutoff, lambda x, y: matmul_ref(x, y, torch.float32))
 
 
-def _run(a, b, backend, cutoff):
+def _run(a, b, backend, cutoff, k2_plan=None):
     """Run the backend (None: ask the planner for this shape); a batched
-    product is one batched K2 call."""
+    product is one batched K2 call.  ``k2_plan``: an override of the
+    classical backend's K2 plan (``hbp_matmul(..., plan=)``)."""
     if a.dim() == 3:
         if backend not in (None, "classical"):
             raise ValueError(f"matmul: backend {backend!r} takes 2-D operands; a "
                              "batched product runs on the classical backend")
-        return _k2.hbp_matmul(a, b)
+        return _k2.hbp_matmul(a, b, plan=k2_plan)
     if backend is None:
         from repro_torch.kernels import planner
 
@@ -327,8 +328,11 @@ def _run(a, b, backend, cutoff):
         if cutoff is None:
             cutoff = plan.get("cutoff")
     if backend == "strassen":
+        if k2_plan:
+            raise ValueError(f"matmul: K2 plan {k2_plan} on the strassen backend; "
+                             "tile_n and splits set the classical backend's one K2 call")
         return strassen_matmul(a, b, cutoff=cutoff)
-    return _k2.hbp_matmul(a, b)
+    return _k2.hbp_matmul(a, b, plan=k2_plan)
 
 
 class _Matmul(torch.autograd.Function):
@@ -341,12 +345,14 @@ class _Matmul(torch.autograd.Function):
     gives one batched Pallas call, accumulated in f32.  ``dB = Aᵀ g``
     contracts over the slab's ``m`` rows (an expert's capacity), which K2
     masks per slab like any ragged K.  ``matmul.batched_backward_launches``
-    counts those launches on the card (K2's own counters count them too)."""
+    counts those launches on the card (K2's own counters count them too).
+    A K2 plan override reaches the forward product only; the backward's
+    products re-plan, as the JAX VJP does (``strassen_matmul.py:132-135``)."""
 
     @staticmethod
-    def forward(ctx, a, b, backend, cutoff):
+    def forward(ctx, a, b, backend, cutoff, k2_plan):
         ctx.save_for_backward(a, b)
-        return _run(a, b, backend, cutoff)
+        return _run(a, b, backend, cutoff, k2_plan)
 
     @staticmethod
     def backward(ctx, g):
@@ -359,23 +365,29 @@ class _Matmul(torch.autograd.Function):
             db = _run(a.mT, g, None, None).to(b.dtype)
         if a.dim() == 3 and a.device.type == "cuda":
             matmul.batched_backward_launches += (da is not None) + (db is not None)
-        return da, db, None, None
+        return da, db, None, None, None
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *, backend: Optional[str] = None,
-           cutoff: Optional[int] = None) -> torch.Tensor:
+           cutoff: Optional[int] = None, tile_n: Optional[int] = None,
+           splits: Optional[int] = None) -> torch.Tensor:
     """Differentiable ``a (m, k) @ b (k, n)``, or ``a (E, m, k) @ b (E, k,
     n)`` as one batched K2 call, output in ``a``'s dtype: ``backend`` None
     asks the planner, ``"classical"`` runs one K2 call, ``"strassen"`` the
-    recursion (2-D only).  Without a gradient to record (serving runs under
-    ``no_grad``) it calls the backend directly, past the autograd
+    recursion (2-D only).  ``tile_n`` and ``splits`` override the classical
+    backend's K2 plan for the forward product (``hbp_matmul``'s ``plan``;
+    an override the instance cannot take, or one on the strassen backend,
+    raises ``ValueError``).  Without a gradient to record (serving runs
+    under ``no_grad``) it calls the backend directly, past the autograd
     Function."""
     if backend not in (None, "classical", "strassen"):
         raise ValueError(f"unknown matmul backend {backend!r}; expected "
                          "'classical' or 'strassen'")
+    k2_plan = ({key: v for key, v in (("tile_n", tile_n), ("splits", splits))
+                if v is not None} or None)
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
-        return _Matmul.apply(a, b, backend, cutoff)
-    return _run(a, b, backend, cutoff)
+        return _Matmul.apply(a, b, backend, cutoff, k2_plan)
+    return _run(a, b, backend, cutoff, k2_plan)
 
 
 matmul.batched_backward_launches = 0  # the batched K2 launches of batched backwards

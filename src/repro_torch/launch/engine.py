@@ -123,7 +123,7 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.core import pws
-from repro_torch.kernels import policy
+from repro_torch.kernels import autotune, policy
 from repro_torch.launch.serve import Request, Server, install_impl
 from repro_torch.models import cache as dcache
 from repro_torch.models.base import Model, RunOptions, UnsupportedFamilyError
@@ -268,9 +268,13 @@ class Engine(Server):
         self.heal_after = int(heal_after)
         self.watchdog = LaunchWatchdog()
         self.scheduler = SlotScheduler(max_batch)
-        log.info("engine policy %s | faults %s | retry max=%d snapshot_every=%d",
-                 policy.current().describe(), self.injector.describe(),
-                 self.fault_policy.max_retries, self.snapshot_every)
+        prov = autotune.provenance(self.device)
+        log.info("engine policy %s | autotune table %s (%d tuned plan(s), %s) | "
+                 "faults %s | retry max=%d snapshot_every=%d",
+                 policy.current().describe(), prov["table"], prov["tuned_plans"],
+                 "present" if prov["table_exists"] else "absent",
+                 self.injector.describe(), self.fault_policy.max_retries,
+                 self.snapshot_every)
         self._chunk_first = functools.partial(self._chunk_step, first=True)
         self._chunk_cont = functools.partial(self._chunk_step, first=False)
         self.begin([])  # stats() and adopt() are valid before the first run

@@ -45,7 +45,8 @@ through the snapshot path.
 per-replica health score (``runtime.replica.health_score``); replicas under
 the shed threshold stop receiving new placements unless the whole fleet is
 shedding.  Each replica's provenance row (device, ``policy.describe()``,
-health, faults, seconds to spawn) lands in the router's result.
+its device's autotune table provenance, health, faults, seconds to spawn)
+lands in the router's result.
 
 **Fleet fault plans.**  ``fleet_faults`` takes ``|``-separated positional
 per-replica plans (``runtime.fault_tolerance.parse_fleet_plan``):

@@ -9,7 +9,9 @@ ends when every row has stopped.
 
 Every matrix product and attention call runs on the port's CUDA kernels;
 with ``device="cpu"`` they run on their plain PyTorch versions.  There is no
-mesh in the port yet.  ``--impl`` installs the execution policy
+mesh in the port yet.  The measured autotune replays the device's tuned
+table by default (``REPRO_AUTOTUNE`` = ``off`` | ``replay`` | ``search``,
+tables under ``REPRO_TUNE_DIR``; ``kernels/autotune.py``).  ``--impl`` installs the execution policy
 (``repro_torch.kernels.policy``) with the JAX launcher's grammar,
 ``op=backend[:knob=value][,...]``; the port acts on the attention knob
 ``kv_dtype=int8``, which serves from an int8 KV cache read by K1q:
@@ -44,8 +46,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke_config, list_archs
-from repro_torch.kernels import policy
+from repro_torch.kernels import autotune, planner, policy
 from repro_torch.models import RunOptions, build_model
 
 log = logging.getLogger("repro_torch.serve")
@@ -70,17 +73,28 @@ class Server:
         without one the weights are drawn by the model's ``init`` from a
         ``torch.Generator`` seeded with 0, as the JAX server uses key 0.
         ``opts``: the model's ``RunOptions`` (``windowed_decode_cache``
-        serves the hybrid's decode from its ring cache)."""
+        serves the hybrid's decode from its ring cache), resolved by the
+        planner as JAX's server resolves them (``autotune=None``:
+        ``REPRO_AUTOTUNE``, else ``replay``); the resolved autotune mode is
+        pinned process-wide (``autotune.startup``, as in JAX) and the
+        device's tuned-table provenance logged."""
         self.cfg = cfg
         self.max_batch = max_batch
         self.max_len = max_len
-        self.model = build_model(cfg, opts, device=device)
+        self.opts = planner.resolve_run_options(
+            opts or RunOptions(), head_dim=cfg.head_dim_, dtype=cfg.activation_dtype)
+        device = resolve_device(device)
+        autotune.startup(self.opts.autotune, device)
+        prov = autotune.provenance(device)
+        log.info("policy %s | autotune table %s (%d tuned plan(s), %s)",
+                 policy.current().describe(), prov["table"], prov["tuned_plans"],
+                 "present" if prov["table_exists"] else "absent")
+        self.model = build_model(cfg, self.opts, device=device)
         self.device = self.model.device
         if params is None:
             self.model.init(torch.Generator(device=self.device).manual_seed(0))
         else:
             self.model.load_state_dict(params)
-        log.info("policy %s", policy.current().describe())
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, extras: Optional[dict] = None):

@@ -8,11 +8,14 @@ attention forward on K1 and every attention backward on K3.  With
 ``save_every`` steps in the background and once after the last step, in
 the JAX package's format (``repro_torch.checkpoint``): a JAX run can resume
 from the port's checkpoints and the port from JAX's.  One device; the JAX
-trainer's mesh, sharding planner and autotune have no counterpart yet
-(``ROADMAP.md``), so a config trains at the depth that fits one card.  The
-data pipeline's modality inputs (the encoder-decoder's ``audio_frames``,
-the VLM's ``image_embeds``, f32) go to the device with the tokens; the
-model casts them to its activation dtype.
+trainer's mesh and sharding planner have no counterpart yet (``ROADMAP.md``
+queue 1, multi-device planning), so a config trains at the depth that
+fits one card.  The data pipeline's modality inputs (the
+encoder-decoder's ``audio_frames``, the VLM's ``image_embeds``, f32) go to
+the device with the tokens; the model casts them to its activation dtype.  The measured autotune's mode
+(``RunOptions.autotune``, else ``REPRO_AUTOTUNE``, else ``replay``) is
+pinned process-wide at start and the device's tuned table logged, as in
+JAX.
 
     python -m repro_torch.launch.train --arch qwen3-1.7b --steps 3
     python -m repro_torch.launch.train --arch olmoe-1b-7b --reduced --device cpu --steps 2
@@ -39,6 +42,7 @@ from repro_torch import resolve_device
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.data import DataConfig, SyntheticLMDataset
+from repro_torch.kernels import autotune, policy
 from repro_torch.launch.serve import install_impl
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import RunOptions, build_model
@@ -72,6 +76,13 @@ def train(cfg, *, steps: int, data_cfg: DataConfig,
     by reading its loss on the host), ``retries``, ``stragglers`` and
     ``wall_s``."""
     dev = resolve_device(device)
+    # replay the device's tuned plans from the first step (a cold table is a
+    # no-op); RunOptions.autotune / REPRO_AUTOTUNE select off/replay/search
+    autotune.startup(opts.autotune, dev)
+    prov = autotune.provenance(dev)
+    log.info("policy %s | autotune table %s (%d tuned plan(s), %s)",
+             policy.current().describe(), prov["table"], prov["tuned_plans"],
+             "present" if prov["table_exists"] else "absent")
     ds = SyntheticLMDataset(data_cfg, cfg)
     model = build_model(cfg, opts, device=dev)
     model.init(torch.Generator(device=dev).manual_seed(data_cfg.seed))

@@ -40,16 +40,21 @@ class RunOptions:
       each attention block's three input projections become one product
       over ``cat([wq, wk, wv], 1)`` (``common.qkv_project``), one K2 launch
       where there were three.
-    * ``autotune``: ``None`` and ``"off"`` run the planner's tiles;
-      ``"replay"`` and ``"search"`` raise ``NotImplementedError`` when the
-      model is built, until the autotune is ported (ROADMAP queue 1 item 6).
+    * ``autotune``: the measured autotune's mode in that scope
+      (``kernels/autotune.py``): ``"off"`` runs the planner's plans,
+      ``"replay"`` overlays the device's tuned table, ``"search"`` also
+      measures each call the table misses and records it.  ``None``
+      defers to the process mode; the ``Server``, ``Engine`` and trainer
+      resolve it first (``planner.resolve_run_options``: ``REPRO_AUTOTUNE``,
+      else ``replay``) and pin it process-wide (``autotune.startup``), as
+      JAX's do.
     * ``use_banded_local``, ``causal_block_skip``: in JAX these leave the
       attention kernel for jnp routes that compute the same attention.  The
       port has no jnp route on the card, so attention stays on K1, which
       already skips fully masked tiles; they change nothing.
     * ``q_block``, ``kv_block``: in JAX they size only those jnp routes'
       tiles and thresholds; K1, K1q and K3 fix their own blocks, so they
-      change nothing.
+      change nothing (``resolve_run_options`` fills them as JAX's does).
     """
 
     remat: str = "full"  # "none" | "full": recompute each layer in backward
@@ -58,7 +63,7 @@ class RunOptions:
     kv_block: Optional[int] = None
     attention_impl: str = "auto"  # "auto" | "pallas" | "jnp" | "ref"
     matmul_impl: str = "auto"
-    autotune: Optional[str] = None  # None | "off" ("replay", "search": item 6)
+    autotune: Optional[str] = None  # None | "off" | "replay" | "search"
     use_banded_local: bool = False  # JAX's jnp routes: attention stays on K1
     causal_block_skip: bool = False
     windowed_decode_cache: bool = False  # ring-buffer cache for local layers
@@ -96,7 +101,8 @@ class Model(nn.Module):
         self.opts = opts or RunOptions()
         # RunOptions' backend knobs -> a policy scope around the entry points
         # (JAX base.py:90-94); building the scope's policy once here raises on
-        # a knob the port refuses (an autotune mode) when the model is built
+        # a knob the port refuses (an unknown autotune mode) when the model is
+        # built
         self._policy_updates = policy.from_run_options(self.opts)
         if self._policy_updates is not None:
             policy.ExecutionPolicy().with_(**self._policy_updates)

@@ -18,7 +18,7 @@ only names, shapes and dtypes are read from it.
 device a replacement replica spins up on.  A replica of the port is one
 device, so there is no mesh to shrink.  JAX's ``replan_for_mesh`` and
 ``replan_params_for_mesh`` (shardings for a changed mesh) have no
-counterpart until sharding is ported (ROADMAP queue 1 item 9).
+counterpart until sharding is ported (ROADMAP queue 1, multi-device planning).
 """
 from __future__ import annotations
 

@@ -17,8 +17,8 @@ isolated stragglers never cross it while a degradation event or a retry
 burst does.
 
 A provenance row names the replica's ``device`` where JAX's names its mesh
-(the port has no mesh), and carries no ``autotune`` entry until the
-autotune is ported (ROADMAP queue 1 item 6).
+(the port has no mesh), and carries JAX's ``autotune`` entry: the
+replica's device's tuned-table provenance (``autotune.provenance``).
 """
 from __future__ import annotations
 
@@ -75,9 +75,12 @@ class Replica:
 
     def provenance(self) -> dict:
         """This replica's row in the router telemetry: identity, device, the
-        kernel policy, the live health and fault picture, and the seconds
-        its spawn took (a checkpoint-streamed restart's is what the fleet
-        waits for when a replica dies)."""
+        kernel policy and autotune table provenance (per replica: replicas
+        on different device kinds replay different tables), the live health
+        and fault picture, and the seconds its spawn took (a
+        checkpoint-streamed restart's is what the fleet waits for when a
+        replica dies)."""
+        from repro_torch.kernels import autotune as kernel_autotune
         from repro_torch.kernels import policy as kernel_policy
 
         return {
@@ -86,6 +89,7 @@ class Replica:
             "spawned_from": self.spawned_from,
             "device": str(self.engine.device),
             "policy": kernel_policy.current().describe(),
+            "autotune": kernel_autotune.provenance(self.engine.device),
             "health": self.health,
             "faults": dict(self.stats.get("faults", {})),
             "spawn_s": self.spawn_s,

@@ -64,6 +64,17 @@ DATA = DataConfig(global_batch=2, seq_len=16)
 LOSS_RTOL = 1e-5
 
 
+@pytest.fixture(autouse=True)
+def _reset_port_autotune():
+    """The port's Server, Engine and trainer pin the autotune mode
+    process-wide (``autotune.startup``), as JAX's do: clear it after each
+    test."""
+    yield
+    from repro_torch.kernels import autotune as port_autotune
+
+    port_autotune.set_mode(None)
+
+
 def _state():
     """The JAX tests' state in the port's form: a layer-stacked leaf, a
     plain one, an int32 step and a bf16 leaf."""

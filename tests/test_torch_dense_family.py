@@ -51,6 +51,17 @@ INT8 = dict(impl={"attention": "pallas"}, variants={"attention": {"kv_dtype": "i
 NEVER = 10 ** 9  # no straggler degradation (wall times differ between engines)
 
 
+@pytest.fixture(autouse=True)
+def _reset_port_autotune():
+    """The port's Server, Engine and trainer pin the autotune mode
+    process-wide (``autotune.startup``), as JAX's do: clear it after each
+    test."""
+    yield
+    from repro_torch.kernels import autotune as port_autotune
+
+    port_autotune.set_mode(None)
+
+
 def _workload(n, make, vocab):
     rng = np.random.default_rng(0)
     return [make(i, rng.integers(3, vocab, int(rng.integers(4, 20))).astype(np.int32),

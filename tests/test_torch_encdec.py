@@ -47,6 +47,17 @@ NEVER = 10 ** 9  # no straggler degradation (wall times differ between engines)
 INT8 = dict(impl={"attention": "pallas"}, variants={"attention": {"kv_dtype": "int8"}})
 
 
+@pytest.fixture(autouse=True)
+def _reset_port_autotune():
+    """The port's Server, Engine and trainer pin the autotune mode
+    process-wide (``autotune.startup``), as JAX's do: clear it after each
+    test."""
+    yield
+    from repro_torch.kernels import autotune as port_autotune
+
+    port_autotune.set_mode(None)
+
+
 def _workload(n, make, vocab, d, seed=0):
     rng = np.random.default_rng(seed)
     return [make(i, rng.integers(3, vocab, int(rng.integers(3, 20))).astype(np.int32),

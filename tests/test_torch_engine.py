@@ -55,6 +55,17 @@ TELEMETRY = ("matches", "rounds", "evictions", "pressure_evictions", "max_round_
 NEVER = 10 ** 9
 
 
+@pytest.fixture(autouse=True)
+def _reset_port_autotune():
+    """The port's Server, Engine and trainer pin the autotune mode
+    process-wide (``autotune.startup``), as JAX's do: clear it after each
+    test."""
+    yield
+    from repro_torch.kernels import autotune as port_autotune
+
+    port_autotune.set_mode(None)
+
+
 def _workload(n, make, *, seed=0, max_prompt=20, max_new=8, vocab=256):
     """``tests/test_engine.py``'s mixed workload: ragged prompts, skewed
     generation budgets; ``make`` builds the port's or the JAX Request."""

@@ -49,6 +49,17 @@ NEVER = 10 ** 9  # no straggler degradation (wall times differ between engines)
 RING = RunOptions(windowed_decode_cache=True)
 
 
+@pytest.fixture(autouse=True)
+def _reset_port_autotune():
+    """The port's Server, Engine and trainer pin the autotune mode
+    process-wide (``autotune.startup``), as JAX's do: clear it after each
+    test."""
+    yield
+    from repro_torch.kernels import autotune as port_autotune
+
+    port_autotune.set_mode(None)
+
+
 def _workload(n, make, vocab, seed=0):
     rng = np.random.default_rng(seed)
     return [make(i, rng.integers(3, vocab, int(rng.integers(3, 31))).astype(np.int32),

@@ -38,6 +38,17 @@ ATOL = 1e-5
 N, D, E, F, K = 64, 16, 8, 32, 2
 
 
+@pytest.fixture(autouse=True)
+def _reset_port_autotune():
+    """The port's Server, Engine and trainer pin the autotune mode
+    process-wide (``autotune.startup``), as JAX's do: clear it after each
+    test."""
+    yield
+    from repro_torch.kernels import autotune as port_autotune
+
+    port_autotune.set_mode(None)
+
+
 def _t(x):
     return torch.from_numpy(np.array(x))
 

@@ -71,6 +71,17 @@ CASES = {  # case -> (router kwargs, workload spec args)
 }
 
 
+@pytest.fixture(autouse=True)
+def _reset_port_autotune():
+    """The port's Server, Engine and trainer pin the autotune mode
+    process-wide (``autotune.startup``), as JAX's do: clear it after each
+    test."""
+    yield
+    from repro_torch.kernels import autotune as port_autotune
+
+    port_autotune.set_mode(None)
+
+
 def _spec(vocab, n=6, *, seed=0, max_new=6):
     """tests/test_router.py's skewed workload: ragged prompts, mixed budgets."""
     rng = np.random.default_rng(seed)

@@ -39,10 +39,22 @@ SLOTS, MAX_LEN = 3, 64
 # (arch, JAX options beside remat="none", chunk): chunk 5 does not divide the
 # windows of 8, and the prompts pass them
 SERVED = {
+    "qwen3-1.7b": ("qwen3-1.7b", {}, 8),
     "qwen3-1.7b fused": ("qwen3-1.7b", dict(fused_qkv=True), 8),
     "recurrentgemma-2b fused": ("recurrentgemma-2b", dict(fused_qkv=True), 5),
     "gemma3-1b banded": ("gemma3-1b", dict(use_banded_local=True), 5),
 }
+
+
+@pytest.fixture(autouse=True)
+def _reset_port_autotune():
+    """The port's Server, Engine and trainer pin the autotune mode
+    process-wide (``autotune.startup``), as JAX's do: clear it after each
+    test."""
+    yield
+    from repro_torch.kernels import autotune as port_autotune
+
+    port_autotune.set_mode(None)
 
 
 def _workload(n, make, vocab, seed=0):
@@ -193,15 +205,36 @@ def test_fused_qkv_trains_under_remat():
 
 
 @pytest.mark.parametrize("mode", ["replay", "search"])
-def test_autotune_modes_raise_naming_the_queue_item(mode):
+def test_autotune_modes_raise_naming_the_queue_item(jax_served, mode, tmp_path, monkeypatch):
+    """The measured autotune's modes, which the port once refused, build and
+    serve: the ``Engine`` under ``RunOptions(autotune=mode)`` at f32 gives
+    the JAX engine's tokens (``search`` measures every product it meets on
+    the CPU and records it in a table under ``REPRO_TUNE_DIR``; ``replay``
+    reads that table).  An unknown mode still raises."""
+    from repro_torch.kernels import autotune
+
+    monkeypatch.setenv("REPRO_TUNE_DIR", str(tmp_path))
+    autotune.clear_cache()
     cfg = reduced(get_smoke_config("qwen3-1.7b"), dtype="float32")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        build_model(cfg, RunOptions(autotune=mode), device="cpu")
     with pytest.raises(ValueError, match="unknown autotune mode"):
         build_model(cfg, RunOptions(autotune="sometimes"), device="cpu")
     model = build_model(cfg, RunOptions(autotune="off"), device="cpu")
     assert "autotune=off" in policy.current().with_(autotune="off").describe()
     assert model.opts.autotune == "off"
+    tokens, params = jax_served["qwen3-1.7b"]
+    try:
+        eng = Engine(cfg, device="cpu", params=params, max_batch=SLOTS, max_len=MAX_LEN,
+                     chunk=8, degrade_after=NEVER,
+                     opts=RunOptions(remat="none", autotune=mode))
+        assert eng.model.opts.autotune == mode and autotune.mode() == mode
+        reqs = _workload(5, Request, cfg.vocab_size)
+        eng.run(reqs)
+    finally:
+        autotune.set_mode(None)  # Server.__init__ pins the autotune mode process-wide
+    assert [r.out for r in reqs] == tokens
+    table = autotune.load_table("cpu")
+    assert bool(table) == (mode == "search")
+    assert all(k.startswith(("matmul|", "attention|")) for k in table)
 
 
 def test_matmul_impl_jnp_runs_the_plain_version_on_cpu(monkeypatch):

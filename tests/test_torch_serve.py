@@ -39,6 +39,17 @@ PROMPT_LENS = (8, 5, 11)
 BF16_LOGITS_ATOL = 1e-2
 
 
+@pytest.fixture(autouse=True)
+def _reset_port_autotune():
+    """The port's Server, Engine and trainer pin the autotune mode
+    process-wide (``autotune.startup``), as JAX's do: clear it after each
+    test."""
+    yield
+    from repro_torch.kernels import autotune as port_autotune
+
+    port_autotune.set_mode(None)
+
+
 def _prompts(vocab):
     rng = np.random.default_rng(0)
     return [rng.integers(3, vocab, n).astype(np.int32) for n in PROMPT_LENS]
@@ -136,7 +147,10 @@ def test_import_loads_neither_jax_nor_repro():
             "repro_torch.runtime.fault_tolerance, repro_torch.models.dense, "
             "repro_torch.models.moe_layer, repro_torch.configs, "
             "repro_torch.launch.router, repro_torch.runtime.replica, "
-            "repro_torch.runtime.elastic, repro_torch.core.rws, sys; "
+            "repro_torch.runtime.elastic, repro_torch.core.rws, "
+            "repro_torch.kernels.autotune, repro_torch.core.hbp, repro_torch.core.machine, "
+            "repro_torch.core.layouts, repro_torch.core.algorithms, "
+            "repro_torch.core.algorithms_torch, sys; "
             "assert 'qwen3-moe-30b-a3b' in repro_torch.configs.list_archs(); "
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))]; assert not bad, bad")

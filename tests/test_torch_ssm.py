@@ -43,6 +43,17 @@ SSD_TOL = dict(rtol=1e-5, atol=1e-6)
 NEVER = 10 ** 9  # no straggler degradation (wall times differ between engines)
 
 
+@pytest.fixture(autouse=True)
+def _reset_port_autotune():
+    """The port's Server, Engine and trainer pin the autotune mode
+    process-wide (``autotune.startup``), as JAX's do: clear it after each
+    test."""
+    yield
+    from repro_torch.kernels import autotune as port_autotune
+
+    port_autotune.set_mode(None)
+
+
 def _workload(n, make, vocab, seed=0):
     """Prompts of 8-32 tokens, on multiples of the SSD chunk (8)."""
     rng = np.random.default_rng(seed)

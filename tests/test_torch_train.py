@@ -55,6 +55,17 @@ GRAD_TOL = dict(rtol=5e-3, atol=1e-5)
 PARAM_ATOL = 0.01 * AdamWConfig().lr
 
 
+@pytest.fixture(autouse=True)
+def _reset_port_autotune():
+    """The port's Server, Engine and trainer pin the autotune mode
+    process-wide (``autotune.startup``), as JAX's do: clear it after each
+    test."""
+    yield
+    from repro_torch.kernels import autotune as port_autotune
+
+    port_autotune.set_mode(None)
+
+
 def _t(x):
     return torch.from_numpy(np.array(x))
 
