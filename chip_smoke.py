@@ -243,6 +243,24 @@ Phases, each of which fails the run (exit code 1, no result line):
    ``strassen`` at 2048^2, ``fft_six_step`` of 2^20), then one simulator
    run of each HBP program under ``PWS`` at the paper demo's ``p, M, B``
    (host only), its stats printed, at most p-1 steals a priority.
+19. Multi-device planning on the one-card mesh (``launch/mesh.py``,
+   ``core/planner.py``, ``runtime/elastic.py``, ``launch/trace_analysis.py``,
+   ``launch/dryrun.py``): ``qwen3-1.7b`` trained at full width and depth
+   (phase 6's 4 x 128, 3 steps, analytic plans) through ``train`` on
+   ``make_debug_mesh()`` (a ``(1, 1)`` ``DeviceMesh`` over a world-size-1
+   process group), parameters, AdamW state and batches placed by the plan:
+   losses bit-equal to the same run without a mesh, phase 6's K1 / K2 / K3
+   launches a step, the checkpoint manifest's ``mesh_shape`` ``{"data": 1,
+   "model": 1}``; that checkpoint restored by ``elastic_restore`` onto the
+   mesh, bit for bit; ``Engine.restart`` on the mesh from a checkpoint of
+   phase 8's seeded weights over phase 8's first ``MESH_REQUESTS`` requests,
+   tokens equal to phase 8's; ``trace_analysis`` of one training step and
+   one engine decode step (FLOPs, bytes, collectives: none, the roofline
+   terms at the card's peaks) beside its device time from a
+   ``torch.profiler`` trace; and the dry run of ``MESH_DRYRUN_CELLS`` (each
+   cell's per-device bytes against the card's 80 GB; host only, run in
+   subprocesses while the card works).  ``python3 tools/mesh_plan.py`` runs
+   it alone.
 
 The run keeps its tuned tables in a temporary ``REPRO_TUNE_DIR`` of its own,
 removed at the end: no phase replays a table an earlier run left, and the
@@ -418,6 +436,14 @@ LIBRARY_OPS = ("aten::scaled_dot_product_attention", "aten::mm", "aten::bmm", "a
                "aten::baddbmm", "aten::matmul")
 # the registry's kernels (phase 10); no model path runs them
 REGISTRY_KERNELS = ("bp_scan", "bi_transpose", "bi_fft", "strassen_matmul")
+# phase 19: the dry-run cells it runs (host only, one process each, started at
+# the phase's start and collected at its end), and phase 8's requests that
+# Engine.restart serves on the one-card mesh
+MESH_DRYRUN_CELLS = (("qwen3-moe-30b-a3b", "train_4k", "single"),
+                     ("olmoe-1b-7b", "train_4k", "single"),
+                     ("llama-3.2-vision-90b", "decode_32k", "multi"))
+MESH_REQUESTS = 4
+MESH_DRYRUN_TIMEOUT_S = 300
 # card vs CPU at f32: loss, gradients (as the CPU tests hold the port to
 # JAX), and parameters after one AdamW step.  The first step moves an
 # element by lr * (u(g) + wd * p) with u(g) = g / (|g| + eps), whose slope is
@@ -2998,6 +3024,200 @@ def phase_18(torch, dev, g, smi):
               f"simulator {label}: {st.accesses} accesses, steals per priority {spp}")
 
 
+def phase_19(torch, np, dev, smi, counts, reset_counts, workload, engine_tokens, cfg=None,
+             cells=MESH_DRYRUN_CELLS):
+    """Multi-device planning on the one-card mesh (phase 19; see the module
+    docstring).  ``workload`` and ``engine_tokens``: phase 8's requests and
+    its bf16 run's tokens; ``cfg`` (default ``ARCH``'s) and ``cells`` may be
+    cut for a rehearsal on the CPU (``dev`` the CPU: no profiler trace).
+    Returns the phase's numbers."""
+    from repro_torch.checkpoint import CheckpointManager, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.launch import dryrun, trace_analysis
+    from repro_torch.launch.engine import Engine
+    from repro_torch.launch.mesh import axis_sizes, make_debug_mesh, mesh_device
+    from repro_torch.launch.serve import Request
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import train
+    from repro_torch.models import RunOptions, build_model
+    from repro_torch.runtime import elastic
+
+    cfg = cfg or get_config(ARCH)
+    on_card = dev.type == "cuda"
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    # (d) the dry-run cells, host only, one process each while the card works
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    procs = [(cell, time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", cell[0], "--shape",
+         cell[1], "--mesh", cell[2], "--out-dir", str(tmp / "dryrun")],
+        env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True))
+        for cell in cells]
+    out = {}
+    try:
+        mesh = make_debug_mesh(device=dev.type)
+        print(f"[19] multi-device planning on the one-card mesh {axis_sizes(mesh)} "
+              f"({type(mesh).__name__}, device {mesh_device(mesh)}), {cfg.name} "
+              f"({smi})")
+        check(axis_sizes(mesh) == {"data": 1, "model": 1},
+              f"make_debug_mesh() on one card: {axis_sizes(mesh)}")
+
+        # (a) training on the mesh against the same run without one
+        L = cfg.n_layers
+        n_chunks = TRAIN_SEQ // min(512, TRAIN_SEQ)
+        per_step = {"hbp_matmul": L * 7 * 4 + n_chunks * 4, "flash_attention": 2 * L,
+                    "flash_attention_bwd": L}
+        data = DataConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+        opts = RunOptions(autotune="off")
+        plain = train(cfg, steps=TRAIN_STEPS, data_cfg=data, opts=opts, device=dev.type,
+                      log_every=0)["losses"]
+        gc.collect()
+        reset_counts()
+        t0 = time.perf_counter()
+        run = train(cfg, steps=TRAIN_STEPS, data_cfg=data, opts=opts, mesh=mesh, log_every=0,
+                    ckpt_dir=str(tmp / "train"), save_every=TRAIN_STEPS + 1, keep=1)
+        t_train = time.perf_counter() - t0
+        launches = counts()
+        manifest = json.loads((tmp / "train" / f"step_{TRAIN_STEPS - 1}" /
+                               "manifest.json").read_text())
+        print(f"    (a) {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} on the mesh in "
+              f"{t_train:.2f} s (the final save included): losses {run['losses']}; without "
+              f"a mesh {plain}; bit-equal {run['losses'] == plain}; launches {launches}; "
+              f"manifest mesh_shape {manifest['mesh_shape']}")
+        check(run["losses"] == plain, f"phase 19: losses on the mesh {run['losses']} against "
+              f"{plain} without one")
+        check(manifest["mesh_shape"] == {"data": 1, "model": 1},
+              f"phase 19: manifest mesh_shape {manifest['mesh_shape']}")
+        for name, n in per_step.items():  # a CPU rehearsal launches none
+            check(not on_card or launches[name] == TRAIN_STEPS * n,
+                  f"phase 19: {name} launched {launches[name]} times in training, expected "
+                  f"{TRAIN_STEPS} x {n}")
+
+        # (b) the checkpoint back onto the mesh, bit for bit
+        like = {"params": dict(run["model"].named_parameters()), "opt_state": run["opt_state"]}
+        t0 = time.perf_counter()
+        step, state = elastic.elastic_restore(CheckpointManager(tmp / "train"), like, mesh)
+        t_restore = time.perf_counter() - t0
+        same = {"params": all(torch.equal(state["params"][n], p)
+                              for n, p in like["params"].items()),
+                "step": torch.equal(state["opt_state"]["step"], like["opt_state"]["step"])}
+        for key in ("master", "m", "v"):
+            same[key] = all(torch.equal(state["opt_state"][key][n], t)
+                            for n, t in like["opt_state"][key].items())
+        on_mesh = all(t.device == mesh_device(mesh) for t in state["params"].values())
+        print(f"    (b) elastic_restore onto the mesh: step {step} in {t_restore:.2f} s, "
+              f"equal bit for bit {same}, every leaf on {mesh_device(mesh)} {on_mesh}")
+        check(step == TRAIN_STEPS - 1 and all(same.values()) and on_mesh,
+              f"phase 19: restored step {step}, equal {same}, on the mesh {on_mesh}")
+        del state, like
+        gc.collect()
+
+        # (c) one training step, analysed and on the device's clock
+        ds = SyntheticLMDataset(data, cfg)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in ds.batch_at(TRAIN_STEPS).items()}
+        step_fn = make_train_step(run["model"])
+        stats = trace_analysis.analyze(step_fn, run["opt_state"], batch)
+        out["train"] = _trace_row(torch, trace_analysis, dryrun, stats, on_card, step_fn,
+                                  run["opt_state"], batch)
+        print(f"    (c) trace_analysis of one training step: {out['train']['line']}")
+        check(stats.collective_bytes == 0 and stats.flops > 0,
+              f"phase 19: training step {stats.as_dict()}")
+        del run, step_fn, batch
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # (b) Engine.restart on the mesh from phase 8's weights
+        model = build_model(cfg, device=dev)
+        model.init(torch.Generator(device=dev).manual_seed(0))  # the Engine's own init
+        save_checkpoint(tmp / "serve", 0, {"params": model.state_dict()},
+                        mesh_shape=axis_sizes(mesh))
+        del model
+        gc.collect()
+        t0 = time.perf_counter()
+        # phase 8 ran the analytic plans (its table was empty); phase 17 has
+        # written one since
+        engine = Engine.restart(cfg, tmp / "serve", mesh=mesh, max_batch=SLOTS,
+                                max_len=ENGINE_LEN, chunk=CHUNK, opts=opts)
+        t_restart = time.perf_counter() - t0
+        reqs = [Request(i, p, max_new=m) for i, (p, m) in enumerate(workload[:MESH_REQUESTS])]
+        reset_counts()
+        res = engine.run(reqs)
+        served = counts()
+        same_tokens = [r.out for r in reqs] == engine_tokens[:MESH_REQUESTS]
+        print(f"    (b) Engine.restart on the mesh in {t_restart:.2f} s; phase 8's first "
+              f"{MESH_REQUESTS} requests: completed {len(res['completed'])}, tokens equal to "
+              f"phase 8's {same_tokens}; launches {served}")
+        check(same_tokens, f"phase 19: restarted engine's tokens {[r.out for r in reqs]} "
+              f"against phase 8's {engine_tokens[:MESH_REQUESTS]}")
+        check(not on_card or (served["hbp_matmul"] > 0 and served["flash_attention"] > 0),
+              f"phase 19: the restarted engine's launches {served}")
+        tok = torch.zeros((SLOTS, 1), dtype=torch.int32, device=dev)
+        pos = engine.cache.pos.clone()
+        with torch.no_grad():
+            stats = trace_analysis.analyze(engine.model.decode_step, tok, pos, engine.cache)
+            out["decode"] = _trace_row(torch, trace_analysis, dryrun, stats, on_card,
+                                       engine.model.decode_step, tok, pos, engine.cache)
+        print(f"    (c) trace_analysis of one engine decode step (lanes {pos.tolist()}): "
+              f"{out['decode']['line']}")
+        check(stats.collective_bytes == 0 and stats.flops > 0,
+              f"phase 19: decode step {stats.as_dict()}")
+        del engine
+        gc.collect()
+
+        # (d) the dry run's cells
+        out["dryrun"] = []
+        for cell, t_start, proc in procs:
+            try:
+                _, err = proc.communicate(timeout=MESH_DRYRUN_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                _, err = proc.communicate()
+            path = tmp / "dryrun" / f"{dryrun.cell_id(*cell)}.json"
+            check(proc.returncode == 0 and path.exists(),
+                  f"phase 19: dry run of {cell} exited {proc.returncode}: {err[-2000:]}")
+            rec = json.loads(path.read_text())
+            mem = rec["memory"]
+            row = dict(cell=cell, gb=mem["peak_bytes_est"] / 1e9,
+                       argument_gb=mem["argument_bytes"] / 1e9, temp_gb=mem["temp_bytes"] / 1e9,
+                       dominant=rec["roofline"]["dominant"], seconds=rec["seconds"])
+            out["dryrun"].append(row)
+            print(f"    (d) dry run {' '.join(cell)} ({rec['n_devices']} devices, opts "
+                  f"{rec['opts']}): {row['gb']:.2f} GB a device (arguments "
+                  f"{row['argument_gb']:.2f}, temp {row['temp_gb']:.2f}; the card holds 80), "
+                  f"dominant {row['dominant']}, {rec['seconds']:.1f} s")
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    return out
+
+
+def _trace_row(torch, trace_analysis, dryrun, stats, on_card, fn, *args):
+    """A step's analysis beside its device time (a ``torch.profiler`` trace
+    of one more call; not measured off the card) and its roofline terms at
+    the card's peaks."""
+    roof = trace_analysis.roofline(stats, PEAK_OPS["bfloat16"], HBM_BYTES_PER_S,
+                                   dryrun.NVLINK_BW)
+    dev_ms = None
+    if on_card:
+        prof = trace_analysis.profile_device(fn, *args)
+        dev_ms = prof["device_ms"] if prof["n"] else None
+    line = (f"{stats.flops:.6e} FLOPs ({stats.kernel_flops:.6e} in the kernels), "
+            f"{stats.hbm_bytes:.6e} bytes, collectives {stats.collectives or 'none'}; "
+            f"roofline compute {1e3 * roof['compute_s']:.4f} ms, memory "
+            f"{1e3 * roof['memory_s']:.4f} ms, collective {1e3 * roof['collective_s']:.4f} ms "
+            f"({roof['dominant']}); device "
+            f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'} (torch.profiler)")
+    return dict(flops=stats.flops, hbm_bytes=stats.hbm_bytes, roofline=roof,
+                device_ms=dev_ms, line=line)
+
+
 def ring_prompts(np, vocab):
     """14b's prompts (phase 2 checks K2 at the rows of their prefill)."""
     r = np.random.default_rng(2)
@@ -4661,6 +4881,13 @@ def run():
     # -- 18. the simulator core -------------------------------------------------------------------
     mark(18)
     phase_18(torch, dev, g, smi)
+
+    # -- 19. multi-device planning on the one-card mesh ------------------------------------------
+    mark(19)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_19(torch, np, dev, smi, counts, reset_counts, workload,
+             engine_runs["bf16"]["tokens"])
     mark(None)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
           + f"; {time.perf_counter() - t_start:.1f} in all")

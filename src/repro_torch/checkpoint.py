@@ -34,8 +34,9 @@ into the leaf ``.../<group>/<x>`` of shape ``(n, ...)`` (every
 other ``.`` in a name becomes a ``/``, so the files carry the JAX tree's
 names and shapes: ``repro.checkpoint.load_checkpoint`` reads them into the
 JAX ``{"params", "opt_state"}`` tree, and :func:`load_checkpoint` reads
-what JAX's ``save_checkpoint`` wrote for that tree.  One device has no mesh:
-``mesh_shape`` is ``{}``.
+what JAX's ``save_checkpoint`` wrote for that tree.  ``mesh_shape`` is
+the writer's mesh as ``{axis: size}`` (the trainer's and the router's, as
+JAX writes it; ``{}`` when none is given).
 """
 from __future__ import annotations
 
@@ -167,21 +168,22 @@ def _repro_leaves(state) -> dict[str, list]:
 def _host_tree(state) -> dict[str, tuple[np.ndarray, str]]:
     """The state on the host in the JAX tree's names and shapes (layer
     leaves stacked), each leaf ``(array, logical dtype)``: the snapshot a
-    save writes."""
-    out = {}
-    for name, srcs in _repro_leaves(state).items():
-        first = srcs[0][1]
-        if srcs[0][0] is None:
-            out[name] = (_to_numpy(first), _logical_dtype(first))
-            continue
-        one = _to_numpy(first)
-        grid = tuple(i + 1 for i in srcs[-1][0])
-        arr = np.empty(grid + one.shape, dtype=one.dtype)
-        arr[srcs[0][0]] = one
-        for idx, leaf in srcs[1:]:
-            arr[idx] = _to_numpy(leaf)
-        out[name] = (arr, _logical_dtype(first))
-    return out
+    save writes, its leaves copied on a few threads."""
+    leaves = _repro_leaves(state)
+    return dict(zip(leaves, _each(_host_leaf, leaves.values())))
+
+
+def _host_leaf(srcs: list) -> tuple[np.ndarray, str]:
+    first = srcs[0][1]
+    if srcs[0][0] is None:
+        return _to_numpy(first), _logical_dtype(first)
+    one = _to_numpy(first)
+    grid = tuple(i + 1 for i in srcs[-1][0])
+    arr = np.empty(grid + one.shape, dtype=one.dtype)
+    arr[srcs[0][0]] = one
+    for idx, leaf in srcs[1:]:
+        arr[idx] = _to_numpy(leaf)
+    return arr, _logical_dtype(first)
 
 
 def _sha256(path: Path) -> str:
@@ -195,6 +197,10 @@ def _each(fn, items) -> list:
     seconds each to hash one at a time."""
     with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
         return list(pool.map(fn, items))
+
+
+# leaves read ahead of the one being placed (load_checkpoint)
+READ_AHEAD = 8
 
 
 def _step_dirs(directory: Path) -> list[int]:
@@ -287,18 +293,17 @@ def load_checkpoint(directory, state_like: Any, step: Optional[int] = None, *,
         if digest != by_name[name]["sha256"]:
             raise IOError(f"checksum mismatch for {name}")
     restored = {}
-    for name, srcs in wanted.items():
-        arr = _read_leaf(d, by_name[name], verified=True)
-        for layer, like in srcs:
-            t = arr if layer is None else arr[layer]
-            like_shape = tuple(like.shape)
-            if tuple(t.shape) != like_shape:
-                raise ValueError(f"shape mismatch {name}: {tuple(t.shape)} vs {like_shape}")
-            if in_place:
-                with torch.no_grad():
-                    like.copy_(t)
-            else:
-                restored[(name, layer)] = t.to(device=like.device, dtype=like.dtype, copy=True)
+    names = list(wanted)
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        # leaves are read (np.load, bf16 bits copied) on the pool up to
+        # READ_AHEAD ahead, and placed here in order: a full-width state's
+        # leaves take seconds each to read one at a time
+        ahead: dict = {}
+        for i, name in enumerate(names):
+            for nxt in names[i:i + READ_AHEAD]:
+                if nxt not in ahead:
+                    ahead[nxt] = pool.submit(_read_leaf, d, by_name[nxt], True)
+            _place_leaf(name, ahead.pop(name).result(), wanted[name], in_place, restored)
     if in_place:
         return manifest["step"], state_like
 
@@ -308,6 +313,22 @@ def load_checkpoint(directory, state_like: Any, step: Optional[int] = None, *,
         return restored[_repro_name(prefix[:-1])]
 
     return manifest["step"], rebuild(state_like)
+
+
+def _place_leaf(name: str, arr: torch.Tensor, srcs: list, in_place: bool,
+                restored: dict) -> None:
+    """A read leaf into its likes: copied into them (``in_place``), else
+    into ``restored`` by (name, layer), on each like's device and dtype."""
+    for layer, like in srcs:
+        t = arr if layer is None else arr[layer]
+        like_shape = tuple(like.shape)
+        if tuple(t.shape) != like_shape:
+            raise ValueError(f"shape mismatch {name}: {tuple(t.shape)} vs {like_shape}")
+        if in_place:
+            with torch.no_grad():
+                like.copy_(t)
+        else:
+            restored[(name, layer)] = t.to(device=like.device, dtype=like.dtype, copy=True)
 
 
 class CheckpointManager:

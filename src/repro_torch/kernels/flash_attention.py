@@ -331,6 +331,13 @@ def _lib():
     return fn
 
 
+def _meta_fwd(q):
+    """The forward's outputs as shapes alone, what the kernel allocates
+    (``out`` like ``q``, an f32 ``lse`` (b, h, sq)): the dry run's trace."""
+    b, sq, h, _ = q.shape
+    return torch.empty_like(q), torch.empty((b, h, sq), dtype=torch.float32, device="meta")
+
+
 def _launch_fwd(q, k, v, causal, window, q_offset, kv_len, k_scale, v_scale, what,
                 splits=None):
     """One launch of K1 (``k_scale`` None) or K1q on CUDA tensors that
@@ -390,6 +397,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset, kv_len=kv_len)
+    if q.device.type == "meta":
+        return _meta_fwd(q)
     out, lse = _launch_fwd(q, k, v, causal, window, q_offset, kv_len, None, None,
                            "flash_attention")
     flash_attention.launches += 1
@@ -417,6 +426,8 @@ def flash_attention_int8(q, k, v, k_scale, v_scale, *, causal: bool = True,
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset, kv_len=kv_len,
                                    k_scale=k_scale, v_scale=v_scale)
+    if q.device.type == "meta":
+        return _meta_fwd(q)
     out, lse = _launch_fwd(q, k, v, causal, window, q_offset, kv_len, k_scale, v_scale,
                            "flash_attention_int8", splits)
     flash_attention_int8.launches += 1
@@ -459,6 +470,8 @@ def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = True,
         return flash_attention_bwd_ref(q, k, v, out, lse, g, causal=causal,
                                        window=window, q_offset=q_offset,
                                        kv_len=kv_len)
+    if q.device.type == "meta":  # the shapes alone: the dry run's trace
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: no kernel for device {q.device}")
     if hd not in HEAD_DIMS:

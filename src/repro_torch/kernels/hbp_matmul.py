@@ -326,6 +326,8 @@ def hbp_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
         if plan:
             launch_plan(m, n, k, path(a, b), NOMINAL_SMS, batch, plan)  # validates it
         return matmul_ref(a, b, out_dtype)
+    if a.device.type == "meta":  # the shape alone: the dry run's trace
+        return torch.empty((*a.shape[:-2], m, n), dtype=out_dtype, device="meta")
     if a.device.type != "cuda":
         raise ValueError(f"hbp_matmul: no kernel for device {a.device}")
 

@@ -36,6 +36,11 @@ LANE = 128
 
 # Fast-memory sizes when the device reports nothing better (the JAX
 # planner's table); a CUDA device reports its L2.
+# the H100 SXM's L2, 50 MB (NVIDIA H100 Tensor Core GPU Architecture
+# whitepaper): a ``meta`` tensor's fast memory, so the dry run's traces plan
+# as the card does
+H100_L2_BYTES = 50 * 2**20
+
 _DEFAULT_FAST_BYTES = {"tpu": 16 * 2**20, "cpu": 8 * 2**20, "gpu": 16 * 2**20}
 
 # Block-transfer granularity B (bytes): a cache line on the CPU, an L2 line
@@ -99,6 +104,8 @@ def device_params(device=None) -> DeviceParams:
     if dev.type == "cuda":
         props = torch.cuda.get_device_properties(dev)
         platform, kind, queried = "gpu", props.name, props.L2_cache_size
+    elif dev.type == "meta":  # the dry run plans for the H100
+        platform, kind, queried = "gpu", "meta", H100_L2_BYTES
     else:
         platform, kind, queried = dev.type, dev.type, None
     fast = int(env) if env else (queried or _DEFAULT_FAST_BYTES.get(platform, 8 * 2**20))

@@ -14,7 +14,9 @@ tensors.  :func:`route` is that rule, a function of (policy choice, device
 type, spec):
 
 * ``auto`` and ``pallas`` take the kernel's wrapper, which launches the
-  CUDA kernel on a CUDA tensor and runs its plain version on a CPU tensor;
+  CUDA kernel on a CUDA tensor, runs its plain version on a CPU tensor and
+  gives a ``meta`` tensor the kernel's output shapes alone (the dry run's
+  trace, ``launch/dryrun.py``), through the same autograd Functions;
 * ``jnp`` and ``ref`` take the oracle on a CPU tensor and raise
   ``NotImplementedError`` on a CUDA tensor: the port runs no plain version
   on the card;
@@ -71,8 +73,10 @@ from repro_torch.kernels.hbp_matmul import matmul_ref
 from repro_torch.kernels.strassen_matmul import matmul as backend_matmul
 
 # the device types a kernel wrapper serves: CUDA by its kernel, CPU by its
-# plain version
-WRAPPER_DEVICES = ("cuda", "cpu")
+# plain version, ``meta`` by the kernel's output shapes alone (the dry run's
+# trace counts what the kernel allocates, not the plain version's
+# intermediates)
+WRAPPER_DEVICES = ("cuda", "cpu", "meta")
 PLAIN_IMPLS = ("jnp", "ref")
 
 

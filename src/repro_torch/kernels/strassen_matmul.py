@@ -282,6 +282,8 @@ def strassen_matmul(a: torch.Tensor, b: torch.Tensor, *,
         return _k2.hbp_matmul(a, b)
     if a.device.type == "cpu":
         return strassen_matmul_plain(a, b, cutoff=cutoff)
+    if a.device.type == "meta":  # the shape alone: the dry run's trace
+        return torch.empty((a.shape[0], b.shape[1]), dtype=a.dtype, device="meta")
     if a.dtype != torch.float32 or b.dtype != torch.float32:
         return _strassen(a, b, cutoff,
                          lambda x, y: _k2.hbp_matmul(x, y, out_dtype=torch.float32))

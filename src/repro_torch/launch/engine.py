@@ -231,7 +231,7 @@ class Engine(Server):
     ``cache_budget`` (total live context tokens) turns on eviction under
     memory pressure."""
 
-    def __init__(self, cfg, *, device=None, params: Optional[dict] = None,
+    def __init__(self, cfg, *, mesh=None, device=None, params: Optional[dict] = None,
                  max_batch: int = 4, max_len: int = 256, chunk: int = 16,
                  eos_id: Optional[int] = None,
                  cache_budget: Optional[int] = None,
@@ -241,7 +241,7 @@ class Engine(Server):
                  snapshot_every: int = 16,
                  degrade_after: int = 3, degrade_window: int = 8,
                  heal_after: int = 16, opts: Optional[RunOptions] = None):
-        super().__init__(cfg, device=device, params=params, max_batch=max_batch,
+        super().__init__(cfg, mesh=mesh, device=device, params=params, max_batch=max_batch,
                          max_len=max_len, opts=opts)
         for name in ("init_cache", "prefill_chunk", "decode_step"):
             impl = getattr(type(self.model), name, None)
@@ -280,24 +280,26 @@ class Engine(Server):
         self.begin([])  # stats() and adopt() are valid before the first run
 
     @classmethod
-    def restart(cls, cfg, ckpt_dir, *, device=None, **kw) -> "Engine":
-        """Failure model (a): rebuild a serving replica on ``device`` with
-        params from the latest checkpoint under ``ckpt_dir`` (the JAX
-        package's format) via ``elastic.serving_restore``: the model's
-        names, shapes and dtypes come from a copy built on the ``meta``
-        device, the leaves are read onto ``device`` and loaded, so the
-        restored replica's logits equal the original's.  Caches start empty;
+    def restart(cls, cfg, ckpt_dir, *, mesh=None, device=None, **kw) -> "Engine":
+        """Failure model (a): rebuild a serving replica on ``mesh`` (default:
+        the ``(1, 1)`` mesh of ``device``) with params from the latest
+        checkpoint under ``ckpt_dir`` (the JAX package's format) via
+        ``elastic.serving_restore``: the model's names, shapes and dtypes
+        come from a copy built on the ``meta`` device, the leaves are read
+        and placed by the plan on the mesh and loaded, so the restored
+        replica's logits equal the original's.  Caches start empty;
         in-flight requests re-enter through admission and replay."""
-        from repro_torch import resolve_device
         from repro_torch.checkpoint import CheckpointManager
+        from repro_torch.launch.mesh import axis_sizes, mesh_for
         from repro_torch.models import build_model
         from repro_torch.runtime import elastic
 
-        device = resolve_device(device)
+        mesh = mesh_for(mesh, device, "Engine.restart")
         like = build_model(cfg, kw.get("opts"), device="meta").state_dict()
-        step, params = elastic.serving_restore(CheckpointManager(ckpt_dir), like, device)
-        eng = cls(cfg, device=device, params=params, **kw)
-        log.info("engine restarted from step-%d checkpoint on %s", step, device)
+        step, params = elastic.serving_restore(CheckpointManager(ckpt_dir), like, mesh)
+        eng = cls(cfg, mesh=mesh, params=params, **kw)
+        log.info("engine restarted from step-%d checkpoint on mesh %s", step,
+                 axis_sizes(mesh))
         return eng
 
     # -- the two launches ----------------------------------------------------
@@ -826,11 +828,14 @@ def main(argv=None):
     ap.add_argument("--impl", default="",
                     help="execution-policy impl map (see serve.py docstring)")
     args = ap.parse_args(argv)
+    from repro_torch.launch.mesh import make_debug_mesh
+
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     install_impl(args.impl)
 
     cfg = get_smoke_config(args.arch) if args.reduced else get_config(args.arch)
-    engine = Engine(cfg, device=args.device, max_batch=args.slots, max_len=128,
+    engine = Engine(cfg, mesh=make_debug_mesh(tp=2, device=args.device),
+                    max_batch=args.slots, max_len=128,
                     chunk=args.chunk, cache_budget=args.cache_budget or None,
                     evict_policy=args.evict_policy,
                     injector=FaultInjector(args.inject) if args.inject else None,

@@ -36,7 +36,7 @@ or replica identity; ``snapshot_compatible`` gates the hand-off).
 marked dead: its queue and in-flight requests are salvaged (host memory
 survives the device's loss; each rides with its last snapshot), re-queued
 router-wide, and a replacement spins up through checkpoint-streamed
-``Engine.restart`` on ``elastic.respawn_device``.  Replicas may also join
+``Engine.restart`` on ``elastic.respawn_mesh``.  Replicas may also join
 and leave live (:meth:`Router.add_replica` / :meth:`Router.remove_replica`):
 joiners stream the same fleet checkpoint, leavers drain their requests back
 through the snapshot path.
@@ -55,11 +55,12 @@ replicas always get a clean injector.
 
 **Params and devices.**  Replica 0 takes ``params`` (a state dict) or,
 without it, the engine's seeded weights, and writes the fleet checkpoint
-(``checkpoint.save_checkpoint``, the JAX package's format) under
-``ckpt_dir`` (default: a new temporary directory).  Every other replica,
-respawn and joiner comes up from that checkpoint through
-:meth:`Engine.restart`.  Every replica runs on ``device`` (CUDA unless the
-caller passes ``"cpu"``): on one card they time-share it.
+(``checkpoint.save_checkpoint``, the JAX package's format, its manifest's
+``mesh_shape`` the mesh's) under ``ckpt_dir`` (default: a new temporary
+directory).  Every other replica, respawn and joiner comes up from that
+checkpoint through :meth:`Engine.restart`.  Every replica runs on ``mesh``
+(default: the ``(1, 1)`` mesh of ``device``, CUDA unless the caller passes
+``"cpu"``): on one card they time-share it.
 
 **Fleet clock.**  Replicas time-share one device, so the router steps them
 round-robin and each engine accrues wall time on its own ``busy_s`` clock.
@@ -94,7 +95,8 @@ from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.core import pws, rws
 from repro_torch.launch.engine import Engine
 from repro_torch.launch.serve import Request, install_impl
-from repro_torch.runtime.elastic import respawn_device
+from repro_torch.launch.mesh import axis_sizes, make_debug_mesh, mesh_for
+from repro_torch.runtime.elastic import respawn_mesh
 from repro_torch.runtime.fault_tolerance import (
     FAULT_PLAN_ENV,
     FaultInjector,
@@ -111,7 +113,7 @@ class Router:
     queue, two routing arms, snapshot migration, death -> checkpoint-streamed
     respawn).  See the module docstring for the contract."""
 
-    def __init__(self, cfg, *, device=None, n_replicas: int = 2, route: str = "pws",
+    def __init__(self, cfg, *, mesh=None, device=None, n_replicas: int = 2, route: str = "pws",
                  seed: int = 0, ckpt_dir=None, fleet_faults: str = "",
                  queue_depth: int = 1, rebalance_threshold: Optional[int] = None,
                  respawn: bool = True, params: Optional[dict] = None, **engine_kw):
@@ -132,17 +134,18 @@ class Router:
         # respawn and join) spins up from it through Engine.restart, so all
         # replicas serve identical logits
         self.ckpt_dir = ckpt_dir or tempfile.mkdtemp(prefix="repro-router-")
+        self.mesh = mesh_for(mesh, device, "the router")
         self.replicas: list[Replica] = [
-            spawn_replica(0, cfg, device, None, params=params,
+            spawn_replica(0, cfg, self.mesh, None, params=params,
                           injector=FaultInjector(plans[0]), **engine_kw)]
         self.device = self.replicas[0].engine.device
         t0 = time.perf_counter()
         save_checkpoint(self.ckpt_dir, 0, {"params": self.replicas[0].engine.model.state_dict()},
-                        mesh_shape={})
+                        mesh_shape=axis_sizes(self.mesh))
         self.ckpt_save_s = time.perf_counter() - t0
         for rid in range(1, n_replicas):
             self.replicas.append(
-                spawn_replica(rid, cfg, self.device, self.ckpt_dir,
+                spawn_replica(rid, cfg, self.mesh, self.ckpt_dir,
                               injector=FaultInjector(plans[rid]), **engine_kw))
         self._by_rid = {r.rid: r for r in self.replicas}
         self._next_rid = n_replicas
@@ -387,14 +390,14 @@ class Router:
         if self.respawn:
             self.add_replica(_counter="replica_restarts")
 
-    def add_replica(self, device=None, *, _counter: str = "joins") -> Replica:
+    def add_replica(self, mesh=None, *, _counter: str = "joins") -> Replica:
         """Elastic join (and the respawn path): spin a new replica from the
-        fleet checkpoint through ``Engine.restart`` on ``device`` (default
-        ``elastic.respawn_device`` of the fleet's device).  Joiners and
-        respawns always get a clean injector."""
+        fleet checkpoint through ``Engine.restart`` on ``mesh`` (default
+        ``elastic.respawn_mesh`` of the fleet's mesh).  Joiners and respawns
+        always get a clean injector."""
         rid = self._next_rid
         self._next_rid += 1
-        rep = spawn_replica(rid, self.cfg, device or respawn_device(self.device),
+        rep = spawn_replica(rid, self.cfg, mesh or respawn_mesh(self.mesh),
                             self.ckpt_dir, injector=FaultInjector(""), **self._engine_kw)
         rep.engine.begin([])
         self.replicas.append(rep)
@@ -464,7 +467,8 @@ def main(argv=None):
              int(rng.integers(2, args.max_new + 1)))
             for _ in range(args.requests)]
     with tempfile.TemporaryDirectory(prefix="repro-router-") as ckpt_dir:
-        router = Router(cfg, device=args.device, n_replicas=args.replicas, route=args.route,
+        mesh = make_debug_mesh(tp=2, device=args.device)
+        router = Router(cfg, mesh=mesh, n_replicas=args.replicas, route=args.route,
                         seed=args.seed, ckpt_dir=ckpt_dir, fleet_faults=plan,
                         queue_depth=args.queue_depth,
                         rebalance_threshold=args.rebalance_threshold or None, **engine_kw)
@@ -486,7 +490,7 @@ def main(argv=None):
         assert out["counters"]["migrations"] >= 1, \
             "expected at least one cross-replica snapshot-resume migration"
     if args.check_single:
-        single = Engine(cfg, device=args.device,
+        single = Engine(cfg, mesh=mesh,
                         params=router.replicas[0].engine.model.state_dict(),
                         injector=FaultInjector(""), **engine_kw)
         alone = [Request(i, p, max_new=mn) for i, (p, mn) in enumerate(spec)]

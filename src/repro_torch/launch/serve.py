@@ -8,8 +8,10 @@ row that reaches ``max_new`` or ``eos_id`` stops appending, and the wave
 ends when every row has stopped.
 
 Every matrix product and attention call runs on the port's CUDA kernels;
-with ``device="cpu"`` they run on their plain PyTorch versions.  There is no
-mesh in the port yet.  The measured autotune replays the device's tuned
+with ``device="cpu"`` they run on their plain PyTorch versions.  The server
+takes a mesh where JAX's does (``launch/mesh.py``; the CLI's is
+``make_debug_mesh``) and places the weights by the planner's plan; the port
+executes on a mesh of one device, and a larger one raises.  The measured autotune replays the device's tuned
 table by default (``REPRO_AUTOTUNE`` = ``off`` | ``replay`` | ``search``,
 tables under ``REPRO_TUNE_DIR``; ``kernels/autotune.py``).  ``--impl`` installs the execution policy
 (``repro_torch.kernels.policy``) with the JAX launcher's grammar,
@@ -46,9 +48,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke_config, list_archs
-from repro_torch.kernels import autotune, planner, policy
+from repro_torch.core import planner
+from repro_torch.kernels import autotune, policy
+from repro_torch.kernels import planner as kernel_planner
+from repro_torch.launch.mesh import axis_sizes, make_debug_mesh, mesh_device, mesh_for
 from repro_torch.models import RunOptions, build_model
 
 log = logging.getLogger("repro_torch.serve")
@@ -66,10 +70,14 @@ class Request:
 
 
 class Server:
-    def __init__(self, cfg, *, device=None, params: Optional[dict] = None,
+    def __init__(self, cfg, *, mesh=None, device=None, params: Optional[dict] = None,
                  max_batch: int = 8, max_len: int = 256,
                  opts: Optional[RunOptions] = None):
-        """``params``: a state dict (``repro_torch.checkpoint``) to load;
+        """``mesh``: where JAX's server takes its mesh (default: the ``(1, 1)``
+        mesh of ``device``, CUDA unless told otherwise); the parameters are
+        placed by ``plan_params`` on it, and a mesh of more than one device
+        raises ``NotImplementedError``.  ``params``: a state dict
+        (``repro_torch.checkpoint``) to load;
         without one the weights are drawn by the model's ``init`` from a
         ``torch.Generator`` seeded with 0, as the JAX server uses key 0.
         ``opts``: the model's ``RunOptions`` (``windowed_decode_cache``
@@ -81,9 +89,10 @@ class Server:
         self.cfg = cfg
         self.max_batch = max_batch
         self.max_len = max_len
-        self.opts = planner.resolve_run_options(
+        self.opts = kernel_planner.resolve_run_options(
             opts or RunOptions(), head_dim=cfg.head_dim_, dtype=cfg.activation_dtype)
-        device = resolve_device(device)
+        self.mesh = mesh_for(mesh, device, "serving")
+        device = mesh_device(self.mesh, "serving")
         autotune.startup(self.opts.autotune, device)
         prov = autotune.provenance(device)
         log.info("policy %s | autotune table %s (%d tuned plan(s), %s)",
@@ -95,6 +104,8 @@ class Server:
             self.model.init(torch.Generator(device=self.device).manual_seed(0))
         else:
             self.model.load_state_dict(params)
+        weights = dict(self.model.named_parameters())
+        planner.place(weights, planner.plan_params(weights, self.mesh), self.mesh)
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, extras: Optional[dict] = None):
@@ -199,14 +210,15 @@ def main(argv=None):
     install_impl(args.impl)
 
     cfg = get_smoke_config(args.arch) if args.reduced else get_config(args.arch)
-    server = Server(cfg, device=args.device, max_batch=args.batch, max_len=128,
+    mesh = make_debug_mesh(tp=2, device=args.device)
+    server = Server(cfg, mesh=mesh, max_batch=args.batch, max_len=128,
                     opts=RunOptions(windowed_decode_cache=args.windowed_decode_cache))
     rng = np.random.default_rng(0)
     reqs = [Request(i, rng.integers(3, cfg.vocab_size, rng.integers(4, 20)).astype(np.int32),
                     max_new=args.max_new) for i in range(args.batch)]
     out = server.run_batch(reqs)
     print(f"served {out['tokens']} tokens in {out['wall_s']:.2f}s "
-          f"({out['tok_per_s']:.1f} tok/s) on {server.device}")
+          f"({out['tok_per_s']:.1f} tok/s) on {server.device}, mesh {axis_sizes(mesh)}")
     for r in reqs[:2]:
         print(f"req {r.uid}: {r.out[:8]}...")
 

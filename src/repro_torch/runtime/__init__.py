@@ -2,7 +2,14 @@
 straggler detection and the trainer's fault-tolerant runner
 (``fault_tolerance``), the fleet's replicas (``replica``) and elastic
 restarts from a checkpoint (``elastic``)."""
-from repro_torch.runtime.elastic import elastic_restore, respawn_device, serving_restore
+from repro_torch.runtime.elastic import (
+    elastic_restore,
+    replan_for_mesh,
+    replan_params_for_mesh,
+    respawn_device,
+    respawn_mesh,
+    serving_restore,
+)
 from repro_torch.runtime.fault_tolerance import (
     FAULT_COUNTER_KEYS,
     FaultInjector,
@@ -31,7 +38,10 @@ __all__ = [
     "health_score",
     "parse_fault_plan",
     "parse_fleet_plan",
+    "replan_for_mesh",
+    "replan_params_for_mesh",
     "respawn_device",
+    "respawn_mesh",
     "serving_restore",
     "spawn_replica",
 ]

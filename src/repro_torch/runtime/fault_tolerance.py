@@ -338,7 +338,9 @@ class FaultTolerantRunner:
             state = runner.run_step(step, lambda: train_step(state, batch))
 
     ``ckpt_manager`` is a ``repro_torch.checkpoint.CheckpointManager``, or
-    None for retry and straggler detection without checkpoints.
+    None for retry and straggler detection without checkpoints;
+    ``mesh_shape``, the trainer's mesh as ``{axis: size}``, goes into each
+    manifest, as in JAX.
 
     One point differs from JAX, whose step returns new arrays and leaves its
     inputs untouched, so that any failed step can run again.  The port's

@@ -16,8 +16,8 @@ away from replicas under ``SHED_THRESHOLD``; the weights are sized so that
 isolated stragglers never cross it while a degradation event or a retry
 burst does.
 
-A provenance row names the replica's ``device`` where JAX's names its mesh
-(the port has no mesh), and carries JAX's ``autotune`` entry: the
+A provenance row names the replica's ``device`` and, as JAX's, its
+``mesh`` (``{axis: size}``), and carries JAX's ``autotune`` entry: the
 replica's device's tuned-table provenance (``autotune.provenance``).
 """
 from __future__ import annotations
@@ -82,12 +82,14 @@ class Replica:
         replica dies)."""
         from repro_torch.kernels import autotune as kernel_autotune
         from repro_torch.kernels import policy as kernel_policy
+        from repro_torch.launch.mesh import axis_sizes
 
         return {
             "rid": self.rid,
             "state": self.state,
             "spawned_from": self.spawned_from,
             "device": str(self.engine.device),
+            "mesh": axis_sizes(self.engine.mesh),
             "policy": kernel_policy.current().describe(),
             "autotune": kernel_autotune.provenance(self.engine.device),
             "health": self.health,
@@ -96,20 +98,23 @@ class Replica:
         }
 
 
-def spawn_replica(rid: int, cfg, device=None, ckpt_dir=None, **engine_kw) -> Replica:
-    """Bring one replica up on ``device``.  With ``ckpt_dir`` the spin-up is
-    checkpoint-streamed (:meth:`Engine.restart`: the latest checkpoint's
-    params through ``elastic.serving_restore``), so every replica of a
-    fleet serves the logits of the replica whose params were checkpointed.
+def spawn_replica(rid: int, cfg, mesh=None, ckpt_dir=None, *, device=None,
+                  **engine_kw) -> Replica:
+    """Bring one replica up on ``mesh`` (default: the ``(1, 1)`` mesh of
+    ``device``).  With ``ckpt_dir`` the spin-up is checkpoint-streamed
+    (:meth:`Engine.restart`: the latest checkpoint's params through
+    ``elastic.serving_restore`` onto the mesh), so every replica of a fleet
+    serves the logits of the replica whose params were checkpointed.
     Without it the engine takes ``engine_kw``'s ``params``, else seeded
     weights (the fleet's replica 0, whose params seed the checkpoint)."""
     from repro_torch.launch.engine import Engine
 
     t0 = time.perf_counter()
     if ckpt_dir is None:
-        rep = Replica(rid, Engine(cfg, device=device, **engine_kw))
+        rep = Replica(rid, Engine(cfg, mesh=mesh, device=device, **engine_kw))
     else:
-        rep = Replica(rid, Engine.restart(cfg, ckpt_dir, device=device, **engine_kw),
+        rep = Replica(rid, Engine.restart(cfg, ckpt_dir, mesh=mesh, device=device,
+                                          **engine_kw),
                       spawned_from="checkpoint")
     rep.spawn_s = time.perf_counter() - t0
     log.info("replica %d up (%s, device %s)", rid, rep.spawned_from, rep.engine.device)

@@ -336,8 +336,11 @@ def test_wrappers_reject_bad_inputs():
         flash_attention(q, q, q, kv_len=torch.tensor([1, 2, 3], dtype=torch.int32))
     with pytest.raises(TypeError):
         hbp_matmul(torch.zeros(2, 3), torch.zeros(3, 2, dtype=torch.float64))
-    with pytest.raises(ValueError):
-        hbp_matmul(torch.zeros(2, 3, device="meta"), torch.zeros(3, 2, device="meta"))
+    with pytest.raises(ValueError):  # operands on two devices
+        hbp_matmul(torch.zeros(2, 3, device="meta"), torch.zeros(3, 2))
+    # a meta tensor gets the kernel's output shape alone (the dry run's trace)
+    got = hbp_matmul(torch.zeros(2, 3, device="meta"), torch.zeros(3, 2, device="meta"))
+    assert got.device.type == "meta" and got.shape == (2, 2)
     out, lse = flash_attention(q, q, q)
     with pytest.raises(ValueError):  # lse of the wrong shape
         flash_attention_bwd(q, q, q, out, lse[:, :2], out)

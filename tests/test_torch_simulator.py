@@ -16,6 +16,7 @@ the largest output, the BI layout ops bit for bit; list ranking and
 connected components exactly equal.
 """
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -28,7 +29,7 @@ from repro.core import algorithms as jax_algorithms  # noqa: E402
 from repro.core import algorithms_jax, hbp as jax_hbp, layouts as jax_layouts  # noqa: E402
 from repro.core import machine as jax_machine, pws as jax_pws, rws as jax_rws  # noqa: E402
 from repro.kernels import registry as jax_registry  # noqa: E402
-from repro_torch.core import algorithms, algorithms_torch, hbp, layouts  # noqa: E402
+from repro_torch.core import algorithms, algorithms_torch, costmodel, hbp, layouts  # noqa: E402
 from repro_torch.core import machine, pws, rws  # noqa: E402
 from repro_torch.kernels import registry  # noqa: E402
 
@@ -238,3 +239,122 @@ def test_list_ranking_and_components_equal_jax(n):
                                   algorithms_jax.connected_components(n, edges))
     np.testing.assert_array_equal(algorithms_torch.connected_components(n, edges[:0]),
                                   algorithms_jax.connected_components(n, edges[:0]))
+
+
+# -- the paper's bounds (``costmodel``), as tests/test_pws.py and
+# -- tests/test_hbp_type2.py hold the JAX simulator to them, at their sizes
+
+BOUND_P, BOUND_M, BOUND_B = 8, 512, 16
+
+
+def _bound_run(progs, p=BOUND_P):
+    m = machine.Machine(p, BOUND_M, BOUND_B, scheduler=pws.PWS())
+    return m.run_sequence(progs) if isinstance(progs, list) else m.run(progs)
+
+
+def _excess(build):
+    """Cache misses under PWS on ``BOUND_P`` cores less the sequential ones."""
+    return (_bound_run(build()).total_cache_misses()
+            - _bound_run(build(), p=1).total_cache_misses())
+
+
+def test_costmodel_equals_jax_on_a_grid():
+    from repro.core import costmodel as jax_cost
+    from repro_torch.core import costmodel as cost
+
+    public = sorted(n for n in dir(jax_cost) if not n.startswith("_") and n not in
+                    ("annotations", "math"))
+    assert public == sorted(n for n in dir(cost) if not n.startswith("_") and n not in
+                            ("annotations", "math"))
+    assert cost.table1_asymptotics() == jax_cost.table1_asymptotics()
+    for x in (0.5, 1, 2, 3, 1 << 20):
+        assert cost.log2(x) == jax_cost.log2(x)
+    for p in (1, 4, 8):
+        for M_ in (256, 512, 1 << 20):
+            for B_ in (8, 16, 64):
+                assert cost.pws_cache_excess_bp(p, M_, B_) == jax_cost.pws_cache_excess_bp(p, M_, B_)
+                assert cost.steals_bound(p, B_) == jax_cost.steals_bound(p, B_)
+                for n in (4, 256, 1 << 14):
+                    assert (cost.pws_block_excess_bp(p, B_, n)
+                            == jax_cost.pws_block_excess_bp(p, B_, n))
+                    for c in (1, 2):
+                        for s_kind in ("sqrt", "quarter"):
+                            kw = dict(c=c, s_kind=s_kind)
+                            assert (cost.pws_cache_excess_type2(p, M_, B_, n, **kw)
+                                    == jax_cost.pws_cache_excess_type2(p, M_, B_, n, **kw))
+                            assert (cost.pws_block_excess_type2(p, B_, n, **kw)
+                                    == jax_cost.pws_block_excess_type2(p, B_, n, **kw))
+                    for mkn in ((n, n, n), (n, 3, 7)):
+                        assert (cost.seq_cache_complexity_mm(*mkn, M_, B_)
+                                == jax_cost.seq_cache_complexity_mm(*mkn, M_, B_))
+
+
+def _steals_per_priority():
+    st = _bound_run(algorithms.MSum(4096, hbp.Memory(BOUND_B)))
+    for pr, cnt in st.steals_per_priority().items():
+        assert cnt <= BOUND_P - 1, (pr, cnt)
+
+
+def _steal_attempts():
+    n = 4096
+    st = _bound_run(algorithms.MSum(n, hbp.Memory(BOUND_B)))
+    assert st.steal_attempts <= costmodel.steals_bound(BOUND_P, int(math.log2(n)) + 2)
+
+
+def _scan_cache_excess():
+    ex = _excess(lambda: algorithms.MSum(1 << 14, hbp.Memory(BOUND_B)))
+    assert ex <= 4 * costmodel.pws_cache_excess_bp(BOUND_P, BOUND_M, BOUND_B), ex
+
+
+def _mt_cache_excess():
+    ex = _excess(lambda: algorithms.MTBI(64, hbp.Memory(BOUND_B)))
+    assert ex <= 4 * costmodel.pws_cache_excess_bp(BOUND_P, BOUND_M, BOUND_B), ex
+
+
+def _block_miss_excess():
+    st = _bound_run(algorithms.MSum(1 << 14, hbp.Memory(BOUND_B)))
+    bound = costmodel.pws_block_excess_bp(BOUND_P, BOUND_B, 1 << 14)
+    assert st.total_block_misses() <= 2 * bound, (st.total_block_misses(), bound)
+
+
+def _prefix_sums_excess():
+    ex = _excess(lambda: algorithms.prefix_sums_programs(1 << 13, hbp.Memory(BOUND_B)))
+    assert ex <= 8 * costmodel.pws_cache_excess_bp(BOUND_P, BOUND_M, BOUND_B), ex
+
+
+def _strassen_type2():
+    st = _bound_run(algorithms.strassen_program(16, hbp.Memory(BOUND_B), base=4))
+    for pr, cnt in st.steals_per_priority().items():
+        assert cnt <= BOUND_P - 1
+    ex = _excess(lambda: algorithms.strassen_program(16, hbp.Memory(BOUND_B), base=4))
+    bound = costmodel.pws_cache_excess_type2(BOUND_P, BOUND_M, BOUND_B, 16 * 16, c=1,
+                                             s_kind="quarter")
+    assert ex <= 8 * max(bound, 1), (ex, bound)
+
+
+def _fft_type2():
+    n = 1 << 10
+    ex = _excess(lambda: algorithms.fft_program(n, hbp.Memory(BOUND_B)))
+    bound = costmodel.pws_cache_excess_type2(BOUND_P, BOUND_M, BOUND_B, n, c=2,
+                                             s_kind="sqrt")
+    assert ex <= 8 * bound, (ex, bound)
+
+
+BOUNDS = {
+    "obs_4_3_steals_per_priority": _steals_per_priority,
+    "cor_4_1_steal_attempts": _steal_attempts,
+    "lemma_4_4_scan_cache_excess": _scan_cache_excess,
+    "lemma_4_4_mt_cache_excess": _mt_cache_excess,
+    "lemma_4_8_block_miss_excess": _block_miss_excess,
+    "lemma_4_4_prefix_sums_excess": _prefix_sums_excess,
+    "lemma_4_1_strassen_type2": _strassen_type2,
+    "lemma_4_1_fft_type2": _fft_type2,
+}
+
+
+@pytest.mark.parametrize("name", list(BOUNDS))
+def test_port_simulator_meets_the_papers_bounds(name):
+    """The port's ``Machine`` under ``PWS`` within the bounds (and the
+    constants) that tests/test_pws.py and tests/test_hbp_type2.py assert
+    for the JAX simulator, at p 8, M 512, B 16."""
+    BOUNDS[name]()

@@ -711,7 +711,7 @@ ROUTE_CASES = [
     ("pallas", "cuda", False, True, True, NotImplementedError),
     ("auto", "cpu", True, True, False, "jnp"),
     ("auto", "cuda", True, True, False, NotImplementedError),
-    ("auto", "meta", True, True, True, "jnp"),
+    ("auto", "meta", True, True, True, "pallas"),  # the kernels' output shapes
 ]
 
 
