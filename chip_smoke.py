@@ -261,6 +261,28 @@ Phases, each of which fails the run (exit code 1, no result line):
    cell's per-device bytes against the card's 80 GB; host only, run in
    subprocesses while the card works).  ``python3 tools/mesh_plan.py`` runs
    it alone.
+20. Sharded execution (``launch/mesh.py``'s ``spawn``,
+   ``core/collectives.py``, ``models/common.py``): ``SHARD_RANKS`` ranks
+   share the card over gloo on the ``(2, 2)`` mesh, the kernels built once
+   here before they start.  K1, K2 and K3 are first held to their plain
+   versions at the shard shapes of ``qwen3-1.7b`` on ``(2, 2)`` (8 query
+   heads over 4 KV heads; 1024 / 512 / 3072 columns; the tied head's
+   75,968 vocabulary rows).  Then (a) the smoke config at f32: the
+   ``Server``'s and the ``Engine``'s greedy tokens equal this process's
+   one-device tokens of the same seeded model, and two training steps'
+   losses are within ``SHARD_F32_RTOL``; (b) ``qwen3-1.7b`` in bf16 at full
+   width and depth: the ``Server``'s prefill logits no farther from the
+   f32 model's than ``SHARD_F32_DISTANCE`` times the one-device bf16
+   server's (their distance from the one-device logits printed beside
+   phase 2's bf16 tolerance, not gated), then ``BATCH`` requests of
+   ``SHARD_NEW`` new tokens (token agreement printed, not gated), a decode
+   step's wall, its collectives by kind, each rank's peak memory and the
+   kernels' shard shapes; (c) bf16 training at full width and
+   ``SHARD_TRAIN_LAYERS`` layers (depth cut for time), two steps against
+   the same depth on one device: losses within ``SHARD_BF16_LOSS_RTOL``,
+   grad norms finite, each rank's peak memory beside the one-device run's.
+   A rank that fails fails the run.  ``python3 tools/sharded_smoke.py`` runs
+   it alone.
 
 The run keeps its tuned tables in a temporary ``REPRO_TUNE_DIR`` of its own,
 removed at the end: no phase replays a table an earlier run left, and the
@@ -444,6 +466,26 @@ MESH_DRYRUN_CELLS = (("qwen3-moe-30b-a3b", "train_4k", "single"),
                      ("llama-3.2-vision-90b", "decode_32k", "multi"))
 MESH_REQUESTS = 4
 MESH_DRYRUN_TIMEOUT_S = 300
+# phase 20: four ranks share the card over gloo on the (2, 2) mesh.  (a) the
+# f32 smoke config: tokens equal, two training steps' losses within
+# SHARD_F32_RTOL (two layers of products summed in other orders, as the CPU
+# tests hold the port to JAX); (b) phase 4's requests at SHARD_NEW new
+# tokens; (c) training at full width and SHARD_TRAIN_LAYERS layers (cut for
+# time), phase 6's 4 x 128 batch: the bf16 losses of two steps within
+# SHARD_BF16_LOSS_RTOL of one device's (each row-parallel product's f32
+# partial sums are all-reduced over other ranks' in another order)
+SHARD_RANKS, SHARD_TP, SHARD_NEW = 4, 2, 8
+SHARD_TRAIN_LAYERS, SHARD_TRAIN_STEPS = 4, 2
+SHARD_F32_RTOL, SHARD_BF16_LOSS_RTOL = 1e-5, 1e-2
+# (b)'s gate on the bf16 prefill logits, as phase 16 gates fused QKV: the
+# sharded logits' distance from the f32 model's (the same seeded weights at
+# f32 on one device) at most this many times the one-device bf16 logits'.
+# Splitting a contraction over ranks, and the rows over data ranks, changes
+# the f32 sums' order, so bf16 roundings move at 28 layers as they do with
+# the product's width (ROADMAP.md queue 3); the f32 run (a) is exact.
+# ``tools/sharded_smoke.py`` also reads the gate on a layout fault.
+SHARD_F32_DISTANCE = 2.0
+SHARD_SLOTS, SHARD_LEN, SHARD_CHUNK = 4, 64, 8
 # card vs CPU at f32: loss, gradients (as the CPU tests hold the port to
 # JAX), and parameters after one AdamW step.  The first step moves an
 # element by lr * (u(g) + wd * p) with u(g) = g / (|g| + eps), whose slope is
@@ -3235,6 +3277,402 @@ def sdpa(q, k, v, mask, causal):
         is_causal=causal, enable_gqa=True)
 
 
+class _ShapeRecorder:
+    """A kernel entry that records the shapes of each call's tensors by the
+    kernel's name and calls through; attributes (its ``launches``
+    counters) read and write the entry's own."""
+
+    def __init__(self, name, fn, seen):
+        object.__setattr__(self, "_entry", (name, fn, seen))
+
+    def __call__(self, *args, **kwargs):
+        name, fn, seen = self._entry
+        seen.add((name, tuple(tuple(a.shape) for a in args if hasattr(a, "shape"))))
+        return fn(*args, **kwargs)
+
+    def __getattr__(self, attr):
+        return getattr(self._entry[1], attr)
+
+    def __setattr__(self, attr, value):
+        setattr(self._entry[1], attr, value)
+
+
+def record_kernel_shapes(seen):
+    """Patch K2's, K1's and K3's entries to record their calls' shapes into
+    ``seen``; returns the function that undoes it."""
+    from importlib import import_module
+
+    mm = import_module("repro_torch.kernels.hbp_matmul")
+    fa = import_module("repro_torch.kernels.flash_attention")
+    patched = [(mm, "hbp_matmul"), (fa, "flash_attention"), (fa, "flash_attention_bwd")]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr in patched]
+    for mod, attr, fn in saved:
+        setattr(mod, attr, _ShapeRecorder(attr, fn, seen))
+
+    def undo():
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    return undo
+
+
+def shard_rank(spec):
+    """One rank of phase 20 (run by ``launch.mesh.spawn``): the (a)-(c)
+    cases on the ``(2, 2)`` mesh; returns its numbers.  ``spec``: the
+    device type, the configs' names and cuts, phase 4's prompts, the
+    engine's workload."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, get_smoke_config, reduced
+    from repro_torch.core import collectives
+    from repro_torch.data import DataConfig
+    from repro_torch.launch.engine import Engine
+    from repro_torch.launch.mesh import axis_sizes, make_debug_mesh, mesh_device
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.launch.train import train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev_type = spec["device"]
+    rank = dist.get_rank()
+    mesh = make_debug_mesh(SHARD_RANKS, tp=SHARD_TP, device=dev_type)
+    dev = mesh_device(mesh)
+    _, reset_counts, counts = launch_counters()
+    out = {"rank": rank, "mesh": axis_sizes(mesh), "coord": list(mesh.get_coordinate()),
+           "device": str(dev), "backend": dist.get_backend()}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def peak_reset():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        return torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+
+    # (a) the f32 smoke config
+    small = reduced(get_smoke_config(ARCH), dtype="float32")
+    server = Server(small, mesh=mesh, max_batch=SHARD_SLOTS, max_len=SHARD_LEN)
+    reqs = [Request(i, p, max_new=6) for i, p in enumerate(spec["small_prompts"])]
+    server.run_batch(reqs)
+    out["a_server"] = [r.out for r in reqs]
+    engine = Engine(small, mesh=mesh, max_batch=SHARD_SLOTS, max_len=SHARD_LEN,
+                    chunk=SHARD_CHUNK)
+    reqs = [Request(i, p, max_new=n) for i, (p, n) in enumerate(spec["small_workload"])]
+    engine.run(reqs)
+    out["a_engine"] = [r.out for r in reqs]
+    res = train(small, steps=SHARD_TRAIN_STEPS, data_cfg=DataConfig(**spec["small_data"]),
+                mesh=mesh, log_every=0)
+    out["a_losses"] = res["losses"]
+    del server, engine, res
+    gc.collect()
+
+    # (b) the full model in bf16
+    cfg = get_config(spec["arch"]) if spec["full"] else get_smoke_config(spec["arch"])
+    peak_reset()
+    t0 = time.perf_counter()
+    server = Server(cfg, mesh=mesh, max_batch=BATCH, max_len=MAX_LEN)
+    sync()
+    out["b_build_s"] = time.perf_counter() - t0
+    out["b_build_peak"] = peak()  # the init draws each whole tensor in f32
+    peak_reset()
+    prompts = spec["prompts"]
+    plen = max(map(len, prompts))
+    toks = np.zeros((len(prompts), plen), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, plen - len(p):] = p
+    tokens = torch.from_numpy(toks).to(dev)
+    logits, cache = server.prefill(tokens)
+    if rank == 0:
+        out["b_logits"] = logits.float().cpu()
+    nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+    pos = torch.full((), plen, dtype=torch.int32, device=dev)
+    walls = []
+    for step in range(3):  # the first is a warm-up; the last two are timed
+        sync()
+        collectives.reset_counts()
+        t0 = time.perf_counter()
+        nxt, cache = server.decode(nxt[:, None], pos + step, cache)
+        sync()
+        walls.append(time.perf_counter() - t0)
+        out["b_step_collectives"] = collectives.counts()
+    out["b_decode_ms"] = [1e3 * w for w in walls[1:]]
+    del cache, logits
+    seen = set()
+    undo = record_kernel_shapes(seen)
+    reset_counts()
+    try:
+        reqs = [Request(i, p, max_new=SHARD_NEW) for i, p in enumerate(prompts)]
+        t0 = time.perf_counter()
+        res = server.run_batch(reqs)
+        sync()
+        out["b_run_s"] = time.perf_counter() - t0
+    finally:
+        undo()
+    out["b_launches"] = counts()
+    out["b_tokens"] = [r.out for r in reqs]
+    out["b_finite"] = res["logits_finite"]
+    out["b_decode_steps"] = res["decode_steps"]
+    out["b_peak"] = peak()
+    out["b_weight_bytes"] = sum(p.numel() * p.element_size()
+                                for p in server.model.parameters())
+    del server
+    gc.collect()
+
+    # (c) training at full width, cut depth
+    tcfg = reduced(cfg, n_layers=spec["train_layers"])
+    peak_reset()
+    reset_counts()
+    undo = record_kernel_shapes(seen)
+    try:
+        t0 = time.perf_counter()
+        res = train(tcfg, steps=SHARD_TRAIN_STEPS, data_cfg=DataConfig(**spec["train_data"]),
+                    mesh=mesh, log_every=0)
+        sync()
+        out["c_s"] = time.perf_counter() - t0
+    finally:
+        undo()
+    out["c_launches"] = counts()
+    out["c_losses"], out["c_grad_norms"] = res["losses"], res["grad_norms"]
+    out["c_step_s"] = res["step_s"]
+    out["c_peak"] = peak()
+    out["c_state_bytes"] = sum(p.numel() * p.element_size()
+                               for p in res["model"].parameters()) + sum(
+        t.numel() * t.element_size() for k in ("master", "m", "v")
+        for t in res["opt_state"][k].values())
+    out["shapes"] = sorted(seen)
+    del res
+    gc.collect()
+    dist.barrier()
+    return out
+
+
+def phase_20(torch, np, dev, smi, compare, failures, arch=ARCH, full=True,
+             train_layers=SHARD_TRAIN_LAYERS):
+    """Sharded execution on ``SHARD_RANKS`` ranks that share ``dev`` (see
+    the module docstring); ``full=False`` takes ``arch``'s smoke config for
+    (b) and (c), a rehearsal on the CPU.  Returns the phase's numbers."""
+    from repro_torch.configs import get_config, get_smoke_config, reduced
+    from repro_torch.data import DataConfig
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
+                                                     flash_attention_bwd_ref,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.hbp_matmul import hbp_matmul, matmul_ref
+    from repro_torch.kernels.hbp_matmul import path as mm_path
+    from repro_torch.launch.engine import Engine
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.launch.train import train
+
+    t_phase = time.perf_counter()
+    cfg = get_config(arch) if full else get_smoke_config(arch)
+    tp, dp = SHARD_TP, SHARD_RANKS // SHARD_TP
+    d, hd = cfg.d_model, cfg.head_dim_
+    h, kvh = cfg.n_heads // tp, cfg.n_kv_heads // tp
+    cols = {"wq": cfg.q_dim // tp, "wk, wv": cfg.kv_dim // tp,
+            "w_gate, w_up": cfg.d_ff // tp}
+    rows_in = {"wo": cfg.q_dim // tp, "w_down": cfg.d_ff // tp}
+    v_rows = cfg.vocab_size // tp
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(3, cfg.vocab_size, n).astype(np.int32)
+               for n in rng.integers(16, 65, BATCH)]
+    plen = max(map(len, prompts))
+    print(f"[20] sharded execution: {SHARD_RANKS} ranks share {dev} over gloo on the "
+          f"({dp}, {tp}) mesh; {cfg.name} shard shapes: {h} query heads over {kvh} KV heads, "
+          f"columns {cols}, row-parallel contractions {rows_in}, {v_rows} vocabulary rows "
+          f"of the tied head ({smi})")
+    g = torch.Generator(device=dev).manual_seed(0)
+    if dev.type == "cuda":
+        b_l = BATCH // dp
+        for dtype in ("bfloat16",):
+            dt = getattr(torch, dtype)
+            for T in (b_l, b_l * plen, TRAIN_BATCH // dp * TRAIN_SEQ):
+                x = torch.randn(T, d, device=dev, generator=g).to(dt)
+                for name, n in cols.items():
+                    w = (torch.randn(d, n, device=dev, generator=g) / math.sqrt(d)).to(dt)
+                    compare("hbp_matmul", f"{dtype} shard {name} ({T}x{d} @ {d}x{n}) "
+                            f"{mm_path(x, w)}", hbp_matmul(x, w), matmul_ref(x, w), dtype)
+                for name, k in rows_in.items():
+                    xk = torch.randn(T, k, device=dev, generator=g).to(dt)
+                    w = (torch.randn(k, d, device=dev, generator=g) / math.sqrt(k)).to(dt)
+                    compare("hbp_matmul", f"{dtype} shard {name} ({T}x{k} @ {k}x{d}) "
+                            f"{mm_path(xk, w)}", hbp_matmul(xk, w), matmul_ref(xk, w), dtype)
+                table = (0.02 * torch.randn(v_rows, d, device=dev, generator=g)).to(dt)
+                compare("hbp_matmul", f"{dtype} shard logits ({T}x{d} @ ({v_rows}x{d})^T)",
+                        hbp_matmul(x, table.T), matmul_ref(x, table.T), dtype)
+                del table
+            for b, sq in ((b_l, plen), (TRAIN_BATCH // dp, TRAIN_SEQ)):
+                q, go = (torch.randn(b, sq, h, hd, device=dev, generator=g).to(dt)
+                         for _ in "qg")
+                k, v = (torch.randn(b, sq, kvh, hd, device=dev, generator=g).to(dt)
+                        for _ in "kv")
+                out, lse = flash_attention(q, k, v, causal=True)
+                r_out, _ = flash_attention_ref(q, k, v, causal=True)
+                compare("flash_attention", f"{dtype} shard causal {b}x{sq}, {h}/{kvh} heads",
+                        out, r_out, dtype)
+                got = flash_attention_bwd(q, k, v, out, lse, go, causal=True)
+                want = flash_attention_bwd_ref(q, k, v, out, lse, go, causal=True)
+                for name, x_, w_ in zip(("dq", "dk", "dv"), got, want):
+                    compare("flash_attention_bwd", f"{dtype} shard {b}x{sq} {name}", x_, w_,
+                            dtype)
+            cache = [torch.randn(b_l, MAX_LEN, kvh, hd, device=dev, generator=g).to(dt)
+                     for _ in "kv"]
+            q1 = torch.randn(b_l, 1, h, hd, device=dev, generator=g).to(dt)
+            lanes = torch.tensor([plen, plen - 7][:b_l], dtype=torch.int32, device=dev)
+            kw = dict(causal=True, q_offset=lanes, kv_len=lanes + 1)
+            compare("flash_attention", f"{dtype} shard decode {b_l}x1 over {MAX_LEN}, "
+                    f"{h}/{kvh} heads", flash_attention(q1, *cache, **kw)[0],
+                    flash_attention_ref(q1, *cache, **kw)[0], dtype)
+            del cache, q1
+
+    # this process's one-device references
+    small = reduced(get_smoke_config(arch), dtype="float32")
+    srng = np.random.default_rng(7)
+    small_prompts = [srng.integers(3, small.vocab_size, n).astype(np.int32)
+                     for n in (5, 11, 8, 3)]
+    small_workload = [(srng.integers(3, small.vocab_size, int(srng.integers(4, 20)))
+                       .astype(np.int32), int(srng.integers(2, 9))) for _ in range(6)]
+    small_data = dict(global_batch=4, seq_len=16)
+    one = {}
+    server = Server(small, device=dev, max_batch=SHARD_SLOTS, max_len=SHARD_LEN)
+    reqs = [Request(i, p, max_new=6) for i, p in enumerate(small_prompts)]
+    server.run_batch(reqs)
+    one["a_server"] = [r.out for r in reqs]
+    engine = Engine(small, device=dev, max_batch=SHARD_SLOTS, max_len=SHARD_LEN,
+                    chunk=SHARD_CHUNK)
+    reqs = [Request(i, p, max_new=n) for i, (p, n) in enumerate(small_workload)]
+    engine.run(reqs)
+    one["a_engine"] = [r.out for r in reqs]
+    one["a_losses"] = train(small, steps=SHARD_TRAIN_STEPS, device=dev, log_every=0,
+                            data_cfg=DataConfig(**small_data))["losses"]
+    del server, engine
+    server = Server(cfg, device=dev, max_batch=BATCH, max_len=MAX_LEN)
+    toks = np.zeros((BATCH, plen), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, plen - len(p):] = p
+    one["b_logits"] = server.prefill(torch.from_numpy(toks).to(dev))[0].float().cpu()
+    # the same rows in the blocks each data rank prefills (K2's plan, and so
+    # its bf16 roundings, follow a product's row count)
+    per = BATCH // dp
+    one["b_logits_blocks"] = torch.cat([
+        server.prefill(torch.from_numpy(toks[i:i + per]).to(dev))[0].float().cpu()
+        for i in range(0, BATCH, per)])
+    reqs = [Request(i, p, max_new=SHARD_NEW) for i, p in enumerate(prompts)]
+    server.run_batch(reqs)
+    one["b_tokens"] = [r.out for r in reqs]
+    del server
+    gc.collect()
+    server = Server(reduced(cfg, dtype="float32"), device=dev, max_batch=BATCH, max_len=MAX_LEN)
+    one["b_logits_f32"] = server.prefill(torch.from_numpy(toks).to(dev))[0].float().cpu()
+    del server
+    gc.collect()
+    train_data = dict(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    res = train(reduced(cfg, n_layers=train_layers), steps=SHARD_TRAIN_STEPS, device=dev,
+                data_cfg=DataConfig(**train_data), log_every=0)
+    one["c_losses"] = res["losses"]
+    one["c_peak"] = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    del res
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    spec = {"device": dev.type, "arch": arch, "full": full, "train_layers": train_layers,
+            "prompts": prompts, "small_prompts": small_prompts,
+            "small_workload": small_workload, "small_data": small_data,
+            "train_data": train_data}
+    t0 = time.perf_counter()
+    ranks = spawn(shard_rank, SHARD_RANKS, spec, device=dev.type)
+    spawn_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    print(f"    ranks: {[(r['rank'], r['coord'], r['device'], r['backend']) for r in ranks]}, "
+          f"mesh {r0['mesh']}; spawned, ran and joined in {spawn_s:.1f} s")
+    for key in ("a_server", "a_engine", "b_tokens"):
+        check(all(r[key] == r0[key] for r in ranks), f"phase 20: ranks disagree on {key}")
+    ok_a = r0["a_server"] == one["a_server"] and r0["a_engine"] == one["a_engine"]
+    print(f"    (a) f32 smoke config: Server tokens equal to one device's "
+          f"{r0['a_server'] == one['a_server']}, Engine tokens "
+          f"{r0['a_engine'] == one['a_engine']}; losses {r0['a_losses']} against "
+          f"{one['a_losses']} (rtol {SHARD_F32_RTOL:g})")
+    check(ok_a, "phase 20 (a): sharded f32 tokens differ from one device's")
+    check(np.allclose(r0["a_losses"], one["a_losses"], rtol=SHARD_F32_RTOL, atol=0),
+          "phase 20 (a): sharded f32 losses differ from one device's")
+    a_tol, r_tol = COMPARE_TOL["bfloat16"]
+
+    def dist(a, b):
+        return (a - b).abs().max().item()
+
+    print(f"    (b) prefill logits' max distances: sharded - one device "
+          f"{dist(r0['b_logits'], one['b_logits']):.3e}, sharded - one device in the data "
+          f"ranks' row blocks {dist(r0['b_logits'], one['b_logits_blocks']):.3e}, one device "
+          f"- one device in row blocks {dist(one['b_logits'], one['b_logits_blocks']):.3e}; "
+          f"from the f32 model: sharded {dist(r0['b_logits'], one['b_logits_f32']):.3e}, "
+          f"one device {dist(one['b_logits'], one['b_logits_f32']):.3e}")
+    diff = (r0["b_logits"] - one["b_logits"]).abs()
+    within = bool((diff <= a_tol + r_tol * one["b_logits"].abs()).all())
+    d_shard, d_one = (dist(x, one["b_logits_f32"]) for x in (r0["b_logits"], one["b_logits"]))
+    ok_b = d_shard <= SHARD_F32_DISTANCE * d_one
+    agree = sum(a == b for a, b in zip(r0["b_tokens"], one["b_tokens"]))
+    print(f"    (b) {cfg.name} bf16, {cfg.n_layers} layers: prefill logits of {BATCH} x {plen} "
+          f"{d_shard:.3e} from the f32 model's, one device's {d_one:.3e} (gate: at most "
+          f"{SHARD_F32_DISTANCE:g}x) {'ok' if ok_b else 'FAIL'}; against one device's "
+          f"max_abs_err {diff.max().item():.3e} (phase 2's atol {a_tol:g} + rtol {r_tol:g}: "
+          f"{'within' if within else 'beyond'}, not gated); {BATCH} requests x {SHARD_NEW} "
+          f"new: completed, logits finite {r0['b_finite']}, tokens agree with one device's "
+          f"on {agree} of {BATCH} (not gated); model built in "
+          f"{max(r['b_build_s'] for r in ranks):.1f} s, the wave {r0['b_run_s']:.2f} s")
+    check(ok_b, "phase 20 (b): sharded bf16 logits farther from the f32 model's than "
+                f"{SHARD_F32_DISTANCE:g}x one device's")
+    check(all(r["b_finite"] for r in ranks), "phase 20 (b): non-finite logits")
+    check(all(len(t) == SHARD_NEW for t in r0["b_tokens"]), "phase 20 (b): incomplete requests")
+    coll = r0["b_step_collectives"]
+    print(f"    (b) a decode step: {[round(x, 3) for r in ranks for x in r['b_decode_ms']]} ms "
+          f"of host wall (ranks x 2 steps, synchronised); its collectives on each rank: "
+          + ", ".join(f"{k} {v['calls']} calls / {v['bytes'] / 1e6:.3f} MB"
+                      for k, v in coll.items()))
+    check(all(r["b_step_collectives"] == coll for r in ranks),
+          "phase 20 (b): the ranks' collectives differ")
+    print(f"    (b) peak memory a rank serving: {[round(r['b_peak'] / 1e9, 3) for r in ranks]} "
+          f"GB, building {[round(r['b_build_peak'] / 1e9, 3) for r in ranks]} GB (its weight "
+          f"blocks {r0['b_weight_bytes'] / 1e9:.3f} GB); launches on rank 0: "
+          f"{ {k: v for k, v in r0['b_launches'].items() if v} }")
+    ok_c = np.allclose(r0["c_losses"], one["c_losses"], rtol=SHARD_BF16_LOSS_RTOL, atol=0)
+    finite = all(math.isfinite(x) for r in ranks for x in r["c_grad_norms"])
+    print(f"    (c) {cfg.name} bf16 at {train_layers} layers (depth cut for time), "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}: losses {r0['c_losses']} against one device's "
+          f"{one['c_losses']} (rtol {SHARD_BF16_LOSS_RTOL:g}) {'ok' if ok_c else 'FAIL'}; "
+          f"grad norms {r0['c_grad_norms']} finite {finite}; step host s "
+          f"{[round(x, 3) for x in r0['c_step_s']]}")
+    print(f"    (c) peak memory a rank: {[round(r['c_peak'] / 1e9, 3) for r in ranks]} GB "
+          f"against one device's {one['c_peak'] / 1e9:.3f} GB; each rank's training state "
+          f"(weights, master, m, v) {r0['c_state_bytes'] / 1e9:.3f} GB; launches on rank 0: "
+          f"{ {k: v for k, v in r0['c_launches'].items() if v} }")
+    check(ok_c and finite, "phase 20 (c): sharded bf16 training differs from one device's")
+    shapes = sorted(set(s for r in ranks for s in r["shapes"]))
+    mm_cols = sorted({sh[1][1] for sh in shapes if sh[0] == "hbp_matmul"
+                      and len(sh[1]) == 2 and len(sh[1][1]) == 2})
+    heads = sorted({(sh[1][0][2], sh[1][1][2]) for sh in shapes
+                    if sh[0].startswith("flash_attention") and len(sh[1][0]) == 4})
+    print(f"    the kernels' shard shapes: K2 operand B shapes {mm_cols}; K1 / K3 "
+          f"(query heads, KV heads) {heads}")
+    want_b = {(d, n) for n in (cfg.q_dim // tp, cfg.kv_dim // tp, cfg.d_ff // tp)} | {
+        (cfg.q_dim // tp, d), (cfg.d_ff // tp, d), (d, v_rows)}
+    check(want_b <= set(mm_cols), f"phase 20: K2 missed shard shapes {want_b - set(mm_cols)}")
+    check(heads == [(h, kvh)], f"phase 20: K1 / K3 ran on heads {heads}, not ({h}, {kvh})")
+    check(dev.type != "cuda" or all(
+        r["b_launches"]["hbp_matmul"] and r["b_launches"]["flash_attention"]
+        and r["c_launches"]["flash_attention_bwd"] for r in ranks),
+        "phase 20: a rank launched no K1, K2 or K3")
+    print(f"    phase 20: {time.perf_counter() - t_phase:.1f} s")
+    return {"ranks": ranks, "one": one, "spec": spec}
+
+
 def main():
     """The run, in a tune directory of its own (``REPRO_TUNE_DIR``, removed
     at the end): no phase replays a table an earlier run left, and phases
@@ -4888,6 +5326,13 @@ def run():
     torch.cuda.empty_cache()
     phase_19(torch, np, dev, smi, counts, reset_counts, workload,
              engine_runs["bf16"]["tokens"])
+
+    # -- 20. sharded execution: four ranks share the card over gloo ---------------------------
+    mark(20)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_20(torch, np, dev, smi, compare, failures)
+    check(not failures, f"phase 20 failed: {failures}")
     mark(None)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
           + f"; {time.perf_counter() - t_start:.1f} in all")

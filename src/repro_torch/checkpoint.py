@@ -37,6 +37,14 @@ JAX ``{"params", "opt_state"}`` tree, and :func:`load_checkpoint` reads
 what JAX's ``save_checkpoint`` wrote for that tree.  ``mesh_shape`` is
 the writer's mesh as ``{axis: size}`` (the trainer's and the router's, as
 JAX writes it; ``{}`` when none is given).
+
+A sharded state (leaves that are blocks, ``core/planner.py``'s
+``Placement``) is saved whole: every rank of the mesh gathers each leaf in
+turn (:func:`_whole_on_host`), rank 0 of the mesh writes, and the others
+wait for it at :meth:`CheckpointManager.wait`.  A restore into blocks reads
+each whole leaf on every rank and keeps the rank's block of it
+(:func:`_place_leaf`): no collective, and the checkpoint restores onto any
+mesh whatever mesh wrote it.
 """
 from __future__ import annotations
 
@@ -239,7 +247,13 @@ def save_checkpoint(directory, step: int, state: Any, mesh_shape: Optional[dict]
                     keep: int = 3) -> Path:
     """Write ``state`` (see the module docstring) as ``<directory>/step_<step>``
     in ``repro``'s format, then keep the last ``keep`` steps.  Returns the
-    step's directory."""
+    step's directory.  A sharded state is saved as
+    :meth:`CheckpointManager.save_async` saves it, and waited for."""
+    if _mesh_of(state) is not None:
+        mgr = CheckpointManager(directory, keep)
+        mgr.save_async(step, state, mesh_shape)
+        mgr.wait()
+        return Path(directory) / f"step_{step}"
     return _write(Path(directory), step, _host_tree(state), mesh_shape, keep)
 
 
@@ -318,17 +332,50 @@ def load_checkpoint(directory, state_like: Any, step: Optional[int] = None, *,
 def _place_leaf(name: str, arr: torch.Tensor, srcs: list, in_place: bool,
                 restored: dict) -> None:
     """A read leaf into its likes: copied into them (``in_place``), else
-    into ``restored`` by (name, layer), on each like's device and dtype."""
+    into ``restored`` by (name, layer), on each like's device and dtype; a
+    like that is a block gets its block of the leaf (and the new tensor the
+    like's placement)."""
+    from repro_torch.core import planner
+
     for layer, like in srcs:
         t = arr if layer is None else arr[layer]
-        like_shape = tuple(like.shape)
+        pl = planner.placement(like)
+        like_shape = tuple(like.shape) if pl is None else pl.full
         if tuple(t.shape) != like_shape:
             raise ValueError(f"shape mismatch {name}: {tuple(t.shape)} vs {like_shape}")
+        if pl is not None:
+            t = pl.cut(t)
         if in_place:
             with torch.no_grad():
                 like.copy_(t)
         else:
-            restored[(name, layer)] = t.to(device=like.device, dtype=like.dtype, copy=True)
+            restored[(name, layer)] = planner.tag(
+                t.to(device=like.device, dtype=like.dtype, copy=True), pl)
+
+
+def _mesh_of(state) -> Any:
+    """The mesh of the first leaf of ``state`` that is a block of a split
+    or replicated tensor (None: a whole state)."""
+    from repro_torch.core import planner
+
+    for leaf in _flatten(state).values():
+        pl = planner.placement(leaf)
+        if pl is not None:
+            return pl.mesh
+    return None
+
+
+def _whole_on_host(state) -> Any:
+    """``state`` with every block gathered whole and copied to the host,
+    leaf by leaf in the tree's order (every rank of the mesh must call
+    it): the device holds one whole leaf at a time."""
+    from repro_torch.core import planner
+
+    if isinstance(state, dict):
+        return {k: _whole_on_host(v) for k, v in state.items()}
+    if planner.placement(state) is None:
+        return state
+    return planner.gather(state).cpu()
 
 
 class CheckpointManager:
@@ -342,9 +389,21 @@ class CheckpointManager:
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._mesh = None  # the mesh of a sharded save not yet waited for
 
     def save_async(self, step: int, state: Any, mesh_shape: Optional[dict] = None) -> None:
+        """Snapshot ``state`` to the host and write it in the background.
+        A sharded state is gathered whole first, on every rank of its mesh
+        (a collective: every rank calls this), and written by rank 0 of
+        the mesh; every rank waits for that write at the next
+        :meth:`wait`."""
         self.wait()
+        mesh = _mesh_of(state)
+        if mesh is not None:
+            state = _whole_on_host(state)
+            self._mesh = mesh
+            if any(int(c) for c in mesh.get_coordinate()):
+                return  # rank 0 of the mesh writes
         host = _host_tree(state)
 
         def work():
@@ -357,12 +416,19 @@ class CheckpointManager:
         self._thread.start()
 
     def wait(self) -> None:
+        """Wait for the pending write (and, after a sharded save, for every
+        rank of its mesh); raise its error, if any."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
         if self._error is not None:
             err, self._error = self._error, None
             raise err
+        if self._mesh is not None:
+            from repro_torch.core import collectives
+
+            mesh, self._mesh = self._mesh, None
+            collectives.barrier(mesh)
 
     def restore_latest(self, state_like: Any, *, in_place: bool = False):
         return load_checkpoint(self.directory, state_like, in_place=in_place)

@@ -20,8 +20,11 @@ takes a real ``DeviceMesh`` or an :class:`~repro_torch.launch.mesh.AbstractMesh`
 Specs are :class:`PartitionSpec`: one entry per tensor dim, each a mesh
 axis, a tuple of axes, or None.  :func:`named` turns a spec tree into
 DTensor placements (``Shard`` / ``Replicate``) on a mesh, and
-:func:`place` puts tensors where a plan says; the port executes on a mesh
-of one device only (``launch/mesh.py``).
+:func:`place` puts tensors where a plan says: on a mesh of more than one
+rank it cuts each to this rank's block and tags it with its
+:class:`Placement` (the dense family executes sharded, ``launch/mesh.py``),
+:func:`gather` gives the whole tensors back, and :func:`row_block` is a
+batch's rows under ``plan_batch``'s rule.
 
 The port holds one module per layer where JAX stacks layers along leading
 axes.  A rule is keyed on the JAX leaf name that
@@ -406,16 +409,171 @@ def shard_bytes(tree: Any, specs: Any, mesh) -> int:
     return total
 
 
+@dataclass(frozen=True, eq=False)
+class Placement:
+    """Where one tensor's shard lies: ``spec`` on ``mesh`` cuts the tensor
+    of shape ``full``; this rank holds the block at its mesh coordinate.
+    :func:`place` tags each tensor it cuts with one (:func:`placement`
+    reads it back), and the model blocks read it to insert their
+    collectives (``models/common.py``); a model itself keeps no rank."""
+
+    mesh: Any
+    spec: PartitionSpec
+    full: tuple
+
+    def axes_of(self, dim: int) -> tuple:
+        e = self.spec[dim] if dim < len(self.spec) else None
+        return () if e is None else e if isinstance(e, tuple) else (e,)
+
+    def dim_of(self, axis: str):
+        """The tensor dim split over mesh axis ``axis``, or None."""
+        return next((i for i in range(len(self.full)) if axis in self.axes_of(i)), None)
+
+    def split_axes(self) -> tuple:
+        """The mesh axes the tensor is split over (sizes > 1), in mesh order."""
+        sizes = axis_sizes(self.mesh)
+        return tuple(a for a in axis_names(self.mesh)
+                     if sizes[a] > 1 and self.dim_of(a) is not None)
+
+    @property
+    def shape(self) -> tuple:
+        return shard_shape(self.full, self.spec, self.mesh)
+
+    def offset(self, dim: int) -> int:
+        """The index along ``dim`` where this rank's block starts (axes of
+        a tuple entry major to minor, as JAX orders them)."""
+        sizes = axis_sizes(self.mesh)
+        idx = 0
+        for a in self.axes_of(dim):
+            idx = idx * sizes[a] + int(self.mesh.get_local_rank(a))
+        return idx * self.shape[dim]
+
+    def cut(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the whole tensor ``full`` (a view)."""
+        if tuple(full.shape) != tuple(self.full):
+            raise ValueError(f"a tensor of {tuple(full.shape)} for a placement of "
+                             f"{self.full}")
+        for dim, n in enumerate(self.shape):
+            if n != full.shape[dim]:
+                full = full.narrow(dim, self.offset(dim), n)
+        return full
+
+
+_TAG = "_repro_placement"
+
+
+def placement(t) -> "Placement | None":
+    """The :class:`Placement` a tensor was cut by (None for a whole
+    tensor)."""
+    return getattr(t, _TAG, None)
+
+
+def tag(t: torch.Tensor, pl: "Placement | None") -> torch.Tensor:
+    """``t`` (this rank's block) marked as cut by ``pl``; returns ``t``."""
+    if pl is not None:
+        if tuple(t.shape) != pl.shape:
+            raise ValueError(f"a block of {tuple(t.shape)} for a placement of {pl.full} "
+                             f"under {pl.spec}: its blocks are {pl.shape}")
+        setattr(t, _TAG, pl)
+    return t
+
+
 def place(tree: Any, specs: Any, mesh) -> Any:
-    """``tree``'s tensors where ``specs`` put them on ``mesh``: on a mesh of
-    one device, every shard is the whole tensor, so each goes to that
-    device (no copy when it is there already).  A mesh of more than one
-    device raises ``NotImplementedError`` (``mesh.mesh_device``)."""
+    """``tree``'s tensors where ``specs`` put them on ``mesh``.
+
+    On a mesh of one device every shard is the whole tensor, so each goes
+    to that device (no copy when it is there already).  On a mesh of more
+    than one rank each leaf becomes this rank's block on its device, tagged
+    with its :class:`Placement`: a whole tensor is cut; a ``meta`` one is
+    allocated at the block's shape (filled later: a model's ``init``, a
+    checkpoint); one already tagged with the same spec is kept.  A
+    parameter keeps its identity (its ``.data`` is replaced), so a model
+    holds its blocks."""
+    from repro_torch.launch.mesh import is_sharded
+
     dev = mesh_device(mesh, "placing tensors by the plan")
 
     def one(leaf, spec):
         if len(spec) > leaf.dim():
             raise ValueError(f"spec {spec} for a tensor of {tuple(leaf.shape)}")
-        return leaf if leaf.device == dev else leaf.to(dev)
+        if not is_sharded(mesh):
+            return leaf if leaf.device == dev else leaf.to(dev)
+        old = placement(leaf)
+        if old is not None:
+            if old.mesh is not mesh or old.spec != spec:
+                raise ValueError(f"a block placed by {old.spec} cannot be re-placed by "
+                                 f"{spec}: gather it first")
+            return leaf
+        pl = Placement(mesh, spec, tuple(leaf.shape))
+        if leaf.device.type == "meta":
+            block = torch.empty(pl.shape, dtype=leaf.dtype, device=dev)
+        else:
+            block = pl.cut(leaf).to(dev, copy=True).contiguous()
+        if isinstance(leaf, torch.nn.Parameter):
+            # the same Python object, now this block (a ``meta`` parameter
+            # cannot take a CPU or CUDA tensor through ``.data``)
+            torch.utils.swap_tensors(leaf, torch.nn.Parameter(block, leaf.requires_grad))
+            return tag(leaf, pl)
+        return tag(block, pl)
 
     return tree_map(one, tree, specs)
+
+
+def gather(tree: Any) -> Any:
+    """Whole tensors from ``tree``'s blocks (untagged leaves pass through):
+    every leaf all-gathered over each mesh axis it is split over, minor
+    axes first.  Every rank of the mesh must call it, on the same tree:
+    for checkpoints and tests."""
+    from repro_torch.core import collectives
+
+    def one(leaf):
+        pl = placement(leaf)
+        if pl is None:
+            return leaf
+        out = leaf.detach()
+        for dim in range(len(pl.full)):
+            for a in reversed(pl.axes_of(dim)):
+                out = collectives.all_gather_rows(out.movedim(dim, 0), pl.mesh, a)\
+                    .movedim(0, dim)
+        return out.contiguous()
+
+    return tree_map(one, tree)
+
+
+@torch.no_grad()
+def assign(dst: dict, src: dict) -> None:
+    """Copy ``src``'s tensors into ``dst``'s (same names): a block of
+    ``src`` as it is, a whole tensor cut to the block ``dst`` holds
+    (:class:`Placement`), on ``dst``'s device and dtype."""
+    if dst.keys() != src.keys():
+        raise KeyError(f"names differ: {sorted(set(dst) ^ set(src))}")
+    for name, d in dst.items():
+        s, pl, held = src[name], placement(d), placement(src[name])
+        if held is not None and (pl is None or held.mesh is not pl.mesh
+                                 or held.spec != pl.spec):
+            raise ValueError(f"{name}: a block placed by {held.spec} on another mesh or "
+                             "plan; gather it first")
+        d.copy_(s if pl is None or held is not None else pl.cut(s))
+
+
+def row_block(mesh, b: int) -> tuple[int, int, Any]:
+    """``(start, stop, axes)``: this rank's rows of a ``b``-row batch under
+    ``plan_batch``'s rule (rows over the data axes where they divide
+    ``b``), and the data axes they are split over (None: every rank holds
+    every row)."""
+    from repro_torch.launch.mesh import is_sharded
+
+    if not is_sharded(mesh):
+        return 0, b, None
+    ax = axes_for(mesh)
+    sizes = axis_sizes(mesh)
+    n = 1
+    for a in ax.dp:
+        n *= sizes[a]
+    if n == 1 or b % n:
+        return 0, b, None
+    idx = 0
+    for a in ax.dp:
+        idx = idx * sizes[a] + int(mesh.get_local_rank(a))
+    per = b // n
+    return idx * per, (idx + 1) * per, ax.dp

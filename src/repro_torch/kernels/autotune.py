@@ -169,12 +169,24 @@ def mode_scope(m: Optional[str]):
         _mode_override = prev
 
 
+def searcher() -> bool:
+    """True unless this process is a rank other than 0 of a process group
+    of several: only rank 0 searches and writes the tables; the other
+    ranks replay them, so no two processes write one table at once."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized() and dist.get_rank() != 0)
+
+
 def startup(m: Optional[str] = None, device=None) -> str:
     """Launcher hook (serve, train): resolve and pin the mode
     **process-wide**, as JAX's does, and preload ``device``'s table
     (default: the card if there is one) so the first dispatch pays no
-    I/O."""
+    I/O.  ``search`` pins ``replay`` on a rank that is not the
+    :func:`searcher`."""
     resolved = resolve_mode(m)
+    if resolved == "search" and not searcher():
+        resolved = "replay"
     set_mode(resolved)
     if resolved != "off":
         dp = planner.device_params(device)
@@ -832,6 +844,8 @@ def _overlay(op: str, args, search_kwargs: Optional[dict] = None) -> tuple[dict,
     m = mode()
     if m == "off" or not tunable(op, *args):
         return {}, True
+    if m == "search" and not searcher():
+        m = "replay"
     final = True
     plan = lookup(op, *args, kwargs=search_kwargs)
     if plan is None and m == "search":

@@ -312,10 +312,16 @@ def strassen_matmul_plain(a: torch.Tensor, b: torch.Tensor, *,
     return _strassen(a, b, cutoff, lambda x, y: matmul_ref(x, y, torch.float32))
 
 
-def _run(a, b, backend, cutoff, k2_plan=None):
+def _run(a, b, backend, cutoff, k2_plan=None, out_dtype=None):
     """Run the backend (None: ask the planner for this shape); a batched
     product is one batched K2 call.  ``k2_plan``: an override of the
-    classical backend's K2 plan (``hbp_matmul(..., plan=)``)."""
+    classical backend's K2 plan (``hbp_matmul(..., plan=)``).  An
+    ``out_dtype`` other than ``a``'s is one classical K2 call writing it
+    (its f32 sums unrounded)."""
+    if out_dtype is not None and out_dtype != a.dtype:
+        if backend == "strassen":
+            raise ValueError(f"matmul: out_dtype {out_dtype} on the strassen backend")
+        return _k2.hbp_matmul(a, b, plan=k2_plan, out_dtype=out_dtype)
     if a.dim() == 3:
         if backend not in (None, "classical"):
             raise ValueError(f"matmul: backend {backend!r} takes 2-D operands; a "
@@ -352,14 +358,14 @@ class _Matmul(torch.autograd.Function):
     products re-plan, as the JAX VJP does (``strassen_matmul.py:132-135``)."""
 
     @staticmethod
-    def forward(ctx, a, b, backend, cutoff, k2_plan):
+    def forward(ctx, a, b, backend, cutoff, k2_plan, out_dtype):
         ctx.save_for_backward(a, b)
-        return _run(a, b, backend, cutoff, k2_plan)
+        return _run(a, b, backend, cutoff, k2_plan, out_dtype)
 
     @staticmethod
     def backward(ctx, g):
         a, b = ctx.saved_tensors
-        g = g.contiguous()
+        g = g.to(a.dtype).contiguous()
         da = db = None
         if ctx.needs_input_grad[0]:
             da = _run(g, b.mT, None, None).to(a.dtype)
@@ -367,14 +373,17 @@ class _Matmul(torch.autograd.Function):
             db = _run(a.mT, g, None, None).to(b.dtype)
         if a.dim() == 3 and a.device.type == "cuda":
             matmul.batched_backward_launches += (da is not None) + (db is not None)
-        return da, db, None, None, None
+        return da, db, None, None, None, None
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *, backend: Optional[str] = None,
            cutoff: Optional[int] = None, tile_n: Optional[int] = None,
-           splits: Optional[int] = None) -> torch.Tensor:
+           splits: Optional[int] = None, out_dtype=None) -> torch.Tensor:
     """Differentiable ``a (m, k) @ b (k, n)``, or ``a (E, m, k) @ b (E, k,
-    n)`` as one batched K2 call, output in ``a``'s dtype: ``backend`` None
+    n)`` as one batched K2 call, output in ``a``'s dtype (or ``out_dtype``:
+    one classical K2 call writing f32 sums, a row-parallel product's
+    partials before their all-reduce; the gradient comes back in ``a``'s
+    dtype, as from an output in it): ``backend`` None
     asks the planner, ``"classical"`` runs one K2 call, ``"strassen"`` the
     recursion (2-D only).  ``tile_n`` and ``splits`` override the classical
     backend's K2 plan for the forward product (``hbp_matmul``'s ``plan``;
@@ -388,8 +397,8 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, backend: Optional[str] = None,
     k2_plan = ({key: v for key, v in (("tile_n", tile_n), ("splits", splits))
                 if v is not None} or None)
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
-        return _Matmul.apply(a, b, backend, cutoff, k2_plan)
-    return _run(a, b, backend, cutoff, k2_plan)
+        return _Matmul.apply(a, b, backend, cutoff, k2_plan, out_dtype)
+    return _run(a, b, backend, cutoff, k2_plan, out_dtype)
 
 
 matmul.batched_backward_launches = 0  # the batched K2 launches of batched backwards

@@ -67,6 +67,19 @@ old one drains.  This engine removes both stalls:
 Row snapshots (``models.cache.snapshot_row``/``restore_row``) are host
 copies taken every ``snapshot_every`` generated tokens.
 
+**On a mesh of more than one rank** (the dense family; ``launch/mesh.py``)
+the scheduler and this host loop run identically on every rank.  Each data
+rank owns its block of the slots when the slot count divides the data
+axis (the cache holds its rows and its KV heads), else every data rank
+computes every row; the sampled tokens and the row validity are gathered
+each step, so every rank takes the same decisions.  A row operation
+(reset, validity, snapshot, restore) runs on the rank that owns the row;
+a snapshot is broadcast from it over the data axis, so any rank can
+restore it into any slot.  Fault plans fire by launch ordinal, on every
+rank together, so retries stay in lockstep; any other failure is not
+retried on a sharded mesh: it raises on its rank, and the others raise
+through the group's timeout (``mesh.DEFAULT_TIMEOUT_S``).
+
 **Modality staging** (the encoder-decoder's ``audio_frames``, the VLM's
 ``image_embeds``; JAX ``engine.py:274-280, :504-506, :536-539``): one host
 buffer per ``batch_extras_specs`` entry, ``(max_batch, ...)`` in the
@@ -122,7 +135,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config, list_archs
-from repro_torch.core import pws
+from repro_torch.core import collectives, planner, pws
 from repro_torch.kernels import autotune, policy
 from repro_torch.launch.serve import Request, Server, install_impl
 from repro_torch.models import cache as dcache
@@ -130,6 +143,7 @@ from repro_torch.models.base import Model, RunOptions, UnsupportedFamilyError
 from repro_torch.runtime.fault_tolerance import (
     FaultInjector,
     FaultPolicy,
+    InjectedFault,
     LaunchFailedError,
     LaunchWatchdog,
     export_fault_counters,
@@ -268,6 +282,7 @@ class Engine(Server):
         self.heal_after = int(heal_after)
         self.watchdog = LaunchWatchdog()
         self.scheduler = SlotScheduler(max_batch)
+        self._tp = planner.axes_for(self.mesh).tp if self.sharded else None
         prov = autotune.provenance(self.device)
         log.info("engine policy %s | autotune table %s (%d tuned plan(s), %s) | "
                  "faults %s | retry max=%d snapshot_every=%d",
@@ -306,17 +321,41 @@ class Engine(Server):
     def _decode_rows(self, tokens, pos, cache, poison):
         """One per-row decode step.  ``poison`` (b,) bool is the injected
         fault's mask; the per-row finiteness vector is the bisection signal
-        the host uses to evict exactly the corrupt slot."""
-        logits, cache = self.model.decode_step(tokens, pos, cache)
-        logits = logits.masked_fill(poison[:, None], float("nan"))
-        ok = torch.isfinite(logits).all(dim=-1)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-        return nxt, ok, cache
+        the host uses to evict exactly the corrupt slot.  Takes and returns
+        every row (this rank's block runs, the rest is gathered)."""
+        lo, hi = self._lo, self._hi
+        with self.bound(self.max_batch):
+            logits, cache = self.model.decode_step(tokens[lo:hi], pos[lo:hi], cache)
+        logits = logits.masked_fill(poison[lo:hi, None], float("nan"))
+        bad = (~torch.isfinite(logits)).any(dim=-1)
+        if self.sharded:  # a row is bad where any rank's vocabulary block is
+            bad = collectives.all_sum(bad.float(), self.mesh, self._tp) > 0
+        nxt = self.greedy(logits)
+        return self.gather_rows(nxt, self._row_axes), \
+            self.gather_rows(~bad, self._row_axes), cache
 
     def _chunk_step(self, tokens, offset, lens, cache, extras, *, first):
-        logits, cache = self.model.prefill_chunk(tokens, offset, cache, first=first,
-                                                 lens=lens, extras=extras)
-        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+        lo, hi = self._lo, self._hi
+        if extras is not None:
+            extras = {k: v[lo:hi] for k, v in extras.items()}
+        with self.bound(self.max_batch):
+            logits, cache = self.model.prefill_chunk(tokens[lo:hi], offset[lo:hi], cache,
+                                                     first=first, lens=lens[lo:hi],
+                                                     extras=extras)
+        return self.gather_rows(self.greedy(logits), self._row_axes), cache
+
+    # -- rows of the cache on a sharded mesh ---------------------------------
+    def _row(self, i: int) -> Optional[int]:
+        """Slot ``i``'s row in this rank's cache, or None where another data
+        rank owns it."""
+        return i - self._lo if self._lo <= i < self._hi else None
+
+    def _row_op(self, fn, i: int, *args):
+        """``self.cache = fn(self.cache, row, *args)`` on the rank that owns
+        slot ``i``."""
+        j = self._row(i)
+        if j is not None:
+            self.cache = fn(self.cache, j, *args)
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -384,6 +423,8 @@ class Engine(Server):
                 self.injector.before_launch(kind, ordinal)
                 out = fn(*args)
             except Exception as e:  # noqa: BLE001 — any launch fault retries
+                if self.sharded and not isinstance(e, InjectedFault):
+                    raise  # the other ranks raise through the group's timeout
                 last = e
                 self._note_fault()
                 log.warning("%s launch %d attempt %d failed: %r",
@@ -440,8 +481,13 @@ class Engine(Server):
     def _take_snapshot(self, i: int):
         """Host-stage row ``i`` as its request's resume point."""
         s = self.slots[i]
+        j = self._row(i)
+        row = None if j is None else dcache.snapshot_row(self.cache, j)
+        if self._row_axes is not None:  # from the data rank that owns it
+            row = collectives.broadcast_object(row, self.mesh, self._row_axes[0],
+                                               i // (self._hi - self._lo))
         self._snaps[s.req.uid] = {
-            "row": dcache.snapshot_row(self.cache, i),
+            "row": row,
             "pos": s.pos, "n_out": len(s.req.out), "last": s.last_token,
         }
         self.scheduler.counters["snapshots_taken"] += 1
@@ -477,7 +523,7 @@ class Engine(Server):
             if snap is not None:
                 # resume from the last row snapshot: restore the row, cut the
                 # output back to the snapshot point, replay the greedy tail
-                self.cache = dcache.restore_row(self.cache, slot_id, snap["row"])
+                self._row_op(dcache.restore_row, slot_id, snap["row"])
                 del req.out[snap["n_out"]:]
                 self.slots[slot_id] = _Slot(req=req, state="decode",
                                             filled=snap["pos"], pos=snap["pos"],
@@ -490,7 +536,7 @@ class Engine(Server):
                                         prompt=self._effective_prompt(req))
             # slabs are NOT zeroed: write-before-attend makes stale tokens
             # unreachable
-            self.cache = dcache.reset_row(self.cache, slot_id)
+            self._row_op(dcache.reset_row, slot_id)
             if self._extras_host is not None:
                 self._stage_extras(slot_id, req)
 
@@ -537,7 +583,7 @@ class Engine(Server):
                 if slot.filled >= len(slot.prompt):
                     slot.state = "decode"
                     slot.pos = len(slot.prompt)
-                    self.cache = dcache.set_row_valid(self.cache, i, True)
+                    self._row_op(dcache.set_row_valid, i, True)
                     tok = int(nxt[i])
                     slot.last_token = tok
                     self._emit(i, tok)
@@ -617,7 +663,9 @@ class Engine(Server):
         self.queue: list[Request] = list(requests)
         self.scheduler = SlotScheduler(self.max_batch)  # per-run telemetry
         self.slots = [_Slot() for _ in range(self.max_batch)]
-        self.cache = self.model.init_cache(self.max_batch, self.max_len)
+        # this rank's rows (every row on one device)
+        self._lo, self._hi, self._row_axes = self.rows(self.max_batch)
+        self.cache = self.model.init_cache(self._hi - self._lo, self.max_len)
         self._completed: list[Request] = []
         self._n_chunks = self._n_decode_steps = self._n_chunk_rows = 0
         self._prefill_s = self._decode_s = 0.0
@@ -828,12 +876,13 @@ def main(argv=None):
     ap.add_argument("--impl", default="",
                     help="execution-policy impl map (see serve.py docstring)")
     args = ap.parse_args(argv)
-    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.mesh import init_from_env, make_debug_mesh
 
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     install_impl(args.impl)
 
     cfg = get_smoke_config(args.arch) if args.reduced else get_config(args.arch)
+    init_from_env(args.device)
     engine = Engine(cfg, mesh=make_debug_mesh(tp=2, device=args.device),
                     max_batch=args.slots, max_len=128,
                     chunk=args.chunk, cache_budget=args.cache_budget or None,

@@ -95,7 +95,7 @@ from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.core import pws, rws
 from repro_torch.launch.engine import Engine
 from repro_torch.launch.serve import Request, install_impl
-from repro_torch.launch.mesh import axis_sizes, make_debug_mesh, mesh_for
+from repro_torch.launch.mesh import axis_sizes, make_debug_mesh, mesh_for, refuse
 from repro_torch.runtime.elastic import respawn_mesh
 from repro_torch.runtime.fault_tolerance import (
     FAULT_PLAN_ENV,
@@ -120,6 +120,8 @@ class Router:
         if route not in ("pws", "rws"):
             raise ValueError(f"unknown routing arm {route!r}: "
                              "expected 'pws' or 'rws'")
+        self.mesh = mesh_for(mesh, device, "the router")
+        refuse("the Router over multi-rank replicas", self.mesh)
         self.cfg = cfg
         self.route = route
         self.seed = int(seed)
@@ -134,7 +136,6 @@ class Router:
         # respawn and join) spins up from it through Engine.restart, so all
         # replicas serve identical logits
         self.ckpt_dir = ckpt_dir or tempfile.mkdtemp(prefix="repro-router-")
-        self.mesh = mesh_for(mesh, device, "the router")
         self.replicas: list[Replica] = [
             spawn_replica(0, cfg, self.mesh, None, params=params,
                           injector=FaultInjector(plans[0]), **engine_kw)]

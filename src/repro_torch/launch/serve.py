@@ -10,8 +10,18 @@ ends when every row has stopped.
 Every matrix product and attention call runs on the port's CUDA kernels;
 with ``device="cpu"`` they run on their plain PyTorch versions.  The server
 takes a mesh where JAX's does (``launch/mesh.py``; the CLI's is
-``make_debug_mesh``) and places the weights by the planner's plan; the port
-executes on a mesh of one device, and a larger one raises.  The measured autotune replays the device's tuned
+``make_debug_mesh`` over every rank of the process group) and places the
+weights by the planner's plan.  On a mesh of more than one rank the dense
+family runs sharded: each rank holds its blocks of the weights, each data
+rank prefills and decodes its rows of the wave (every row where the wave
+does not divide the data axis), and the sampled tokens are gathered so that
+every rank's host holds the same output; another family raises naming
+``ROADMAP.md``.  Under ``torchrun`` the CLI starts the group from the
+environment (NCCL with a card a rank; ranks that share a card: gloo)::
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve --device cuda
+
+The measured autotune replays the device's tuned
 table by default (``REPRO_AUTOTUNE`` = ``off`` | ``replay`` | ``search``,
 tables under ``REPRO_TUNE_DIR``; ``kernels/autotune.py``).  ``--impl`` installs the execution policy
 (``repro_torch.kernels.policy``) with the JAX launcher's grammar,
@@ -40,6 +50,7 @@ tokens compare.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import time
 from dataclasses import dataclass, field
@@ -49,11 +60,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config, list_archs
-from repro_torch.core import planner
+from repro_torch.core import collectives, planner, sharding_hints
 from repro_torch.kernels import autotune, policy
 from repro_torch.kernels import planner as kernel_planner
-from repro_torch.launch.mesh import axis_sizes, make_debug_mesh, mesh_device, mesh_for
-from repro_torch.models import RunOptions, build_model
+from repro_torch.launch.mesh import (axis_sizes, init_from_env, is_sharded, make_debug_mesh,
+                                     mesh_device, mesh_for)
+from repro_torch.models import RunOptions, build_model, check_sharded
+from repro_torch.models import common
 
 log = logging.getLogger("repro_torch.serve")
 
@@ -75,17 +88,21 @@ class Server:
                  opts: Optional[RunOptions] = None):
         """``mesh``: where JAX's server takes its mesh (default: the ``(1, 1)``
         mesh of ``device``, CUDA unless told otherwise); the parameters are
-        placed by ``plan_params`` on it, and a mesh of more than one device
-        raises ``NotImplementedError``.  ``params``: a state dict
-        (``repro_torch.checkpoint``) to load;
-        without one the weights are drawn by the model's ``init`` from a
-        ``torch.Generator`` seeded with 0, as the JAX server uses key 0.
+        placed by ``plan_params`` on it: on a mesh of more than one rank
+        each rank holds its blocks (the dense family; any other raises
+        ``NotImplementedError`` naming ``ROADMAP.md``).  ``params``: a
+        state dict (``repro_torch.checkpoint``; whole tensors, or blocks
+        placed on this mesh) to load; without one the weights are drawn by
+        the model's ``init`` from a ``torch.Generator`` seeded with 0, as
+        the JAX server uses key 0 (on a sharded mesh each rank draws every
+        whole tensor and keeps its block: the same weights).
         ``opts``: the model's ``RunOptions`` (``windowed_decode_cache``
         serves the hybrid's decode from its ring cache), resolved by the
         planner as JAX's server resolves them (``autotune=None``:
         ``REPRO_AUTOTUNE``, else ``replay``); the resolved autotune mode is
-        pinned process-wide (``autotune.startup``, as in JAX) and the
-        device's tuned-table provenance logged."""
+        pinned process-wide (``autotune.startup``, as in JAX; on a sharded
+        mesh only rank 0 searches) and the device's tuned-table provenance
+        logged."""
         self.cfg = cfg
         self.max_batch = max_batch
         self.max_len = max_len
@@ -93,26 +110,79 @@ class Server:
             opts or RunOptions(), head_dim=cfg.head_dim_, dtype=cfg.activation_dtype)
         self.mesh = mesh_for(mesh, device, "serving")
         device = mesh_device(self.mesh, "serving")
+        check_sharded(cfg, self.mesh)
+        self.sharded = is_sharded(self.mesh)
         autotune.startup(self.opts.autotune, device)
         prov = autotune.provenance(device)
         log.info("policy %s | autotune table %s (%d tuned plan(s), %s)",
                  policy.current().describe(), prov["table"], prov["tuned_plans"],
                  "present" if prov["table_exists"] else "absent")
-        self.model = build_model(cfg, self.opts, device=device)
-        self.device = self.model.device
+        # sharded: built without memory, each block allocated by ``place``
+        self.model = build_model(cfg, self.opts, device="meta" if self.sharded else device)
+        self.model.device = self.device = device
+        weights = dict(self.model.named_parameters())
+        if self.sharded:
+            planner.place(weights, planner.plan_params(weights, self.mesh), self.mesh)
         if params is None:
             self.model.init(torch.Generator(device=self.device).manual_seed(0))
+        elif self.sharded:
+            planner.assign(weights, params)
         else:
             self.model.load_state_dict(params)
-        weights = dict(self.model.named_parameters())
-        planner.place(weights, planner.plan_params(weights, self.mesh), self.mesh)
+        if not self.sharded:
+            planner.place(weights, planner.plan_params(weights, self.mesh), self.mesh)
+
+    def bound(self, b: int):
+        """The sharding rules the model's calls on a ``b``-row batch run
+        under on a sharded mesh (``sharding_hints.execution_rules``, with
+        the config's extents), which its ``constrain`` sites and the loss
+        read; none on one device, where every ``constrain`` returns at
+        once."""
+        if not self.sharded:
+            return contextlib.nullcontext()
+        return sharding_hints.axis_rules(sharding_hints.execution_rules(self.mesh), self.mesh,
+                                         sharding_hints.extents(self.cfg, b))
+
+    def rows(self, b: int) -> tuple[int, int, object]:
+        """This rank's rows of a ``b``-row batch and the data axes they are
+        split over (``planner.row_block``; ``(0, b, None)`` on one device)."""
+        return planner.row_block(self.mesh, b)
+
+    def gather_rows(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """Every data rank's rows of ``x`` (``x`` itself where ``axes`` is
+        None)."""
+        return x if axes is None else collectives.all_gather_rows(x, self.mesh, axes)
+
+    def greedy(self, logits: torch.Tensor) -> torch.Tensor:
+        """This rank's rows' greedy tokens (int32) from the model's logits:
+        the first maximum, over a split vocabulary the lowest global index
+        (``common.greedy``)."""
+        if not self.sharded:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        return common.greedy(logits, self.model.output_table())
+
+    def _local(self, tokens: torch.Tensor, extras: Optional[dict]):
+        lo, hi, axes = self.rows(tokens.shape[0])
+        if axes is None:
+            return tokens, extras, axes
+        return (tokens[lo:hi], {k: v[lo:hi] for k, v in (extras or {}).items()} or None,
+                axes)
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, extras: Optional[dict] = None):
         """Prefill ``tokens`` (b, s) into a fresh ``max_len`` cache, with the
         modality inputs ``extras`` (each with b rows) for a family that
-        takes them; returns (last-token logits (b, V) f32, cache)."""
-        return self.model.prefill({"tokens": tokens, **(extras or {})}, self.max_len)
+        takes them; returns (last-token logits (b, V) f32, cache).  On a
+        sharded mesh the cache holds this rank's rows and KV heads, and the
+        logits are gathered whole."""
+        local, extras, axes = self._local(tokens, extras)
+        with self.bound(tokens.shape[0]):
+            logits, cache = self.model.prefill({"tokens": local, **(extras or {})},
+                                               self.max_len)
+        if self.sharded:
+            logits = self.gather_rows(common.whole_vocab(logits, self.model.output_table()),
+                                      axes)
+        return logits, cache
 
     def draw_extras(self, b: int) -> dict:
         """The modality inputs of a ``b``-row wave at the shapes of the
@@ -128,9 +198,17 @@ class Server:
     def decode(self, tokens: torch.Tensor, pos: torch.Tensor, cache):
         """One greedy decode step: tokens (b, 1) at ``pos`` (an int32 device
         scalar or (b,)); returns (next tokens (b,) int32, cache).  The
-        argmax takes the first maximum, as ``jnp.argmax``."""
-        logits, cache = self.model.decode_step(tokens, pos, cache)
-        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+        argmax takes the first maximum, as ``jnp.argmax``.  On a sharded
+        mesh ``cache`` is this rank's (from :meth:`prefill`) and the tokens
+        come back gathered."""
+        b = tokens.shape[0]
+        lo, hi, axes = self.rows(b)
+        if axes is not None:
+            tokens = tokens[lo:hi]
+            pos = pos[lo:hi] if pos.dim() else pos
+        with self.bound(b):
+            logits, cache = self.model.decode_step(tokens, pos, cache)
+        return self.gather_rows(self.greedy(logits), axes), cache
 
     @torch.no_grad()
     def run_batch(self, requests: list[Request],
@@ -140,7 +218,8 @@ class Server:
         :meth:`draw_extras`, as in JAX (the requests' own ``extras`` are the
         engine's).  Returns per-request completion counts, the wave's
         totals, the prefill and decode wall times, and whether every logit
-        the wave produced was finite."""
+        the wave produced was finite.  On a sharded mesh each data rank
+        runs its rows and every rank gets every row's tokens."""
         if len(requests) > self.max_batch:
             raise ValueError(f"{len(requests)} requests > max_batch={self.max_batch}")
         b = len(requests)
@@ -150,12 +229,15 @@ class Server:
             toks[i, plen - len(r.prompt):] = r.prompt  # left-pad
         tokens = torch.from_numpy(toks).to(self.device)
         extras = self.draw_extras(b)
+        local, extras, axes = self._local(tokens, extras)
 
         t0 = time.perf_counter()
-        logits, cache = self.prefill(tokens, extras)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)  # first maximum, as jnp
+        with self.bound(b):
+            logits, cache = self.model.prefill({"tokens": local, **(extras or {})},
+                                               self.max_len)
+        nxt = self.greedy(logits)  # first maximum, as jnp
         finite = torch.isfinite(logits).all()
-        host = nxt.tolist()  # waits for the prefill
+        host = self.gather_rows(nxt, axes).tolist()  # waits for the prefill
         t_prefill = time.perf_counter() - t0
         pos = torch.full((), plen, dtype=torch.int32, device=self.device)
         done = [False] * b
@@ -169,12 +251,16 @@ class Server:
                     done[i] = True
             if all(done):
                 break  # the wave drained early: skip the dead steps
-            logits, cache = self.model.decode_step(nxt[:, None], pos, cache)
-            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            with self.bound(b):
+                logits, cache = self.model.decode_step(nxt[:, None], pos, cache)
+            nxt = self.greedy(logits)
             finite &= torch.isfinite(logits).all()
             pos += 1
-            host = nxt.tolist()  # the host needs the tokens for per-row stop
+            host = self.gather_rows(nxt, axes).tolist()  # the host needs them for per-row stop
             steps += 1
+        if self.sharded:  # finite on every rank
+            finite = collectives.all_sum((~finite).float(), self.mesh,
+                                         tuple(self.mesh.mesh_dim_names)) == 0
         wall = time.perf_counter() - t0
         n_tokens = sum(len(r.out) for r in requests)
         return {"wall_s": wall, "tokens": n_tokens,
@@ -210,6 +296,7 @@ def main(argv=None):
     install_impl(args.impl)
 
     cfg = get_smoke_config(args.arch) if args.reduced else get_config(args.arch)
+    init_from_env(args.device)
     mesh = make_debug_mesh(tp=2, device=args.device)
     server = Server(cfg, mesh=mesh, max_batch=args.batch, max_len=128,
                     opts=RunOptions(windowed_decode_cache=args.windowed_decode_cache))

@@ -10,9 +10,14 @@ the JAX package's format (``repro_torch.checkpoint``): a JAX run can resume
 from the port's checkpoints and the port from JAX's.  The run takes a mesh
 as JAX's does (default: the ``(1, 1)`` mesh of ``device``); the PWS planner
 places the parameters, the AdamW state and each batch
-(``build_training``), and the manifest records the mesh's shape.  The port
-executes on a mesh of one device only (a larger one raises), so a config
-trains at the depth that fits one card.  The data pipeline's modality inputs (the
+(``build_training``), and the manifest records the mesh's shape.  On a mesh
+of more than one rank the dense family trains sharded: FSDP over ``data``
+and tensor parallelism over ``model`` for the weights and the AdamW state,
+each data rank its rows of the batch, the FSDP leaves' gradients
+reduce-scattered and the replicated leaves' all-reduced over the axes
+their work was split over; a checkpoint is written whole by rank 0.  Any
+other family raises naming ``ROADMAP.md``.  Under ``torchrun`` the CLI
+starts the group from the environment (``launch/mesh.py``).  The data pipeline's modality inputs (the
 encoder-decoder's ``audio_frames``, the VLM's ``image_embeds``, f32) go to
 the device with the tokens; the model casts them to its activation dtype.  The measured autotune's mode
 (``RunOptions.autotune``, else ``REPRO_AUTOTUNE``, else ``replay``) is
@@ -42,13 +47,14 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, get_smoke_config, list_archs
-from repro_torch.core import planner
+from repro_torch.core import planner, sharding_hints
 from repro_torch.data import DataConfig, SyntheticLMDataset
 from repro_torch.kernels import autotune, policy
-from repro_torch.launch.mesh import axis_sizes, make_debug_mesh, mesh_device, mesh_for
+from repro_torch.launch.mesh import (axis_sizes, init_from_env, is_sharded, make_debug_mesh,
+                                     mesh_device, mesh_for)
 from repro_torch.launch.serve import install_impl
 from repro_torch.launch.steps import abstract_opt_state, make_train_step
-from repro_torch.models import RunOptions, build_model
+from repro_torch.models import RunOptions, build_model, check_sharded
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.runtime.fault_tolerance import FaultTolerantRunner
 
@@ -62,15 +68,34 @@ def build_training(cfg, mesh, opts: RunOptions, opt_cfg: AdamWConfig, example: d
     ``example``'s batch (``plan_params`` / ``plan_opt_state`` /
     ``plan_batch``, as ``NamedSharding``s).  ``init_state(generator)``
     draws the parameters and the AdamW state and places both by the plan;
-    it returns ``(params, opt_state)``.  A mesh of more than one device
-    raises ``NotImplementedError``."""
+    it returns ``(params, opt_state)``.  On a mesh of more than one rank
+    each rank holds its blocks (the model is built without memory and
+    ``place`` allocates them) and ``train_step`` runs under the sharding
+    rules, with ``example``'s rows as the global batch, which must divide
+    the data axis; a family not yet sharded raises
+    ``NotImplementedError``."""
     dev = mesh_device(mesh, "training")
-    model = build_model(cfg, opts, device=dev)
+    check_sharded(cfg, mesh)
+    sharded = is_sharded(mesh)
+    model = build_model(cfg, opts, device="meta" if sharded else dev)
+    model.device = dev
     params = dict(model.named_parameters())
     p_spec = planner.plan_params(params, mesh)
     o_spec = planner.plan_opt_state(abstract_opt_state(params), mesh)
     b_spec = planner.plan_batch({k: torch.from_numpy(v) for k, v in example.items()}, mesh)
-    train_step = make_train_step(model, opt_cfg)
+    rows = next(iter(example.values())).shape[0]
+    if sharded:
+        if planner.row_block(mesh, rows)[2] is None:
+            raise ValueError(f"training on {axis_sizes(mesh)}: a batch of {rows} rows "
+                             "does not divide the data axis")
+        planner.place(params, p_spec, mesh)
+    step = make_train_step(model, opt_cfg)
+
+    def train_step(opt_state, batch, before_update=None):
+        with sharding_hints.axis_rules(sharding_hints.execution_rules(mesh), mesh,
+                                       sharding_hints.extents(cfg, rows)):
+            return step(opt_state, batch, before_update)
+
     train_step.model = model
 
     def init_state(generator: torch.Generator):
@@ -92,8 +117,9 @@ def train(cfg, *, steps: int, data_cfg: DataConfig,
     """Train ``cfg`` from a seeded init (``data_cfg.seed``) up to step
     ``steps`` on ``mesh`` (default: the ``(1, 1)`` mesh of ``device``, CUDA
     unless told otherwise; raises without it).  Parameters, AdamW state and
-    each batch are placed by the planner's plans (``build_training``); a
-    mesh of more than one device raises ``NotImplementedError``.
+    each batch are placed by the planner's plans (``build_training``): on a
+    mesh of more than one rank, each rank's blocks (the dense family; any
+    other raises ``NotImplementedError``).
 
     Each step runs under ``runtime.FaultTolerantRunner``: a failure before
     the step's update is retried up to twice, one after it raises (the JAX
@@ -130,7 +156,8 @@ def train(cfg, *, steps: int, data_cfg: DataConfig,
     mesh_shape = axis_sizes(mesh)
 
     mgr = CheckpointManager(ckpt_dir, keep=keep) if ckpt_dir else None
-    runner = FaultTolerantRunner(mgr, save_every=save_every or steps, mesh_shape=mesh_shape)
+    runner = FaultTolerantRunner(mgr, save_every=save_every or steps, mesh_shape=mesh_shape,
+                                 lockstep=is_sharded(mesh))
     _, start = runner.restore_or({"params": params, "opt_state": opt_state})
 
     losses, grad_norms, step_s = [], [], []
@@ -182,6 +209,7 @@ def main(argv=None):
     install_impl(args.impl)
 
     cfg = get_smoke_config(args.arch) if args.reduced else get_config(args.arch)
+    init_from_env(args.device)
     mesh = make_debug_mesh(tp=2, device=args.device)
     out = train(cfg, steps=args.steps,
                 data_cfg=DataConfig(global_batch=args.batch, seq_len=args.seq),

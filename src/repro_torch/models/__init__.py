@@ -30,4 +30,25 @@ def build_model(cfg: ModelConfig, opts: Optional[RunOptions] = None, *,
     return cls(cfg, opts, device=device)
 
 
-__all__ = ["Model", "RunOptions", "UnsupportedFamilyError", "build_model"]
+def check_sharded(cfg: ModelConfig, mesh) -> None:
+    """Raise ``NotImplementedError`` naming the family, the config or the
+    option when ``cfg`` cannot yet execute sharded on ``mesh`` (a real mesh
+    of more than one rank): the dense family runs sharded when the
+    tensor-parallel axis divides its query and KV heads; MoE layers, the
+    hybrid, SSM, encoder-decoder and VLM families are the next slices
+    (``ROADMAP.md`` queue 1).  Nothing is replicated quietly.  A no-op on a
+    mesh of one device."""
+    from repro_torch.launch.mesh import axis_sizes, is_sharded, refuse
+
+    if not is_sharded(mesh):
+        return
+    if cfg.family != "dense" or cfg.n_experts:
+        refuse(f"the {cfg.family} family ({cfg.name}"
+               f"{', MoE layers' if cfg.n_experts else ''})", mesh)
+    tp = axis_sizes(mesh).get("model", 1)
+    if cfg.n_heads % tp or cfg.n_kv_heads % tp:
+        refuse(f"{cfg.name}'s {cfg.n_heads} query / {cfg.n_kv_heads} KV heads over "
+               f"model={tp} (replicated KV heads)", mesh)
+
+
+__all__ = ["Model", "RunOptions", "UnsupportedFamilyError", "build_model", "check_sharded"]

@@ -161,14 +161,23 @@ def maybe_remat(fn, opts: RunOptions):
     numbers, so no RNG state is stashed for the recomputation.  The
     recomputation runs under the policy the forward ran under (the backward
     runs outside the model's policy scope), so it dispatches the same
-    products (fused QKV or not) and saves the same tensors."""
+    products (fused QKV or not) and saves the same tensors, and under the
+    sharding rules the forward ran under (``core/sharding_hints.py``)."""
     if opts.remat != "full":
         return fn
 
     def remat(*args, **kwargs):
-        pol = policy.current()
+        from repro_torch.core import sharding_hints
+
+        pol, rules = policy.current(), sharding_hints.current()
+
+        @contextlib.contextmanager
+        def recompute():
+            with policy.apply(pol), sharding_hints.restore(rules):
+                yield
+
         return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
-                          context_fn=lambda: (contextlib.nullcontext(), policy.apply(pol)),
+                          context_fn=lambda: (contextlib.nullcontext(), recompute()),
                           **kwargs)
 
     return functools.wraps(fn)(remat)

@@ -13,6 +13,22 @@ blockwise, banded attention, einsum projections) have no counterpart.  The
 int8 cache's scales and quantizer (``kv_scale``, ``quantize_kv``) are
 bit-equal to JAX's.  Norms, RoPE and the SwiGLU gate keep the JAX numerics:
 f32 inside, cast back to the activation dtype.
+
+On a mesh of more than one rank the blocks here read the
+:class:`~repro_torch.core.planner.Placement` of the weight they are given
+(``planner.place`` tags each block) and insert the collectives around the
+registry's kernels (``core/collectives.py``): each weight is all-gathered
+over the FSDP axis before use (its gradient comes back reduce-scattered);
+a product whose output columns are split over the tensor-parallel axis is
+column-parallel (its input enters through ``copy_to``), one whose
+contraction rows are split is row-parallel (its f32 partial sums leave
+through an all-reduce); the embedding and the tied head split the
+vocabulary (a masked lookup summed over ranks; logits of this rank's
+columns; a vocabulary-parallel log-sum-exp and target pick); a replicated
+weight whose work is split over an axis gets its gradient all-reduced
+over it.
+A model keeps no rank and no world size: the blocks read the weights.
+Without a placement every block runs exactly as on one device.
 """
 from __future__ import annotations
 
@@ -23,6 +39,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import collectives, planner, sharding_hints
 from repro_torch.kernels import policy, registry
 from repro_torch.models import cache as dcache
 
@@ -41,16 +58,103 @@ def dense_init(t: torch.Tensor, generator: torch.Generator,
                scale: Optional[float] = None) -> torch.Tensor:
     """Fill ``t`` in place with the JAX ``dense_init`` distribution: a
     standard normal truncated to [-2, 2], times ``scale`` (default
-    1/sqrt(fan-in)), drawn in f32 and cast to ``t``'s dtype."""
-    fan_in = t.shape[-2] if t.dim() >= 2 else t.shape[-1]
+    1/sqrt(fan-in)), drawn in f32 and cast to ``t``'s dtype.  A block of a
+    sharded tensor draws the whole tensor, in the same order as on one
+    device, and keeps its own block, so the sharded model is bit-equal to
+    the one-device model."""
+    pl = planner.placement(t)
+    shape = tuple(t.shape) if pl is None else pl.full
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    f = torch.empty(t.shape, dtype=torch.float32, device=t.device)
+    f = torch.empty(shape, dtype=torch.float32, device=t.device)
     torch.nn.init.trunc_normal_(f, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return t.copy_(f * std)
+    f.mul_(std)
+    return t.copy_(f if pl is None else pl.cut(f))
+
+
+# ---------------------------------------------------------------------------
+# sharded weights
+# ---------------------------------------------------------------------------
+
+def _tp_axis(pl) -> Optional[str]:
+    """The tensor-parallel axis a placement's mesh names, where it has
+    more than one rank."""
+    tp = planner.axes_for(pl.mesh).tp
+    return tp if collectives.axis_size(pl.mesh, tp) > 1 else None
+
+
+def tp_dim(w: torch.Tensor) -> Optional[int]:
+    """The dim of ``w`` split over the tensor-parallel axis (None: ``w`` is
+    whole over it, or not sharded)."""
+    pl = planner.placement(w)
+    tp = None if pl is None else _tp_axis(pl)
+    return None if tp is None else pl.dim_of(tp)
+
+
+def tp_axes(w: torch.Tensor) -> tuple:
+    """``(tensor-parallel axis,)`` where it splits ``w``, else ``()``: the
+    ``split`` of a replicated weight that acts on ``w``'s output block
+    (qk-norm on the local heads)."""
+    return () if tp_dim(w) is None else (_tp_axis(planner.placement(w)),)
+
+
+def weight(w: torch.Tensor, keep: Optional[int] = None, split: tuple = ()) -> torch.Tensor:
+    """``w`` as its product uses it: all-gathered over every mesh axis it is
+    split over but the tensor-parallel split of dim ``keep``.  Its gradient
+    is summed over each data axis and each axis of ``split`` that the work
+    is split over and ``w`` is whole along (``copy_to``); over the axes it
+    was gathered on it comes back reduce-scattered.  ``w`` itself without a
+    placement."""
+    pl = planner.placement(w)
+    if pl is None:
+        return w
+    mesh, tp = pl.mesh, _tp_axis(pl)
+    held = pl.split_axes()
+    for a in held:
+        dim = pl.dim_of(a)
+        if not (a == tp and dim == keep):
+            w = collectives.all_gather(w, mesh, a, dim)
+    work = tuple(a for a in planner.axes_for(mesh).dp) + tuple(split)
+    red = tuple(a for a in work if a not in held and collectives.axis_size(mesh, a) > 1)
+    return collectives.copy_to(w, mesh, red) if red else w
+
+
+def kept_width(w: torch.Tensor, dim: int) -> int:
+    """The extent of ``w``'s dim ``dim`` after :func:`weight` gathers it:
+    this rank's block of it where the tensor-parallel axis splits it, else
+    the whole."""
+    pl = planner.placement(w)
+    if pl is None:
+        return w.shape[dim]
+    return pl.shape[dim] if tp_dim(w) == dim else pl.full[dim]
+
+
+def vocab_block(table: torch.Tensor):
+    """``(mesh, axis, offset)`` of this rank's rows of an embedding table
+    (V, d) whose vocabulary is split over the tensor-parallel axis, else
+    None."""
+    if tp_dim(table) != 0:
+        return None
+    pl = planner.placement(table)
+    return pl.mesh, _tp_axis(pl), pl.offset(0)
 
 
 def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return embed[tokens]
+    """``embed[tokens]``.  Over a vocabulary split over the tensor-parallel
+    axis each rank looks up the tokens in its rows (zeros elsewhere) and
+    the rows are summed over the axis: one rank holds each token, so the
+    sum is exact (JAX gathers the vocabulary first, ``common.py:42``)."""
+    block = vocab_block(embed)
+    table = weight(embed, keep=0)
+    if block is None:
+        return table[tokens]
+    mesh, axis, off = block
+    local = tokens.long() - off
+    mine = (local >= 0) & (local < table.shape[0])
+    rows = table[local.clamp(0, table.shape[0] - 1)]
+    rows = torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                          device=rows.device))
+    return collectives.reduce_from(rows, mesh, axis)
 
 
 # ---------------------------------------------------------------------------
@@ -135,31 +239,60 @@ def cached_self_attention(q, k, v, cache=None, li=None, write_at=None, q_offset=
 
 def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., d) @ w (d, f) -> (..., f) through the registry's ``matmul``
-    op: the leading dims fold into the rows of one product."""
+    op: the leading dims fold into the rows of one product.  A ``w`` whose
+    output columns are split over the tensor-parallel axis makes the
+    product column-parallel (``x`` enters through ``copy_to``, the output
+    holds this rank's columns); one whose rows are split makes it
+    row-parallel (``x`` holds this rank's part of the contraction; one
+    classical K2 call writes its partial sums in f32, they are all-reduced
+    over the axis in f32 and rounded to ``x``'s dtype once, as the one
+    device's K2 rounds its f32 sums once)."""
     lead = x.shape[:-1]
-    out = registry.dispatch("matmul", x.reshape(-1, x.shape[-1]), w)
-    return out.reshape(*lead, w.shape[-1])
+    pl = planner.placement(w)
+    if pl is None:
+        out = registry.dispatch("matmul", x.reshape(-1, x.shape[-1]), w)
+        return out.reshape(*lead, w.shape[-1])
+    tp = tp_dim(w)
+    if tp == w.dim() - 1:
+        x = collectives.copy_to(x, pl.mesh, _tp_axis(pl))
+    ww = weight(w, keep=tp)
+    if tp != w.dim() - 2:
+        out = registry.dispatch("matmul", x.reshape(-1, x.shape[-1]), ww)
+        return out.reshape(*lead, ww.shape[-1])
+    out = registry.dispatch("matmul", x.reshape(-1, x.shape[-1]), ww, backend="classical",
+                            out_dtype=torch.float32)
+    out = collectives.reduce_from(out.reshape(*lead, ww.shape[-1]), pl.mesh, _tp_axis(pl))
+    return out.to(x.dtype)
 
 
 def qkv_project(x, wq, wk, wv):
     """The attention block's input projections (JAX ``common.py:610``).
     Under the matmul op's ``qkv_fused`` variant (``--impl
     'matmul=pallas:qkv_fused=true'`` or ``RunOptions.fused_qkv``) the three
-    collapse into ONE :func:`project` over ``cat([wq, wk, wv], 1)``, one
-    K2 launch streaming ``x`` once instead of three, split back into views;
-    the weights are concatenated per call, as in JAX.  Without it, three
+    collapse into ONE product over ``cat([wq, wk, wv], 1)``, one K2 launch
+    streaming ``x`` once instead of three, split back into views; the
+    weights are concatenated per call, as in JAX (on a sharded mesh, this
+    rank's columns of each, after the FSDP gather).  Without it, three
     :func:`project` calls."""
     if policy.current().variant_for("matmul").get("qkv_fused"):
-        fused = project(x, torch.cat([wq, wk, wv], dim=1))
-        return fused.split([wq.shape[1], wk.shape[1], wv.shape[1]], dim=-1)
+        ws = [weight(w, keep=tp_dim(w)) for w in (wq, wk, wv)]
+        pl = planner.placement(wq)
+        if tp_dim(wq) == 1:
+            x = collectives.copy_to(x, pl.mesh, _tp_axis(pl))
+        lead = x.shape[:-1]
+        fused = registry.dispatch("matmul", x.reshape(-1, x.shape[-1]),
+                                  torch.cat(ws, dim=1)).reshape(*lead, -1)
+        return fused.split([w.shape[1] for w in ws], dim=-1)
     return project(x, wq), project(x, wk), project(x, wv)
 
 
 def attn_out_project(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """(b, s, h, hd) heads -> (b, s, d); the head fold into the contraction
-    is a view of the kernel's contiguous output."""
+    is a view of the kernel's contiguous output.  Over this rank's heads
+    (``wo``'s rows split over the tensor-parallel axis) the product is
+    row-parallel (:func:`project`)."""
     b, s, h, hd = o.shape
-    return registry.dispatch("matmul", o.reshape(b * s, h * hd), wo).reshape(b, s, -1)
+    return project(o.reshape(b, s, h * hd), wo)
 
 
 def expert_project(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -182,7 +315,8 @@ def expert_project(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def gated_mlp(x, w_gate, w_up, w_down):
     """SwiGLU MLP: silu in f32, cast back, times the up projection; the
-    three products dispatch through :func:`project`."""
+    three products dispatch through :func:`project` (column-parallel
+    gate and up, row-parallel down on a sharded mesh)."""
     g = project(x, w_gate)
     u = project(x, w_up)
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
@@ -192,10 +326,38 @@ def gated_mlp(x, w_gate, w_up, w_down):
 def logits_matmul(h: torch.Tensor, embed_out: torch.Tensor) -> torch.Tensor:
     """h (..., d) @ embed_out (V, d)ᵀ: computed in the activation dtype, as
     the JAX kernel route does, then cast to f32.  ``embed_out.T`` is a view;
-    the kernel reads the table in place."""
+    the kernel reads the table in place.  Over a vocabulary split over the
+    tensor-parallel axis the logits are this rank's columns
+    (:func:`vocab_block` gives their offset)."""
+    block = vocab_block(embed_out)
+    if block is not None:
+        h = collectives.copy_to(h, block[0], block[1])
+    table = weight(embed_out, keep=0)
     lead = h.shape[:-1]
-    out = registry.dispatch("matmul", h.reshape(-1, h.shape[-1]), embed_out.T)
-    return out.reshape(*lead, embed_out.shape[0]).float()
+    out = registry.dispatch("matmul", h.reshape(-1, h.shape[-1]), table.T)
+    return out.reshape(*lead, table.shape[0]).float()
+
+
+@torch.no_grad()
+def greedy(logits: torch.Tensor, embed_out: torch.Tensor) -> torch.Tensor:
+    """The greedy tokens (int32) of ``logits`` from :func:`logits_matmul`
+    over ``embed_out``: the first maximum, over a split vocabulary the
+    lowest global index among the ranks' maxima (``jnp.argmax``)."""
+    block = vocab_block(embed_out)
+    if block is None:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    return collectives.argmax(logits, *block).to(torch.int32)
+
+
+@torch.no_grad()
+def whole_vocab(logits: torch.Tensor, embed_out: torch.Tensor) -> torch.Tensor:
+    """``logits`` over the whole vocabulary: the ranks' columns gathered
+    where :func:`logits_matmul` split them, else ``logits``."""
+    block = vocab_block(embed_out)
+    if block is None:
+        return logits
+    return collectives.all_gather_rows(logits.movedim(-1, 0), block[0], block[1]) \
+        .movedim(0, -1).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -240,12 +402,26 @@ def quantize_kv(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _xent_chunk(h, embed_out, labels):
-    """(sum of the chunk's nll, count of its labels >= 0), both f32."""
+    """(sum of the chunk's nll, count of its labels >= 0), both f32.  Over
+    a vocabulary split over the tensor-parallel axis the log-sum-exp takes
+    the ranks' maximum and sums their exponentials, and the target's logit
+    is picked by the rank that holds it and summed over the axis."""
     logits = logits_matmul(h, embed_out)
-    lse = torch.logsumexp(logits, dim=-1)
     valid = labels >= 0
     safe = torch.where(valid, labels, 0).long()
-    picked = logits.gather(-1, safe[..., None])[..., 0]
+    block = vocab_block(embed_out)
+    if block is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = logits.gather(-1, safe[..., None])[..., 0]
+    else:
+        mesh, axis, off = block
+        top = collectives.all_max(logits.detach().amax(dim=-1), mesh, axis)
+        sumexp = torch.exp(logits - top[..., None]).sum(dim=-1)
+        lse = torch.log(collectives.reduce_from(sumexp, mesh, axis)) + top
+        local = safe - off
+        mine = (local >= 0) & (local < logits.shape[-1])
+        at = logits.gather(-1, local.clamp(0, logits.shape[-1] - 1)[..., None])[..., 0]
+        picked = collectives.reduce_from(torch.where(mine, at, 0.0), mesh, axis)
     nll = torch.where(valid, lse - picked, 0.0)
     return nll.sum(), valid.sum(dtype=torch.float32)
 
@@ -256,7 +432,10 @@ def chunked_softmax_xent(hidden, embed_out, labels, *, chunk: int = 512):
     (``common.py:692-725``): the sequence is cut into chunks (one chunk when
     ``chunk`` does not divide it) and each chunk is checkpointed, so its
     f32 (b, chunk, V) logits never outlive it.  Labels < 0 (the -100 pad)
-    are masked.  Returns ``sum(nll) / max(count, 1)``, an f32 scalar."""
+    are masked.  Returns ``sum(nll) / max(count, 1)``, an f32 scalar.
+    Where the bound rules split the batch over data axes
+    (``sharding_hints.split_axes("batch")``) the sum and the count are
+    summed over them first, so every rank returns the global mean."""
     b, s, d = hidden.shape
     chunk = min(chunk, s)
     if s % chunk != 0:
@@ -268,4 +447,9 @@ def chunked_softmax_xent(hidden, embed_out, labels, *, chunk: int = 512):
                           labels[:, i:i + chunk], use_reentrant=False,
                           preserve_rng_state=False)
         tot, cnt = tot + t, cnt + c
+    axes = sharding_hints.split_axes("batch")
+    if axes is not None:
+        mesh = sharding_hints.current()["mesh"]
+        tot = collectives.reduce_from(tot, mesh, axes)
+        cnt = collectives.all_sum(cnt, mesh, axes)
     return tot / cnt.clamp_min(1.0)

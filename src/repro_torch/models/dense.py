@@ -19,6 +19,16 @@ policy's attention ``kv_dtype=int8`` variant) decode and continuation
 chunks attend through ``flash_attention_int8`` (K1q).  The parameters are
 trainable; ``prefill``, ``prefill_chunk`` and ``decode_step`` run under
 ``torch.no_grad``.
+
+On a mesh of more than one rank (``launch/mesh.py``) the parameters are
+this rank's blocks (``planner.place``), and ``models/common.py``'s blocks
+insert the collectives: attention runs on this rank's query heads over its
+KV heads (``n_heads / tp`` over ``n_kv_heads / tp``), the MLP on its
+columns, the tied head on its vocabulary rows; qk-norm and RoPE act on the
+local heads, and the cache holds the local KV heads of the rows it is
+given.  The model reads all of that from its weights' shapes and keeps no
+rank.  Its ``constrain`` sites hold those local shapes to the bound rules
+(``core/sharding_hints.py``).
 """
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.sharding_hints import constrain
 from repro_torch.models import cache as dcache
 from repro_torch.models import common
 from repro_torch.models.base import Model, RunOptions, maybe_remat, right_shift
@@ -136,21 +147,24 @@ class DenseLM(Model):
         cfg = self.cfg
         b, s, _ = x.shape
         hd = cfg.head_dim_
-        h = common.rms_norm(x, layer.ln1, cfg.norm_eps)
+        h = common.rms_norm(x, common.weight(layer.ln1), cfg.norm_eps)
         q, k, v = common.qkv_project(h, layer.wq, layer.wk, layer.wv)
         if cfg.qkv_bias:  # after the product, in the activation dtype
-            q, k, v = q + layer.bq, k + layer.bk, v + layer.bv
-        q = q.reshape(b, s, cfg.n_heads, hd)
-        k = k.reshape(b, s, cfg.n_kv_heads, hd)
-        v = v.reshape(b, s, cfg.n_kv_heads, hd)
-        if cfg.qk_norm:
-            q = common.rms_norm(q, layer.q_norm, cfg.norm_eps)
-            k = common.rms_norm(k, layer.k_norm, cfg.norm_eps)
+            q, k, v = (t + common.weight(bias, keep=0) for t, bias in
+                       ((q, layer.bq), (k, layer.bk), (v, layer.bv)))
+        # this rank's heads: all of them on one device
+        q = constrain(q.reshape(b, s, -1, hd), "batch", "*", "heads", "*")
+        k = constrain(k.reshape(b, s, -1, hd), "batch", "*", "kv_heads", "*")
+        v = constrain(v.reshape(b, s, -1, hd), "batch", "*", "kv_heads", "*")
+        if cfg.qk_norm:  # on the local heads: their gradient sums over them
+            tp = common.tp_axes(layer.wq)
+            q = common.rms_norm(q, common.weight(layer.q_norm, split=tp), cfg.norm_eps)
+            k = common.rms_norm(k, common.weight(layer.k_norm, split=tp), cfg.norm_eps)
         q = common.rotate(q, *rope)
         k = common.rotate(k, *rope)
         if cache is None:
             o = common.attention(q, k, v, causal=True, window=window)
-            return x + common.attn_out_project(o, layer.wo)
+            return x + constrain(common.attn_out_project(o, layer.wo), "batch", "seq", "*")
 
         kc, vc = cache.k[li], cache.v[li]
         scales = {}
@@ -177,7 +191,7 @@ class DenseLM(Model):
                                  q_offset=q_offset, kv_len=kv_len, **scales)
         else:
             o = common.attention(q, k, v, causal=True, window=window)
-        return x + common.attn_out_project(o, layer.wo)
+        return x + constrain(common.attn_out_project(o, layer.wo), "batch", "seq", "*")
 
     def _ffn(self, layer: DenseLayer, x, aux: bool):
         """The FFN sub-block (JAX ``dense.py:182-194``): the SwiGLU MLP, or
@@ -185,7 +199,7 @@ class DenseLM(Model):
         whose router's load-balance term comes back beside the output (None
         for a dense layer, or when ``aux`` is False)."""
         cfg = self.cfg
-        h = common.rms_norm(x, layer.ln2, cfg.norm_eps)
+        h = common.rms_norm(x, common.weight(layer.ln2), cfg.norm_eps)
         if cfg.n_experts:
             b, s, d = h.shape
             y, a = moe_ffn(h.reshape(b * s, d), layer.router, layer.e_gate, layer.e_up,
@@ -210,6 +224,7 @@ class DenseLM(Model):
         summed over the layers (None for a dense model, and with a cache)."""
         cfg = self.cfg
         x = common.embed_lookup(self.embed, tokens).to(cfg.activation_dtype)
+        x = constrain(x, "batch", "seq", "*")
         if cfg.scale_embeddings:
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
         ropes = {th: common.rope_cos_sin(q_pos, cfg.head_dim_, th)
@@ -222,10 +237,12 @@ class DenseLM(Model):
             x, a = layer_fn(layer, x, ropes[self.thetas[i]], self.windows[i], *cache_args)
             if a is not None:
                 aux = a if aux is None else aux + a
-        return common.rms_norm(x, self.final_norm, cfg.norm_eps), aux
+        return common.rms_norm(x, common.weight(self.final_norm), cfg.norm_eps), aux
 
-    def _out_embed(self) -> torch.Tensor:
-        """The output table: ``embed`` when tied, else ``lm_head``."""
+    def output_table(self) -> torch.Tensor:
+        """The output table: ``embed`` when tied, else ``lm_head``: what
+        ``common.greedy`` and ``common.whole_vocab`` read the logits'
+        vocabulary block from."""
         return self.embed if self.cfg.tie_embeddings else self.lm_head
 
     # -- training ------------------------------------------------------------
@@ -238,7 +255,7 @@ class DenseLM(Model):
         s = tokens.shape[1]
         pos = torch.arange(s, dtype=torch.int32, device=tokens.device)
         x, aux = self._backbone(right_shift(tokens), pos)
-        ce = common.chunked_softmax_xent(x, self._out_embed(), labels,
+        ce = common.chunked_softmax_xent(x, self.output_table(), labels,
                                          chunk=self.opts.ce_chunk)
         if aux is None:
             return ce
@@ -251,8 +268,10 @@ class DenseLM(Model):
         attention ``kv_dtype=int8`` variant (JAX ``dense.py:263-275``)."""
         cfg = self.cfg
         dtype, quantized = common.kv_cache_dtype(cfg.activation_dtype)
+        # this rank's KV heads (all of them on one device)
+        kv_heads = common.kept_width(self.layers[0].wk, 1) // cfg.head_dim_
         return dcache.LinearKV.create(
-            (cfg.n_layers,), batch_size, max_len, cfg.n_kv_heads, cfg.head_dim_,
+            (cfg.n_layers,), batch_size, max_len, kv_heads, cfg.head_dim_,
             dtype, device=self.device, quantized=quantized)
 
     @torch.no_grad()
@@ -264,7 +283,7 @@ class DenseLM(Model):
         q_offset, kv_len = kv.lanes(torch.zeros((), dtype=torch.int32, device=self.device), s)
         x, _ = self._backbone(tokens, q_pos, kv, write_at=0, q_offset=q_offset,
                               kv_len=kv_len)
-        logits = common.logits_matmul(x[:, -1], self._out_embed())
+        logits = common.logits_matmul(x[:, -1], self.output_table())
         pos = torch.full((b,), s, dtype=torch.int32, device=self.device)
         return logits, kv.replace(pos=pos)
 
@@ -289,7 +308,7 @@ class DenseLM(Model):
         x, _ = self._backbone(tokens, q_pos, cache, write_at=offset, q_offset=q_offset,
                               kv_len=kv_len, chunked=not first,
                               calib_len=s if lens is None else lens)
-        logits = common.logits_matmul(dcache.pick_last(x, lens), self._out_embed())
+        logits = common.logits_matmul(dcache.pick_last(x, lens), self.output_table())
         new_pos = offset + (s if lens is None else lens.to(torch.int32))
         return logits, cache.replace(pos=new_pos.expand(b).contiguous())
 
@@ -305,5 +324,5 @@ class DenseLM(Model):
         q_offset, kv_len = cache.lanes(pos, 1)
         x, _ = self._backbone(tokens, q_pos, cache, write_at=pos,
                               q_offset=q_offset, kv_len=kv_len)
-        logits = common.logits_matmul(x[:, -1], self._out_embed())
+        logits = common.logits_matmul(x[:, -1], self.output_table())
         return logits, cache.replace(pos=(pos + 1).expand(b).contiguous())

@@ -4,10 +4,12 @@ The PWS planner is a deterministic function of the mesh (paper Obs. 4.3:
 the steal schedule is determined by p), so bringing a state up on a
 changed mesh is: rebuild the mesh, re-run ``plan_params`` / ``plan_cache``
 (:func:`replan_for_mesh`, :func:`replan_params_for_mesh`), and place the
-checkpointed leaves under the new plan.  The port executes on a mesh of
-one device: the restore functions place every leaf on that device, and a
-mesh of more than one device raises ``NotImplementedError``
-(``launch/mesh.py``).
+checkpointed leaves under the new plan.  On a mesh of one device every
+leaf goes whole to that device; on a mesh of more than one rank each rank
+allocates its blocks under the new plan and reads each whole leaf into its
+block (``checkpoint._place_leaf``), so a checkpoint written on ``(2, 2)``
+restores onto ``(1, 2)`` or one device, and the reverse (the dense family;
+``launch/mesh.py``).
 
 Two restart paths share the machinery: :func:`elastic_restore` rebuilds a
 TRAIN state (params and optimizer) and :func:`serving_restore` a SERVING
@@ -33,7 +35,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import planner
-from repro_torch.launch.mesh import is_mesh, make_debug_mesh, mesh_device, mesh_device_count
+from repro_torch.launch.mesh import (is_mesh, is_sharded, make_debug_mesh, mesh_device,
+                                     mesh_device_count)
 
 
 def _fresh(like: Any, device) -> Any:
@@ -84,6 +87,10 @@ def _restore(ckpt_manager, like: Any, where, plan) -> tuple[int, Any]:
     when it is a device, else on each like's own device."""
     if is_mesh(where):
         dev = mesh_device(where, "restoring onto a mesh")
+        if is_sharded(where):
+            blank = _fresh(like, "meta")
+            blocks = planner.place(blank, plan(blank, where), where)
+            return ckpt_manager.restore_latest(blocks, in_place=True)
         step, state = ckpt_manager.restore_latest(_fresh(like, dev), in_place=True)
         return step, planner.place(state, plan(state, where), where)
     device = None if where is None else resolve_device(where)

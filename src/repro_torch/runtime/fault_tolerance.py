@@ -340,7 +340,9 @@ class FaultTolerantRunner:
     ``ckpt_manager`` is a ``repro_torch.checkpoint.CheckpointManager``, or
     None for retry and straggler detection without checkpoints;
     ``mesh_shape``, the trainer's mesh as ``{axis: size}``, goes into each
-    manifest, as in JAX.
+    manifest, as in JAX.  ``lockstep`` (the ranks of a sharded mesh)
+    retries only an :class:`InjectedFault`, which fires on every rank at
+    the same step; any other failure is raised at once.
 
     One point differs from JAX, whose step returns new arrays and leaves its
     inputs untouched, so that any failed step can run again.  The port's
@@ -357,10 +359,14 @@ class FaultTolerantRunner:
     taken for a step failure."""
 
     def __init__(self, ckpt_manager=None, *, save_every: int = 100, max_retries: int = 2,
-                 mesh_shape: Optional[dict] = None):
+                 mesh_shape: Optional[dict] = None, lockstep: bool = False):
         self.ckpt = ckpt_manager
         self.save_every = save_every
         self.max_retries = max_retries
+        # ranks of a sharded mesh retry only faults that fire on every rank
+        # together (InjectedFault, by step); any other failure raises at
+        # once, and the other ranks raise through the group's timeout
+        self.lockstep = lockstep
         self.mesh_shape = mesh_shape or {}
         self.monitor = StragglerMonitor()
         self.retries = 0
@@ -394,6 +400,8 @@ class FaultTolerantRunner:
                 self.wait()
                 raise
             except Exception as e:  # noqa: BLE001 -- deliberate: retry any step fault
+                if self.lockstep and not isinstance(e, InjectedFault):
+                    raise
                 # the failed attempt's frames would hold its tensors (a whole
                 # set of gradients) through the retry: keep the error, not them
                 traceback.clear_frames(e.__traceback__)

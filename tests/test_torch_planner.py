@@ -274,8 +274,12 @@ def test_meshes():
 
 
 def test_a_mesh_of_more_than_one_device_raises(tmp_path):
-    """Every entry point that would execute on a real mesh of four devices
-    raises ``NotImplementedError``; nothing is replicated quietly."""
+    """Every entry point given a real mesh of four devices that this
+    process's group (world size 1) does not hold raises ``ValueError``; a
+    ``constrain`` under that mesh's binding holds a tensor's local shape to
+    the spec its bound extents give; nothing is replicated quietly.  (The
+    sharded runs themselves, over four gloo ranks, are
+    ``tests/test_torch_sharded.py``'s.)"""
     from repro_torch.data import DataConfig
     from repro_torch.launch.engine import Engine
     from repro_torch.launch.serve import Server
@@ -294,11 +298,14 @@ def test_a_mesh_of_more_than_one_device_raises(tmp_path):
         lambda: planner.place({"x": torch.zeros(4)}, {"x": planner.P("data")}, mesh),
     ]
     for call in calls:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+        with pytest.raises(ValueError, match="not one of its ranks"):
             call()
-    with sharding_hints.axis_rules(sharding_hints.default_rules(mesh), mesh):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+    extents = {"batch": 4, "ffn": 8}
+    with sharding_hints.axis_rules(sharding_hints.default_rules(mesh), mesh, extents):
+        with pytest.raises(ValueError, match="holds 4 of 4"):
             sharding_hints.constrain(torch.zeros(4, 8), "batch", "ffn")
+        block = torch.zeros(2, 4)
+        assert sharding_hints.constrain(block, "batch", "ffn") is block
         meta = torch.empty(4, 8, device="meta")
         assert sharding_hints.constrain(meta, "batch", "ffn") is meta
 

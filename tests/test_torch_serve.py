@@ -152,7 +152,8 @@ def test_import_loads_neither_jax_nor_repro():
             "repro_torch.core.layouts, repro_torch.core.algorithms, "
             "repro_torch.core.algorithms_torch, repro_torch.core.planner, "
             "repro_torch.core.sharding_hints, repro_torch.launch.mesh, "
-            "repro_torch.launch.dryrun, repro_torch.launch.trace_analysis, sys; "
+            "repro_torch.launch.dryrun, repro_torch.launch.trace_analysis, "
+            "repro_torch.core.collectives, sys; "
             "assert 'qwen3-moe-30b-a3b' in repro_torch.configs.list_archs(); "
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))]; assert not bad, bad")
